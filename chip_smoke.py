@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. the card's name and power limit (nvidia-smi);
+  2. build every kernel of the serving path from ``src/repro_torch/kernels/csrc``;
+  3. each kernel against its plain PyTorch version on the card, at the
+     shapes the serving path gives it plus ragged ones, with times;
+  4. serve SmolLM-135M at full width (random weights from seed 0, W4A4+LRC
+     by RTN+SVD) through ``ServeEngine.submit``/``run`` and count that every
+     QLinear went through the fused kernel;
+  5. the same model's teacher-forced ``paged_step``, kernel path against the
+     plain ``int8`` QLinear impl;
+then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
+card, or without the repository beside it, it exits non-zero and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet): device memory and non-tensor f32
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+
+SLOTS = 4          # decode rows per step (M of every decode GEMM)
+PAGE = 16
+CHUNK = 16         # prefill chunk (M of every prefill GEMM)
+N_REQUESTS = 8
+PROMPT_LEN = 12
+NEW_TOKENS = 16
+
+
+def phase(title):
+    print(f"== {title}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _problem(gen, m, k, n, r, x_dtype, f_dtype, device):
+    import torch
+
+    from repro_torch.core.quantizers import pack_int4
+
+    x = torch.randn((m, k), generator=gen, device=device).to(x_dtype)
+    q = torch.randint(-8, 8, (k, n), generator=gen, device=device,
+                      dtype=torch.int8)
+    wp = pack_int4(q.T).T.contiguous()
+    sw = torch.rand((n,), generator=gen, device=device) * 0.02 + 0.001
+    u = v = None
+    if r:
+        u = (torch.randn((n, r), generator=gen, device=device) * 0.05).to(f_dtype)
+        v = (torch.randn((k, r), generator=gen, device=device) * 0.05).to(f_dtype)
+    return x, v, wp, sw, u
+
+
+def _tolerance(x, v, u, k, r, y_plain):
+    """Elementwise bound on |kernel - plain|: only the two LR sums (K terms
+    of x·V, R terms of xv·Uᵀ) are added in another order, so they may differ
+    by twice the recursive-summation bound (K+R+1)·2⁻²⁴ of the sum of
+    absolute terms, plus the output's final rounding."""
+    import torch
+
+    u_eps = 2.0 ** -24
+    mag = y_plain.abs()
+    if r:
+        lr = (x.float().abs() @ v.float().abs()) @ u.float().abs().T
+        mag = mag + lr
+    return 2.0 * (k + r + 1) * u_eps * mag + torch.finfo(torch.float32).tiny
+
+
+def _time_ms(fn, flush, reps=30, warmup=5):
+    """Median device time of one call, each run after an L2 flush (the
+    serving path streams ~60 MB of weights per step, more than the 50 MB
+    L2, so a site's weights are cold when it runs)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        # keep the card busy while the host enqueues the call, so the events
+        # time the device work and not the host's launch overhead
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _bound_ms(m, k, n, r, x_bytes, f_bytes):
+    """Least time on an H100 SXM: each input read once, the f32 output
+    written once, over 3.35 TB/s; or the int8 GEMM at 1979 TOP/s plus the
+    f32 LR products at 67 TFLOP/s — the larger of the two."""
+    nbytes = (k * n // 2 + 4 * n + f_bytes * r * (k + n)
+              + x_bytes * m * k + 4 * m * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * m * k * n / INT8_OPS_PER_S + 2 * m * r * (k + n) / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+SITES = {  # SmolLM-135M's seven QLinears per layer as (K, N, R)
+    "attn/wq": (576, 576, 58), "attn/wk": (576, 192, 19),
+    "attn/wv": (576, 192, 19), "attn/wo": (576, 576, 58),
+    "mlp/wg": (576, 1536, 58), "mlp/wu": (576, 1536, 58),
+    "mlp/wd": (1536, 576, 58),
+}
+
+
+def phase_kernels(device):
+    """Every distinct site shape at M = decode slots and M = prefill chunk,
+    plus ragged cases (odd N, K not a multiple of 4 or 64, R = 0, M over
+    one tile), bf16 activations and factors as served, and one f32 case."""
+    import torch
+
+    from repro_torch.kernels import fused_gemm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=device).manual_seed(0)
+    shapes = sorted(set(SITES.values()))
+    cases = [(m, k, n, r, bf16, bf16) for (k, n, r) in shapes
+             for m in (SLOTS, CHUNK)]
+    cases += [(17, 200, 97, 7, bf16, bf16), (3, 90, 33, 0, bf16, bf16),
+              (1, 576, 577, 58, bf16, bf16), (33, 1536, 1, 5, bf16, bf16),
+              (5, 256, 130, 40, f32, f32), (16, 576, 64, 58, f32, bf16)]
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    one = torch.zeros(1, device=device)
+    floor = _time_ms(lambda: one.add_(1), flush)
+    print(f"  timing floor (one 1-element add, same method): {floor * 1e3:.2f} us",
+          flush=True)
+    worst = 0.0
+    timed = {}
+    for (m, k, n, r, xd, fd) in cases:
+        x, v, wp, sw, u = _problem(gen, m, k, n, r, xd, fd, device)
+        y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9)
+        torch.cuda.synchronize()
+        y_plain = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4, 0.9)
+        tol = _tolerance(x, v, u, k, r, y_plain)
+        err = (y - y_plain).abs()
+        ok = bool(torch.isfinite(y).all()) and bool((err <= tol).all())
+        print(f"  M={m:<3} K={k:<5} N={n:<5} R={r:<3} x={str(xd)[6:]:<8} "
+              f"max_abs_err={err.max().item():.3e} "
+              f"limit={tol.max().item():.3e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise SystemExit(f"kernel disagrees with its plain version at "
+                             f"M={m} K={k} N={n} R={r}")
+        worst = max(worst, err.max().item())
+        if xd is bf16 and fd is bf16 and (k, n, r) in shapes:
+            t_k = _time_ms(lambda: fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9), flush)
+            t_p = _time_ms(lambda: fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4, 0.9), flush)
+            b, by = _bound_ms(m, k, n, r, 2, 2)
+            timed[(m, k, n, r)] = (t_k, t_p, b, by)
+            print(f"    kernel {t_k * 1e3:.2f} us  plain {t_p * 1e3:.2f} us  "
+                  f"bound {b * 1e3:.3f} us ({by})  library_ms null "
+                  f"(no single PyTorch call computes this function)",
+                  flush=True)
+    return worst, timed
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: serve end to end, teacher-forced parity
+# ---------------------------------------------------------------------------
+
+
+def build_model(device):
+    """SmolLM-135M at full width, bf16, random weights from seed 0, every
+    linear W4A4+LRC by RTN + SVD at rank_frac 0.10, clip 0.9."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.quant.calibrate import quantize_model
+    from repro_torch.quant.policy import QuantPolicy
+
+    cfg = get_config("smollm-135m")
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=device)
+    policy = QuantPolicy(quant_method="rtn", correction="svd", rank_frac=0.10,
+                         clip_ratio=0.9)
+    qparams = quantize_model(cfg, params, None, policy, rotate=False)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}; RTN+SVD quantized in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, qparams
+
+
+def phase_serve(cfg, qparams, device):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fused_gemm
+    from repro_torch.serve.engine import Request, RequestState, ServeEngine
+
+    def engine():
+        return ServeEngine(cfg, qparams, batch_slots=SLOTS, max_seq=64,
+                           page_size=PAGE, prefill_chunk=CHUNK, device=device)
+
+    def prompts():  # as launch/serve.py makes them
+        rng = np.random.default_rng(0)
+        return [rng.integers(0, cfg.vocab_size, PROMPT_LEN).astype(np.int32)
+                for _ in range(N_REQUESTS)]
+
+    warm = engine()  # first-use costs (cuBLAS handles, allocator) out of the timing
+    warm.submit(Request(rid=0, prompt=prompts()[0], max_new_tokens=2))
+    warm.run()
+
+    eng = engine()
+    times = {"prefill": [], "decode": []}
+    inner = eng._paged
+
+    def timed(params, tokens, *rest):
+        t = time.perf_counter()
+        out = inner(params, tokens, *rest)
+        torch.cuda.synchronize()
+        kind = "decode" if tokens.shape == (SLOTS, 1) else "prefill"
+        times[kind].append(time.perf_counter() - t)
+        return out
+
+    eng._paged = timed
+    for i, p in enumerate(prompts()):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    fused_gemm.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fused_gemm.LAUNCHES)
+
+    bad = [r for r, rec in done.items()
+           if rec.status is not RequestState.FINISHED or rec.new_tokens != NEW_TOKENS]
+    if len(done) != N_REQUESTS or bad:
+        raise SystemExit(f"serve: requests {bad} did not finish with "
+                         f"{NEW_TOKENS} tokens: {done}")
+    calls = eng.counters["decode_calls"] + eng.counters["prefill_calls"]
+    want = 7 * cfg.n_layers * calls
+    print(f"  {N_REQUESTS} requests x {NEW_TOKENS} tokens finished; counters "
+          f"{eng.counters}", flush=True)
+    print(f"  model calls {calls}: kernel launches {launches['fused_w4a4_lrc']} "
+          f"(want 7 x {cfg.n_layers} x {calls} = {want}), plain "
+          f"{launches['fused_w4a4_lrc_plain']}", flush=True)
+    if launches["fused_w4a4_lrc"] != want or launches["fused_w4a4_lrc_plain"]:
+        raise SystemExit("serve: not every QLinear went through the kernel")
+    n_tok = sum(rec.new_tokens for rec in done.values())
+    prof = profile_decode(cfg, qparams, device, engine, prompts())
+    stats = {
+        "tokens_per_s": n_tok / wall,
+        "wall_s": wall,
+        "decode_step_ms": statistics.median(times["decode"]) * 1e3,
+        "prefill_chunk_ms": statistics.median(times["prefill"]) * 1e3,
+        "decode_calls": eng.counters["decode_calls"],
+        "prefill_calls": eng.counters["prefill_calls"],
+        **prof,
+    }
+    print(f"  {n_tok} tokens in {wall:.3f} s = {stats['tokens_per_s']:.1f} tok/s; "
+          f"decode step {stats['decode_step_ms']:.2f} ms (median of "
+          f"{len(times['decode'])}); prefill chunk {stats['prefill_chunk_ms']:.2f} "
+          f"ms (median of {len(times['prefill'])})", flush=True)
+    return launches["fused_w4a4_lrc"], stats
+
+
+def profile_decode(cfg, qparams, device, engine, prompts):
+    """Where a decode step's time goes: one decode-only window (SLOTS
+    requests already prefilled) under torch.profiler — device time by
+    kernel, and the share of the window the card was idle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request
+
+    eng = engine()
+    for i, p in enumerate(prompts[:SLOTS]):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    eng._admit()  # prefill every slot; the window below only decodes
+    steps = 4
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng._step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, evt.key, evt.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    print(f"  profile: {steps} decode steps in {wall * 1e3:.2f} ms wall, device "
+          f"busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}",
+          flush=True)
+    for dev_us, key, count in rows[:10]:
+        print(f"    {dev_us / steps / 1e3:8.3f} ms/step  x{count // steps:<5} {key[:90]}",
+              flush=True)
+    return {"profiled_step_ms": wall / steps * 1e3,
+            "device_busy_ms_per_step": busy / steps * 1e3,
+            "device_idle_share": 1 - busy / wall}
+
+
+def phase_parity(cfg, qparams, device):
+    """One teacher-forced paged_step over SLOTS x CHUNK tokens of the served
+    model through the kernel path.
+
+    (a) Every one of its 7 x 30 QLinear calls is held against the kernel's
+        plain version on the same activations, to the phase-3 tolerance.
+    (b) Its logits are compared with the plain ``int8`` impl's (and, as the
+        yardstick, ``sim``'s with ``int8``'s).  These differ by design:
+        ``int8`` and ``sim`` quantize bf16 activations with bf16 scales and
+        multiply the LR term in bf16 where the kernel works in f32, and on a
+        random 30-layer bf16 model a 4-bit code that flips at a rounding
+        boundary carries any such difference to the logits; so does the
+        kernel's own summation order (printed as kernel~plain).  The logits
+        are held to being finite and to the agreement of the two plain
+        impls: corr(kernel, int8) >= corr(sim, int8) - 0.05."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fused_gemm, ops
+    from repro_torch.models import model
+    from repro_torch.quant.qlinear import retag_qlinear_impl
+
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (SLOTS, CHUNK))).to(device)
+    positions = torch.arange(CHUNK, device=device).expand(SLOTS, CHUNK)
+    valid = torch.ones((SLOTS, CHUNK), dtype=torch.bool, device=device)
+    per = -(-CHUNK // PAGE)
+    block_table = (1 + torch.arange(SLOTS * per, device=device)).reshape(SLOTS, per)
+
+    def logits_of(impl):
+        pool = model.init_paged_cache(cfg, 1 + SLOTS * per, PAGE,
+                                      dtype=torch.float32, device=device)
+        out, _ = model.paged_step(
+            cfg, retag_qlinear_impl(qparams, impl), tokens, positions, valid,
+            pool, block_table)
+        out = out.flatten()
+        if not torch.isfinite(out).all():
+            raise SystemExit(f"parity: non-finite logits from {impl}")
+        return out
+
+    site = {"calls": 0, "worst": 0.0, "bad": 0}
+
+    def checked(x, v, wp, sw, u, bits=4, clip_ratio=1.0):
+        y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, bits, clip_ratio)
+        yp = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, bits, clip_ratio)
+        err = (y - yp).abs()
+        tol = _tolerance(x, v, u, x.shape[1], 0 if v is None else v.shape[1], yp)
+        site["calls"] += 1
+        site["worst"] = max(site["worst"], err.max().item())
+        site["bad"] += int(not bool((err <= tol).all()))
+        return y
+
+    ops.fused_w4a4_lrc = checked
+    try:
+        kernel = logits_of("pallas")
+        ops.fused_w4a4_lrc = fused_gemm.fused_w4a4_lrc_plain
+        plain = logits_of("pallas")
+    finally:
+        ops.fused_w4a4_lrc = fused_gemm.fused_w4a4_lrc
+    print(f"  (a) {site['calls']} QLinear calls on the served activations: max "
+          f"|kernel - plain| {site['worst']:.3e}, {site['bad']} outside the "
+          f"tolerance", flush=True)
+    if site["calls"] != 7 * cfg.n_layers or site["bad"]:
+        raise SystemExit("parity: a QLinear call disagrees with the plain version")
+
+    int8, sim = logits_of("int8"), logits_of("sim")
+
+    def corr(a, b):
+        return torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+
+    rows = {"kernel~int8": (kernel, int8), "sim~int8": (sim, int8),
+            "kernel~plain": (kernel, plain)}
+    stats = {"site_max_abs_err": site["worst"]}
+    for name, (a, b) in rows.items():
+        c, d = corr(a, b), (a - b).abs().max().item()
+        stats[name] = {"correlation": c, "max_abs_diff": d}
+        print(f"  (b) logits {name:<13} correlation {c:.6f}  max |diff| {d:.4e}",
+              flush=True)
+    floor = stats["sim~int8"]["correlation"] - 0.05
+    if stats["kernel~int8"]["correlation"] < floor:
+        raise SystemExit(f"parity: kernel path correlates with int8 below {floor:.3f}")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    try:
+        from repro_torch.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 1
+    device = "cuda"
+    # the plain versions' f32 products are the yardstick: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase("1. card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+
+    phase("2. build")
+    seconds = build.build(["fused_w4a4_lrc"])
+    for name, s in seconds.items():
+        print(f"  {name}: {s:.1f} s", flush=True)
+        print("\n".join("    " + line for line in build.BUILD_LOG.get(name, "").splitlines()
+                        if "registers" in line or "spill" in line), flush=True)
+
+    phase("3. kernel against plain version")
+    worst, timed = phase_kernels(device)
+
+    phase("4. serve SmolLM-135M")
+    cfg, qparams = build_model(device)
+    launches, serve = phase_serve(cfg, qparams, device)
+
+    phase("5. teacher-forced paged_step, kernel path against int8")
+    parity = phase_parity(cfg, qparams, device)
+
+    # one decoder layer's seven sites at decode M
+    layer = [timed[(SLOTS, *SITES[s])] for s in SITES]
+    kernels = [{
+        "name": "fused_w4a4_lrc",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_w4a4_lrc.cu",
+        "replaces": "src/repro/kernels/fused_gemm.py:208",
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": sum(t[0] for t in layer),
+        "plain_ms": sum(t[1] for t in layer),
+        "bound_ms": sum(t[2] for t in layer),
+        "bound_by": "bytes" if all(t[3] == "bytes" for t in layer) else "operations",
+        "library_ms": None,
+        "at": f"one decoder layer's 7 sites at M={SLOTS}, L2 flushed",
+        "checked": True,
+    }]
+    print(json.dumps({"serve": serve, "parity": parity}))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,111 @@
+"""Per-token row bodies of the W4A4+LRC prologue and GEMM, in torch.
+
+Counterpart of the per-token bodies in ``repro/kernels/rowops.py``.  These
+are THE operation order the fused kernel follows and its plain version
+runs: zero-guarded amax → ``s = (clip·amax)/qmax`` → ``q = clip(round(x/s))``
+(a true division, rounding half to even), the int4 nibble layout, and the
+K-chunked, R-tiled (x·V) projection.  Group-wise scales and the online
+Walsh-Hadamard rotation are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def round_pow2(m: int) -> int:
+    """Largest power of two ≤ max(m, 8) (block-size clamp helper)."""
+    p = 8
+    while p * 2 <= m:
+        p *= 2
+    return p
+
+
+def default_proj_tiles(k: int, r: int, bk=None, br=None):
+    """Default (bk, br) projection tiles: 512-capped powers of two clamped
+    to the problem."""
+    if bk is None:
+        bk = min(512, round_pow2(max(k, 8)))
+    if br is None:
+        br = min(512, round_pow2(max(r, 8)))
+    return bk, br
+
+
+def scalar(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype on its device.
+
+    Arithmetic takes scalars in this form, never as Python numbers: the
+    scalar then rounds to the tensor's dtype first, as a weakly typed JAX
+    scalar does, and on CUDA a division by a Python number is computed as a
+    multiplication by its rounded reciprocal, which is not ``x / s``."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """Per-token |x| max of a (bm, d) tile -> (bm, 1)."""
+    return x.abs().amax(dim=-1, keepdim=True)
+
+
+def amax_to_scale(amax: torch.Tensor, qmax: int, clip_ratio: float):
+    """Paper §2 scale: zero-guarded amax → s = c·amax/qmax."""
+    amax = torch.where(amax <= 0.0, torch.ones_like(amax), amax)
+    return scalar(clip_ratio, amax) * amax / scalar(qmax, amax)
+
+
+def quantize_rows(x: torch.Tensor, s: torch.Tensor, qmax: int) -> torch.Tensor:
+    """Elementwise q = clip(round(x/s)) on the symmetric int grid."""
+    return torch.clamp(torch.round(x / s), -qmax - 1, qmax).to(torch.int8)
+
+
+def scale_round_quantize(x: torch.Tensor, qmax: int, clip_ratio: float,
+                         group: int = None):
+    """amax → scale → round.  Per-token only: returns (q int8, s f32 (bm, 1))."""
+    if group is not None:
+        raise NotImplementedError(
+            "group-wise activation scales are not ported yet (ROADMAP Queue 1)")
+    s = amax_to_scale(row_amax(x), qmax, clip_ratio)
+    return quantize_rows(x, s, qmax), s
+
+
+def project_chunk_rows(x_chunk: torch.Tensor, v_tile: torch.Tensor):
+    """ONE (bm, bk) × (bk, br) projection partial.  f32 in, f32 out."""
+    return x_chunk @ v_tile.to(torch.float32)
+
+
+def project_rows_tiled(x: torch.Tensor, v: torch.Tensor, bk: int, br: int):
+    """The K-chunked, R-tiled (x·V): per R-tile, sum the per-chunk dots in
+    ascending-K order.  x: (bm, k_pad) f32, v: (k_pad, r_pad); both padded
+    to the tile multiples."""
+    k_pad = x.shape[1]
+    r_pad = v.shape[1]
+    if k_pad % bk or r_pad % br:
+        raise ValueError(f"operands not padded to tiles: {(k_pad, r_pad, bk, br)}")
+    cols = []
+    for rr in range(r_pad // br):
+        acc = None
+        for kk in range(k_pad // bk):
+            part = project_chunk_rows(
+                x[:, kk * bk:(kk + 1) * bk],
+                v[kk * bk:(kk + 1) * bk, rr * br:(rr + 1) * br])
+            acc = part if acc is None else acc + part
+        cols.append(acc)
+    return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+
+
+def unpack_int4_rows(wp: torch.Tensor) -> torch.Tensor:
+    """(BK//2, BN) uint8 -> (BK, BN) int8 in [-8, 7]; even rows = low nibble.
+    The sign of a nibble u is (u XOR 8) - 8."""
+    lo = ((wp & 0xF) ^ 8).to(torch.int8) - 8
+    hi = (((wp >> 4) & 0xF) ^ 8).to(torch.int8) - 8
+    bk2, bn = wp.shape
+    return torch.stack([lo, hi], dim=1).reshape(bk2 * 2, bn)
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer product of int8 operands, returned as int32.
+
+    Computed in float64: every product and partial sum of int8 × int4 codes
+    is an integer far below 2**53, so any summation order is exact.  (PyTorch
+    has no int32 matrix product on CUDA; this is the plain spelling the
+    reference's int32 ``dot`` maps to on both devices.)"""
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)

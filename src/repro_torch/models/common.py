@@ -1,0 +1,166 @@
+"""Shared transformer building blocks (counterpart of
+``repro/models/common.py``, the dense-family blocks).
+
+Every linear goes through :func:`repro_torch.quant.qlinear.apply_linear`:
+a plain tensor runs a dense matmul; a ``QLinear`` runs the W4A4+LRC path.
+Attention, norms and RoPE are plain torch, as the reference leaves them to
+XLA outside any Pallas kernel.
+
+Unlike the reference, :func:`paged_cache_update` writes the page pool in
+place (the reference is functional and returns a new pool): a step's
+writes land only in pages the writing request owns or in the null page,
+so nothing another request reads is touched, and the pool is not copied
+every step.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.quant.qlinear import apply_linear
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * gamma.to(torch.float32)).to(dt)
+
+
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
+    """The (cos, sin) tables (..., seq, 1, head_dim/2) of :func:`rope`, for
+    callers that rotate several tensors at the same positions."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang = positions[..., :, None].to(torch.float32) * freqs
+    return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]
+
+
+def apply_rope(x: torch.Tensor, table) -> torch.Tensor:
+    cos, sin = table
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    return apply_rope(x, rope_table(positions, x.shape[-1], theta))
+
+
+def causal_mask(q_len: int, kv_len: int, q_offset, device=None) -> torch.Tensor:
+    """(q_len, kv_len) bool mask; query i attends kv j iff j <= i+offset."""
+    qi = torch.arange(q_len, device=device)[:, None] + q_offset
+    kj = torch.arange(kv_len, device=device)[None, :]
+    return kj <= qi
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
+              scale: float) -> torch.Tensor:
+    """GQA attention: q (B, Sq, H, D) over k/v (B, Skv, K, D).  Returns
+    (B, Sq, H, Dv).  Softmax in f32; masked logits are -1e30, so masked
+    positions contribute exactly 0.0 and any finite garbage in masked cache
+    slots is invisible.  A 2-D mask is shared across the batch; a 3-D mask
+    holds one (Sq, Skv) plane per batch row."""
+    b, sq, h, dq = q.shape
+    kheads = k.shape[2]
+    g = h // kheads
+    q = q.reshape(b, sq, kheads, g, dq)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q, k).to(torch.float32) * scale
+    if mask is not None:
+        m = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
+        logits = torch.where(m, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+def mlp_block(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """Gated MLP: SwiGLU (silu) or GeGLU (gelu)."""
+    g = apply_linear(p["wg"], x)
+    u = apply_linear(p["wu"], x)
+    if act == "silu":
+        h = F.silu(g) * u
+    else:
+        h = F.gelu(g, approximate="tanh") * u
+    return apply_linear(p["wd"], h)
+
+
+def gqa_attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                        cfg, mask) -> torch.Tensor:
+    """Cache-free GQA attention (teacher-forced forward)."""
+    b, s, _ = x.shape
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = apply_linear(p["wq"], x).reshape(b, s, h, hd)
+    k = apply_linear(p["wk"], x).reshape(b, s, kh, hd)
+    v = apply_linear(p["wv"], x).reshape(b, s, kh, hd)
+    if cfg.rope_theta > 0:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    out = attention(q, k, v, mask, scale=1.0 / (hd**0.5))
+    return apply_linear(p["wo"], out.reshape(b, s, h * hd))
+
+
+def page_slots(block_table: torch.Tensor, positions: torch.Tensor,
+               valid: torch.Tensor, page_size: int):
+    """Flat (page ids, slots within the page) for every (b, s) token: the
+    token at absolute position p of batch row b lands in page
+    ``block_table[b, p // P]`` at slot ``p % P``; invalid rows (padding,
+    inactive slots) go to page 0, the null page the allocator never hands
+    out.  The same for every layer and for k and v."""
+    page = torch.gather(block_table, 1, positions // page_size)
+    page = torch.where(valid, page, torch.zeros_like(page))
+    return page.reshape(-1), (positions % page_size).reshape(-1)
+
+
+def paged_cache_update(pages: torch.Tensor, update: torch.Tensor,
+                       block_table: torch.Tensor, positions: torch.Tensor,
+                       valid: torch.Tensor, slots=None) -> torch.Tensor:
+    """Scatter per-token k/v rows (B, S, K, hd) into one layer's page pool
+    (NP, P, K, hd), in place, and return it.  ``slots`` is
+    :func:`page_slots` of the other arguments, computed here when absent."""
+    if slots is None:
+        slots = page_slots(block_table, positions, valid, pages.shape[1])
+    page, within = slots
+    pages[page, within] = update.to(pages.dtype).reshape(
+        page.shape[0], *update.shape[2:])
+    return pages
+
+
+def paged_gqa_attention_block(p: dict, x: torch.Tensor,
+                              positions: torch.Tensor, valid: torch.Tensor,
+                              cfg, mask, pages_k: torch.Tensor,
+                              pages_v: torch.Tensor,
+                              block_table: torch.Tensor, rope_cs=None,
+                              slots=None):
+    """GQA attention against a paged KV pool: writes this step's k/v into
+    the owning pages, gathers each row's pages into a dense (B, MPB*P, ...)
+    view and attends under the caller's per-row mask.  ``rope_cs`` and
+    ``slots`` (:func:`rope_table`, :func:`page_slots`) depend only on the
+    step, so a caller running many layers computes them once.  Returns
+    (out (B,S,D), pages_k, pages_v)."""
+    b, s, _ = x.shape
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = apply_linear(p["wq"], x).reshape(b, s, h, hd)
+    k = apply_linear(p["wk"], x).reshape(b, s, kh, hd)
+    v = apply_linear(p["wv"], x).reshape(b, s, kh, hd)
+    if cfg.rope_theta > 0:
+        if rope_cs is None:
+            rope_cs = rope_table(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, rope_cs)
+        k = apply_rope(k, rope_cs)
+    if slots is None:
+        slots = page_slots(block_table, positions, valid, pages_k.shape[1])
+    pages_k = paged_cache_update(pages_k, k, block_table, positions, valid, slots)
+    pages_v = paged_cache_update(pages_v, v, block_table, positions, valid, slots)
+    kc = pages_k[block_table].reshape(b, -1, kh, hd).to(x.dtype)
+    vc = pages_v[block_table].reshape(b, -1, kh, hd).to(x.dtype)
+    out = attention(q, kc, vc, mask, scale=1.0 / (hd**0.5))
+    out = apply_linear(p["wo"], out.reshape(b, s, h * hd))
+    return out, pages_k, pages_v

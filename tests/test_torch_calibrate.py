@@ -1,0 +1,82 @@
+"""The port's RTN + SVD ``quantize_model`` against the reference's
+``quantize_model(..., QuantPolicy(quant_method="rtn", correction="svd"),
+rotate=False)`` on a reduced SmolLM.
+
+Tolerances: codes and weight scales are bitwise (both cast the weight to
+f32 before RTN).  The SVD correction is compared as the product u·vᵀ — the
+singular vectors are defined only up to sign — and each factor was rounded
+to bf16 from the same f64 factorization, so the products may differ by two
+bf16 roundings of the factors: 2⁻⁷ of |u|·|v|ᵀ elementwise."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.quant.policy import QuantPolicy as JaxQuantPolicy
+from repro_torch import bridge
+from repro_torch.quant.calibrate import quantize_model, solve_site
+from repro_torch.quant.policy import QuantPolicy
+from repro_torch.quant.qlinear import QLinear
+from torch_parity import (RTN_SVD, configs, jax_params, jax_quantized, t,
+                          to_numpy_tree)
+
+SITES = [("attn", n) for n in ("wq", "wk", "wv", "wo")] + \
+        [("mlp", n) for n in ("wg", "wu", "wd")]
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg, tcfg = configs()
+    jparams = jax_params(jcfg)
+    jq = jax_quantized(jcfg, jparams)
+    params = bridge.params_from_jax(to_numpy_tree(jparams), device="cpu")
+    tq = quantize_model(tcfg, params, None, QuantPolicy(**RTN_SVD), rotate=False)
+    return tcfg, jq, tq
+
+
+def test_rank_matches_reference_policy():
+    for d_in, d_out in [(576, 576), (576, 192), (576, 1536), (1536, 576), (4, 4)]:
+        assert (QuantPolicy(**RTN_SVD).rank(d_in, d_out)
+                == JaxQuantPolicy(**RTN_SVD).rank(d_in, d_out))
+    assert QuantPolicy(**RTN_SVD).rank(576, 576) == 58
+    assert QuantPolicy(**RTN_SVD).rank(576, 192) == 19
+
+
+@pytest.mark.parametrize("block,name", SITES)
+def test_codes_and_scales_bitwise(models, block, name):
+    tcfg, jq, tq = models
+    for li in range(tcfg.n_layers):
+        jl = jq["layers"][block][name]
+        tl = tq["layers"][li][block][name]
+        assert isinstance(tl, QLinear) and tl.name == f"{block}/{name}"
+        assert np.array_equal(tl.qweight.numpy(), np.asarray(jl.qweight)[li])
+        assert np.array_equal(tl.w_scale.numpy(), np.asarray(jl.w_scale)[li])
+        assert (tl.clip_ratio, tl.act_bits, tl.impl) == (jl.clip_ratio, jl.act_bits, jl.impl)
+
+
+@pytest.mark.parametrize("block,name", SITES)
+def test_svd_correction_product(models, block, name):
+    tcfg, jq, tq = models
+    for li in range(tcfg.n_layers):
+        jl = jq["layers"][block][name]
+        tl = tq["layers"][li][block][name]
+        ju = np.asarray(jl.u, np.float32)[li]
+        jv = np.asarray(jl.v, np.float32)[li]
+        tu, tv = tl.u.float().numpy(), tl.v.float().numpy()
+        assert tl.u.dtype == torch.bfloat16 and tu.shape == ju.shape
+        want = ju @ jv.T
+        tol = 2.0 ** -7 * (np.abs(ju) @ np.abs(jv).T) + 1e-30
+        assert np.all(np.abs(tu @ tv.T - want) <= tol)
+
+
+def test_none_correction_and_unported_branches(rng):
+    w = t(rng.standard_normal((32, 16)).astype(np.float32))
+    q = solve_site(w, None, QuantPolicy(quant_method="rtn", correction="none"))
+    assert q.u is None and q.v is None and q.d_in == 32 and q.d_out == 16
+    with pytest.raises(NotImplementedError):
+        solve_site(w, None, QuantPolicy(quant_method="rtn", correction="lrc"))
+    with pytest.raises(NotImplementedError):
+        solve_site(w, None, QuantPolicy(quant_method="gptq", correction="svd"))
+    _, tcfg = configs()
+    with pytest.raises(NotImplementedError):
+        quantize_model(tcfg, {"layers": []}, None, QuantPolicy(**RTN_SVD))
