@@ -5,14 +5,23 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel of the serving path from ``src/repro_torch/kernels/csrc``;
+  2. build every kernel of the serving paths from ``src/repro_torch/kernels/csrc``
+     (one ``nvcc`` per source, all at once);
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it plus ragged ones, with times;
+     shapes the serving paths give it plus ragged ones, with times: the
+     fused kernel at SmolLM-135M's sites, the prologue, GEMM and quantizer
+     kernels at Phi-3-mini's;
   4. serve SmolLM-135M at full width (random weights from seed 0, W4A4+LRC
      by RTN+SVD) through ``ServeEngine.submit``/``run`` and count that every
      QLinear went through the fused kernel;
   5. the same model's teacher-forced ``paged_step``, kernel path against the
      plain ``int8`` QLinear impl;
+  6. serve Phi-3-mini at full width (PHI3_LAYERS layers) on the
+     same traffic: every QLinear demotes to the chained path (prologue →
+     GEMM kernel), shown by ``health()["decode_plan"]`` and the counts;
+  7. Phi-3-mini's teacher-forced ``paged_step`` on the chained path, each
+     call held against the plain chained pair, then on the unfused path
+     (quantizer kernel → x·V in torch → GEMM kernel), the two compared;
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
 result.
@@ -35,6 +44,16 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 
+# Phi-3-mini's depth served here: all of its 32 layers.  The RTN+SVD
+# quantization (a float64 SVD of up to 8192 x 3072 per site, ~1 s each on
+# the card) dominates the script's time; cut this first if it must shrink
+PHI3_LAYERS = 32
+
+# the chained and unfused paths' logits differ only by the order of x·V's
+# f32 sums, which can flip a 4-bit code at a rounding boundary; at least
+# this correlation is required of them
+PATHS_MIN_CORRELATION = 0.99
+
 SLOTS = 4          # decode rows per step (M of every decode GEMM)
 PAGE = 16
 CHUNK = 16         # prefill chunk (M of every prefill GEMM)
@@ -45,6 +64,25 @@ NEW_TOKENS = 16
 
 def phase(title):
     print(f"== {title}", flush=True)
+
+
+def _kernel_modules():
+    from repro_torch.kernels import actquant, fused_gemm, prologue, w4a4
+
+    return (fused_gemm, prologue, w4a4, actquant)
+
+
+def reset_launches():
+    for mod in _kernel_modules():
+        mod.reset_launches()
+
+
+def launches():
+    """Every wrapper's count: kernel launches and plain-version calls."""
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -108,15 +146,19 @@ def _time_ms(fn, flush, reps=30, warmup=5):
     return statistics.median(times)
 
 
-def _bound_ms(m, k, n, r, x_bytes, f_bytes):
-    """Least time on an H100 SXM: each input read once, the f32 output
-    written once, over 3.35 TB/s; or the int8 GEMM at 1979 TOP/s plus the
-    f32 LR products at 67 TFLOP/s — the larger of the two."""
-    nbytes = (k * n // 2 + 4 * n + f_bytes * r * (k + n)
-              + x_bytes * m * k + 4 * m * n)
+def _bound(nbytes, int8_ops=0, f32_ops=0):
+    """Least time on an H100 SXM (ms) and what bounds it: the bytes over
+    3.35 TB/s, or the int8 and f32 operations over their peak rates."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * m * k * n / INT8_OPS_PER_S + 2 * m * r * (k + n) / F32_OPS_PER_S
+    t_ops = int8_ops / INT8_OPS_PER_S + f32_ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bound_ms(m, k, n, r, x_bytes, f_bytes):
+    """The fused kernel's bound: each input read once, the f32 output
+    written once; the int8 GEMM plus the f32 LR products."""
+    return _bound(k * n // 2 + 4 * n + f_bytes * r * (k + n) + x_bytes * m * k
+                  + 4 * m * n, int8_ops=2 * m * k * n, f32_ops=2 * m * r * (k + n))
 
 
 SITES = {  # SmolLM-135M's seven QLinears per layer as (K, N, R)
@@ -170,7 +212,7 @@ def phase_kernels(device):
             t_k = _time_ms(lambda: fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9), flush)
             t_p = _time_ms(lambda: fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4, 0.9), flush)
             b, by = _bound_ms(m, k, n, r, 2, 2)
-            timed[(m, k, n, r)] = (t_k, t_p, b, by)
+            timed[("fused_w4a4_lrc", m, k, n, r)] = (t_k, t_p, b, by)
             print(f"    kernel {t_k * 1e3:.2f} us  plain {t_p * 1e3:.2f} us  "
                   f"bound {b * 1e3:.3f} us ({by})  library_ms null "
                   f"(no single PyTorch call computes this function)",
@@ -178,14 +220,136 @@ def phase_kernels(device):
     return worst, timed
 
 
+PHI3_SITES = {  # Phi-3-mini's seven QLinears per layer as (K, N, R)
+    "attn/wq": (3072, 3072, 307), "attn/wk": (3072, 3072, 307),
+    "attn/wv": (3072, 3072, 307), "attn/wo": (3072, 3072, 307),
+    "mlp/wg": (3072, 8192, 307), "mlp/wu": (3072, 8192, 307),
+    "mlp/wd": (8192, 3072, 307),
+}
+
+
+def _chain_bounds(m, k, n, r, x_bytes, f_bytes):
+    """Bounds of the three chained/unfused kernels at one site: each input
+    read once, each output written once."""
+    prologue = _bound(x_bytes * m * k + f_bytes * k * r + m * k + 4 * m + 4 * m * r,
+                      f32_ops=2 * m * k * r + 3 * m * k)
+    quant = _bound(x_bytes * m * k + m * k + 4 * m, f32_ops=3 * m * k)
+    gemm = _bound(m * k + 4 * m + k * n // 2 + 4 * n + 4 * m * r + f_bytes * n * r
+                  + 4 * m * n, int8_ops=2 * m * k * n, f32_ops=2 * m * n * r + 2 * m * n)
+    return {"fused_prologue": prologue, "act_quant": quant,
+            "w4a4_lowrank_matmul": gemm}
+
+
+def _xv_tolerance(x, v, k, xv_plain):
+    """|kernel - plain| bound on x·V: only the order of its K-term sum
+    differs, so twice the recursive-summation bound (K+1)·2⁻²⁴ of the sum
+    of absolute terms, plus the final rounding."""
+    import torch
+
+    mag = x.float().abs() @ v.float().abs() + xv_plain.abs()
+    return 2.0 * (k + 1) * 2.0 ** -24 * mag + torch.finfo(torch.float32).tiny
+
+
+def _gemm_tolerance(xv, u, r, y_plain):
+    """|kernel - plain| bound on the GEMM output: the integer part and its
+    rescale are bitwise; only the R-term LR sum is ordered differently."""
+    import torch
+
+    mag = y_plain.abs()
+    if r:
+        mag = mag + xv.abs() @ u.float().abs().T
+    return 2.0 * (r + 1) * 2.0 ** -24 * mag + torch.finfo(torch.float32).tiny
+
+
+def phase_chain_kernels(device):
+    """The prologue, GEMM and quantizer kernels at Phi-3-mini's three site
+    shapes (M = decode slots and prefill chunk), the paper's 30 % rank
+    (R = 922) and ragged cases (odd N, K % 4 == 2, K % 16 != 0, K = 16384,
+    R = 0 and 1024, M over one tile, f32 operands).  Codes and scales must
+    be bitwise the plain version's (and the two quantizers' the same);
+    x·V and the GEMM output within their summation bounds."""
+    import torch
+
+    from repro_torch.kernels import actquant, prologue, w4a4
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=device).manual_seed(1)
+    shapes = sorted(set(PHI3_SITES.values()))
+    cases = [(m, k, n, r, bf16, bf16) for (k, n, r) in shapes
+             for m in (SLOTS, CHUNK)]
+    cases += [(CHUNK, 3072, 3072, 922, bf16, bf16), (SLOTS, 8192, 3072, 922, bf16, bf16),
+              (17, 200, 97, 7, bf16, bf16), (3, 90, 33, 0, bf16, bf16),
+              (1, 3072, 3073, 307, bf16, bf16), (33, 8194, 1, 5, bf16, bf16),
+              (5, 16384, 130, 40, f32, f32), (20, 1030, 64, 1024, f32, bf16)]
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    worst = {"fused_prologue": 0.0, "w4a4_lowrank_matmul": 0.0, "act_quant": 0.0}
+    timed = {}
+    for (m, k, n, r, xd, fd) in cases:
+        x, v, wp, sw, u = _problem(gen, m, k, n, r, xd, fd, device)
+        xq, sx, xv = prologue.fused_prologue(x, v, 4, 0.9)
+        aq, asx = actquant.act_quant(x, 4, 0.9)
+        torch.cuda.synchronize()
+        xq_p, sx_p, xv_p = prologue.fused_prologue_plain(x, v, 4, 0.9)
+        codes = (torch.equal(xq, xq_p) and torch.equal(sx, sx_p)
+                 and torch.equal(aq, xq_p) and torch.equal(asx, sx_p))
+        xv_err = xv_ok = 0.0
+        if r:
+            err = (xv - xv_p).abs()
+            xv_ok = bool((err <= _xv_tolerance(x, v, k, xv_p)).all())
+            xv_err = err.max().item()
+        # the GEMM on the plain prologue's outputs, so both see one input
+        y = w4a4.w4a4_lowrank_matmul(xq_p, sx_p, wp, sw, xv_p, u)
+        torch.cuda.synchronize()
+        y_p = w4a4.w4a4_lowrank_matmul_plain(xq_p, sx_p, wp, sw, xv_p, u)
+        err = (y - y_p).abs()
+        y_ok = (bool(torch.isfinite(y).all())
+                and bool((err <= _gemm_tolerance(xv_p, u, r, y_p)).all()))
+        ok = codes and (xv_ok or not r) and y_ok
+        print(f"  M={m:<3} K={k:<5} N={n:<5} R={r:<4} x={str(xd)[6:]:<8} "
+              f"codes+scales {'bitwise' if codes else 'DIFFER'}  "
+              f"xv max_abs_err={xv_err:.3e}  gemm max_abs_err={err.max().item():.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"a chained/unfused kernel disagrees with its plain "
+                             f"version at M={m} K={k} N={n} R={r}")
+        worst["fused_prologue"] = max(worst["fused_prologue"], xv_err)
+        worst["w4a4_lowrank_matmul"] = max(worst["w4a4_lowrank_matmul"],
+                                           err.max().item())
+        if (m, k, n, r, xd, fd) in cases[:2 * len(shapes)]:
+            bounds = _chain_bounds(m, k, n, r, 2, 2)
+            runs = {
+                "fused_prologue": (lambda: prologue.fused_prologue(x, v, 4, 0.9),
+                                   lambda: prologue.fused_prologue_plain(x, v, 4, 0.9)),
+                "act_quant": (lambda: actquant.act_quant(x, 4, 0.9),
+                              lambda: actquant.act_quant_plain(x, 4, 0.9)),
+                "w4a4_lowrank_matmul": (
+                    lambda: w4a4.w4a4_lowrank_matmul(xq_p, sx_p, wp, sw, xv_p, u),
+                    lambda: w4a4.w4a4_lowrank_matmul_plain(xq_p, sx_p, wp, sw, xv_p, u)),
+            }
+            for name, (kern, plain) in runs.items():
+                t_k, t_p = _time_ms(kern, flush), _time_ms(plain, flush)
+                b, by = bounds[name]
+                timed[(name, m, k, n, r)] = (t_k, t_p, b, by)
+                print(f"    {name:<20} kernel {t_k * 1e3:8.2f} us  plain "
+                      f"{t_p * 1e3:9.2f} us  bound {b * 1e3:.3f} us ({by})  "
+                      f"library_ms null", flush=True)
+    print("  library_ms is null for all three: no single PyTorch call computes "
+          "the int4 GEMM with its rescale and LR epilogue, the quantizer, or "
+          "the quantizer with x·V", flush=True)
+    return worst, timed
+
+
 # ---------------------------------------------------------------------------
-# phases 4-5: serve end to end, teacher-forced parity
+# phases 4-7: serve end to end, teacher-forced parity
 # ---------------------------------------------------------------------------
 
 
-def build_model(device):
-    """SmolLM-135M at full width, bf16, random weights from seed 0, every
-    linear W4A4+LRC by RTN + SVD at rank_frac 0.10, clip 0.9."""
+def build_model(device, arch="smollm-135m", n_layers=None):
+    """``arch`` at full width (its first ``n_layers`` layers if given), bf16,
+    random weights from seed 0, every linear W4A4+LRC by RTN + SVD at
+    rank_frac 0.10, clip 0.9."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
@@ -193,7 +357,9 @@ def build_model(device):
     from repro_torch.quant.calibrate import quantize_model
     from repro_torch.quant.policy import QuantPolicy
 
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     params = model.init_params(cfg, seed=0, device=device)
     policy = QuantPolicy(quant_method="rtn", correction="svd", rank_frac=0.10,
@@ -207,11 +373,13 @@ def build_model(device):
     return cfg, qparams
 
 
-def phase_serve(cfg, qparams, device):
+def phase_serve(cfg, qparams, device, kernels):
+    """Serve the traffic through ``ServeEngine.submit``/``run``; every
+    QLinear call must launch each kernel named in ``kernels`` once, and no
+    other kernel or plain version may run."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import fused_gemm
     from repro_torch.serve.engine import Request, RequestState, ServeEngine
 
     def engine():
@@ -242,12 +410,12 @@ def phase_serve(cfg, qparams, device):
     eng._paged = timed
     for i, p in enumerate(prompts()):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
-    fused_gemm.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fused_gemm.LAUNCHES)
+    counts = launches()
 
     bad = [r for r, rec in done.items()
            if rec.status is not RequestState.FINISHED or rec.new_tokens != NEW_TOKENS]
@@ -256,13 +424,15 @@ def phase_serve(cfg, qparams, device):
                          f"{NEW_TOKENS} tokens: {done}")
     calls = eng.counters["decode_calls"] + eng.counters["prefill_calls"]
     want = 7 * cfg.n_layers * calls
+    expected = {name: want if name in kernels else 0 for name in counts}
     print(f"  {N_REQUESTS} requests x {NEW_TOKENS} tokens finished; counters "
           f"{eng.counters}", flush=True)
-    print(f"  model calls {calls}: kernel launches {launches['fused_w4a4_lrc']} "
-          f"(want 7 x {cfg.n_layers} x {calls} = {want}), plain "
-          f"{launches['fused_w4a4_lrc_plain']}", flush=True)
-    if launches["fused_w4a4_lrc"] != want or launches["fused_w4a4_lrc_plain"]:
-        raise SystemExit("serve: not every QLinear went through the kernel")
+    for site in eng.health()["decode_plan"]:
+        print(f"  decode_plan: {site}", flush=True)
+    print(f"  model calls {calls}: launches {counts} (want 7 x {cfg.n_layers} "
+          f"x {calls} = {want} for {kernels}, 0 for the rest)", flush=True)
+    if counts != expected:
+        raise SystemExit(f"serve: not every QLinear went through {kernels}")
     n_tok = sum(rec.new_tokens for rec in done.values())
     prof = profile_decode(cfg, qparams, device, engine, prompts())
     stats = {
@@ -278,7 +448,7 @@ def phase_serve(cfg, qparams, device):
           f"decode step {stats['decode_step_ms']:.2f} ms (median of "
           f"{len(times['decode'])}); prefill chunk {stats['prefill_chunk_ms']:.2f} "
           f"ms (median of {len(times['prefill'])})", flush=True)
-    return launches["fused_w4a4_lrc"], stats
+    return counts, stats
 
 
 def profile_decode(cfg, qparams, device, engine, prompts):
@@ -406,6 +576,127 @@ def phase_parity(cfg, qparams, device):
     return stats
 
 
+def phase_paths(cfg, qparams, device):
+    """One teacher-forced paged_step over SLOTS x CHUNK tokens of the served
+    Phi-3-mini, first with every QLinear pinned to the chained path, then to
+    the unfused one.
+
+    (a) chained: each QLinear call's prologue is held against the plain
+        prologue (codes and scales bitwise, x·V within its bound) and its
+        GEMM against the plain GEMM on the same inputs.
+    (b) unfused: each call's quantizer is held bitwise against the plain
+        one and its GEMM as in (a); the quantizer launches 7 x layers times.
+    (c) logits: finite from both paths; the paths differ only in the order
+        of x·V's sums, so their logits must correlate to at least
+        PATHS_MIN_CORRELATION (the all-plain chained path is printed beside
+        them as the yardstick)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import actquant, ops, prologue, w4a4
+    from repro_torch.kernels.context import KernelContext
+    from repro_torch.models import model
+    from repro_torch.quant.qlinear import retag_qlinear_impl
+
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (SLOTS, CHUNK))).to(device)
+    positions = torch.arange(CHUNK, device=device).expand(SLOTS, CHUNK)
+    valid = torch.ones((SLOTS, CHUNK), dtype=torch.bool, device=device)
+    per = -(-CHUNK // PAGE)
+    block_table = (1 + torch.arange(SLOTS * per, device=device)).reshape(SLOTS, per)
+
+    def logits_of(path):
+        pool = model.init_paged_cache(cfg, 1 + SLOTS * per, PAGE,
+                                      dtype=torch.float32, device=device)
+        params = retag_qlinear_impl(qparams, "pallas",
+                                    ctx=KernelContext(impl=path))
+        out, _ = model.paged_step(cfg, params, tokens, positions, valid, pool,
+                                  block_table)
+        out = out.flatten()
+        if not torch.isfinite(out).all():
+            raise SystemExit(f"paths: non-finite logits from the {path} path")
+        return out
+
+    site = {"calls": 0, "xv": 0.0, "gemm": 0.0, "bad": 0}
+
+    def checked_prologue(x, v, bits=4, clip_ratio=1.0):
+        xq, sx, xv = prologue.fused_prologue(x, v, bits, clip_ratio)
+        xq_p, sx_p, xv_p = prologue.fused_prologue_plain(x, v, bits, clip_ratio)
+        site["calls"] += 1
+        bad = not (torch.equal(xq, xq_p) and torch.equal(sx, sx_p))
+        if v is not None:
+            err = (xv - xv_p).abs()
+            site["xv"] = max(site["xv"], err.max().item())
+            bad |= not bool((err <= _xv_tolerance(x, v, x.shape[1], xv_p)).all())
+        site["bad"] += int(bad)
+        return xq, sx, xv
+
+    def checked_quant(x, bits=4, clip_ratio=1.0):
+        xq, sx = actquant.act_quant(x, bits, clip_ratio)
+        xq_p, sx_p = actquant.act_quant_plain(x, bits, clip_ratio)
+        site["calls"] += 1
+        site["bad"] += int(not (torch.equal(xq, xq_p) and torch.equal(sx, sx_p)))
+        return xq, sx
+
+    def checked_gemm(xq, sx, wp, sw, xv=None, u=None):
+        y = w4a4.w4a4_lowrank_matmul(xq, sx, wp, sw, xv, u)
+        y_p = w4a4.w4a4_lowrank_matmul_plain(xq, sx, wp, sw, xv, u)
+        err = (y - y_p).abs()
+        r = 0 if xv is None else xv.shape[1]
+        site["gemm"] = max(site["gemm"], err.max().item())
+        site["bad"] += int(not bool((err <= _gemm_tolerance(xv, u, r, y_p)).all()))
+        return y
+
+    n_sites = 7 * cfg.n_layers
+    out, counts, errs = {}, {}, {}
+    for path in ("chained", "unfused"):
+        site.update(calls=0, bad=0, xv=0.0, gemm=0.0)
+        ops.fused_prologue, ops.act_quant = checked_prologue, checked_quant
+        ops.w4a4_lowrank_matmul = checked_gemm
+        reset_launches()
+        try:
+            out[path] = logits_of(path)
+            torch.cuda.synchronize()
+        finally:
+            ops.fused_prologue, ops.act_quant = prologue.fused_prologue, actquant.act_quant
+            ops.w4a4_lowrank_matmul = w4a4.w4a4_lowrank_matmul
+        counts[path] = {k: c for k, c in launches().items() if not k.endswith("_plain")}
+        errs[path] = {"xv": site["xv"], "gemm": site["gemm"]}
+        first = "fused_prologue" if path == "chained" else "act_quant"
+        want = {k: n_sites if k in (first, "w4a4_lowrank_matmul") else 0
+                for k in counts[path]}
+        print(f"  ({'a' if path == 'chained' else 'b'}) {path}: {site['calls']} "
+              f"QLinear calls, max |kernel - plain| x·V {site['xv']:.3e} (chained "
+              f"only), GEMM "
+              f"{site['gemm']:.3e}; {site['bad']} outside the tolerance; "
+              f"kernel launches {counts[path]}", flush=True)
+        if site["calls"] != n_sites or site["bad"] or counts[path] != want:
+            raise SystemExit(f"paths: the {path} path's kernels disagree with "
+                             f"their plain versions or were not all launched")
+    ops.fused_prologue = prologue.fused_prologue_plain
+    ops.w4a4_lowrank_matmul = w4a4.w4a4_lowrank_matmul_plain
+    try:
+        out["plain"] = logits_of("chained")
+    finally:
+        ops.fused_prologue = prologue.fused_prologue
+        ops.w4a4_lowrank_matmul = w4a4.w4a4_lowrank_matmul
+
+    def corr(a, b):
+        return torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+
+    stats = {"act_quant_launches": counts["unfused"]["act_quant"],
+             "site_max_abs_err": errs}
+    for a, b in (("chained", "unfused"), ("chained", "plain")):
+        c, d = corr(out[a], out[b]), (out[a] - out[b]).abs().max().item()
+        stats[f"{a}~{b}"] = {"correlation": c, "max_abs_diff": d}
+        print(f"  (c) logits {a}~{b:<8} correlation {c:.6f}  max |diff| {d:.4e}",
+              flush=True)
+    if stats["chained~unfused"]["correlation"] < PATHS_MIN_CORRELATION:
+        raise SystemExit("paths: chained and unfused logits disagree")
+    return stats
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -435,40 +726,68 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     phase("2. build")
-    seconds = build.build(["fused_w4a4_lrc"])
+    names = ["fused_w4a4_lrc", "fused_prologue", "w4a4_lowrank_matmul", "act_quant"]
+    seconds = build.build(names)
     for name, s in seconds.items():
         print(f"  {name}: {s:.1f} s", flush=True)
         print("\n".join("    " + line for line in build.BUILD_LOG.get(name, "").splitlines()
                         if "registers" in line or "spill" in line), flush=True)
+    from repro_torch.kernels import fused_gemm
 
-    phase("3. kernel against plain version")
+    for k, r in ((576, 58), (1536, 58), (3072, 307), (8192, 922)):
+        want = fused_gemm._lib("fused_w4a4_lrc").fused_w4a4_lrc_smem_bytes(k, r)
+        if fused_gemm.smem_bytes(k, r) != want:
+            raise SystemExit(f"fused_gemm.smem_bytes({k}, {r}) is not the source's {want}")
+
+    phase("3. kernels against their plain versions")
     worst, timed = phase_kernels(device)
+    chain_worst, chain_timed = phase_chain_kernels(device)
 
-    phase("4. serve SmolLM-135M")
+    phase("4. serve SmolLM-135M (fused path)")
     cfg, qparams = build_model(device)
-    launches, serve = phase_serve(cfg, qparams, device)
+    smol_counts, serve = phase_serve(cfg, qparams, device, ["fused_w4a4_lrc"])
 
-    phase("5. teacher-forced paged_step, kernel path against int8")
+    phase("5. SmolLM-135M teacher-forced paged_step, kernel path against int8")
     parity = phase_parity(cfg, qparams, device)
+    del qparams
 
-    # one decoder layer's seven sites at decode M
-    layer = [timed[(SLOTS, *SITES[s])] for s in SITES]
-    kernels = [{
-        "name": "fused_w4a4_lrc",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_w4a4_lrc.cu",
-        "replaces": "src/repro/kernels/fused_gemm.py:208",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": sum(t[0] for t in layer),
-        "plain_ms": sum(t[1] for t in layer),
-        "bound_ms": sum(t[2] for t in layer),
-        "bound_by": "bytes" if all(t[3] == "bytes" for t in layer) else "operations",
-        "library_ms": None,
-        "at": f"one decoder layer's 7 sites at M={SLOTS}, L2 flushed",
-        "checked": True,
-    }]
-    print(json.dumps({"serve": serve, "parity": parity}))
+    phase(f"6. serve Phi-3-mini, {PHI3_LAYERS} layers (chained path)")
+    pcfg, pparams = build_model(device, "phi3-mini-3.8b", PHI3_LAYERS)
+    phi3_counts, phi3_serve = phase_serve(pcfg, pparams, device,
+                                          ["fused_prologue", "w4a4_lowrank_matmul"])
+
+    phase("7. Phi-3-mini teacher-forced paged_step, chained and unfused paths")
+    paths = phase_paths(pcfg, pparams, device)
+
+    def entry(name, replaces, n, sites, timing, err, at):
+        layer = [timing[(name, SLOTS, *sites[s])] for s in sites]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": sum(t[0] for t in layer), "plain_ms": sum(t[1] for t in layer),
+            "bound_ms": sum(t[2] for t in layer),
+            "bound_by": "bytes" if all(t[3] == "bytes" for t in layer) else "operations",
+            "library_ms": None, "at": at, "checked": True,
+        }
+
+    at_smol = f"one SmolLM-135M decoder layer's 7 sites at M={SLOTS}, L2 flushed"
+    at_phi3 = f"one Phi-3-mini decoder layer's 7 sites at M={SLOTS}, L2 flushed"
+    kernels = [
+        entry("fused_w4a4_lrc", "src/repro/kernels/fused_gemm.py:208",
+              smol_counts["fused_w4a4_lrc"], SITES, timed, worst, at_smol),
+        entry("fused_prologue", "src/repro/kernels/prologue.py:93",
+              phi3_counts["fused_prologue"], PHI3_SITES, chain_timed,
+              chain_worst["fused_prologue"], at_phi3),
+        entry("w4a4_lowrank_matmul", "src/repro/kernels/w4a4.py:98",
+              phi3_counts["w4a4_lowrank_matmul"],
+              PHI3_SITES, chain_timed, chain_worst["w4a4_lowrank_matmul"], at_phi3),
+        entry("act_quant", "src/repro/kernels/actquant.py:31",
+              paths["act_quant_launches"], PHI3_SITES, chain_timed,
+              chain_worst["act_quant"], at_phi3 + "; launches from phase 7's unfused run"),
+    ]
+    print(json.dumps({"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
+                      "phi3_paths": paths}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

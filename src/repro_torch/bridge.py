@@ -24,8 +24,9 @@ from repro_torch.device import resolve_device
 from repro_torch.quant.qlinear import QLinear
 
 _QLINEAR_ARRAYS = ("qweight", "w_scale", "u", "v")
+# the kernel context is run-time config, not a parameter: it does not travel
 _QLINEAR_STATIC = tuple(f.name for f in dataclasses.fields(QLinear)
-                        if f.name not in _QLINEAR_ARRAYS)
+                        if f.name not in _QLINEAR_ARRAYS + ("ctx",))
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:

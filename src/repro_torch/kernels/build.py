@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``_build/lib<name>-<digest>.so`` beside this file (a git-ignored
-directory), where the digest covers the source and the flags: an edited
-source builds anew, an unchanged one is reused.  Nothing is compiled when
+directory), where the digest covers the source, every local header in
+``csrc/`` (``*.cuh``, ``*.h``) and the flags: an edited source or header
+builds anew, an unchanged one is reused.  Nothing is compiled when
 this module is imported; :func:`load` builds at first use, and
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them together.
@@ -19,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -42,9 +45,16 @@ def nvcc_path() -> str:
     return found
 
 
+def headers() -> list:
+    """The local headers a source may include, in a fixed order."""
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cuh", ".h"))
+
+
 def target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *headers()]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -79,6 +89,34 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
+
+
+def check_activations(x, bits: int) -> None:
+    """What every kernel's wrapper asks of its activations x."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, K); got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if not 2 <= bits <= 8:
+        raise ValueError(f"activation bits must be in [2, 8], got {bits}")
+
+
+def check_operands(first, tensors) -> None:
+    """Every operand of a launch on ``first``'s device, which is the current
+    CUDA device, and contiguous."""
+    for t in tensors:
+        if t.device != first.device:
+            raise ValueError(f"all operands must be on {first.device}; one is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if first.device.index != torch.cuda.current_device():
+        raise ValueError(f"operands are on {first.device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def stream_of(t) -> int:
+    """The handle of the current CUDA stream of ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,140 @@
+"""Per-layer kernel execution config: :class:`KernelContext` (the part of
+``repro/kernels/context.py`` the port needs).
+
+Three kernel paths serve a W4A4+LRC linear, strongest fusion first:
+
+  fused   — ONE kernel (``fused_gemm.py``): quantize, x·V, int4 GEMM and
+            epilogue; xq never reaches device memory.
+  chained — TWO kernels: ``prologue.py`` (xq, sx, xv) → ``w4a4.py``.
+  unfused — ``actquant.py`` (xq, sx), x·V in plain torch per row tile,
+            then the same GEMM kernel.
+
+The reference picks tiles and demotes a path when its VMEM working set does
+not fit.  Here the tiles are constants of the CUDA sources, so a plan is a
+path only.  ``"auto"`` takes the fused path unless its one block cannot
+hold the site: its shared memory (``fused_gemm.smem_bytes(K, R)``, which
+grows with K) above ``fused_gemm.SMEM_LIMIT``, or R above
+``fused_gemm.MAX_RANK``; it then demotes to chained, which any K fits.
+The decision is made from shapes alone, before anything is built or
+launched, and ``ServeEngine.health()`` reports it.  An explicit impl is
+trusted: the wrapper raises if it cannot run it.
+
+Per-layer overrides are keyed by layer name (``"mlp/wd"``), by the (K, N,
+R) triple or by its ``"KxNrR"`` spelling, and carry ``path`` only; the
+reference's tile keys raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+from repro_torch.kernels import fused_gemm
+
+KERNEL_PATHS = ("fused", "chained", "unfused")
+IMPLS = ("auto",) + KERNEL_PATHS
+_TILE_KEYS = ("bm", "bn", "bk", "br", "variant")
+
+
+class Plan(NamedTuple):
+    """A resolved plan: the kernel path, whether the caller chose it (an
+    explicit impl, a non-auto context or a layer override), and whether a
+    fused path was demoted because the site does not fit it."""
+    path: str
+    pinned: bool
+    demoted: bool
+
+
+def _override_key(key):
+    if isinstance(key, (tuple, list)):
+        if len(key) != 3 or not all(isinstance(d, int) for d in key):
+            raise ValueError(f"a shape override key must be (K, N, R), got {key!r}")
+        return tuple(key)
+    if not isinstance(key, str):
+        raise ValueError(f"an override key must be a layer name, (K, N, R) "
+                         f"or 'KxNrR'; got {key!r}")
+    return key
+
+
+def _check_entry(key, entry) -> None:
+    if not isinstance(entry, dict):
+        raise ValueError(f"override for {key!r} must be a dict, got {entry!r}")
+    tiles = sorted(set(entry) & set(_TILE_KEYS))
+    if tiles:
+        raise NotImplementedError(
+            f"override for {key!r} sets {tiles}: the port's tiles are "
+            f"constants of its CUDA sources; an override carries 'path' only")
+    unknown = sorted(set(entry) - {"path"})
+    if unknown:
+        raise ValueError(f"unknown override keys {unknown} for {key!r}")
+    if entry.get("path") not in KERNEL_PATHS:
+        raise ValueError(f"override for {key!r} needs a path in "
+                         f"{KERNEL_PATHS}, got {entry.get('path')!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelContext:
+    """An immutable kernel config: the default impl and the per-layer path
+    overrides, ``((key, path), ...)`` sorted by key (hashable)."""
+
+    impl: str = "auto"
+    overrides: tuple = ()
+
+    def __post_init__(self):
+        if self.impl not in IMPLS:
+            raise ValueError(f"unknown impl {self.impl!r}; expected one of {IMPLS}")
+        items = (self.overrides.items() if isinstance(self.overrides, dict)
+                 else self.overrides)
+        frozen = {}
+        for key, entry in items:
+            key = _override_key(key)
+            entry = {"path": entry} if isinstance(entry, str) else dict(entry)
+            _check_entry(key, entry)
+            frozen[key] = entry["path"]
+        object.__setattr__(self, "overrides", tuple(
+            sorted(frozen.items(), key=lambda e: str(e[0]))))
+
+    # -- builders (return new contexts) -------------------------------------
+
+    def with_impl(self, impl: str) -> "KernelContext":
+        return dataclasses.replace(self, impl=impl)
+
+    def with_layer_overrides(self, overrides: dict) -> "KernelContext":
+        """Merge per-layer path overrides (``{key: {"path": ...}}``) onto
+        the existing ones."""
+        merged = dict(self.overrides)
+        for key, entry in overrides.items():
+            merged[_override_key(key)] = entry
+        return dataclasses.replace(self, overrides=tuple(merged.items()))
+
+    # -- resolution ---------------------------------------------------------
+
+    def layer_path(self, layer: Optional[str], k: int, n: int,
+                   r: int = 0) -> Optional[str]:
+        """The overridden path for this layer or shape, or None.  Lookup
+        precedence: layer name, then (K, N, R), then "KxNrR"."""
+        table = dict(self.overrides)
+        for key in (layer, (k, n, r), f"{k}x{n}r{r}"):
+            if key is not None and key in table:
+                return table[key]
+        return None
+
+    def resolve_plan(self, m: int, k: int, n: int, r: int = 0,
+                     layer: Optional[str] = None,
+                     impl: Optional[str] = None) -> Plan:
+        """The path a (M, K, N, R) problem runs.  ``impl`` (None → this
+        context's) other than "auto" pins the path, trusted as it is.
+        Under "auto" a layer override sets the path, else fused; a fused
+        path is then demoted to chained when the site does not fit it, as
+        the reference demotes a layer override too.  M does not enter: the
+        kernels' shared memory does not depend on it."""
+        impl = self.impl if impl is None else impl
+        if impl not in IMPLS:
+            raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+        if impl != "auto":
+            return Plan(impl, True, False)
+        path = self.layer_path(layer, k, n, r)
+        pinned = path is not None
+        if (path or "fused") == "fused" and not fused_gemm.fits(k, r):
+            return Plan("chained", pinned, True)
+        return Plan(path or "fused", pinned, False)

@@ -30,9 +30,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rowops import (default_proj_tiles, int_matmul,
-                                        project_rows_tiled,
-                                        scale_round_quantize,
+from repro_torch.kernels.rowops import (int_matmul, project_rows,
+                                        rescale_lowrank, scale_round_quantize,
                                         unpack_int4_rows)
 
 KERNEL = "fused_w4a4_lrc"
@@ -40,6 +39,24 @@ LAUNCHES = {"fused_w4a4_lrc": 0, "fused_w4a4_lrc_plain": 0}
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
 MAX_RANK = 1024
+# tile constants of csrc/fused_w4a4_lrc.cu, for smem_bytes
+_MAX_ROWS, _BN, _VBYTES = 16, 32, 8 * 16 * 256
+
+
+def smem_bytes(k: int, r: int) -> int:
+    """Dynamic shared memory one block of the kernel needs at (K, R), with
+    the larger row tile: the source's ``fused_w4a4_lrc_smem_bytes``,
+    computed here from shapes alone so a plan can be chosen before anything
+    is built or launched (``chip_smoke.py`` holds the two equal)."""
+    k16 = (k + 15) & ~15
+    return (4 * (_MAX_ROWS * k + _MAX_ROWS * r + _BN * r + _MAX_ROWS)
+            + _VBYTES + _MAX_ROWS * k16 + k16 * _BN)
+
+
+def fits(k: int, r: int) -> bool:
+    """Whether the kernel takes (K, R): its shared memory within the
+    limit and the rank within MAX_RANK."""
+    return smem_bytes(k, r) <= SMEM_LIMIT and r <= MAX_RANK
 
 
 def reset_launches() -> None:
@@ -55,21 +72,10 @@ def fused_w4a4_lrc_plain(x, v, wpacked, sw, u, bits: int = 4,
     (1, N) f32; u (N, R) or None.  Returns (M, N) f32."""
     LAUNCHES["fused_w4a4_lrc_plain"] += 1
     qmax = 2 ** (bits - 1) - 1
-    k = x.shape[1]
     xf = x.to(torch.float32)
     xq, sx = scale_round_quantize(xf, qmax, clip_ratio)
     acc = int_matmul(xq, unpack_int4_rows(wpacked))
-    out = acc.to(torch.float32) * sx * sw.reshape(1, -1)
-    if v is not None:
-        r = v.shape[1]
-        bk, br = default_proj_tiles(k, r)
-        k_pad, r_pad = k + (-k) % bk, r + (-r) % br
-        xp = torch.nn.functional.pad(xf, (0, k_pad - k))
-        vp = torch.nn.functional.pad(v.to(torch.float32),
-                                     (0, r_pad - r, 0, k_pad - k))
-        xv = project_rows_tiled(xp, vp, bk, br)[:, :r]
-        out = out + xv @ u.to(torch.float32).T
-    return out
+    return rescale_lowrank(acc, sx, sw, None if v is None else project_rows(xf, v), u)
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,22 +91,12 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _smem_ok(name: str, k: int, r: int) -> None:
-    smem = _lib(name).fused_w4a4_lrc_smem_bytes(k, r)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"(K={k}, R={r}) needs {smem} bytes of shared memory "
-                         f"per block; the limit is {SMEM_LIMIT}")
-
-
 def _check(x, v, wpacked, sw, u, bits):
-    if x.dim() != 2 or wpacked.dim() != 2:
-        raise ValueError(f"x must be (M, K) and wpacked (K/2, N); got "
-                         f"{tuple(x.shape)}, {tuple(wpacked.shape)}")
+    build.check_activations(x, bits)
+    if wpacked.dim() != 2:
+        raise ValueError(f"wpacked must be (K/2, N); got {tuple(wpacked.shape)}")
     m, k = x.shape
     n = wpacked.shape[1]
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if wpacked.dtype != torch.uint8 or wpacked.shape[0] * 2 != k:
         raise ValueError(f"wpacked must be uint8 ({k // 2}, N); got "
                          f"{wpacked.dtype} {tuple(wpacked.shape)}")
@@ -124,16 +120,7 @@ def _check(x, v, wpacked, sw, u, bits):
                              f"aligned start; got R={r}, address "
                              f"{v.data_ptr():#x}")
         tensors += [u, v]
-    for t in tensors:
-        if t.device != x.device:
-            raise ValueError(f"all operands must be on {x.device}; one is on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError("operands must be contiguous")
-    if not 2 <= bits <= 8:
-        raise ValueError(f"activation bits must be in [2, 8], got {bits}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"x is on {x.device} but the current device is "
-                         f"cuda:{torch.cuda.current_device()}")
+    build.check_operands(x, tensors)
 
 
 def fused_w4a4_lrc(x, v, wpacked, sw, u, bits: int = 4,
@@ -151,17 +138,18 @@ def fused_w4a4_lrc(x, v, wpacked, sw, u, bits: int = 4,
     m, k = x.shape
     n = wpacked.shape[1]
     r = 0 if v is None else v.shape[1]
-    _smem_ok(KERNEL, k, r)
+    if smem_bytes(k, r) > SMEM_LIMIT:
+        raise ValueError(f"(K={k}, R={r}) needs {smem_bytes(k, r)} bytes of "
+                         f"shared memory per block; the limit is {SMEM_LIMIT}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib(KERNEL).fused_w4a4_lrc(
         x.data_ptr(), int(x.dtype == torch.bfloat16),
         None if v is None else v.data_ptr(), wpacked.data_ptr(),
         sw.data_ptr(), None if u is None else u.data_ptr(),
         int(v is not None and v.dtype == torch.bfloat16), out.data_ptr(),
-        m, k, n, r, 2 ** (bits - 1) - 1, float(clip_ratio), stream)
+        m, k, n, r, 2 ** (bits - 1) - 1, float(clip_ratio), build.stream_of(x))
     if rc != 0:
         raise RuntimeError(f"fused_w4a4_lrc launch failed: cudaError {rc} "
                            f"at (M={m}, K={k}, N={n}, R={r})")

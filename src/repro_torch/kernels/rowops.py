@@ -92,6 +92,30 @@ def project_rows_tiled(x: torch.Tensor, v: torch.Tensor, bk: int, br: int):
     return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
 
 
+def project_rows(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(x·V) of a (bm, k) f32 row tile in :func:`project_rows_tiled`'s order
+    at the default tiles (zero padding, then cut back to a contiguous
+    (bm, r)).  The fused, chained and unfused plain versions all project
+    through here, so their xv are bitwise the same."""
+    k, r = x.shape[1], v.shape[1]
+    bk, br = default_proj_tiles(k, r)
+    k_pad, r_pad = k + (-k) % bk, r + (-r) % br
+    xp = torch.nn.functional.pad(x, (0, k_pad - k))
+    vp = torch.nn.functional.pad(v.to(torch.float32),
+                                 (0, r_pad - r, 0, k_pad - k))
+    return project_rows_tiled(xp, vp, bk, br)[:, :r].contiguous()
+
+
+def rescale_lowrank(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                    xv=None, u=None) -> torch.Tensor:
+    """The GEMM epilogue ``acc·sx·sw (+ xv·Uᵀ)`` in f32: int32 acc (M, N),
+    sx (M, 1), sw (N,) or (1, N), xv (M, R) f32, u (N, R) any float."""
+    out = acc.to(torch.float32) * sx * sw.reshape(1, -1)
+    if xv is not None:
+        out = out + xv @ u.to(torch.float32).T
+    return out
+
+
 def unpack_int4_rows(wp: torch.Tensor) -> torch.Tensor:
     """(BK//2, BN) uint8 -> (BK, BN) int8 in [-8, 7]; even rows = low nibble.
     The sign of a nibble u is (u XOR 8) - 8."""

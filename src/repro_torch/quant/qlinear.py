@@ -6,9 +6,11 @@ Counterpart of ``repro/quant/qlinear.py``.  Execution paths (``impl``):
   sim    — fake-quant float math (plain torch).
   int8   — integer GEMM with per-token rescale (plain torch; the LR term in
            the LR storage dtype).
-  pallas / fused — the hand-written fused kernel
-           (``kernels/fused_gemm.py`` through ``kernels/ops.py``); the names
-           are the JAX package's, both run the one fused path here.
+  pallas — the hand-written kernels through ``kernels/ops.py``, on the
+           path the layer's :class:`KernelContext` (``ctx``; None → the
+           default, ``"auto"``) resolves: fused where the site fits the
+           one-kernel path, else chained (prologue → GEMM), or as pinned.
+  fused  — the single fused kernel, pinned.
 
 Weight layout is (d_in, d_out) with ``y = x @ w``; ``qweight`` is uint8
 (d_in/2, d_out), the low nibble on the even d_in row.
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.core.quantizers import (QuantSpec, fake_quant_act, pack_int4,
                                          quantize_act, unpack_int4)
+from repro_torch.kernels.context import KernelContext
 from repro_torch.kernels.rowops import int_matmul
 
 KERNEL_IMPLS = ("pallas", "fused")
@@ -44,6 +47,7 @@ class QLinear:
     clip_ratio: float = 1.0
     impl: str = "int8"  # sim | int8 | pallas | fused
     name: Optional[str] = None
+    ctx: Optional[KernelContext] = None  # kernel paths; None → the default
 
     @property
     def d_in(self) -> int:
@@ -117,15 +121,20 @@ def _apply_int8(q: QLinear, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def _apply_pallas(q: QLinear, x: torch.Tensor) -> torch.Tensor:
-    """The fused kernel path.  The kernel computes the (xV)Uᵀ correction in
-    f32 from the bf16-stored factors, so its output differs from the int8
-    path (which multiplies in the LR dtype) by ~bf16 epsilon of that term."""
+def _apply_pallas(q: QLinear, x: torch.Tensor,
+                  kernel_impl: Optional[str] = None) -> torch.Tensor:
+    """The kernel paths.  ``kernel_impl=None`` defers to ``q.ctx`` (its
+    impl, and any override keyed by ``q.name`` or the layer's (K, N, R)
+    shape); ``"fused"`` pins the single-kernel path.  The kernels compute
+    the (xV)Uᵀ correction in f32 from the bf16-stored factors, so their
+    output differs from the int8 path (which multiplies in the LR dtype) by
+    ~bf16 epsilon of that term."""
     from repro_torch.kernels import ops
 
     lead = x.shape[:-1]
     y = ops.w4a4_lrc_forward(x.reshape(-1, x.shape[-1]), q.qweight,
-                             q.w_scale, q.u, q.v, act_spec=q.act_spec)
+                             q.w_scale, q.u, q.v, act_spec=q.act_spec,
+                             impl=kernel_impl, ctx=q.ctx, layer=q.name)
     return y.reshape(*lead, q.d_out).to(x.dtype)
 
 
@@ -135,7 +144,7 @@ def qlinear_apply(q: QLinear, x: torch.Tensor) -> torch.Tensor:
     if q.impl == "int8":
         return _apply_int8(q, x)
     if q.impl in KERNEL_IMPLS:
-        return _apply_pallas(q, x)
+        return _apply_pallas(q, x, None if q.impl == "pallas" else "fused")
     raise ValueError(f"unknown impl {q.impl!r}")
 
 
@@ -146,23 +155,46 @@ def apply_linear(w, x: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
-def retag_qlinear_impl(params, impl: Optional[str], device=None):
+def _first_qlinear(node) -> Optional[QLinear]:
+    if isinstance(node, QLinear):
+        return node
+    children = (node.values() if isinstance(node, dict)
+                else node if isinstance(node, list) else ())
+    for child in children:
+        found = _first_qlinear(child)
+        if found is not None:
+            return found
+    return None
+
+
+def retag_qlinear_impl(params, impl: Optional[str],
+                       ctx: Optional[KernelContext] = None, device=None):
     """Switch every QLinear in a param tree (nested dicts and lists) to
-    another execution path.  ``"auto"`` resolves here: the kernel path
-    ("pallas") on a CUDA device, otherwise each leaf keeps its calibrated
-    impl, as the JAX package keeps it on its CPU backend."""
+    another execution path and/or attach a :class:`KernelContext` (``ctx``
+    None leaves the contexts as they are; ``impl`` None leaves the impls).
+
+    ``"auto"`` resolves here, as the reference resolves it from its
+    backend: the kernel paths ("pallas") when the params live on a CUDA
+    device — ``device``, or where None the device of the tree's QLinear
+    tensors — and otherwise each leaf keeps its calibrated impl."""
     if impl is not None and impl not in RETAG_IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {RETAG_IMPLS}")
     resolved = impl
     if impl == "auto":
+        if device is None:
+            first = _first_qlinear(params)
+            device = None if first is None else first.qweight.device
         resolved = ("pallas" if device is not None
                     and torch.device(device).type == "cuda" else None)
-    if resolved is None:
+    changes = {} if resolved is None else {"impl": resolved}
+    if ctx is not None:
+        changes["ctx"] = ctx
+    if not changes:
         return params
 
     def _retag(node):
         if isinstance(node, QLinear):
-            return dataclasses.replace(node, impl=resolved)
+            return dataclasses.replace(node, **changes)
         if isinstance(node, dict):
             return {k: _retag(v) for k, v in node.items()}
         if isinstance(node, list):

@@ -30,9 +30,14 @@ may leave writes in the failing request's own pages (or the null page);
 they are never read, because the request is released with its pages.
 
 ``device=`` defaults to ``"cuda"`` and raises when no card is present; with
-``kernel_impl="auto"`` every QLinear is retagged to the fused kernel path
-on the card and keeps its calibrated impl on the CPU, as the reference does
-on its CPU backend.
+``kernel_impl="auto"`` every QLinear is retagged to the kernel paths on the
+card and keeps its calibrated impl on the CPU, as the reference does on its
+CPU backend.  ``ctx=`` (a :class:`~repro_torch.kernels.context.KernelContext`)
+is attached to every QLinear and picks each site's path: fused where the
+site fits the one-kernel path, else chained, unless pinned.
+``health()["decode_plan"]`` lists the path each distinct (K, N, R) site
+resolves to at decode (M = ``batch_slots``), so a run shows which sites
+went where.
 """
 
 from __future__ import annotations
@@ -44,8 +49,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
-from repro_torch.quant.qlinear import retag_qlinear_impl
+from repro_torch.quant.qlinear import (KERNEL_IMPLS, QLinear,
+                                       retag_qlinear_impl)
 from repro_torch.serve.lifecycle import (ErrorKind, Request, RequestRecord,
                                          RequestState)
 from repro_torch.serve.paging import PageAllocator
@@ -73,7 +80,7 @@ def _classify_error(e: BaseException) -> Tuple[ErrorKind, str]:
 class ServeEngine:
     def __init__(self, cfg, params, batch_slots: int = 4, max_seq: int = 256,
                  eos_id: Optional[int] = None, seed: int = 0,
-                 kernel_impl: Optional[str] = "auto", *,
+                 kernel_impl: Optional[str] = "auto", ctx=None, *,
                  page_size: int = 16, kv_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, device="cuda"):
         self.device = resolve_device(device)
@@ -85,10 +92,13 @@ class ServeEngine:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
-        if kernel_impl is not None:
-            params = retag_qlinear_impl(params, kernel_impl, device=self.device)
+        if kernel_impl is not None or ctx is not None:
+            # kernel_impl=None attaches ctx without touching the impls
+            params = retag_qlinear_impl(params, kernel_impl, ctx=ctx,
+                                        device=self.device)
         self.cfg = cfg
         self.params = params
+        self.ctx = ctx
         self.b = batch_slots
         self.max_seq = max_seq
         self.eos_id = eos_id
@@ -117,6 +127,7 @@ class ServeEngine:
             "prefill_calls": 0,
         }
         self._paged = functools.partial(model_lib.paged_step, cfg)
+        self.decode_plan = self._resolve_decode_plan()
 
     # -- public API ---------------------------------------------------------
 
@@ -171,7 +182,43 @@ class ServeEngine:
             "mode": self.mode,
             "device": str(self.device),
             "kv_pages": self.alloc.stats(),
+            "decode_plan": self.decode_plan,
         }
+
+    # -- kernel-plan introspection ------------------------------------------
+
+    def _resolve_decode_plan(self) -> List[dict]:
+        """The path each distinct (K, N, R) QLinear site runs at decode: the
+        batched step flattens (B, 1, K) activations to an (M = batch_slots,
+        K) GEMM.  A site on a plain impl (sim, int8) reports that impl as
+        its path.  Empty for float params."""
+        sites: Dict[tuple, dict] = {}
+
+        def visit(node):
+            if isinstance(node, QLinear):
+                r = 0 if node.u is None else int(node.u.shape[1])
+                entry = {"m": self.b, "k": node.d_in, "n": node.d_out, "r": r,
+                         "impl": node.impl, "path": node.impl,
+                         "pinned": False, "demoted": False}
+                if node.impl in KERNEL_IMPLS:
+                    ctx = ops.DEFAULT_CONTEXT if node.ctx is None else node.ctx
+                    entry.update(ctx.resolve_plan(
+                        self.b, node.d_in, node.d_out, r, layer=node.name,
+                        impl=None if node.impl == "pallas" else node.impl
+                    )._asdict())
+                site = sites.setdefault(tuple(entry.values()),
+                                        dict(entry, layers=[]))
+                if node.name not in site["layers"]:
+                    site["layers"].append(node.name)
+            elif isinstance(node, dict):
+                for child in node.values():
+                    visit(child)
+            elif isinstance(node, list):
+                for child in node:
+                    visit(child)
+
+        visit(self.params)
+        return list(sites.values())
 
     # -- admission ----------------------------------------------------------
 

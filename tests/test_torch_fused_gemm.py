@@ -106,9 +106,10 @@ def test_ops_dispatch_and_unported_options():
     with pytest.raises(NotImplementedError):
         ops.w4a4_lrc_forward(t(x), t(wp), t(sw), None, None,
                              QuantSpec(group_size=16))
-    with pytest.raises(NotImplementedError):
-        ops.w4a4_lrc_forward(t(x), t(wp), t(sw), None, None, spec,
-                             impl="chained")
+    # the chained path is ported now: on the CPU it is bitwise the fused one
+    yc = ops.w4a4_lrc_forward(t(x), t(wp), t(sw), _port(u), _port(v), spec,
+                              impl="chained")
+    assert torch.equal(yc, y0)
 
 
 def test_reset_launches():

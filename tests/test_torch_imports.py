@@ -31,6 +31,9 @@ def test_port_modules_found():
     assert "repro_torch.kernels.fused_gemm" in MODULES
     assert "repro_torch.serve.engine" in MODULES
     assert "repro_torch.bridge" in MODULES
+    for name in ("w4a4", "prologue", "actquant", "context"):
+        assert f"repro_torch.kernels.{name}" in MODULES
+    assert "repro_torch.configs.phi3_mini_3_8b" in MODULES
 
 
 @pytest.mark.parametrize("chunk", [MODULES[0::2], MODULES[1::2] + ["chip_smoke"]])

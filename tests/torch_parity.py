@@ -5,6 +5,10 @@ packages are compared on."""
 from __future__ import annotations
 
 import contextlib
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +23,10 @@ from repro.quant.policy import QuantPolicy as JaxQuantPolicy
 from repro.quant.qlinear import QLinear as JaxQLinear
 from repro.quant.qlinear import make_qlinear as jax_make_qlinear
 from repro_torch.configs import get_config
+from repro_torch.core.quantizers import pack_int4
 from repro_torch.models.config import reduced
 
+ROOT = Path(__file__).resolve().parents[1]
 SEED = 0
 RTN_SVD = dict(quant_method="rtn", correction="svd", rank_frac=0.10,
                clip_ratio=0.9)
@@ -122,3 +128,89 @@ def t(a, dtype=None):
     """numpy → CPU tensor."""
     out = torch.from_numpy(np.array(a))
     return out if dtype is None else out.to(dtype)
+
+
+def gemm_tolerance(xv, u, r, y):
+    """Elementwise bound on two f32 evaluations of the W4A4 GEMM output from
+    the same xq, sx and xv: the integer part and its rescale are exact, only
+    the R-term LR sum is ordered differently."""
+    mag = np.abs(y).astype(np.float64)
+    if r:
+        mag = mag + np.abs(xv) @ np.abs(u).T
+    return 2.0 * (r + 1) * 2.0 ** -24 * mag + 1e-30
+
+
+def xv_tolerance(x, v, k, xv):
+    """Elementwise bound on two f32 evaluations of x·V that differ only in
+    the order of the K-term sum."""
+    mag = np.abs(x) @ np.abs(v) + np.abs(xv)
+    return 2.0 * (k + 1) * 2.0 ** -24 * mag + 1e-30
+
+
+def scales_match_jitted(sx, s_jit):
+    """The port's scales are bitwise the reference's eager ones
+    (``ref.act_quant_ref``, ``rowops.scale_round_quantize``).  Under ``jit``
+    XLA folds ``clip·amax/qmax`` into ``amax·c`` with the constant
+    ``c = clip/qmax`` rounded once: each side's result is within one ulp
+    of the exact value (two roundings of half an ulp each, one of them
+    relative to a rounded constant), so the Pallas kernels' scales may
+    differ from the port's by up to two ulps."""
+    return bool(np.all(np.abs(sx - s_jit) <= 2 * np.spacing(np.abs(s_jit))))
+
+
+def bf16(a):
+    """A numpy array rounded to bf16 (returned as ml_dtypes bfloat16)."""
+    return np.asarray(jnp.asarray(a, jnp.bfloat16))
+
+
+def port(a):
+    """numpy (bf16 included, through its bit pattern) → CPU tensor."""
+    if a is None:
+        return None
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return t(a)
+
+
+def w4a4_problem(seed, m, k, n, r):
+    """Random x (M, K) f32, packed int4 W (K/2, N), sw (N,) and bf16 factors
+    u (N, R), v (K, R) (None at R = 0), as numpy."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((m, k)) * 2).astype(np.float32)
+    q = rng.integers(-8, 8, (k, n)).astype(np.int8)
+    wp = pack_int4(t(q).T).T.contiguous().numpy()
+    sw = (rng.random(n) * 0.02 + 0.001).astype(np.float32)
+    u = v = None
+    if r:
+        u = bf16(rng.standard_normal((n, r)) * 0.05)
+        v = bf16(rng.standard_normal((k, r)) * 0.05)
+    return x, wp, sw, u, v
+
+
+_PALLAS_PRELUDE = """
+import sys
+import numpy as np
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+pltpu.TPUCompilerParams = pltpu.CompilerParams  # jax 0.9 renamed it
+d = dict(np.load(sys.argv[1]))
+out = {}
+"""
+
+
+def run_pallas(tmp_path, script: str, **arrays) -> dict:
+    """Runs ``script`` against the reference's Pallas kernels in interpret
+    mode, in a subprocess: the jax installed here names the compiler params
+    ``CompilerParams``, and the alias that lets the kernels run must never
+    reach another test's process.  The script reads its inputs from ``d``
+    (the ``arrays``, bf16 ones passed as exact f32) and fills ``out``."""
+    np.savez(tmp_path / "in.npz", **{k: np.asarray(a, np.float32)
+                                     if a.dtype.name == "bfloat16" else a
+                                     for k, a in arrays.items()})
+    code = _PALLAS_PRELUDE + script + "\nnp.savez(sys.argv[2], **out)\n"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests"),
+                                           str(ROOT)]))
+    subprocess.run([sys.executable, "-c", code, str(tmp_path / "in.npz"),
+                    str(tmp_path / "out.npz")], check=True, env=env, timeout=600)
+    return dict(np.load(tmp_path / "out.npz"))
