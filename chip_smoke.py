@@ -6,22 +6,33 @@
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the serving paths from ``src/repro_torch/kernels/csrc``
-     (one ``nvcc`` per source, all at once);
+     (``build.KERNELS``: one ``nvcc`` per source, all at once);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the serving paths give it plus ragged ones, with times: the
      fused kernel at SmolLM-135M's sites, the prologue, GEMM and quantizer
-     kernels at Phi-3-mini's;
+     kernels at Phi-3-mini's, the two paged attention kernels at both
+     models' decode shapes and one long ragged Phi-3 batch (f32 and bf16
+     pools, int8 and int4 pools), with an inactive row and garbage in the
+     pages no row owns;
   4. serve SmolLM-135M at full width (random weights from seed 0, W4A4+LRC
-     by RTN+SVD) through ``ServeEngine.submit``/``run`` and count that every
-     QLinear went through the fused kernel;
+     by RTN+SVD, f32 KV pool) through ``ServeEngine.submit``/``run`` and
+     count that every QLinear went through the fused kernel and every
+     decode step's attention through the paged attention kernel;
   5. the same model's teacher-forced ``paged_step``, kernel path against the
      plain ``int8`` QLinear impl;
   6. serve Phi-3-mini at full width (PHI3_LAYERS layers) on the
      same traffic: every QLinear demotes to the chained path (prologue →
      GEMM kernel), shown by ``health()["decode_plan"]`` and the counts;
+     its decode window profiled with the attention on the kernel route and
+     on the reference's gather route, in turns;
   7. Phi-3-mini's teacher-forced ``paged_step`` on the chained path, each
      call held against the plain chained pair, then on the unfused path
      (quantizer kernel → x·V in torch → GEMM kernel), the two compared;
+  8. serve Phi-3-mini (phase 6's weights) with an int8 and an int4 (group
+     32) KV pool: every decode step's attention through the quantized
+     paged attention kernel; one decode step on the kernel route, each
+     attention call held against its plain version, and its logits beside
+     the gather route's;
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
 result.
@@ -67,9 +78,9 @@ def phase(title):
 
 
 def _kernel_modules():
-    from repro_torch.kernels import actquant, fused_gemm, prologue, w4a4
+    from repro_torch.kernels import actquant, flash_attn, fused_gemm, prologue, w4a4
 
-    return (fused_gemm, prologue, w4a4, actquant)
+    return (fused_gemm, prologue, w4a4, actquant, flash_attn)
 
 
 def reset_launches():
@@ -339,6 +350,191 @@ def phase_chain_kernels(device):
     return worst, timed
 
 
+# decode attention shapes: (batch, heads, kv heads, head_dim, page, pages per
+# row, lengths).  The serve shapes are the engine's in phases 4, 6 and 8
+# (SLOTS rows, max_seq 64), with one inactive row; the long one is a ragged
+# Phi-3-mini batch at up to 4096 tokens.
+ATTN_SHAPES = {
+    "smollm-serve": (SLOTS, 9, 3, 64, PAGE, 4, (64, 37, 13, 0)),
+    "phi3-serve": (SLOTS, 32, 32, 96, PAGE, 4, (64, 37, 13, 0)),
+    "phi3-long": (SLOTS, 32, 32, 96, PAGE, 256, (4096, 3000, 1024, 17)),
+}
+ATTN_POOLS = {"paged_flash_attention": ("f32", "bf16"),
+              "paged_flash_attention_quant": ("int8", "int4-g32")}
+
+
+def _kv_spec(pool):
+    from repro_torch.serve.kvquant import KVSpec
+
+    dtype, _, group = pool.partition("-g")
+    return KVSpec(dtype, int(group) if group else None)
+
+
+def _attn_problem(shape, pool, device, seed):
+    """q (bf16, as served) and a page pool holding each row's tokens on
+    shuffled, disjoint pages, every other page (the null page included)
+    filled with large finite garbage; returns the kernel's arguments and
+    the rows' dequantized dense K/V (B, MPB·P, KH, D) f32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.kvquant import dequantize_kv, quantize_kv
+
+    b, h, kh, d, page, mpb, lengths = shape
+    spec = _kv_spec(pool)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    need = [-(-n // page) for n in lengths]
+    n_pages = 1 + sum(need) + 8
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(np.arange(1, n_pages))
+    table = np.zeros((b, mpb), np.int32)
+    taken = 0
+    for i, n in enumerate(need):
+        table[i, :n] = ids[taken:taken + n]
+        taken += n
+    bt = torch.from_numpy(table).to(device)
+    owned = bt[bt > 0].long()
+    q = torch.randn((b, h, d), generator=gen, device=device).to(torch.bfloat16)
+    leaves = []
+    for _ in range(2):  # k, then v
+        rows = torch.randn((n_pages, page, kh, d), generator=gen, device=device)
+        garbage = torch.randn((n_pages, page, kh, d), generator=gen, device=device) * 40
+        if spec.is_quantized:
+            codes, scales = quantize_kv(rows, spec)
+            g_codes, _ = quantize_kv(garbage, spec)
+            g_scales = torch.randn(scales.shape, generator=gen, device=device) * 7
+            g_codes[owned], g_scales[owned] = codes[owned], scales[owned]
+            leaves.append((g_codes.contiguous(), g_scales.contiguous()))
+        else:
+            garbage[owned] = rows[owned]
+            leaves.append((garbage.to(spec.cache_dtype).contiguous(), None))
+    dense = []
+    for pages, scales in leaves:
+        rows = pages[bt.long()]
+        if spec.is_quantized:
+            rows = dequantize_kv(rows, scales[bt.long()], spec, d)
+        dense.append(rows.float().reshape(b, mpb * page, kh, d))
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    if spec.is_quantized:
+        (kq, ks), (vq, vs) = leaves
+        args = (q, kq, ks, vq, vs, bt, lengths, d ** -0.5, spec)
+    else:
+        args = (q, leaves[0][0], leaves[1][0], bt, lengths, d ** -0.5)
+    return args, dense, spec, lengths
+
+
+def _attn_tolerance(q, kd, vd, lengths, scale, page, y_plain):
+    """Elementwise bound on |kernel - plain| for rows of non-zero length:
+    the two take the same f32 steps and differ only in the order of three
+    sums (the D-term score dot, the P-term Σp and p·V), so a score moves by
+    at most 2·D·u·S (u = 2⁻²⁴, S the largest Σ|q·scale·k| of a valid
+    token) and each sum by 2·(N + 2·pages + 4)·u relative over N tokens;
+    twice both, times max |v|.  Both round their f32 result to bf16: one
+    bf16 ulp of the larger side (at most 2⁻⁶ of the plain value's
+    magnitude, the f32 terms being far smaller) is added."""
+    import torch
+
+    u = 2.0 ** -24
+    b, h, d = q.shape
+    kh = kd.shape[2]
+    g = h // kh
+    pos = torch.arange(kd.shape[1], device=q.device)
+    valid = pos[None, :] < lengths[:, None].long()  # (B, S)
+    qs = (q.float() * scale).abs().reshape(b, kh, g, d)
+    s_abs = torch.einsum("bkgd,bskd->bkgs", qs, kd.abs())
+    s_max = torch.where(valid[:, None, None], s_abs, 0.0).amax(-1)  # (B, KH, G)
+    v_max = torch.where(valid[:, :, None, None], vd.abs(), 0.0).amax((1, 2, 3))
+    n = lengths.double()
+    pages = torch.ceil(n / page)
+    rel = 2 * d * u * s_max.double() + (2 * (n + 2 * pages + 4) * u)[:, None, None]
+    tol = (2 * v_max.double()[:, None, None] * rel).reshape(b, h, 1)
+    return tol + 2.0 ** -6 * y_plain.double().abs()
+
+
+def _attn_bytes(shape, spec):
+    """The least bytes a call moves: every valid K and V row once (with its
+    scales), q, the block table and the lengths read, the output written."""
+    b, h, kh, d, page, mpb, lengths = shape
+    if spec.is_quantized:
+        row = spec.packed_head_dim(d) + 4 * spec.n_groups(d)
+    else:
+        row = {"f32": 4, "bf16": 2}[spec.dtype] * d
+    return 2 * sum(lengths) * kh * row + 2 * 2 * b * h * d + 4 * b * mpb + 4 * b
+
+
+def _attn_library_ms(args, dense, flush):
+    """One ``scaled_dot_product_attention`` over the rows pre-gathered into
+    a dense (B, H, MPB·P, D) view in the pool's dtype, masked past each
+    length: the PyTorch call that computes the same function from a dense
+    copy (timed as the yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k_pages, _, bt, lengths, scale = args
+    b, h, d = q.shape
+    kd, vd = dense
+    g = h // kd.shape[2]
+    dt = k_pages.dtype
+    ql = q.to(dt)[:, :, None]
+    kl, vl = (t.to(dt).permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+              for t in (kd, vd))
+    mask = (torch.arange(kl.shape[2], device=q.device)[None, :]
+            < lengths[:, None].long())[:, None, None]
+    return _time_ms(lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, attn_mask=mask, scale=scale), flush)
+
+
+def phase_attention_kernels(device):
+    """Both paged attention kernels against their plain versions at every
+    shape of ATTN_SHAPES, each pool of ATTN_POOLS, timed (median of 30, L2
+    flushed), with their bytes bound and, for the float kernel, the
+    library call."""
+    import torch
+
+    from repro_torch.kernels import flash_attn
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    worst = {name: 0.0 for name in ATTN_POOLS}
+    timed = {}
+    for name, pools in ATTN_POOLS.items():
+        kern = getattr(flash_attn, name)
+        plain = getattr(flash_attn, name + "_plain")
+        for si, (label, shape) in enumerate(ATTN_SHAPES.items()):
+            for pool in pools:
+                args, dense, spec, lengths = _attn_problem(shape, pool, device,
+                                                           seed=10 + si)
+                y = kern(*args)
+                torch.cuda.synchronize()
+                y_plain = plain(*args)
+                ok_rows = lengths > 0
+                tol = _attn_tolerance(args[0], *dense, lengths, shape[3] ** -0.5,
+                                      shape[4], y_plain)
+                err = (y.double() - y_plain.double()).abs()
+                ok = (bool(torch.isfinite(y[ok_rows]).all())
+                      and bool((err[ok_rows] <= tol[ok_rows]).all()))
+                e = err[ok_rows].max().item()
+                print(f"  {name:<28} {label:<13} {pool:<9} lengths {shape[6]} "
+                      f"max_abs_err={e:.3e} limit={tol[ok_rows].max().item():.3e} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise SystemExit(f"{name} disagrees with its plain version at "
+                                     f"{label} {pool}")
+                worst[name] = max(worst[name], e)
+                t_k = _time_ms(lambda: kern(*args), flush)
+                t_p = _time_ms(lambda: plain(*args), flush)
+                b_ms, by = _bound(_attn_bytes(shape, spec),
+                                  f32_ops=4 * sum(shape[6]) * shape[1] * shape[3])
+                t_l = None if spec.is_quantized else _attn_library_ms(args, dense, flush)
+                timed[(name, label, pool)] = (t_k, t_p, b_ms, by, t_l)
+                print(f"    kernel {t_k * 1e3:9.2f} us  plain {t_p * 1e3:10.2f} us  "
+                      f"bound {b_ms * 1e3:8.3f} us ({by})  library "
+                      + ("null (no PyTorch call attends over a quantized pool)"
+                         if t_l is None else f"{t_l * 1e3:.2f} us (SDPA, dense view)"),
+                      flush=True)
+                del args, dense, y, y_plain
+    return worst, timed
+
+
 # ---------------------------------------------------------------------------
 # phases 4-7: serve end to end, teacher-forced parity
 # ---------------------------------------------------------------------------
@@ -373,10 +569,12 @@ def build_model(device, arch="smollm-135m", n_layers=None):
     return cfg, qparams
 
 
-def phase_serve(cfg, qparams, device, kernels):
-    """Serve the traffic through ``ServeEngine.submit``/``run``; every
-    QLinear call must launch each kernel named in ``kernels`` once, and no
-    other kernel or plain version may run."""
+def phase_serve(cfg, qparams, device, kernels, kv_spec=None, route_ab=False):
+    """Serve the traffic through ``ServeEngine.submit``/``run`` with a KV
+    pool of ``kv_spec`` (None: f32); every QLinear call must launch each
+    kernel named in ``kernels`` once, every decode step's attention the
+    spec's paged attention kernel once per layer, and no other kernel or
+    plain version may run.  ``route_ab`` adds :func:`profile_routes`."""
     import numpy as np
     import torch
 
@@ -384,7 +582,8 @@ def phase_serve(cfg, qparams, device, kernels):
 
     def engine():
         return ServeEngine(cfg, qparams, batch_slots=SLOTS, max_seq=64,
-                           page_size=PAGE, prefill_chunk=CHUNK, device=device)
+                           page_size=PAGE, prefill_chunk=CHUNK, device=device,
+                           kv_spec=kv_spec)
 
     def prompts():  # as launch/serve.py makes them
         rng = np.random.default_rng(0)
@@ -424,17 +623,28 @@ def phase_serve(cfg, qparams, device, kernels):
                          f"{NEW_TOKENS} tokens: {done}")
     calls = eng.counters["decode_calls"] + eng.counters["prefill_calls"]
     want = 7 * cfg.n_layers * calls
+    health = eng.health()
+    attn = health["decode_attention"]["kernel"]
+    want_attn = cfg.n_layers * eng.counters["decode_calls"]
     expected = {name: want if name in kernels else 0 for name in counts}
+    expected[attn] = want_attn
     print(f"  {N_REQUESTS} requests x {NEW_TOKENS} tokens finished; counters "
           f"{eng.counters}", flush=True)
-    for site in eng.health()["decode_plan"]:
+    for site in health["decode_plan"]:
         print(f"  decode_plan: {site}", flush=True)
+    print(f"  decode_attention: {health['decode_attention']}; kv: {health['kv']}",
+          flush=True)
     print(f"  model calls {calls}: launches {counts} (want 7 x {cfg.n_layers} "
-          f"x {calls} = {want} for {kernels}, 0 for the rest)", flush=True)
+          f"x {calls} = {want} for {kernels}, {cfg.n_layers} x "
+          f"{eng.counters['decode_calls']} decode calls = {want_attn} for {attn}, "
+          f"0 for the rest)", flush=True)
     if counts != expected:
-        raise SystemExit(f"serve: not every QLinear went through {kernels}")
+        raise SystemExit(f"serve: not every QLinear went through {kernels}, or "
+                         f"not every decode attention through {attn}")
     n_tok = sum(rec.new_tokens for rec in done.values())
     prof = profile_decode(cfg, qparams, device, engine, prompts())
+    if route_ab:
+        prof["routes"] = profile_routes(cfg, qparams, device, prompts(), kv_spec)
     stats = {
         "tokens_per_s": n_tok / wall,
         "wall_s": wall,
@@ -442,6 +652,7 @@ def phase_serve(cfg, qparams, device, kernels):
         "prefill_chunk_ms": statistics.median(times["prefill"]) * 1e3,
         "decode_calls": eng.counters["decode_calls"],
         "prefill_calls": eng.counters["prefill_calls"],
+        "kv": health["kv"],
         **prof,
     }
     print(f"  {n_tok} tokens in {wall:.3f} s = {stats['tokens_per_s']:.1f} tok/s; "
@@ -451,11 +662,15 @@ def phase_serve(cfg, qparams, device, kernels):
     return counts, stats
 
 
-def profile_decode(cfg, qparams, device, engine, prompts):
+def profile_decode(cfg, qparams, device, engine, prompts, top=10):
     """Where a decode step's time goes: one decode-only window (SLOTS
     requests already prefilled) under torch.profiler — device time by
-    kernel, and the share of the window the card was idle."""
+    kernel (the ``top`` largest printed), and the share of the window the
+    card was idle.  Only the device's own events (kernels, memsets,
+    copies) are summed: a CPU operator's row repeats the device time of the
+    kernels it launched, as torch's own table total leaves it out."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request
@@ -474,21 +689,44 @@ def profile_decode(cfg, qparams, device, engine, prompts):
         wall = time.perf_counter() - t0
     rows = []
     for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us, evt.key, evt.count))
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+            continue
+        if evt.self_device_time_total > 0:
+            rows.append((evt.self_device_time_total, evt.key, evt.count))
+    if not rows:
+        raise SystemExit("profile: torch.profiler recorded no device time")
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     print(f"  profile: {steps} decode steps in {wall * 1e3:.2f} ms wall, device "
           f"busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}",
           flush=True)
-    for dev_us, key, count in rows[:10]:
+    for dev_us, key, count in rows[:top]:
         print(f"    {dev_us / steps / 1e3:8.3f} ms/step  x{count // steps:<5} {key[:90]}",
               flush=True)
     return {"profiled_step_ms": wall / steps * 1e3,
             "device_busy_ms_per_step": busy / steps * 1e3,
             "device_idle_share": 1 - busy / wall}
+
+
+def profile_routes(cfg, qparams, device, prompts, kv_spec=None):
+    """The decode window of :func:`profile_decode` with every decode step's
+    attention on the kernel route and on the reference's gather route, in
+    turns (kernel, gather, gather, kernel) within this one call: what the
+    kernel took off the step.  Returns the mean of each route's two
+    windows."""
+    from repro_torch.kernels.context import KernelContext
+    from repro_torch.serve.engine import ServeEngine
+
+    runs = {"kernel": [], "gather": []}
+    for route in ("kernel", "gather", "gather", "kernel"):
+        def engine():
+            return ServeEngine(cfg, qparams, batch_slots=SLOTS, max_seq=64,
+                               page_size=PAGE, prefill_chunk=CHUNK, device=device,
+                               kv_spec=kv_spec, ctx=KernelContext(attention=route))
+        print(f"  route {route}:", flush=True)
+        runs[route].append(profile_decode(cfg, qparams, device, engine, prompts, top=3))
+    return {route: {k: statistics.mean(r[k] for r in rs) for k in rs[0]}
+            for route, rs in runs.items()}
 
 
 def phase_parity(cfg, qparams, device):
@@ -697,6 +935,80 @@ def phase_paths(cfg, qparams, device):
     return stats
 
 
+def phase_kv_routes(cfg, qparams, device, spec):
+    """One teacher-forced decode step of the served model over a ``spec``
+    pool that a gather-route prefill of SLOTS x CHUNK tokens filled, on
+    the kernel route (each attention call held against its plain version
+    on the same operands, to the phase-3 bound) and on the gather route
+    (the reference's bf16 gather and attention).  The two routes' logits
+    differ by the gather route's bf16 roundings, which the random W4A4
+    model carries through its 4-bit codes, so their correlation is printed
+    beside the per-call check, which is the gate; both must be finite."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attn, ops
+    from repro_torch.kernels.context import KernelContext
+    from repro_torch.models import model
+    from repro_torch.quant.qlinear import retag_qlinear_impl
+    from repro_torch.serve.kvquant import dequantize_kv
+
+    params = retag_qlinear_impl(qparams, "pallas")
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SLOTS, CHUNK + 1))).to(device)
+    per = -(-(CHUNK + 1) // PAGE)
+    block_table = (1 + torch.arange(SLOTS * per, device=device)).reshape(SLOTS, per)
+    pool = model.init_paged_cache(cfg, 1 + SLOTS * per, PAGE, device=device,
+                                  kv_spec=spec)
+    gather = KernelContext(attention="gather")
+    model.paged_step(cfg, params, tokens[:, :CHUNK],
+                     torch.arange(CHUNK, device=device).expand(SLOTS, CHUNK),
+                     torch.ones((SLOTS, CHUNK), dtype=torch.bool, device=device),
+                     pool, block_table, kv_spec=spec, ctx=gather)
+    site = {"calls": 0, "worst": 0.0, "bad": 0}
+
+    def checked(q, kp, ks, vp, vs, bt, lengths, scale, kv_spec):
+        y = flash_attn.paged_flash_attention_quant(q, kp, ks, vp, vs, bt, lengths,
+                                                   scale, kv_spec)
+        y_p = flash_attn.paged_flash_attention_quant_plain(q, kp, ks, vp, vs, bt,
+                                                           lengths, scale, kv_spec)
+        d = q.shape[-1]
+        dense = [dequantize_kv(p[bt.long()], s[bt.long()], kv_spec, d)
+                 .reshape(q.shape[0], -1, p.shape[2], d) for p, s in ((kp, ks), (vp, vs))]
+        tol = _attn_tolerance(q, *dense, lengths, scale, kp.shape[1], y_p)
+        err = (y.double() - y_p.double()).abs()
+        site["calls"] += 1
+        site["worst"] = max(site["worst"], err.max().item())
+        site["bad"] += int(not bool((err <= tol).all()))
+        return y
+
+    out = {}
+    step = (tokens[:, CHUNK:], torch.full((SLOTS, 1), CHUNK, device=device),
+            torch.ones((SLOTS, 1), dtype=torch.bool, device=device))
+    ops.paged_flash_attention_quant = checked
+    try:
+        for route in ("kernel", "gather"):
+            fresh = {k: v.clone() for k, v in pool.items()}
+            logits, _ = model.paged_step(cfg, params, *step, fresh, block_table,
+                                         kv_spec=spec, ctx=KernelContext(attention=route))
+            out[route] = logits.flatten()
+            if not torch.isfinite(out[route]).all():
+                raise SystemExit(f"kv routes: non-finite logits on the {route} route")
+    finally:
+        ops.paged_flash_attention_quant = flash_attn.paged_flash_attention_quant
+    c = torch.corrcoef(torch.stack([out["kernel"], out["gather"]]))[0, 1].item()
+    d = (out["kernel"] - out["gather"]).abs().max().item()
+    print(f"  {spec.describe()}: {site['calls']} attention calls on the kernel route, "
+          f"max |kernel - plain| {site['worst']:.3e}, {site['bad']} outside the bound; "
+          f"logits kernel~gather route correlation {c:.6f}, max |diff| {d:.4e}",
+          flush=True)
+    if site["calls"] != cfg.n_layers or site["bad"]:
+        raise SystemExit(f"kv routes: a {spec.describe()} attention call disagrees "
+                         f"with its plain version, or not every layer ran one")
+    return {"site_max_abs_err": site["worst"], "kernel~gather": {
+        "correlation": c, "max_abs_diff": d}}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -726,8 +1038,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     phase("2. build")
-    names = ["fused_w4a4_lrc", "fused_prologue", "w4a4_lowrank_matmul", "act_quant"]
-    seconds = build.build(names)
+    seconds = build.build(build.KERNELS)
     for name, s in seconds.items():
         print(f"  {name}: {s:.1f} s", flush=True)
         print("\n".join("    " + line for line in build.BUILD_LOG.get(name, "").splitlines()
@@ -742,6 +1053,7 @@ def main() -> int:
     phase("3. kernels against their plain versions")
     worst, timed = phase_kernels(device)
     chain_worst, chain_timed = phase_chain_kernels(device)
+    attn_worst, attn_timed = phase_attention_kernels(device)
 
     phase("4. serve SmolLM-135M (fused path)")
     cfg, qparams = build_model(device)
@@ -754,10 +1066,21 @@ def main() -> int:
     phase(f"6. serve Phi-3-mini, {PHI3_LAYERS} layers (chained path)")
     pcfg, pparams = build_model(device, "phi3-mini-3.8b", PHI3_LAYERS)
     phi3_counts, phi3_serve = phase_serve(pcfg, pparams, device,
-                                          ["fused_prologue", "w4a4_lowrank_matmul"])
+                                          ["fused_prologue", "w4a4_lowrank_matmul"],
+                                          route_ab=True)
 
     phase("7. Phi-3-mini teacher-forced paged_step, chained and unfused paths")
     paths = phase_paths(pcfg, pparams, device)
+
+    phase("8. serve Phi-3-mini with quantized KV pools (int8, int4 group 32)")
+    kv_serve, quant_launches = {}, 0
+    for pool in ATTN_POOLS["paged_flash_attention_quant"]:
+        spec = _kv_spec(pool)
+        counts, stats = phase_serve(pcfg, pparams, device,
+                                    ["fused_prologue", "w4a4_lowrank_matmul"],
+                                    kv_spec=spec)
+        quant_launches += counts["paged_flash_attention_quant"]
+        kv_serve[pool] = dict(stats, routes=phase_kv_routes(pcfg, pparams, device, spec))
 
     def entry(name, replaces, n, sites, timing, err, at):
         layer = [timing[(name, SLOTS, *sites[s])] for s in sites]
@@ -786,8 +1109,34 @@ def main() -> int:
               paths["act_quant_launches"], PHI3_SITES, chain_timed,
               chain_worst["act_quant"], at_phi3 + "; launches from phase 7's unfused run"),
     ]
+
+    def attn_entry(name, replaces, n, pool, at):
+        t_k, t_p, b, by, t_l = attn_timed[(name, "phi3-serve", pool)]
+        lk, lp, lb, lby, ll = attn_timed[(name, "phi3-long", pool)]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": n, "max_abs_err": attn_worst[name],
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b, "bound_by": by,
+            "library_ms": t_l, "at": at, "checked": True,
+            "long": {"ms": lk, "plain_ms": lp, "bound_ms": lb, "bound_by": lby,
+                     "library_ms": ll, "lengths": ATTN_SHAPES["phi3-long"][6]},
+        }
+
+    at_attn = (f"one Phi-3-mini layer's decode attention, B={SLOTS}, lengths "
+               f"{ATTN_SHAPES['phi3-serve'][6]}, {{}} pool, L2 flushed; launches "
+               f"from {{}}")
+    kernels += [
+        attn_entry("paged_flash_attention", "src/repro/kernels/flash_attn.py:199",
+                   smol_counts["paged_flash_attention"]
+                   + phi3_counts["paged_flash_attention"], "f32",
+                   at_attn.format("f32", "phases 4 and 6 (f32 KV)")),
+        attn_entry("paged_flash_attention_quant", "src/repro/kernels/flash_attn.py:311",
+                   quant_launches, "int8",
+                   at_attn.format("int8", "phase 8 (int8 and int4 KV)")),
+    ]
     print(json.dumps({"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
-                      "phi3_paths": paths}))
+                      "phi3_paths": paths, "phi3_kv_serve": kv_serve}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ stacked on a leading axis (scanned) and whose quantized linears are
 with each ``QLinear`` given as a plain dict of its fields — and returns the
 port's tensors: ``params["layers"]`` becomes a list of per-layer dicts and
 every dict that holds a ``qweight`` becomes a :class:`QLinear`.  The way
-back (:func:`params_to_numpy`) restacks the layers.
+back (:func:`params_to_numpy`) restacks the layers.  A paged KV cache has
+the same layout in both packages, (L, NP, P, KH, ·) per leaf (``k``,
+``v`` and, for a quantized ``KVSpec``, the ``k_scale``/``v_scale`` planes),
+and crosses leaf by leaf (:func:`cache_from_jax`, :func:`cache_to_numpy`).
 
 bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses; they are recognised by the dtype's name and passed through their
@@ -135,3 +138,15 @@ def params_to_numpy(params: dict, bf16_dtype=None) -> dict:
         else:
             out[key] = _to_numpy(node, bf16_dtype)
     return out
+
+
+def cache_from_jax(cache: dict, device="cuda") -> dict:
+    """The reference's paged cache as numpy leaves → the port's pool on
+    ``device``, every leaf (scale planes included) in its own dtype."""
+    device = resolve_device(device)
+    return {k: tensor_from_numpy(v, device) for k, v in cache.items()}
+
+
+def cache_to_numpy(cache: dict, bf16_dtype=None) -> dict:
+    """The port's pool → numpy leaves in the reference's layout."""
+    return {k: tensor_to_numpy(v, bf16_dtype) for k, v in cache.items()}

@@ -22,6 +22,17 @@ trusted: the wrapper raises if it cannot run it.
 Per-layer overrides are keyed by layer name (``"mlp/wd"``), by the (K, N,
 R) triple or by its ``"KxNrR"`` spelling, and carry ``path`` only; the
 reference's tile keys raise ``NotImplementedError``.
+
+``attention`` picks the route of a decode step's attention (S = 1) in
+``models/transformer.paged_step``: ``"kernel"`` — the paged attention
+kernels (``kernels/flash_attn.py``), which read the pool in place;
+``"gather"`` — the reference's route, every row's pages gathered into a
+dense view and :func:`~repro_torch.models.common.attention`; ``"auto"`` —
+the kernel route when the pool is on a CUDA device, the gather route on
+the CPU (where it keeps the reference's bf16 numerics, as QLinear keeps
+its calibrated impl there).  A prefill chunk (S > 1) always takes the
+gather route.  An explicit route is run as asked on either device; on the
+CPU the kernel route runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -29,10 +40,13 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import torch
+
 from repro_torch.kernels import fused_gemm
 
 KERNEL_PATHS = ("fused", "chained", "unfused")
 IMPLS = ("auto",) + KERNEL_PATHS
+ATTENTION_ROUTES = ("auto", "kernel", "gather")
 _TILE_KEYS = ("bm", "bn", "bk", "br", "variant")
 
 
@@ -74,15 +88,20 @@ def _check_entry(key, entry) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class KernelContext:
-    """An immutable kernel config: the default impl and the per-layer path
-    overrides, ``((key, path), ...)`` sorted by key (hashable)."""
+    """An immutable kernel config: the default impl, the per-layer path
+    overrides, ``((key, path), ...)`` sorted by key (hashable), and the
+    decode-attention route."""
 
     impl: str = "auto"
     overrides: tuple = ()
+    attention: str = "auto"
 
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"unknown impl {self.impl!r}; expected one of {IMPLS}")
+        if self.attention not in ATTENTION_ROUTES:
+            raise ValueError(f"unknown attention route {self.attention!r}; "
+                             f"expected one of {ATTENTION_ROUTES}")
         items = (self.overrides.items() if isinstance(self.overrides, dict)
                  else self.overrides)
         frozen = {}
@@ -138,3 +157,10 @@ class KernelContext:
         if (path or "fused") == "fused" and not fused_gemm.fits(k, r):
             return Plan("chained", pinned, True)
         return Plan(path or "fused", pinned, False)
+
+    def attention_route(self, device) -> str:
+        """The route a decode step's attention takes on ``device`` (where
+        the pool lives): ``"kernel"`` or ``"gather"``."""
+        if self.attention != "auto":
+            return self.attention
+        return "kernel" if torch.device(device).type == "cuda" else "gather"

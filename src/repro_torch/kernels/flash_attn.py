@@ -1,0 +1,228 @@
+"""Paged decode attention on Hopper: two kernels, their plain versions and
+their launch counters.
+
+The kernels (CUDA C++ for sm_90a; body in ``csrc/paged_attention.cuh``)
+replace the TPU kernels of ``repro/kernels/flash_attn.py``:
+
+- ``csrc/paged_flash_attention.cu`` ← ``paged_flash_attention_kernel``, for
+  f32 and bf16 pools;
+- ``csrc/paged_flash_attention_quant.cu`` ←
+  ``paged_flash_attention_quant_kernel``, for int8 and packed-int4 pools
+  with their f32 scale planes.
+
+Both compute, for one query token per sequence,
+
+    out (B, H, D) = softmax(q·scale · Kᵀ, positions >= lengths masked) · V
+
+with K/V read in place from one layer's page pool (NP, P, KH, ·) through
+the block table (B, MPB) int32.  The wrappers copy, transpose and cast no
+pool: the Pallas wrapper's (KH, NP, P, D) transpose of the whole pool would
+cost more than the attention at long context.
+
+Bound on an H100 SXM (3.35 TB/s): memory — the valid K/V rows (plus their
+scales), q and the output.  Each wrapper takes its plain version only for
+CPU tensors; for CUDA tensors it launches the kernel or raises.
+``LAUNCHES`` counts each.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.rowops import scalar
+
+LAUNCHES = {"paged_flash_attention": 0, "paged_flash_attention_plain": 0,
+            "paged_flash_attention_quant": 0,
+            "paged_flash_attention_quant_plain": 0}
+NEG_INF = -1e30
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _online_softmax(q, block_table, lengths, scale, page_rows):
+    """The Pallas bodies (``_paged_kernel``, ``_paged_kernel_quant``) step
+    by step, batched over sequences and kv heads: q in f32 times ``scale``
+    first; per page in ascending block-table order the scores, the -1e30
+    mask at positions >= length, the running max, ``corr``, ``l`` and
+    ``acc``; then ``acc / max(l, 1e-30)`` in q's dtype.  ``page_rows(pids)``
+    returns the f32 K and V of pages ``pids`` (B,) as (B, P, KH, D|Dv)."""
+    b, h, d = q.shape
+    f32 = torch.float32
+    bt = block_table.long()
+    m = l = acc = None
+    for j in range(bt.shape[1]):
+        k, v = page_rows(bt[:, j])
+        page, kh = k.shape[1], k.shape[2]
+        if m is None:
+            g = h // kh
+            qf = q.to(f32).reshape(b, kh, g, d)
+            qf = qf * scalar(scale, qf)
+            m = torch.full((b, kh, g, 1), NEG_INF, dtype=f32, device=q.device)
+            l = torch.zeros((b, kh, g, 1), dtype=f32, device=q.device)
+            acc = torch.zeros((b, kh, g, v.shape[-1]), dtype=f32, device=q.device)
+        s = qf @ k.permute(0, 2, 3, 1)  # (B, KH, G, P)
+        kpos = j * page + torch.arange(page, device=q.device)
+        s = torch.where(kpos < lengths.reshape(b, 1, 1, 1), s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p @ v.permute(0, 2, 1, 3)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, h, -1).to(q.dtype)
+
+
+def paged_flash_attention_plain(q, k_pages, v_pages, block_table, lengths,
+                                scale: float) -> torch.Tensor:
+    """Kernel #6's function in plain torch.  q (B, H, D) f32/bf16; k/v_pages
+    (NP, P, KH, D|Dv) f32/bf16; block_table (B, MPB) and lengths (B,)
+    integer.  Returns (B, H, Dv) in q's dtype."""
+    LAUNCHES["paged_flash_attention_plain"] += 1
+    f32 = torch.float32
+    return _online_softmax(
+        q, block_table, lengths, scale,
+        lambda pids: (k_pages[pids].to(f32), v_pages[pids].to(f32)))
+
+
+def paged_flash_attention_quant_plain(q, k_pages, k_scales, v_pages, v_scales,
+                                      block_table, lengths, scale: float,
+                                      kv_spec) -> torch.Tensor:
+    """Kernel #9's function in plain torch: each gathered page dequantizes
+    through ``kvquant.dequantize_kv``.  k/v_pages (NP, P, KH, D|D/2) int8 or
+    packed uint8; k/v_scales (NP, P, KH, D/group) f32.  Returns (B, H, D)
+    in q's dtype."""
+    from repro_torch.serve.kvquant import dequantize_kv
+
+    LAUNCHES["paged_flash_attention_quant_plain"] += 1
+    d = q.shape[-1]
+    return _online_softmax(
+        q, block_table, lengths, scale,
+        lambda pids: (dequantize_kv(k_pages[pids], k_scales[pids], kv_spec, d),
+                      dequantize_kv(v_pages[pids], v_scales[pids], kv_spec, d)))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(name: str) -> ctypes.CDLL:
+    """The built library with its C signature declared (once per name)."""
+    lib = build.load(name)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "paged_flash_attention":
+        lib.paged_flash_attention.argtypes = [p, i, p, p, i, p, p, p,
+                                              i, i, i, i, i, i, i, f, p]
+        lib.paged_flash_attention.restype = ctypes.c_int
+    else:
+        lib.paged_flash_attention_quant.argtypes = [p, i, p, p, p, p, i, i, p, p, p,
+                                                    i, i, i, i, i, i, f, p]
+        lib.paged_flash_attention_quant.restype = ctypes.c_int
+    return lib
+
+
+def _check_common(q, k_pages, v_pages, block_table, lengths):
+    """Shapes and types both kernels ask for; returns (B, H, KH, MPB)."""
+    if q.dim() != 3 or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be (B, H, D) float32 or bfloat16; got "
+                        f"{q.dtype} {tuple(q.shape)}")
+    b, h, _ = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape[:3] + k_pages.shape[3:]:
+        raise ValueError(f"k/v pages must be (NP, P, KH, ·) alike; got "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    kh = k_pages.shape[2]
+    if kh == 0 or h % kh:
+        raise ValueError(f"{h} query heads do not group over {kh} kv heads")
+    if block_table.dtype != torch.int32 or block_table.dim() != 2 \
+            or block_table.shape[0] != b:
+        raise ValueError(f"block_table must be int32 ({b}, MPB); got "
+                         f"{block_table.dtype} {tuple(block_table.shape)}")
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths must be int32 ({b},); got "
+                         f"{lengths.dtype} {tuple(lengths.shape)}")
+    return b, h, kh, block_table.shape[1]
+
+
+def paged_flash_attention(q, k_pages, v_pages, block_table, lengths,
+                          scale: float) -> torch.Tensor:
+    """One launch of kernel #6; returns (B, H, Dv) in q's dtype.
+
+    Arguments as :func:`paged_flash_attention_plain` (block_table and
+    lengths int32 on the card).  A CPU ``q`` runs the plain version; a CUDA
+    ``q`` launches the kernel on the current stream, or raises."""
+    if q.device.type == "cpu":
+        return paged_flash_attention_plain(q, k_pages, v_pages, block_table,
+                                           lengths, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, h, kh, mpb = _check_common(q, k_pages, v_pages, block_table, lengths)
+    if k_pages.dtype not in (torch.float32, torch.bfloat16) \
+            or v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"pages must be float32 or bfloat16 alike; got "
+                        f"{k_pages.dtype}, {v_pages.dtype}")
+    if k_pages.shape[3] != q.shape[2]:
+        raise ValueError(f"k rows are {k_pages.shape[3]} wide, q rows {q.shape[2]}")
+    build.check_operands(q, [q, k_pages, v_pages, block_table, lengths])
+    d, dv, page = q.shape[2], v_pages.shape[3], k_pages.shape[1]
+    out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
+    rc = _lib("paged_flash_attention").paged_flash_attention(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
+        v_pages.data_ptr(), int(k_pages.dtype == torch.bfloat16),
+        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, h, kh, d, dv, page, mpb, float(scale), build.stream_of(q))
+    if rc != 0:
+        raise RuntimeError(f"paged_flash_attention launch failed: cudaError {rc} "
+                           f"at (B={b}, H={h}, KH={kh}, D={d}, P={page}, MPB={mpb})")
+    LAUNCHES["paged_flash_attention"] += 1
+    return out
+
+
+def paged_flash_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
+                                block_table, lengths, scale: float,
+                                kv_spec) -> torch.Tensor:
+    """One launch of kernel #9; returns (B, H, D) in q's dtype.
+
+    Arguments as :func:`paged_flash_attention_quant_plain`.  A CPU ``q``
+    runs the plain version; a CUDA ``q`` launches the kernel on the current
+    stream, or raises."""
+    if q.device.type == "cpu":
+        return paged_flash_attention_quant_plain(
+            q, k_pages, k_scales, v_pages, v_scales, block_table, lengths,
+            scale, kv_spec)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, h, kh, mpb = _check_common(q, k_pages, v_pages, block_table, lengths)
+    d = q.shape[2]
+    if not kv_spec.is_quantized:
+        raise ValueError(f"kv spec {kv_spec.describe()!r} is not quantized")
+    if k_pages.dtype != kv_spec.pool_dtype or v_pages.dtype != k_pages.dtype \
+            or k_pages.shape[3] != kv_spec.packed_head_dim(d):
+        raise TypeError(f"{kv_spec.describe()} pages must be {kv_spec.pool_dtype} "
+                        f"(NP, P, KH, {kv_spec.packed_head_dim(d)}); got "
+                        f"{k_pages.dtype} {tuple(k_pages.shape)}")
+    group = kv_spec.group_for(d)
+    want = k_pages.shape[:3] + (d // group,)
+    for sc in (k_scales, v_scales):
+        if sc.dtype != torch.float32 or sc.shape != want:
+            raise ValueError(f"scales must be float32 {tuple(want)}; got "
+                             f"{sc.dtype} {tuple(sc.shape)}")
+    build.check_operands(q, [q, k_pages, k_scales, v_pages, v_scales,
+                             block_table, lengths])
+    page = k_pages.shape[1]
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    rc = _lib("paged_flash_attention_quant").paged_flash_attention_quant(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
+        k_scales.data_ptr(), v_pages.data_ptr(), v_scales.data_ptr(),
+        int(kv_spec.dtype == "int4"), group, block_table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), b, h, kh, d, page, mpb,
+        float(scale), build.stream_of(q))
+    if rc != 0:
+        raise RuntimeError(f"paged_flash_attention_quant launch failed: cudaError "
+                           f"{rc} at (B={b}, H={h}, KH={kh}, D={d}, P={page}, "
+                           f"MPB={mpb}, {kv_spec.describe()})")
+    LAUNCHES["paged_flash_attention_quant"] += 1
+    return out

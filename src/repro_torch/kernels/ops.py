@@ -1,5 +1,6 @@
-"""Kernel dispatch for the W4A4+LRC forward (counterpart of
-``repro/kernels/ops.py``, per-token scales, no rotation).
+"""Kernel dispatch (counterpart of ``repro/kernels/ops.py``): the
+W4A4+LRC forward (per-token scales, no rotation) and paged decode
+attention over float and quantized KV pools.
 
 ``w4a4_lrc_forward`` runs one of three paths, picked by a
 :class:`~repro_torch.kernels.context.KernelContext` (module docstring
@@ -10,6 +11,11 @@ padded here.  On the CPU every wrapper runs its plain version, and the
 three paths give bitwise equal outputs there (the reference's contract for
 its interpret mode): they share the quantizer, the K-chunked x·V and the
 epilogue bodies of ``rowops``.
+
+``paged_flash_attention[_quant]`` keep the reference's signatures and
+layouts: q (B, H, D), pages (NP, P, KH, ·), block_table (B, MPB) and
+lengths (B,) int32; the quantized one takes the ``KVSpec``.  Their kernels
+read the pool in place (``kernels/flash_attn.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 
 from repro_torch.core.quantizers import QuantSpec
 from repro_torch.kernels.actquant import act_quant
+from repro_torch.kernels import flash_attn
 from repro_torch.kernels.context import KernelContext
 from repro_torch.kernels.fused_gemm import fused_w4a4_lrc
 from repro_torch.kernels.prologue import fused_prologue
@@ -25,7 +32,8 @@ from repro_torch.kernels.rowops import project_rows
 from repro_torch.kernels.w4a4 import w4a4_lowrank_matmul
 
 __all__ = ["KernelContext", "w4a4_lrc_forward", "act_quant", "fused_prologue",
-           "w4a4_lowrank_matmul", "fused_w4a4_lrc"]
+           "w4a4_lowrank_matmul", "fused_w4a4_lrc", "paged_flash_attention",
+           "paged_flash_attention_quant"]
 
 DEFAULT_CONTEXT = KernelContext()
 # rows per x·V tile of the unfused path (the kernels' larger M-tile)
@@ -78,3 +86,27 @@ def w4a4_lrc_forward(x: torch.Tensor, wpacked: torch.Tensor,
         xq, sx = act_quant(x, bits=bits, clip_ratio=clip)
         xv = None if v is None else _project_tiles(x, v)
     return w4a4_lowrank_matmul(xq, sx, wpacked, sw, xv, u)
+
+
+def paged_flash_attention(q, k_pages, v_pages, block_table, lengths,
+                          scale: float) -> torch.Tensor:
+    """Decode attention against the serving engine's paged KV pool.
+    q: (B, H, D) one token per sequence; k/v_pages: (NP, P, KH, D[v]);
+    block_table: (B, MPB) int32; lengths: (B,) int32 valid kv positions
+    including the current token.  The page gather runs inside the kernel:
+    no per-request KV copy is made.  Returns (B, H, Dv)."""
+    return flash_attn.paged_flash_attention(q, k_pages, v_pages, block_table,
+                                            lengths, scale)
+
+
+def paged_flash_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
+                                block_table, lengths, scale: float,
+                                kv_spec) -> torch.Tensor:
+    """:func:`paged_flash_attention` over a QUANTIZED page pool.  q: (B, H,
+    D); k/v_pages: (NP, P, KH, D | D//2) int8 / packed uint8; k/v_scales:
+    the f32 (NP, P, KH, D // group) scale planes indexed by the SAME block
+    table; ``kv_spec`` a :class:`~repro_torch.serve.kvquant.KVSpec`.  Pages
+    dequantize per element inside the kernel.  Returns (B, H, D)."""
+    return flash_attn.paged_flash_attention_quant(
+        q, k_pages, k_scales, v_pages, v_scales, block_table, lengths, scale,
+        kv_spec)

@@ -4,8 +4,10 @@ Counterpart of the per-token bodies in ``repro/kernels/rowops.py``.  These
 are THE operation order the fused kernel follows and its plain version
 runs: zero-guarded amax → ``s = (clip·amax)/qmax`` → ``q = clip(round(x/s))``
 (a true division, rounding half to even), the int4 nibble layout, and the
-K-chunked, R-tiled (x·V) projection.  Group-wise scales and the online
-Walsh-Hadamard rotation are not ported yet.
+K-chunked, R-tiled (x·V) projection; and the one group dequant body
+(:func:`dequant_rows_grouped`) of the quantized KV cache.  Group-wise
+activation scales and the online Walsh-Hadamard rotation are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -114,6 +116,21 @@ def rescale_lowrank(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
     if xv is not None:
         out = out + xv @ u.to(torch.float32).T
     return out
+
+
+def dequant_rows_grouped(q: torch.Tensor, s: torch.Tensor,
+                         group: int) -> torch.Tensor:
+    """THE group dequant body: int rows (bm, d) and the (bm, d // group)
+    scale plane → f32 rows, as ONE f32 multiply over the group reshape.
+    Every consumer of a quantized KV cache dequantizes through here
+    (``serve/kvquant.dequantize_kv``), and the CUDA attention kernel does
+    the same single multiply per element, so their operands are bitwise
+    the same."""
+    bm, d = q.shape
+    if d % group:
+        raise ValueError(f"group {group} does not divide the row width {d}")
+    x = q.to(torch.float32).reshape(bm, d // group, group) * s[..., None]
+    return x.reshape(bm, d)
 
 
 def unpack_int4_rows(wp: torch.Tensor) -> torch.Tensor:

@@ -3,14 +3,19 @@
 
 Every linear goes through :func:`repro_torch.quant.qlinear.apply_linear`:
 a plain tensor runs a dense matmul; a ``QLinear`` runs the W4A4+LRC path.
-Attention, norms and RoPE are plain torch, as the reference leaves them to
-XLA outside any Pallas kernel.
+Norms and RoPE are plain torch, as the reference leaves them to XLA
+outside any Pallas kernel.  Attention against the paged pool takes one of
+two routes: the reference's (gather each row's pages into a dense view,
+then :func:`attention`, plain torch), or for a decode step the paged
+attention kernels (``ops.paged_flash_attention[_quant]``), which read the
+pool in place; ``transformer.paged_step`` chooses.
 
-Unlike the reference, :func:`paged_cache_update` writes the page pool in
-place (the reference is functional and returns a new pool): a step's
-writes land only in pages the writing request owns or in the null page,
-so nothing another request reads is touched, and the pool is not copied
-every step.
+Unlike the reference, :func:`paged_cache_update` and
+:func:`paged_cache_update_quantized` write the page pool (and its scale
+planes) in place (the reference is functional and returns a new pool): a
+step's writes land only in pages the writing request owns or in the null
+page, so nothing another request reads is touched, and the pool is not
+copied every step.
 """
 
 from __future__ import annotations
@@ -18,7 +23,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.quant.qlinear import apply_linear
+from repro_torch.serve.kvquant import dequantize_kv, quantize_kv
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
@@ -30,8 +37,9 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
-    """The (cos, sin) tables (..., seq, 1, head_dim/2) of :func:`rope`, for
-    callers that rotate several tensors at the same positions."""
+    """The (cos, sin) tables (..., seq, 1, head_dim/2) of the rotary
+    embedding at ``positions`` (..., seq), for :func:`apply_rope`; computed
+    once for every tensor and layer rotated at the same positions."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32,
                         device=positions.device) / half
@@ -47,11 +55,6 @@ def apply_rope(x: torch.Tensor, table) -> torch.Tensor:
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
-
-
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq)."""
-    return apply_rope(x, rope_table(positions, x.shape[-1], theta))
 
 
 def causal_mask(q_len: int, kv_len: int, q_offset, device=None) -> torch.Tensor:
@@ -96,13 +99,8 @@ def gqa_attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                         cfg, mask) -> torch.Tensor:
     """Cache-free GQA attention (teacher-forced forward)."""
     b, s, _ = x.shape
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = apply_linear(p["wq"], x).reshape(b, s, h, hd)
-    k = apply_linear(p["wk"], x).reshape(b, s, kh, hd)
-    v = apply_linear(p["wv"], x).reshape(b, s, kh, hd)
-    if cfg.rope_theta > 0:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+    h, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, x, positions, cfg, None)
     out = attention(q, k, v, mask, scale=1.0 / (hd**0.5))
     return apply_linear(p["wo"], out.reshape(b, s, h * hd))
 
@@ -133,18 +131,29 @@ def paged_cache_update(pages: torch.Tensor, update: torch.Tensor,
     return pages
 
 
-def paged_gqa_attention_block(p: dict, x: torch.Tensor,
-                              positions: torch.Tensor, valid: torch.Tensor,
-                              cfg, mask, pages_k: torch.Tensor,
-                              pages_v: torch.Tensor,
-                              block_table: torch.Tensor, rope_cs=None,
-                              slots=None):
-    """GQA attention against a paged KV pool: writes this step's k/v into
-    the owning pages, gathers each row's pages into a dense (B, MPB*P, ...)
-    view and attends under the caller's per-row mask.  ``rope_cs`` and
-    ``slots`` (:func:`rope_table`, :func:`page_slots`) depend only on the
-    step, so a caller running many layers computes them once.  Returns
-    (out (B,S,D), pages_k, pages_v)."""
+def paged_cache_update_quantized(pages: torch.Tensor, scales: torch.Tensor,
+                                 update: torch.Tensor,
+                                 block_table: torch.Tensor,
+                                 positions: torch.Tensor, valid: torch.Tensor,
+                                 kv_spec, slots=None):
+    """Quantize-then-scatter: this step's k/v rows (B, S, K, hd) quantize
+    through ``kvquant.quantize_kv`` and land, codes in ``pages`` (NP, P, K,
+    hd | hd/2) and scales in ``scales`` (NP, P, K, n_groups), in place,
+    under the page/slot indices of :func:`paged_cache_update`.  A row
+    quantizes before placement, so its stored bytes do not depend on the
+    page it lands in.  Returns (pages, scales)."""
+    if slots is None:
+        slots = page_slots(block_table, positions, valid, pages.shape[1])
+    page, within = slots
+    q, sc = quantize_kv(update, kv_spec)
+    pages[page, within] = q.to(pages.dtype).reshape(page.shape[0], *q.shape[2:])
+    scales[page, within] = sc.to(scales.dtype).reshape(page.shape[0], *sc.shape[2:])
+    return pages, scales
+
+
+def _project_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+                 rope_cs):
+    """q (B,S,H,hd), k and v (B,S,K,hd) of one attention block, RoPE'd."""
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = apply_linear(p["wq"], x).reshape(b, s, h, hd)
@@ -155,12 +164,87 @@ def paged_gqa_attention_block(p: dict, x: torch.Tensor,
             rope_cs = rope_table(positions, hd, cfg.rope_theta)
         q = apply_rope(q, rope_cs)
         k = apply_rope(k, rope_cs)
+    return q, k, v
+
+
+def _decode_query(q: torch.Tensor) -> torch.Tensor:
+    """(B, 1, H, hd) → the kernels' (B, H, hd)."""
+    if q.shape[1] != 1:
+        raise ValueError(f"the paged attention kernels take one query token "
+                         f"per row; this step has {q.shape[1]}")
+    return q.reshape(q.shape[0], *q.shape[2:])
+
+
+def paged_gqa_attention_block(p: dict, x: torch.Tensor,
+                              positions: torch.Tensor, valid: torch.Tensor,
+                              cfg, mask, pages_k: torch.Tensor,
+                              pages_v: torch.Tensor,
+                              block_table: torch.Tensor, rope_cs=None,
+                              slots=None, decode=None):
+    """GQA attention against a paged KV pool: writes this step's k/v into
+    the owning pages, then attends.  With ``decode`` None, the reference's
+    route: gather each row's pages into a dense (B, MPB*P, ...) view and
+    attend under the caller's per-row mask.  With ``decode`` =
+    (block_table int32, lengths int32) of a step of one token per row, the
+    paged kernel attends over the pool in place.  ``rope_cs`` and ``slots``
+    (:func:`rope_table`, :func:`page_slots`) depend only on the step, so a
+    caller running many layers computes them once, as it does ``decode``.
+    Returns (out (B,S,D), pages_k, pages_v)."""
+    b, s, _ = x.shape
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, x, positions, cfg, rope_cs)
     if slots is None:
         slots = page_slots(block_table, positions, valid, pages_k.shape[1])
     pages_k = paged_cache_update(pages_k, k, block_table, positions, valid, slots)
     pages_v = paged_cache_update(pages_v, v, block_table, positions, valid, slots)
-    kc = pages_k[block_table].reshape(b, -1, kh, hd).to(x.dtype)
-    vc = pages_v[block_table].reshape(b, -1, kh, hd).to(x.dtype)
-    out = attention(q, kc, vc, mask, scale=1.0 / (hd**0.5))
+    if decode is not None:
+        out = ops.paged_flash_attention(_decode_query(q), pages_k, pages_v,
+                                        *decode, scale=1.0 / (hd**0.5))
+    else:
+        kc = pages_k[block_table].reshape(b, -1, kh, hd).to(x.dtype)
+        vc = pages_v[block_table].reshape(b, -1, kh, hd).to(x.dtype)
+        out = attention(q, kc, vc, mask, scale=1.0 / (hd**0.5))
     out = apply_linear(p["wo"], out.reshape(b, s, h * hd))
     return out, pages_k, pages_v
+
+
+def paged_gqa_attention_block_quantized(p: dict, x: torch.Tensor,
+                                        positions: torch.Tensor,
+                                        valid: torch.Tensor, cfg, mask,
+                                        pages_k: torch.Tensor,
+                                        pages_v: torch.Tensor,
+                                        scales_k: torch.Tensor,
+                                        scales_v: torch.Tensor,
+                                        block_table: torch.Tensor, kv_spec,
+                                        rope_cs=None, slots=None, decode=None):
+    """The quantized-KV sibling of :func:`paged_gqa_attention_block`: k/v
+    quantize at append time (:func:`paged_cache_update_quantized`).  The
+    gather route dequantizes each row's pages through
+    ``kvquant.dequantize_kv`` and runs the same :func:`attention`; the
+    kernel route (``decode``) dequantizes each element inside the kernel
+    with the same single multiply.  Returns (out, pages_k, pages_v,
+    scales_k, scales_v)."""
+    b, s, _ = x.shape
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, x, positions, cfg, rope_cs)
+    if slots is None:
+        slots = page_slots(block_table, positions, valid, pages_k.shape[1])
+    pages_k, scales_k = paged_cache_update_quantized(
+        pages_k, scales_k, k, block_table, positions, valid, kv_spec, slots)
+    pages_v, scales_v = paged_cache_update_quantized(
+        pages_v, scales_v, v, block_table, positions, valid, kv_spec, slots)
+    if decode is not None:
+        out = ops.paged_flash_attention_quant(
+            _decode_query(q), pages_k, scales_k, pages_v, scales_v, *decode,
+            scale=1.0 / (hd**0.5), kv_spec=kv_spec)
+    else:
+        phd, n_g = kv_spec.packed_head_dim(hd), kv_spec.n_groups(hd)
+        kc = dequantize_kv(pages_k[block_table].reshape(b, -1, kh, phd),
+                           scales_k[block_table].reshape(b, -1, kh, n_g),
+                           kv_spec, hd).to(x.dtype)
+        vc = dequantize_kv(pages_v[block_table].reshape(b, -1, kh, phd),
+                           scales_v[block_table].reshape(b, -1, kh, n_g),
+                           kv_spec, hd).to(x.dtype)
+        out = attention(q, kc, vc, mask, scale=1.0 / (hd**0.5))
+    out = apply_linear(p["wo"], out.reshape(b, s, h * hd))
+    return out, pages_k, pages_v, scales_k, scales_v

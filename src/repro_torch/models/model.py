@@ -28,20 +28,21 @@ def forward(cfg, params, batch):
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,
-                     dtype=torch.bfloat16, device="cuda"):
+                     dtype=torch.bfloat16, device="cuda", kv_spec=None):
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
             f"paged KV serving supports families {PAGED_FAMILIES}, not "
             f"{cfg.family!r}")
     return transformer.init_paged_cache(cfg, num_pages, page_size, dtype,
-                                        device=device)
+                                        device=device, kv_spec=kv_spec)
 
 
 def paged_step(cfg, params, tokens, positions, valid, cache, block_table,
-               sample_row=None):
+               sample_row=None, kv_spec=None, ctx=None):
     """Chunked-prefill / batched-decode step against a paged KV pool; see
     ``transformer.paged_step`` for the contract."""
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(cfg.family)
     return transformer.paged_step(cfg, params, tokens, positions, valid,
-                                  cache, block_table, sample_row)
+                                  cache, block_table, sample_row,
+                                  kv_spec=kv_spec, ctx=ctx)

@@ -11,10 +11,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import DEFAULT_CONTEXT
 from repro_torch.models.common import (causal_mask, gqa_attention_block,
                                        mlp_block, page_slots,
-                                       paged_gqa_attention_block, rms_norm,
-                                       rope_table)
+                                       paged_gqa_attention_block,
+                                       paged_gqa_attention_block_quantized,
+                                       rms_norm, rope_table)
 
 
 def _init_linear(gen, d_in, d_out, dtype, device, scale=None):
@@ -99,17 +101,46 @@ def forward(cfg, params, tokens):
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,
-                     dtype=torch.bfloat16, device="cuda"):
+                     dtype=torch.bfloat16, device="cuda", kv_spec=None):
     """A paged KV pool shared by every in-flight request, (L, NP, P, KH, hd)
-    per leaf: page id indexes axis 1, page 0 is the reserved null page."""
+    per leaf: page id indexes axis 1, page 0 is the reserved null page.
+
+    A quantized ``kv_spec`` stores int8 (or pack_int4'd uint8, hd/2 wide)
+    pages plus f32 scale-plane leaves ``k_scale``/``v_scale`` shaped
+    (L, NP, P, KH, n_groups), on the same page axis.  A float spec sets the
+    pool's dtype."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    kh, hd = cfg.n_kv_heads, cfg.head_dim
+    if kv_spec is not None and kv_spec.is_quantized:
+        shape = (cfg.n_layers, num_pages, page_size, kh,
+                 kv_spec.packed_head_dim(hd))
+        sshape = (cfg.n_layers, num_pages, page_size, kh, kv_spec.n_groups(hd))
+        return dict(
+            k=torch.zeros(shape, dtype=kv_spec.pool_dtype, device=device),
+            v=torch.zeros(shape, dtype=kv_spec.pool_dtype, device=device),
+            k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            v_scale=torch.zeros(sshape, dtype=torch.float32, device=device))
+    if kv_spec is not None:
+        dtype = kv_spec.cache_dtype
+    shape = (cfg.n_layers, num_pages, page_size, kh, hd)
     return dict(k=torch.zeros(shape, dtype=dtype, device=device),
                 v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def decode_operands(block_table, positions, valid):
+    """What the paged attention kernels take besides q and the pool, for a
+    step of one token per row: the block table as one contiguous int32
+    tensor and ``lengths = where(valid, position + 1, 0)`` int32 (a row's
+    valid kv positions, its current token included; 0 for an inactive
+    slot).  The same for every layer: computed once per step."""
+    lengths = torch.where(valid[:, 0], positions[:, 0] + 1,
+                          torch.zeros_like(positions[:, 0]))
+    return (block_table.to(torch.int32).contiguous(),
+            lengths.to(torch.int32).contiguous())
+
+
 def paged_step(cfg, params, tokens, positions, valid, cache, block_table,
-               sample_row=None):
+               sample_row=None, kv_spec=None, ctx=None):
     """One forward step against the paged KV pool — the single entry point
     for BOTH chunked prefill (B=1, S=chunk) and batched decode (B=slots,
     S=1).
@@ -118,9 +149,19 @@ def paged_step(cfg, params, tokens, positions, valid, cache, block_table,
     (B, S) bool (False = padding / inactive slot: the KV write goes to the
     null page and the row's output is garbage the caller ignores);
     block_table (B, MPB) page ids.  ``sample_row`` (B,) optionally selects
-    one hidden row per batch entry before the unembed.  Returns
-    (logits (B, S|1, V), cache); the cache's pages are written in place."""
+    one hidden row per batch entry before the unembed.  ``kv_spec`` (a
+    :class:`~repro_torch.serve.kvquant.KVSpec`; None = float) says how the
+    pool stores k/v; a quantized spec needs the scale leaves of
+    :func:`init_paged_cache`.  ``ctx.attention`` (a
+    :class:`~repro_torch.kernels.context.KernelContext`; None = "auto")
+    picks the route of a decode step's attention: the paged kernels or the
+    reference's gather.  Returns (logits (B, S|1, V), cache); the cache's
+    pages are written in place."""
     x = embed_tokens(cfg, params, tokens)
+    ctx = DEFAULT_CONTEXT if ctx is None else ctx
+    decode = None
+    if tokens.shape[1] == 1 and ctx.attention_route(cache["k"].device) == "kernel":
+        decode = decode_operands(block_table, positions, valid)
     block_table = block_table.long()
     positions = positions.long()
     page_size = cache["k"].shape[2]
@@ -131,11 +172,18 @@ def paged_step(cfg, params, tokens, positions, valid, cache, block_table,
     rope_cs = (rope_table(positions, cfg.head_dim, cfg.rope_theta)
                if cfg.rope_theta > 0 else None)
     slots = page_slots(block_table, positions, valid, page_size)
+    quantized = kv_spec is not None and kv_spec.is_quantized
     for li, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        a, _, _ = paged_gqa_attention_block(
-            lp["attn"], h, positions, valid, cfg, mask, cache["k"][li],
-            cache["v"][li], block_table, rope_cs, slots)
+        if quantized:
+            a = paged_gqa_attention_block_quantized(
+                lp["attn"], h, positions, valid, cfg, mask, cache["k"][li],
+                cache["v"][li], cache["k_scale"][li], cache["v_scale"][li],
+                block_table, kv_spec, rope_cs, slots, decode)[0]
+        else:
+            a = paged_gqa_attention_block(
+                lp["attn"], h, positions, valid, cfg, mask, cache["k"][li],
+                cache["v"][li], block_table, rope_cs, slots, decode)[0]
         x = x + a
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + mlp_block(lp["mlp"], h, cfg.act)

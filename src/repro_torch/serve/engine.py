@@ -20,10 +20,16 @@ Sampling generators derive only from (engine seed, rid, token index) and
 masked attention positions weigh exactly zero, so a request's tokens do not
 depend on its slot, its pages or its co-tenants.
 
+- **KV storage** (``kv_spec=``, a :class:`~repro_torch.serve.kvquant.KVSpec`;
+  default f32): f32 and bf16 pools, or int8 / packed-int4 pools with f32
+  scale planes that the allocator accounts in lockstep with the pages
+  (``sidecar``).  The spec's geometry is checked when the engine is built.
+  ``health()["kv"]`` reports the scheme and its bytes per token.
+
 Not ported yet (ROADMAP Queue 1): fault injection and the chaos contract,
 retries with backoff (an attempt that raises fails its request at once),
 deadlines and cancel, the stall watchdog, the journal and snapshot/restore,
-quantized KV, meshes, and the stacked and per-slot modes of other families.
+meshes, and the stacked and per-slot modes of other families.
 
 The page pool is written in place by ``paged_step``, so a failed attempt
 may leave writes in the failing request's own pages (or the null page);
@@ -37,7 +43,10 @@ is attached to every QLinear and picks each site's path: fused where the
 site fits the one-kernel path, else chained, unless pinned.
 ``health()["decode_plan"]`` lists the path each distinct (K, N, R) site
 resolves to at decode (M = ``batch_slots``), so a run shows which sites
-went where.
+went where.  ``ctx.attention`` routes each decode step's attention:
+``"auto"`` takes the paged attention kernels on the card and the
+reference's gather route on the CPU; ``health()["decode_attention"]``
+names the route and the kernel it launches.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
 from repro_torch.quant.qlinear import (KERNEL_IMPLS, QLinear,
                                        retag_qlinear_impl)
+from repro_torch.serve.kvquant import KVSpec
 from repro_torch.serve.lifecycle import (ErrorKind, Request, RequestRecord,
                                          RequestState)
 from repro_torch.serve.paging import PageAllocator
@@ -82,7 +92,8 @@ class ServeEngine:
                  eos_id: Optional[int] = None, seed: int = 0,
                  kernel_impl: Optional[str] = "auto", ctx=None, *,
                  page_size: int = 16, kv_pages: Optional[int] = None,
-                 prefill_chunk: Optional[int] = None, device="cuda"):
+                 prefill_chunk: Optional[int] = None,
+                 kv_spec: Optional[KVSpec] = None, device="cuda"):
         self.device = resolve_device(device)
         if cfg.family not in model_lib.PAGED_FAMILIES:
             raise NotImplementedError(
@@ -92,6 +103,12 @@ class ServeEngine:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        self.kv_spec = kv_spec if kv_spec is not None else KVSpec()
+        if self.kv_spec.is_quantized:
+            # bad geometry (odd head_dim for int4, a group that does not
+            # divide head_dim) raises here, not at the first prefill
+            self.kv_spec.packed_head_dim(cfg.head_dim)
+            self.kv_spec.group_for(cfg.head_dim)
         if kernel_impl is not None or ctx is not None:
             # kernel_impl=None attaches ctx without touching the impls
             params = retag_qlinear_impl(params, kernel_impl, ctx=ctx,
@@ -111,9 +128,11 @@ class ServeEngine:
         self.pages_per_slot = -(-max_seq // page_size)
         num_pages = (kv_pages if kv_pages is not None
                      else batch_slots * self.pages_per_slot + 1)
-        self.alloc = PageAllocator(num_pages, page_size)
+        self.alloc = PageAllocator(num_pages, page_size,
+                                   sidecar=self.kv_spec.is_quantized)
         self.pool = model_lib.init_paged_cache(
-            cfg, num_pages, page_size, dtype=torch.float32, device=self.device)
+            cfg, num_pages, page_size, dtype=torch.float32, device=self.device,
+            kv_spec=self.kv_spec)
         self.block_tables = np.zeros((batch_slots, self.pages_per_slot), np.int32)
         self.lengths = np.zeros((batch_slots,), np.int32)
         self._prefill_off = [0] * batch_slots
@@ -126,8 +145,10 @@ class ServeEngine:
             "failed": 0, "rejected": 0, "timed_out": 0, "decode_calls": 0,
             "prefill_calls": 0,
         }
-        self._paged = functools.partial(model_lib.paged_step, cfg)
+        self._paged = functools.partial(model_lib.paged_step, cfg,
+                                        kv_spec=self.kv_spec, ctx=ctx)
         self.decode_plan = self._resolve_decode_plan()
+        self.decode_attention = self._resolve_decode_attention()
 
     # -- public API ---------------------------------------------------------
 
@@ -182,10 +203,33 @@ class ServeEngine:
             "mode": self.mode,
             "device": str(self.device),
             "kv_pages": self.alloc.stats(),
+            "kv": self._kv_health(),
             "decode_plan": self.decode_plan,
+            "decode_attention": self.decode_attention,
         }
 
+    def _kv_health(self) -> dict:
+        """``health()["kv"]``: the KV storage scheme and ``bytes_per_token``,
+        the all-layer K+V device bytes of one token (data plus scale
+        planes, ``KVSpec.kv_bytes_per_token``)."""
+        return {"dtype": self.kv_spec.dtype, "group": self.kv_spec.group,
+                "layout": self.kv_spec.describe(),
+                "bytes_per_token": self.cfg.n_layers * self.kv_spec.kv_bytes_per_token(
+                    self.cfg.n_kv_heads, self.cfg.head_dim)}
+
     # -- kernel-plan introspection ------------------------------------------
+
+    def _resolve_decode_attention(self) -> dict:
+        """The route of every decode step's attention (``ctx.attention``
+        on this engine's device) and the kernel it launches, None on the
+        gather route.  Prefill chunks always take the gather route."""
+        ctx = self.ctx if self.ctx is not None else ops.DEFAULT_CONTEXT
+        route = ctx.attention_route(self.device)
+        kernel = None
+        if route == "kernel":
+            kernel = ("paged_flash_attention_quant" if self.kv_spec.is_quantized
+                      else "paged_flash_attention")
+        return {"route": route, "kernel": kernel, "kv": self.kv_spec.describe()}
 
     def _resolve_decode_plan(self) -> List[dict]:
         """The path each distinct (K, N, R) QLinear site runs at decode: the

@@ -13,7 +13,7 @@ decode-boundary crossing — and freed as a unit when the request reaches a
 terminal state.
 
 Invariants (enforced by ``check()``, tested in
-``tests/test_torch_engine.py``):
+``tests/test_torch_engine.py`` and ``tests/test_torch_kvquant.py``):
 
 - **Conservation.**  Every page id in ``[1, num_pages)`` is at all times
   either on the free list or in exactly one request's page list:
@@ -29,10 +29,15 @@ Invariants (enforced by ``check()``, tested in
   a request holding ``n`` tokens needs; ``used_pages`` equals the sum of
   per-request page counts, which is what admission control charges against
   ``free_pages``.
+- **Scale-sidecar lockstep** (``sidecar=True``, quantized KV specs).  A
+  quantized pool carries f32 scale planes (``k_scale`` / ``v_scale``)
+  indexed by the SAME page ids as the data pages.  The allocator mirrors
+  its accounting (free list and per-request lists) for the sidecar, and
+  ``check()`` asserts that the two never diverge: a scale plane is never
+  freed, aliased or double-allocated apart from its data page.
 
-The reference's scale-plane sidecar (quantized KV) and snapshot state
-(`to_state`/`from_state`) serve features the port has not taken yet
-(ROADMAP Queue 1) and are left out.
+The reference's snapshot state (``to_state``/``from_state``) serves a
+feature the port has not taken yet (ROADMAP Queue 1) and is left out.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ class PageAllocator:
     and out of order — the chaos suite's bitwise-parity asserts prove that
     outputs never depend on WHICH pages a request lands on."""
 
-    def __init__(self, num_pages: int, page_size: int):
+    def __init__(self, num_pages: int, page_size: int, sidecar: bool = False):
         if num_pages < 2:
             raise ValueError(f"num_pages must be >= 2 (page 0 is the "
                              f"reserved null page), got {num_pages}")
@@ -59,6 +64,14 @@ class PageAllocator:
         self.page_size = page_size
         self._free: List[int] = list(range(num_pages - 1, NULL_PAGE, -1))
         self._owned: Dict[int, List[int]] = {}
+        # quantized pools: mirrored accounting for the scale-plane sidecar
+        # (same page ids, tracked apart so check() can prove the two never
+        # drift)
+        self.sidecar = bool(sidecar)
+        self._side_free: Optional[List[int]] = (
+            list(self._free) if self.sidecar else None)
+        self._side_owned: Optional[Dict[int, List[int]]] = (
+            {} if self.sidecar else None)
 
     # -- accounting ---------------------------------------------------------
 
@@ -103,6 +116,9 @@ class PageAllocator:
             return None
         fresh = [self._free.pop() for _ in range(need)]
         self._owned.setdefault(rid, []).extend(fresh)
+        if self.sidecar:
+            side = [self._side_free.pop() for _ in range(need)]
+            self._side_owned.setdefault(rid, []).extend(side)
         return fresh
 
     def free(self, rid: int) -> int:
@@ -118,6 +134,8 @@ class PageAllocator:
         pages = self._owned.get(rid)
         if not pages:
             self._owned.pop(rid, None)
+            if self.sidecar:
+                self._side_owned.pop(rid, None)
             return 0
         on_free = set(self._free)
         bad = [p for p in pages
@@ -127,6 +145,20 @@ class PageAllocator:
                 f"double free: rid {rid} page list {pages} contains page(s) "
                 f"{bad} already on the free list or out of range "
                 f"[1, {self.num_pages}) — allocator state is corrupt")
+        if self.sidecar:
+            # validate the sidecar BEFORE either list changes: a failed free
+            # must not leave data and scale accounting half-applied
+            spages = self._side_owned.get(rid, [])
+            on_side_free = set(self._side_free)
+            sbad = [p for p in spages
+                    if p in on_side_free or not NULL_PAGE < p < self.num_pages]
+            if sbad:
+                raise ValueError(
+                    f"scale-plane double free: rid {rid} sidecar list "
+                    f"{spages} contains page(s) {sbad} already free or out "
+                    f"of range — sidecar state is corrupt")
+            self._side_owned.pop(rid, None)
+            self._side_free.extend(reversed(spages))
         del self._owned[rid]
         self._free.extend(reversed(pages))
         return len(pages)
@@ -147,6 +179,26 @@ class PageAllocator:
         assert len(seen) == self.capacity, \
             f"page leak: {self.capacity - len(seen)} pages unaccounted"
         assert self.free_pages + self.used_pages == self.capacity
+        if self.sidecar:
+            # the sidecar satisfies the same alias/double-free structure...
+            sseen = set(self._side_free)
+            assert len(sseen) == len(self._side_free), \
+                "scale-plane free list holds duplicates"
+            assert NULL_PAGE not in sseen, "null page on scale-plane free list"
+            for rid, pages in self._side_owned.items():
+                for p in pages:
+                    assert 0 < p < self.num_pages, \
+                        f"scale plane {p} out of range"
+                    assert p not in sseen, \
+                        f"scale plane {p} owned twice (rid {rid})"
+                    sseen.add(p)
+            assert len(sseen) == self.capacity, "scale-plane leak"
+            # ...and stays in LOCKSTEP with the page pool: the same free-list
+            # order and the same per-request page lists
+            assert self._side_free == self._free, \
+                "scale-plane free list diverged from the page free list"
+            assert self._side_owned == self._owned, \
+                "scale-plane ownership diverged from page ownership"
 
     def stats(self) -> dict:
         return {
@@ -154,5 +206,6 @@ class PageAllocator:
             "capacity": self.capacity,
             "free": self.free_pages,
             "used": self.used_pages,
+            "sidecar": self.sidecar,
             "per_request": {rid: len(v) for rid, v in self._owned.items()},
         }

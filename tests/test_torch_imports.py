@@ -34,6 +34,8 @@ def test_port_modules_found():
     for name in ("w4a4", "prologue", "actquant", "context"):
         assert f"repro_torch.kernels.{name}" in MODULES
     assert "repro_torch.configs.phi3_mini_3_8b" in MODULES
+    assert "repro_torch.kernels.flash_attn" in MODULES
+    assert "repro_torch.serve.kvquant" in MODULES
 
 
 @pytest.mark.parametrize("chunk", [MODULES[0::2], MODULES[1::2] + ["chip_smoke"]])
