@@ -5,15 +5,17 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel of the serving paths from ``src/repro_torch/kernels/csrc``
-     (``build.KERNELS``: one ``nvcc`` per source, all at once);
+  2. build every kernel of the port from ``src/repro_torch/kernels/csrc``
+     (``build.KERNELS``, seven: one ``nvcc`` per source, all at once);
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving paths give it plus ragged ones, with times: the
-     fused kernel at SmolLM-135M's sites, the prologue, GEMM and quantizer
-     kernels at Phi-3-mini's, the two paged attention kernels at both
-     models' decode shapes and one long ragged Phi-3 batch (f32 and bf16
-     pools, int8 and int4 pools), with an inactive row and garbage in the
-     pages no row owns;
+     shapes the serving and calibration paths give it plus ragged ones,
+     with times: the fused kernel at SmolLM-135M's sites, the prologue,
+     GEMM and quantizer kernels at Phi-3-mini's, the two paged attention
+     kernels at both models' decode shapes and one long ragged Phi-3 batch
+     (f32 and bf16 pools, int8 and int4 pools), with an inactive row and
+     garbage in the pages no row owns, and the dense causal flash-attention
+     kernel at SmolLM's calibration shape, Phi-3's heads (f32, bf16), a
+     ragged S and S = 1;
   4. serve SmolLM-135M at full width (random weights from seed 0, W4A4+LRC
      by RTN+SVD, f32 KV pool) through ``ServeEngine.submit``/``run`` and
      count that every QLinear went through the fused kernel and every
@@ -33,6 +35,17 @@ Phases, each fatal on failure:
      paged attention kernel; one decode step on the kernel route, each
      attention call held against its plain version, and its logits beside
      the gather route's;
+  9. LRC calibration on the card: SmolLM-135M at full width and depth
+     (random bf16 weights from seed 0, 32 x 2048 calibration tokens, the
+     serving CLI's policy: rotation, GPTQ, LRC with one iteration), every
+     layer's causal attention through the flash-attention kernel (30
+     launches, no plain version); Update-LR must not raise the loss at any
+     site; layer 0 walked again on the reference's attention route (pre_o
+     within the kernel's bound, losses within ROUTE_LOSS_REL); one site of
+     each weight shape solved again on the CPU in f64 (codes bitwise, U·Vᵀ
+     and losses within CPU_REL); the calibrated model served as in phase 4;
+     then one full-width layer of Phi-3-mini calibrated over 16 x 2048
+     tokens; time per stage and peak device memory for both;
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
 result.
@@ -535,6 +548,107 @@ def phase_attention_kernels(device):
     return worst, timed
 
 
+# dense causal attention shapes (batch, seq, heads, kv heads, head_dim,
+# dtype): the SmolLM-135M calibration walk of phase 9 (32 x 2048 tokens),
+# Phi-3-mini's heads at 4 x 2048, a ragged S and S = 1
+FLASH_SHAPES = {
+    "smollm-calib": (32, 2048, 9, 3, 64, "float32"),
+    "phi3-f32": (4, 2048, 32, 32, 96, "float32"),
+    "phi3-bf16": (4, 2048, 32, 32, 96, "bfloat16"),
+    "ragged-200": (3, 200, 9, 3, 64, "float32"),
+    "ragged-200-bf16": (2, 200, 32, 32, 96, "bfloat16"),
+    "s1": (4, 1, 32, 32, 96, "bfloat16"),
+}
+
+
+def _flash_tolerance(q, k, v, scale, y_plain):
+    """Elementwise bound on |kernel - plain| of dense causal attention: the
+    two take the same f32 steps on the same 128-row key tiles and differ
+    only in the order of three sums, so a score moves by at most 2·D·u·S
+    (u = 2⁻²⁴, S = Σ_d |q_d·scale|·max_keys |k_d| >= the row's largest
+    Σ|q·scale·k|) and each of the row's sums by 2·(N + 2·tiles + 4)·u
+    relative over its N = qpos + 1 keys; twice both, times max |v| of the
+    kv head.  A bf16 output adds one bf16 ulp of the larger side (at most
+    2⁻⁶ of the plain value's magnitude)."""
+    import torch
+
+    u = 2.0 ** -24
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    f64 = torch.float64
+    kmax = k.double().abs().amax(dim=1)  # (B, KH, D)
+    qs = (q.double() * scale).abs().reshape(b, sq, kh, g, d)
+    s_max = torch.einsum("bskgd,bkd->bskg", qs, kmax).reshape(b, sq, h)
+    vmax = v.double().abs().amax(dim=(1, 3))  # (B, KH)
+    vmax = vmax.repeat_interleave(g, dim=1)[:, None, :]  # (B, 1, H)
+    n = torch.arange(1, sq + 1, dtype=f64, device=q.device)[None, :, None]
+    tiles = torch.ceil(n / 128)
+    rel = 2 * d * u * s_max + 2 * (n + 2 * tiles + 4) * u
+    tol = (2 * vmax * rel)[..., None]
+    if y_plain.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -6 * y_plain.double().abs()
+    return tol
+
+
+def _flash_bound(shape):
+    """Least time of one causal call on an H100 SXM (ms) and what bounds it:
+    q, k, v and the output moved once each, or the 4·B·H·D·S(S+1)/2 f32
+    operations of the causal product at the non-tensor f32 rate."""
+    b, s, h, kh, d, dtype = shape
+    item = 4 if dtype == "float32" else 2
+    nbytes = item * b * s * d * (2 * h + 2 * kh)
+    return _bound(nbytes, f32_ops=4 * b * h * d * s * (s + 1) // 2)
+
+
+def phase_flash_kernels(device):
+    """The dense causal flash-attention kernel against its plain version at
+    every shape of FLASH_SHAPES, timed (median of 30, L2 flushed) beside
+    its bound and ``scaled_dot_product_attention(is_causal=True)`` on an
+    expanded-KV copy (the copy made outside the timing)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    worst, timed = 0.0, {}
+    for label, shape in FLASH_SHAPES.items():
+        b, s, h, kh, d, dtype = shape
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((b, s, heads, d), generator=gen, device=device).to(dt)
+                   for heads in (h, kh, kh))
+        scale = d ** -0.5
+        y = flash_attn.flash_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        y_plain = flash_attn.flash_attention_plain(q, k, v, scale)
+        tol = _flash_tolerance(q, k, v, scale, y_plain)
+        err = (y.double() - y_plain.double()).abs()
+        ok = bool(torch.isfinite(y).all()) and bool((err <= tol).all())
+        e = err.max().item()
+        print(f"  flash_attention {label:<16} B={b} S={s} H={h} KH={kh} D={d} {dtype:<8} "
+              f"max_abs_err={e:.3e} limit(min)={tol.min().item():.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"flash_attention disagrees with its plain version at {label}")
+        worst = max(worst, e)
+        t_k = _time_ms(lambda: flash_attn.flash_attention(q, k, v, scale), flush)
+        t_p = _time_ms(lambda: flash_attn.flash_attention_plain(q, k, v, scale), flush)
+        ql, kl, vl = (t.transpose(1, 2).repeat_interleave(h // t.shape[2], dim=1)
+                      .contiguous() for t in (q, k, v))
+        t_l = _time_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True, scale=scale), flush)
+        del ql, kl, vl
+        b_ms, by = _flash_bound(shape)
+        timed[label] = (t_k, t_p, b_ms, by, t_l)
+        print(f"    kernel {t_k * 1e3:10.2f} us  plain {t_p * 1e3:11.2f} us  bound "
+              f"{b_ms * 1e3:9.2f} us ({by})  library {t_l * 1e3:9.2f} us (SDPA, "
+              f"is_causal, expanded KV)", flush=True)
+        del q, k, v, y, y_plain, tol, err
+    return worst, timed
+
+
 # ---------------------------------------------------------------------------
 # phases 4-7: serve end to end, teacher-forced parity
 # ---------------------------------------------------------------------------
@@ -1010,6 +1124,320 @@ def phase_kv_routes(cfg, qparams, device, spec):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: LRC calibration on the card
+# ---------------------------------------------------------------------------
+
+# the serving CLI's calibration policy: GPTQ + LRC (1 iteration), rotation
+CALIB_POLICY = dict(rank_frac=0.10, impl="sim", clip_ratio=0.9)
+# the paper's sequence length; a quarter of its 128 sequences (SmolLM), an
+# eighth for Phi-3-mini's one layer
+CALIB_SEQ_LEN = 2048
+SMOL_CALIB_SEQS = 32
+PHI3_CALIB_SEQS = 16
+# layer 0's losses on the kernel and the reference attention route, as a
+# fraction of each site's output power ||W X||²/n: the routes' pre_o differ
+# within the kernel's f32 bound (~1e-6), which flips the odd 4-bit
+# activation code of the statistics Σy and the odd GPTQ code; a loss is a
+# difference of trace terms of the order of the output power, so it moves
+# by that change of the statistics times the output power, not times
+# itself (the loss is ~1-2 % of the power; on an H100 layer 0's mlp/wd
+# moved by 1.7e-3 of its loss, 3e-5 of its power)
+ROUTE_LOSS_REL = 1e-3
+# one site per shape class solved on the card and on this machine's CPU, f64
+CPU_REL = 1e-8
+
+
+class StageTimes:
+    """Seconds per calibration stage, read by wrapping the functions the
+    walk calls (each wrapped call synchronizes the card before and after,
+    so the stages do not overlap): the rotation, the statistics, GPTQ,
+    ``lrc_solve`` (whose time less GPTQ's is the eigensolves and triangular
+    solves), the walk's attention, and the time at the end of each layer.
+    Each LRC solve's result is kept (``lrc``: name, result), and for each
+    weight shape of layer 0 its first site's weight and statistics
+    (``sites``: shape → (name, w, stats))."""
+
+    def __init__(self):
+        self.sec = {"rotation": 0.0, "statistics": 0.0, "gptq": 0.0,
+                    "lrc_solve": 0.0, "attention": 0.0}
+        self.layers, self.lrc, self.sites = [], [], {}
+        self.rotated = None
+        self._names = []
+
+    def _timed(self, stage, fn):
+        import torch
+
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.sec[stage] += time.perf_counter() - t
+            return out
+        return wrapped
+
+    def run(self, cfg, params, tokens, policy):
+        import torch
+
+        from repro_torch.core import lrc
+        from repro_torch.quant import calibrate
+
+        orig = {"rotate_model": calibrate.rotate_model,
+                "collect_stats": calibrate.collect_stats,
+                "lrc_solve": calibrate.lrc_solve,
+                "causal_attention": calibrate.causal_attention,
+                "solve_site": calibrate.solve_site,
+                "gptq_quantize": lrc.gptq_quantize}
+
+        def rotate(*a, **kw):
+            self.rotated = orig["rotate_model"](*a, **kw)
+            return self.rotated
+
+        def solve(w, st, pol, pre_rot=False, name=None):
+            self._names.append(name)
+            if not self.layers and tuple(w.shape) not in self.sites:
+                self.sites[tuple(w.shape)] = (name, w, st)
+            return orig["solve_site"](w, st, pol, pre_rot, name)
+
+        def solve_lrc(*a, **kw):
+            res = orig["lrc_solve"](*a, **kw)
+            self.lrc.append((self._names[-1], res))
+            return res
+
+        calibrate.rotate_model = self._timed("rotation", rotate)
+        calibrate.collect_stats = self._timed("statistics", orig["collect_stats"])
+        calibrate.lrc_solve = self._timed("lrc_solve", solve_lrc)
+        calibrate.causal_attention = self._timed("attention", orig["causal_attention"])
+        calibrate.solve_site = solve
+        lrc.gptq_quantize = self._timed("gptq", orig["gptq_quantize"])
+        t0 = time.perf_counter()
+
+        def progress(layer, n_layers):
+            torch.cuda.synchronize()
+            self.layers.append(time.perf_counter() - t0)
+
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            out = calibrate.quantize_model(cfg, params, tokens, policy,
+                                           progress=progress)
+            torch.cuda.synchronize()
+        finally:
+            calibrate.rotate_model = orig["rotate_model"]
+            calibrate.collect_stats = orig["collect_stats"]
+            calibrate.lrc_solve = orig["lrc_solve"]
+            calibrate.causal_attention = orig["causal_attention"]
+            calibrate.solve_site = orig["solve_site"]
+            lrc.gptq_quantize = orig["gptq_quantize"]
+        self.total = time.perf_counter() - t0
+        self.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        return out
+
+    def summary(self):
+        per_layer = [b - a for a, b in zip([0.0] + self.layers, self.layers)]
+        return {"total_s": self.total, "rotation_s": self.sec["rotation"],
+                "statistics_s": self.sec["statistics"], "gptq_s": self.sec["gptq"],
+                "eigh_and_solves_s": self.sec["lrc_solve"] - self.sec["gptq"],
+                "walk_attention_s": self.sec["attention"],
+                "per_layer_s": per_layer, "peak_gb": self.peak_gb}
+
+
+def _print_times(label, times):
+    per = times["per_layer_s"]
+    print(f"  {label}: total {times['total_s']:.2f} s; rotation "
+          f"{times['rotation_s']:.3f} s, statistics {times['statistics_s']:.2f} s, "
+          f"GPTQ {times['gptq_s']:.2f} s, eigh/solves "
+          f"{times['eigh_and_solves_s']:.2f} s, walk attention "
+          f"{times['walk_attention_s']:.3f} s; per layer median "
+          f"{statistics.median(per):.3f} s (first {per[0]:.3f}, max {max(per):.3f}); "
+          f"max_memory_allocated {times['peak_gb']:.2f} GB", flush=True)
+
+
+def _check_update_lr(stage):
+    """Prop 3.3 at every site: Update-LR does not raise the loss."""
+    bad = [(name, r.losses) for name, r in stage.lrc
+           if not all(r.losses[i + 1] <= r.losses[i] * (1 + 1e-9)
+                      for i in range(0, len(r.losses), 2))]
+    if bad:
+        raise SystemExit(f"calibration: Update-LR raised the loss at {bad}")
+
+
+def _layer0_routes(cfg, stage, tokens, policy, device):
+    """Layer 0 walked again on the reference's attention route: its pre_o
+    against the kernel on the same q, k, v (within the kernel's f32 bound
+    against ``attention``: ``_flash_tolerance`` with the one extra rounding
+    of the reference's scale-after-product), and its seven sites' losses
+    against the kernel-route walk's (within ROUTE_LOSS_REL of the site's
+    output power)."""
+    import torch
+
+    from repro_torch.core.lrc import reconstruction_loss
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import embed_tokens
+    from repro_torch.quant import calibrate
+
+    rotated = stage.rotated
+    x = embed_tokens(cfg, rotated, tokens).to(torch.float32)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=device).expand(b, s)
+    seen, results, power = [], [], []
+    orig_attn, orig_lrc = calibrate.causal_attention, calibrate.lrc_solve
+
+    def capture(q, k, v, scale, route, mask=None):
+        out = orig_attn(q, k, v, scale, route, mask)
+        seen.append((q, k, v, scale, out))
+        return out
+
+    def solve_lrc(w, st, *a, **kw):
+        res = orig_lrc(w, st, *a, **kw)
+        results.append(res)
+        power.append(reconstruction_loss(w, st))
+        return res
+
+    calibrate.causal_attention, calibrate.lrc_solve = capture, solve_lrc
+    try:
+        calibrate._dense_layer_walk(cfg, rotated["layers"][0], x, positions, None,
+                                    policy, route="gather")
+    finally:
+        calibrate.causal_attention, calibrate.lrc_solve = orig_attn, orig_lrc
+    del x
+    q, k, v, scale, ref = seen[0]
+    kern = ops.flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    tol = _flash_tolerance(q, k, v, scale, ref)
+    # one more rounding per score on the reference's side (scale after the dot)
+    tol = tol * (q.shape[-1] + 1) / q.shape[-1]
+    err = (kern.double() - ref.double()).abs()
+    pre_o_ok = bool((err <= tol).all())
+    sites = {}
+    for (name, rk), rr, p in zip(stage.lrc[:7], results, power):
+        diff = max(abs(a - b) for a, b in zip(rk.losses, rr.losses))
+        sites[name] = {"of_loss": diff / min(rr.losses), "of_power": diff / p,
+                       "loss_over_power": rr.losses[-1] / p}
+    worst = max(v["of_power"] for v in sites.values())
+    print(f"  layer 0, kernel vs reference attention route: pre_o max |diff| "
+          f"{err.max().item():.3e} (bound min {tol.min().item():.3e}) "
+          f"{'ok' if pre_o_ok else 'FAIL'}; site losses max |diff| {worst:.3e} of "
+          f"the output power (limit {ROUTE_LOSS_REL})", flush=True)
+    for name, v in sites.items():
+        print(f"    {name}: |diff| {v['of_loss']:.3e} of the loss, {v['of_power']:.3e} "
+              f"of the output power; loss/power {v['loss_over_power']:.4f}", flush=True)
+    if not pre_o_ok or len(results) != 7 or worst > ROUTE_LOSS_REL:
+        raise SystemExit("calibration: the kernel route's layer 0 disagrees with the "
+                         "reference route")
+    return {"pre_o_max_abs_diff": err.max().item(), "sites": sites}
+
+
+def _card_vs_cpu(stage, policy):
+    """One layer-0 site of each weight shape solved again on this
+    machine's CPU in f64 from the card's statistics: codes and scales
+    bitwise, U Vᵀ and the losses within CPU_REL (U Vᵀ also within the f32
+    rounding of the factors, 2·2⁻²⁴·|U||V|ᵀ)."""
+    import torch
+
+    from repro_torch.core.lrc import lrc_solve
+    from repro_torch.core.quantizers import QuantSpec
+
+    card = dict(reversed(stage.lrc[:7]))  # layer 0's solves, by site name
+    out = {}
+    for shape, (name, w, st) in sorted(stage.sites.items()):
+        t = time.perf_counter()
+        w_paper = w.to(torch.float64).T.cpu()
+        k = policy.rank(*shape)
+        res = lrc_solve(w_paper, st.to("cpu"), QuantSpec(bits=policy.bits), k=k,
+                        iters=policy.lrc_iters, quant_method=policy.quant_method)
+        cpu_s = time.perf_counter() - t
+        ref = card[name]
+        codes = (torch.equal(res.qweight, ref.qweight.cpu())
+                 and torch.equal(res.scales, ref.scales.cpu()))
+        uv_c = res.u.double() @ res.v.double().T
+        u, v = ref.u.cpu().double(), ref.v.cpu().double()
+        uv_g = u @ v.T
+        tol = CPU_REL * uv_g.abs().max() + 2 * 2.0 ** -24 * (u.abs() @ v.abs().T)
+        uv_err = (uv_c - uv_g).abs()
+        losses = [abs(a - b) / abs(b) for a, b in zip(res.losses + [res.oracle_loss],
+                                                      ref.losses + [ref.oracle_loss])]
+        ok = codes and bool((uv_err <= tol).all()) and max(losses) <= CPU_REL
+        out[name] = {"shape": list(shape), "codes_bitwise": codes,
+                     "uv_max_abs_diff": uv_err.max().item(),
+                     "loss_max_rel_diff": max(losses), "cpu_s": cpu_s}
+        print(f"  {name} {shape}: card vs CPU codes+scales "
+              f"{'bitwise' if codes else 'DIFFER'}, U·Vᵀ max |diff| "
+              f"{uv_err.max().item():.3e}, losses max rel {max(losses):.3e}; CPU "
+              f"solve {cpu_s:.2f} s {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"calibration: {name} solved on the card disagrees with "
+                             f"the CPU")
+    return out
+
+
+def phase_calibrate(device):
+    """SmolLM-135M at full width and depth calibrated on the card (GPTQ +
+    LRC + rotation over 32 x 2048 tokens, every layer's attention through
+    the flash-attention kernel), its gates, then one full-width layer of
+    Phi-3-mini over 16 x 2048 tokens.  Returns (cfg, params, launches,
+    stats)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import calib_sequences
+    from repro_torch.models import model
+    from repro_torch.quant.policy import QuantPolicy
+
+    policy = QuantPolicy(**CALIB_POLICY)
+    cfg = get_config("smollm-135m")
+    params = model.init_params(cfg, seed=0, device=device)
+    tokens = calib_sequences(cfg, n_seq=SMOL_CALIB_SEQS, seq_len=CALIB_SEQ_LEN,
+                             device=device)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, {cfg.dtype} weights from seed 0; {SMOL_CALIB_SEQS} x "
+          f"{CALIB_SEQ_LEN} calibration tokens; {policy}", flush=True)
+    stage = StageTimes()
+    reset_launches()
+    qparams = stage.run(cfg, params, tokens, policy)
+    counts = launches()
+    want = {k: (cfg.n_layers if k == "flash_attention" else 0) for k in counts}
+    print(f"  launches {counts} (want {cfg.n_layers} flash_attention, 0 for the rest)",
+          flush=True)
+    if counts != want:
+        raise SystemExit("calibration: the walk's attention did not go through the "
+                         "flash-attention kernel once per layer")
+    times = stage.summary()
+    _print_times(cfg.name, times)
+    if len(stage.lrc) != 7 * cfg.n_layers:
+        raise SystemExit(f"calibration: {len(stage.lrc)} LRC solves, want "
+                         f"{7 * cfg.n_layers}")
+    _check_update_lr(stage)
+    print(f"  Update-LR lowered or kept the loss at all {len(stage.lrc)} sites",
+          flush=True)
+    routes = _layer0_routes(cfg, stage, tokens, policy, device)
+    cpu = _card_vs_cpu(stage, policy)
+    del stage, params, tokens
+    torch.cuda.empty_cache()
+
+    pcfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=1)
+    pparams = model.init_params(pcfg, seed=0, device=device)
+    ptokens = calib_sequences(pcfg, n_seq=PHI3_CALIB_SEQS, seq_len=CALIB_SEQ_LEN,
+                              device=device)
+    print(f"  {pcfg.name}: 1 layer, d_model {pcfg.d_model}, d_ff {pcfg.d_ff}; "
+          f"{PHI3_CALIB_SEQS} x {CALIB_SEQ_LEN} tokens", flush=True)
+    pstage = StageTimes()
+    reset_launches()
+    pstage.run(pcfg, pparams, ptokens, policy)
+    if launches()["flash_attention"] != 1 or len(pstage.lrc) != 7:
+        raise SystemExit("calibration: Phi-3's layer did not run its attention "
+                         "through the kernel, or not every site was solved")
+    _check_update_lr(pstage)
+    ptimes = pstage.summary()
+    _print_times(f"{pcfg.name} (1 layer)", ptimes)
+    del pstage, pparams, ptokens
+    torch.cuda.empty_cache()
+    return cfg, qparams, counts, {"smollm": times, "phi3_one_layer": ptimes,
+                                  "layer0_routes": routes, "card_vs_cpu": cpu}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1054,6 +1482,7 @@ def main() -> int:
     worst, timed = phase_kernels(device)
     chain_worst, chain_timed = phase_chain_kernels(device)
     attn_worst, attn_timed = phase_attention_kernels(device)
+    flash_worst, flash_timed = phase_flash_kernels(device)
 
     phase("4. serve SmolLM-135M (fused path)")
     cfg, qparams = build_model(device)
@@ -1081,6 +1510,12 @@ def main() -> int:
                                     kv_spec=spec)
         quant_launches += counts["paged_flash_attention_quant"]
         kv_serve[pool] = dict(stats, routes=phase_kv_routes(pcfg, pparams, device, spec))
+    del pparams
+
+    phase("9. LRC calibration on the card (SmolLM-135M; one Phi-3-mini layer)")
+    ccfg, cparams, calib_counts, calib = phase_calibrate(device)
+    print("  serving the calibrated SmolLM-135M (fused path, f32 KV):", flush=True)
+    _, calib["serve"] = phase_serve(ccfg, cparams, device, ["fused_w4a4_lrc"])
 
     def entry(name, replaces, n, sites, timing, err, at):
         layer = [timing[(name, SLOTS, *sites[s])] for s in sites]
@@ -1135,8 +1570,24 @@ def main() -> int:
                    quant_launches, "int8",
                    at_attn.format("int8", "phase 8 (int8 and int4 KV)")),
     ]
+    t_k, t_p, b_ms, by, t_l = flash_timed["smollm-calib"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attn.py:241",
+        "launches": calib_counts["flash_attention"], "max_abs_err": flash_worst,
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": t_l, "checked": True,
+        "at": (f"one SmolLM-135M calibration layer's causal attention, B="
+               f"{SMOL_CALIB_SEQS} S={CALIB_SEQ_LEN} H 9 KH 3 D 64 f32, L2 flushed; "
+               f"library: SDPA is_causal on an expanded-KV copy; launches from "
+               f"phase 9's walk"),
+        "shapes": {k: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms"), v)) for k, v in flash_timed.items()},
+    })
     print(json.dumps({"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
-                      "phi3_paths": paths, "phi3_kv_serve": kv_serve}))
+                      "phi3_paths": paths, "phi3_kv_serve": kv_serve,
+                      "calibration": calib}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,16 +23,26 @@ Per-layer overrides are keyed by layer name (``"mlp/wd"``), by the (K, N,
 R) triple or by its ``"KxNrR"`` spelling, and carry ``path`` only; the
 reference's tile keys raise ``NotImplementedError``.
 
-``attention`` picks the route of a decode step's attention (S = 1) in
-``models/transformer.paged_step``: ``"kernel"`` — the paged attention
-kernels (``kernels/flash_attn.py``), which read the pool in place;
-``"gather"`` — the reference's route, every row's pages gathered into a
-dense view and :func:`~repro_torch.models.common.attention`; ``"auto"`` —
-the kernel route when the pool is on a CUDA device, the gather route on
-the CPU (where it keeps the reference's bf16 numerics, as QLinear keeps
-its calibrated impl there).  A prefill chunk (S > 1) always takes the
-gather route.  An explicit route is run as asked on either device; on the
-CPU the kernel route runs the kernels' plain versions.
+``attention`` picks the route of two attentions (``kernels/flash_attn.py``
+holds the kernels):
+
+  * a decode step's (S = 1) in ``models/transformer.paged_step``:
+    ``"kernel"`` — the paged attention kernels, which read the pool in
+    place; ``"gather"`` — the reference's route, every row's pages gathered
+    into a dense view and :func:`~repro_torch.models.common.attention`.  A
+    prefill chunk (S > 1) always takes the gather route;
+  * the dense causal attention of the cache-free ``transformer.forward``
+    and of the calibration walk (``quant/calibrate.py``), whose mask is the
+    aligned causal one (query and key positions both from 0): ``"kernel"``
+    — the flash-attention kernel; ``"gather"`` — the reference's
+    :func:`~repro_torch.models.common.attention` under ``causal_mask``.
+    Any other mask keeps ``attention``: the kernel does not compute it.
+
+``"auto"`` takes the kernel route when the tensors are on a CUDA device
+and the reference's route on the CPU (where it keeps the reference's
+numerics, as QLinear keeps its calibrated impl there).  An explicit route
+is run as asked on either device; on the CPU the kernel route runs the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -90,7 +100,7 @@ def _check_entry(key, entry) -> None:
 class KernelContext:
     """An immutable kernel config: the default impl, the per-layer path
     overrides, ``((key, path), ...)`` sorted by key (hashable), and the
-    decode-attention route."""
+    attention route."""
 
     impl: str = "auto"
     overrides: tuple = ()
@@ -159,8 +169,8 @@ class KernelContext:
         return Plan(path or "fused", pinned, False)
 
     def attention_route(self, device) -> str:
-        """The route a decode step's attention takes on ``device`` (where
-        the pool lives): ``"kernel"`` or ``"gather"``."""
+        """The route attention takes on ``device`` (where the pool or the
+        activations live): ``"kernel"`` or ``"gather"``."""
         if self.attention != "auto":
             return self.attention
         return "kernel" if torch.device(device).type == "cuda" else "gather"

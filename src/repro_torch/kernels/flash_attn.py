@@ -1,16 +1,21 @@
-"""Paged decode attention on Hopper: two kernels, their plain versions and
-their launch counters.
+"""Attention on Hopper: three kernels, their plain versions and their
+launch counters.
 
-The kernels (CUDA C++ for sm_90a; body in ``csrc/paged_attention.cuh``)
-replace the TPU kernels of ``repro/kernels/flash_attn.py``:
+The kernels (CUDA C++ for sm_90a) replace the TPU kernels of
+``repro/kernels/flash_attn.py``:
 
+- ``csrc/flash_attention.cu`` ← ``flash_attention_kernel``: dense causal
+  GQA flash attention over q (B, S, H, D) and k/v (B, S, KH, D) in place
+  (:func:`flash_attention`; the calibration walk's and the cache-free
+  forward's attention);
 - ``csrc/paged_flash_attention.cu`` ← ``paged_flash_attention_kernel``, for
   f32 and bf16 pools;
 - ``csrc/paged_flash_attention_quant.cu`` ←
   ``paged_flash_attention_quant_kernel``, for int8 and packed-int4 pools
   with their f32 scale planes.
 
-Both compute, for one query token per sequence,
+The two paged kernels (body in ``csrc/paged_attention.cuh``) compute, for
+one query token per sequence,
 
     out (B, H, D) = softmax(q·scale · Kᵀ, positions >= lengths masked) · V
 
@@ -19,8 +24,9 @@ the block table (B, MPB) int32.  The wrappers copy, transpose and cast no
 pool: the Pallas wrapper's (KH, NP, P, D) transpose of the whole pool would
 cost more than the attention at long context.
 
-Bound on an H100 SXM (3.35 TB/s): memory — the valid K/V rows (plus their
-scales), q and the output.  Each wrapper takes its plain version only for
+Bound of the paged kernels on an H100 SXM (3.35 TB/s): memory — the valid
+K/V rows (plus their scales), q and the output; of the dense kernel:
+its f32 operations.  Each wrapper takes its plain version only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.
 ``LAUNCHES`` counts each.
 """
@@ -35,10 +41,14 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.rowops import scalar
 
-LAUNCHES = {"paged_flash_attention": 0, "paged_flash_attention_plain": 0,
+LAUNCHES = {"flash_attention": 0, "flash_attention_plain": 0,
+            "paged_flash_attention": 0, "paged_flash_attention_plain": 0,
             "paged_flash_attention_quant": 0,
             "paged_flash_attention_quant_plain": 0}
 NEG_INF = -1e30
+# the key tile of the dense kernel, its plain version and the reference
+# wrapper (``bkv = min(128, Skv)``): the per-tile maxima follow it
+KV_TILE = 128
 
 
 def reset_launches() -> None:
@@ -80,6 +90,45 @@ def _online_softmax(q, block_table, lengths, scale, page_rows):
     return out.reshape(b, h, -1).to(q.dtype)
 
 
+def flash_attention_plain(q, k, v, scale: float,
+                          causal: bool = True) -> torch.Tensor:
+    """Kernel #7's function in plain torch, the Pallas body (``_kernel``)
+    step by step, batched over sequences, heads and every query row (a row's
+    result does not depend on its query tile): q in f32 times ``scale``
+    first; per key tile of ``min(KV_TILE, Skv)`` rows, ascending, the
+    scores, -1e30 where kpos > qpos (positions from 0), the running max,
+    ``corr``, ``l`` and ``acc``; then ``acc / max(l, 1e-30)`` in q's dtype.
+    The last tile may be ragged.  q (B, Sq, H, D), k/v (B, Skv, KH, D|Dv)
+    f32 or bf16; returns (B, Sq, H, Dv)."""
+    LAUNCHES["flash_attention_plain"] += 1
+    b, sq, h, d = q.shape
+    skv, kh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kh
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4)  # (B,KH,G,Sq,D)
+    qf = qf * scalar(scale, qf)
+    m = torch.full((b, kh, g, sq, 1), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, kh, g, sq, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((b, kh, g, sq, dv), dtype=f32, device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    bkv = min(KV_TILE, skv)
+    for k0 in range(0, skv, bkv):
+        kt = k[:, k0:k0 + bkv].to(f32).permute(0, 2, 1, 3)[:, :, None]  # (B,KH,1,T,D)
+        vt = v[:, k0:k0 + bkv].to(f32).permute(0, 2, 1, 3)[:, :, None]
+        s = qf @ kt.transpose(-1, -2)  # (B, KH, G, Sq, T)
+        if causal:
+            kpos = k0 + torch.arange(kt.shape[3], device=q.device)
+            s = torch.where(kpos[None, :] <= qpos, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p @ vt
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+
+
 def paged_flash_attention_plain(q, k_pages, v_pages, block_table, lengths,
                                 scale: float) -> torch.Tensor:
     """Kernel #6's function in plain torch.  q (B, H, D) f32/bf16; k/v_pages
@@ -114,7 +163,11 @@ def _lib(name: str) -> ctypes.CDLL:
     """The built library with its C signature declared (once per name)."""
     lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "paged_flash_attention":
+    if name == "flash_attention":
+        lib.flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, i, p]
+        lib.flash_attention.restype = ctypes.c_int
+        lib.flash_attention_max_d.restype = ctypes.c_int
+    elif name == "paged_flash_attention":
         lib.paged_flash_attention.argtypes = [p, i, p, p, i, p, p, p,
                                               i, i, i, i, i, i, i, f, p]
         lib.paged_flash_attention.restype = ctypes.c_int
@@ -225,4 +278,46 @@ def paged_flash_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
                            f"{rc} at (B={b}, H={h}, KH={kh}, D={d}, P={page}, "
                            f"MPB={mpb}, {kv_spec.describe()})")
     LAUNCHES["paged_flash_attention_quant"] += 1
+    return out
+
+
+def flash_attention(q, k, v, scale: float, causal: bool = True) -> torch.Tensor:
+    """One launch of kernel #7; returns (B, Sq, H, Dv) in q's dtype.
+
+    Arguments as :func:`flash_attention_plain`; on the card q, k and v share
+    one dtype (f32 or bf16), are contiguous and D, Dv <= 128.  A CPU ``q``
+    runs the plain version; a CUDA ``q`` launches the kernel on the current
+    stream, or raises."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, S, heads, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must be float32 or bfloat16 alike; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    b, sq, h, d = q.shape
+    skv, kh, dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape[0] != b or k.shape[3] != d or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"k must be ({b}, Skv, KH, {d}) and v (B, Skv, KH, Dv); "
+                         f"got {tuple(k.shape)}, {tuple(v.shape)}")
+    if kh == 0 or h % kh:
+        raise ValueError(f"{h} query heads do not group over {kh} kv heads")
+    lib = _lib("flash_attention")
+    if max(d, dv) > lib.flash_attention_max_d():
+        raise ValueError(f"head dims {d}/{dv} exceed the kernel's "
+                         f"{lib.flash_attention_max_d()}")
+    build.check_operands(q, [q, k, v])
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+    rc = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, sq, skv, h, kh, d, dv, float(scale),
+        int(causal), build.stream_of(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {rc} at "
+                           f"(B={b}, Sq={sq}, Skv={skv}, H={h}, KH={kh}, D={d}, Dv={dv})")
+    LAUNCHES["flash_attention"] += 1
     return out

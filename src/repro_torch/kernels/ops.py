@@ -1,6 +1,6 @@
 """Kernel dispatch (counterpart of ``repro/kernels/ops.py``): the
-W4A4+LRC forward (per-token scales, no rotation) and paged decode
-attention over float and quantized KV pools.
+W4A4+LRC forward (per-token scales, no rotation), dense causal flash
+attention, and paged decode attention over float and quantized KV pools.
 
 ``w4a4_lrc_forward`` runs one of three paths, picked by a
 :class:`~repro_torch.kernels.context.KernelContext` (module docstring
@@ -11,6 +11,10 @@ padded here.  On the CPU every wrapper runs its plain version, and the
 three paths give bitwise equal outputs there (the reference's contract for
 its interpret mode): they share the quantizer, the K-chunked x·V and the
 epilogue bodies of ``rowops``.
+
+``flash_attention`` keeps the reference's signature and layouts, q (B, Sq,
+H, D) and k/v (B, Skv, KH, D); its kernel reads each kv head in place for
+its query group, where the reference's wrapper repeats the KV heads.
 
 ``paged_flash_attention[_quant]`` keep the reference's signatures and
 layouts: q (B, H, D), pages (NP, P, KH, ·), block_table (B, MPB) and
@@ -32,8 +36,8 @@ from repro_torch.kernels.rowops import project_rows
 from repro_torch.kernels.w4a4 import w4a4_lowrank_matmul
 
 __all__ = ["KernelContext", "w4a4_lrc_forward", "act_quant", "fused_prologue",
-           "w4a4_lowrank_matmul", "fused_w4a4_lrc", "paged_flash_attention",
-           "paged_flash_attention_quant"]
+           "w4a4_lowrank_matmul", "fused_w4a4_lrc", "flash_attention",
+           "paged_flash_attention", "paged_flash_attention_quant"]
 
 DEFAULT_CONTEXT = KernelContext()
 # rows per x·V tile of the unfused path (the kernels' larger M-tile)
@@ -86,6 +90,13 @@ def w4a4_lrc_forward(x: torch.Tensor, wpacked: torch.Tensor,
         xq, sx = act_quant(x, bits=bits, clip_ratio=clip)
         xv = None if v is None else _project_tiles(x, v)
     return w4a4_lowrank_matmul(xq, sx, wpacked, sw, xv, u)
+
+
+def flash_attention(q, k, v, scale: float, causal: bool = True) -> torch.Tensor:
+    """GQA flash attention. q: (B, Sq, H, D); k/v: (B, Skv, KH, D[v]);
+    causal with query and key positions both from 0.  Returns (B, Sq, H,
+    Dv) in q's dtype."""
+    return flash_attn.flash_attention(q, k, v, scale, causal)
 
 
 def paged_flash_attention(q, k_pages, v_pages, block_table, lengths,

@@ -8,7 +8,9 @@ outside any Pallas kernel.  Attention against the paged pool takes one of
 two routes: the reference's (gather each row's pages into a dense view,
 then :func:`attention`, plain torch), or for a decode step the paged
 attention kernels (``ops.paged_flash_attention[_quant]``), which read the
-pool in place; ``transformer.paged_step`` chooses.
+pool in place; ``transformer.paged_step`` chooses.  The cache-free
+forward's causal attention likewise takes :func:`attention` or the dense
+flash-attention kernel (:func:`causal_attention`).
 
 Unlike the reference, :func:`paged_cache_update` and
 :func:`paged_cache_update_quantized` write the page pool (and its scale
@@ -95,13 +97,33 @@ def mlp_block(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     return apply_linear(p["wd"], h)
 
 
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, route: str, mask=None) -> torch.Tensor:
+    """Attention under the aligned causal mask (query and key positions
+    both from 0: a cache-free forward, the calibration walk).  ``route``
+    ``"kernel"``: ``ops.flash_attention`` (kernel #7 on the card, its plain
+    version on the CPU); any other route: :func:`attention` under
+    :func:`causal_mask` (``mask``, where the caller has built it)."""
+    if route == "kernel":
+        return ops.flash_attention(q, k, v, scale, causal=True)
+    if mask is None:
+        mask = causal_mask(q.shape[1], k.shape[1], 0, device=q.device)
+    return attention(q, k, v, mask, scale)
+
+
 def gqa_attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                        cfg, mask) -> torch.Tensor:
-    """Cache-free GQA attention (teacher-forced forward)."""
+                        cfg, mask, route: str = "gather") -> torch.Tensor:
+    """Cache-free GQA attention (teacher-forced forward).  ``route="kernel"``
+    is for the aligned causal mask only (``mask`` is then not read) and
+    runs :func:`causal_attention`'s kernel; any other route attends under
+    ``mask``."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, positions, cfg, None)
-    out = attention(q, k, v, mask, scale=1.0 / (hd**0.5))
+    if route == "kernel":
+        out = causal_attention(q, k, v, 1.0 / (hd**0.5), route)
+    else:
+        out = attention(q, k, v, mask, scale=1.0 / (hd**0.5))
     return apply_linear(p["wo"], out.reshape(b, s, h * hd))
 
 

@@ -21,10 +21,10 @@ def init_params(cfg, seed: int = 0, max_seq: int = 0, device="cuda"):
     return transformer.init_params(cfg, seed, max_seq, device=device)
 
 
-def forward(cfg, params, batch):
-    """batch: dict(tokens (B, S))."""
+def forward(cfg, params, batch, ctx=None):
+    """batch: dict(tokens (B, S)); ``ctx`` as in ``transformer.forward``."""
     _dense_only(cfg)
-    return transformer.forward(cfg, params, batch["tokens"])
+    return transformer.forward(cfg, params, batch["tokens"], ctx=ctx)
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,

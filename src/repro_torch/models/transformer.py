@@ -65,10 +65,11 @@ def init_params(cfg, seed: int = 0, max_seq: int = 0, device="cuda"):
     return params
 
 
-def decoder_layer(cfg, lp, x, positions, mask):
-    """One pre-norm block (no cache)."""
+def decoder_layer(cfg, lp, x, positions, mask, route="gather"):
+    """One pre-norm block (no cache); ``route`` as in
+    ``common.gqa_attention_block``."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    x = x + gqa_attention_block(lp["attn"], h, positions, cfg, mask)
+    x = x + gqa_attention_block(lp["attn"], h, positions, cfg, mask, route)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     return x + mlp_block(lp["mlp"], h, cfg.act)
 
@@ -88,14 +89,18 @@ def unembed(cfg, params, x):
     return logits
 
 
-def forward(cfg, params, tokens):
-    """Teacher-forcing forward. tokens: (B, S) integer."""
+def forward(cfg, params, tokens, ctx=None):
+    """Teacher-forcing forward. tokens: (B, S) integer.  ``ctx.attention``
+    (a :class:`~repro_torch.kernels.context.KernelContext`; None = "auto")
+    picks the causal attention's route: the flash-attention kernel or the
+    reference's :func:`~repro_torch.models.common.attention`."""
     x = embed_tokens(cfg, params, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    mask = causal_mask(s, s, 0, device=x.device)
+    route = (DEFAULT_CONTEXT if ctx is None else ctx).attention_route(x.device)
+    mask = None if route == "kernel" else causal_mask(s, s, 0, device=x.device)
     for lp in params["layers"]:
-        x = decoder_layer(cfg, lp, x, positions, mask)
+        x = decoder_layer(cfg, lp, x, positions, mask, route)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)
 

@@ -19,6 +19,7 @@ class QuantPolicy:
     rank_frac: float = 0.10  # 0.0 disables the low-rank correction
     clip_ratio: float = 0.9
     impl: str = "int8"
+    lrc_iters: int = 1
     quant_method: str = "gptq"  # gptq | rtn
     correction: str = "lrc"  # lrc | svd | none
 

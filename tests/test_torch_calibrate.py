@@ -8,13 +8,16 @@ singular vectors are defined only up to sign — and each factor was rounded
 to bf16 from the same f64 factorization, so the products may differ by two
 bf16 roundings of the factors: 2⁻⁷ of |u|·|v|ᵀ elementwise."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro.quant.policy import QuantPolicy as JaxQuantPolicy
 from repro_torch import bridge
-from repro_torch.quant.calibrate import quantize_model, solve_site
+from repro_torch.core.quantizers import QuantSpec
+from repro_torch.quant.calibrate import collect_stats, quantize_model, solve_site
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.quant.qlinear import QLinear
 from torch_parity import (RTN_SVD, configs, jax_params, jax_quantized, t,
@@ -70,13 +73,32 @@ def test_svd_correction_product(models, block, name):
 
 
 def test_none_correction_and_unported_branches(rng):
+    """Every branch of ``solve_site`` and ``quantize_model`` that the
+    calibration slice ported runs (LRC, GPTQ, the rotation); what is still
+    unported raises: grouped activation scales and the non-dense walkers."""
     w = t(rng.standard_normal((32, 16)).astype(np.float32))
     q = solve_site(w, None, QuantPolicy(quant_method="rtn", correction="none"))
     assert q.u is None and q.v is None and q.d_in == 32 and q.d_out == 16
+    x = t(rng.standard_normal((256, 32)))
+    stats = collect_stats(x, QuantSpec(bits=4, clip_ratio=0.9))
+    for policy in (QuantPolicy(quant_method="rtn", correction="lrc"),
+                   QuantPolicy(quant_method="gptq", correction="svd"),
+                   QuantPolicy(quant_method="gptq", correction="lrc", lrc_iters=2)):
+        q = solve_site(w, stats, policy)
+        assert q.u.shape == (16, policy.rank(32, 16)) and q.v.shape[0] == 32
     with pytest.raises(NotImplementedError):
-        solve_site(w, None, QuantPolicy(quant_method="rtn", correction="lrc"))
+        solve_site(w, stats, QuantPolicy(act_group=8))
+    jcfg, tcfg = configs()
+    params = bridge.params_from_jax(to_numpy_tree(jax_params(jcfg)), device="cpu")
+    tokens = torch.from_numpy(rng.integers(0, tcfg.vocab_size, (2, 8)))
+    rotated = quantize_model(tcfg, params, tokens, QuantPolicy(impl="sim"))
+    assert "lm_head" in rotated and "lm_head" not in params
+    assert torch.equal(rotated["final_norm"], torch.ones_like(params["final_norm"]))
     with pytest.raises(NotImplementedError):
-        solve_site(w, None, QuantPolicy(quant_method="gptq", correction="svd"))
-    _, tcfg = configs()
-    with pytest.raises(NotImplementedError):
-        quantize_model(tcfg, {"layers": []}, None, QuantPolicy(**RTN_SVD))
+        quantize_model(tcfg, params, tokens, QuantPolicy(act_group=8))
+    for family in ("ssm", "moe"):
+        with pytest.raises(NotImplementedError):
+            quantize_model(dataclasses.replace(tcfg, family=family), params, tokens,
+                           QuantPolicy())
+    with pytest.raises(ValueError, match="calibration tokens"):
+        quantize_model(tcfg, params, None, QuantPolicy())

@@ -36,6 +36,10 @@ def test_port_modules_found():
     assert "repro_torch.configs.phi3_mini_3_8b" in MODULES
     assert "repro_torch.kernels.flash_attn" in MODULES
     assert "repro_torch.serve.kvquant" in MODULES
+    for name in ("data.tokens", "data.loader", "core.stats", "core.hadamard",
+                 "core.rotation", "core.gptq", "core.lrc", "quant.rotate",
+                 "quant.calibrate"):
+        assert f"repro_torch.{name}" in MODULES
 
 
 @pytest.mark.parametrize("chunk", [MODULES[0::2], MODULES[1::2] + ["chip_smoke"]])
