@@ -23,14 +23,20 @@ Per-layer overrides are keyed by layer name (``"mlp/wd"``), by the (K, N,
 R) triple or by its ``"KxNrR"`` spelling, and carry ``path`` only; the
 reference's tile keys raise ``NotImplementedError``.
 
-``attention`` picks the route of two attentions (``kernels/flash_attn.py``
+``attention`` picks the route of three attentions (``kernels/flash_attn.py``
 holds the kernels):
 
   * a decode step's (S = 1) in ``models/transformer.paged_step``:
     ``"kernel"`` — the paged attention kernels, which read the pool in
     place; ``"gather"`` — the reference's route, every row's pages gathered
-    into a dense view and :func:`~repro_torch.models.common.attention`.  A
-    prefill chunk (S > 1) always takes the gather route;
+    into a dense view and :func:`~repro_torch.models.common.attention`;
+  * a prefill step's (an engine prefill chunk of any width, or a full
+    sequence) in the same ``paged_step``: ``"kernel"`` — each row's pages gathered as codes and
+    scale planes (or float rows), no dequant, into the dense flash kernels
+    with the row's query offset (the quantized one for an int8 / int4
+    pool); ``"gather"`` — the reference's route as for decode.  Every chunk
+    of a prompt takes the same route, so a token's K/V, and the greedy
+    stream, do not depend on the chunk width;
   * the dense causal attention of the cache-free ``transformer.forward``
     and of the calibration walk (``quant/calibrate.py``), whose mask is the
     aligned causal one (query and key positions both from 0): ``"kernel"``
@@ -38,11 +44,18 @@ holds the kernels):
     :func:`~repro_torch.models.common.attention` under ``causal_mask``.
     Any other mask keeps ``attention``: the kernel does not compute it.
 
-``"auto"`` takes the kernel route when the tensors are on a CUDA device
+``"auto"`` takes the kernel route when the tensors are on a CUDA device,
 and the reference's route on the CPU (where it keeps the reference's
-numerics, as QLinear keeps its calibrated impl there).  An explicit route
-is run as asked on either device; on the CPU the kernel route runs the
-kernels' plain versions.
+numerics, as QLinear keeps its calibrated impl there).  The dense flash
+kernels (prefill, forward, walk) take head dims up to ``flash_attn.MAX_D``:
+"auto" demotes a wider head's dense attention to gather from shapes alone,
+before anything is built or launched, as :meth:`KernelContext.resolve_plan`
+demotes a W4A4 site (:meth:`KernelContext.attention_plan` says why;
+``ServeEngine.health()`` reports it).  The paged decode kernels have no such
+limit, so decode keeps the kernel route at any head dim.  An explicit route
+is run as asked on either device: on the CPU the kernel route runs the
+kernels' plain versions, and on the card a head dim the kernels cannot take
+raises in their wrappers.
 """
 
 from __future__ import annotations
@@ -52,12 +65,20 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import fused_gemm
+from repro_torch.kernels import flash_attn, fused_gemm
 
 KERNEL_PATHS = ("fused", "chained", "unfused")
 IMPLS = ("auto",) + KERNEL_PATHS
 ATTENTION_ROUTES = ("auto", "kernel", "gather")
 _TILE_KEYS = ("bm", "bn", "bk", "br", "variant")
+
+
+class AttentionPlan(NamedTuple):
+    """A resolved attention route, ``"kernel"`` or ``"gather"``, and why
+    "auto" demoted a CUDA device's kernel route to gather (None when it did
+    not)."""
+    route: str
+    demoted: Optional[str]
 
 
 class Plan(NamedTuple):
@@ -168,9 +189,25 @@ class KernelContext:
             return Plan("chained", pinned, True)
         return Plan(path or "fused", pinned, False)
 
-    def attention_route(self, device) -> str:
+    def attention_plan(self, device, head_dim: int,
+                       decode: bool = False) -> AttentionPlan:
         """The route attention takes on ``device`` (where the pool or the
-        activations live): ``"kernel"`` or ``"gather"``."""
+        activations live) for heads of ``head_dim``: a paged decode step's
+        when ``decode``, else a dense one's (prefill, forward, walk).  An
+        explicit route is trusted as it is; under "auto" a CUDA device
+        takes the kernel route, unless a dense attention's ``head_dim``
+        exceeds the flash kernels' ``MAX_D``, and the CPU the gather
+        route."""
         if self.attention != "auto":
-            return self.attention
-        return "kernel" if torch.device(device).type == "cuda" else "gather"
+            return AttentionPlan(self.attention, None)
+        if torch.device(device).type != "cuda":
+            return AttentionPlan("gather", None)
+        if not decode and head_dim > flash_attn.MAX_D:
+            return AttentionPlan("gather",
+                                 f"head_dim {head_dim} exceeds the flash "
+                                 f"attention kernels' MAX_D {flash_attn.MAX_D}")
+        return AttentionPlan("kernel", None)
+
+    def attention_route(self, device, head_dim: int, decode: bool = False) -> str:
+        """:meth:`attention_plan`'s route: ``"kernel"`` or ``"gather"``."""
+        return self.attention_plan(device, head_dim, decode).route

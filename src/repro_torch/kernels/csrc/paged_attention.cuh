@@ -41,9 +41,7 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "kv_rows.cuh"
 
 namespace paged {
 
@@ -51,47 +49,13 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-// round to nearest even, as torch's .to(torch.bfloat16)
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// Element i of pool row `row` (= (pid·P + t)·KH + kh) as f32.
+using kv::store;
+using kv::to_f32;
+// element i of pool row `row` (= (pid·P + t)·KH + kh) as f32
 template <typename T>
-struct FloatRows {
-  const T* data;
-  int width;  // D (or Dv)
-  __device__ __forceinline__ float operator()(int64_t row, int i) const {
-    return to_f32(data[row * width + i]);
-  }
-};
-
-// int8 codes: float(q) · s[group], ONE f32 multiply (__fmul_rn is never
-// contracted), bitwise rowops.dequant_rows_grouped.
-struct Int8Rows {
-  const int8_t* data;
-  const float* scales;
-  int width, group, n_groups;
-  __device__ __forceinline__ float operator()(int64_t row, int i) const {
-    return __fmul_rn(static_cast<float>(data[row * width + i]),
-                     scales[row * n_groups + i / group]);
-  }
-};
-
-// int4 codes packed two per byte along D: the low nibble is the even
-// element; the sign is restored as (u ^ 8) - 8.
-struct Int4Rows {
-  const uint8_t* data;
-  const float* scales;
-  int width, group, n_groups;  // width = D (the packed row holds D/2 bytes)
-  __device__ __forceinline__ float operator()(int64_t row, int i) const {
-    const unsigned byte = data[row * (width / 2) + i / 2];
-    const int u = (i & 1) ? static_cast<int>(byte >> 4) : static_cast<int>(byte & 0xF);
-    return __fmul_rn(static_cast<float>((u ^ 8) - 8),
-                     scales[row * n_groups + i / group]);
-  }
-};
+using FloatRows = kv::FloatRows<T>;
+using Int8Rows = kv::Int8Rows;
+using Int4Rows = kv::Int4Rows;
 
 // Dynamic shared memory of one block: q (G·D), acc (G·Dv), scores (G·P),
 // m, l and corr (G each), all f32.

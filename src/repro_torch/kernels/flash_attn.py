@@ -1,18 +1,29 @@
-"""Attention on Hopper: three kernels, their plain versions and their
+"""Attention on Hopper: four kernels, their plain versions and their
 launch counters.
 
 The kernels (CUDA C++ for sm_90a) replace the TPU kernels of
 ``repro/kernels/flash_attn.py``:
 
-- ``csrc/flash_attention.cu`` ← ``flash_attention_kernel``: dense causal
-  GQA flash attention over q (B, S, H, D) and k/v (B, S, KH, D) in place
-  (:func:`flash_attention`; the calibration walk's and the cache-free
-  forward's attention);
+- ``csrc/flash_attention.cu`` ← ``flash_attention_kernel``: causal GQA
+  flash attention over q (B, Sq, H, D) and f32 / bf16 k/v (B, Skv, KH, D)
+  in place (:func:`flash_attention`; the calibration walk's and the
+  cache-free forward's attention, and a prefill chunk's over a float pool);
+- ``csrc/flash_attention_quant.cu`` ← ``flash_attention_quant_kernel``:
+  the same over int8 or packed-int4 k/v with their f32 scale planes, each
+  tile dequantized on chip (:func:`flash_attention_quant`; a prefill
+  chunk's attention over a quantized pool);
 - ``csrc/paged_flash_attention.cu`` ← ``paged_flash_attention_kernel``, for
   f32 and bf16 pools;
 - ``csrc/paged_flash_attention_quant.cu`` ←
   ``paged_flash_attention_quant_kernel``, for int8 and packed-int4 pools
   with their f32 scale planes.
+
+The two dense kernels (body in ``csrc/flash_attention.cuh``) take a query
+offset: query row i of sequence b sits at absolute position q_start[b] + i
+(``q_start`` (B,) int32, default 0) and key positions count from 0, in key
+tiles of ``KV_TILE`` rows anchored at key 0.  A tile wholly above a row's
+diagonal is then an exact no-op for it, so a row's result is bitwise the
+same whatever chunk of its prompt it arrived in.
 
 The two paged kernels (body in ``csrc/paged_attention.cuh``) compute, for
 one query token per sequence,
@@ -25,8 +36,8 @@ pool: the Pallas wrapper's (KH, NP, P, D) transpose of the whole pool would
 cost more than the attention at long context.
 
 Bound of the paged kernels on an H100 SXM (3.35 TB/s): memory — the valid
-K/V rows (plus their scales), q and the output; of the dense kernel:
-its f32 operations.  Each wrapper takes its plain version only for
+K/V rows (plus their scales), q and the output; of the dense kernels:
+their f32 operations.  Each wrapper takes its plain version only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.
 ``LAUNCHES`` counts each.
 """
@@ -42,6 +53,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.rowops import scalar
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_plain": 0,
+            "flash_attention_quant": 0, "flash_attention_quant_plain": 0,
             "paged_flash_attention": 0, "paged_flash_attention_plain": 0,
             "paged_flash_attention_quant": 0,
             "paged_flash_attention_quant_plain": 0}
@@ -49,6 +61,10 @@ NEG_INF = -1e30
 # the key tile of the dense kernel, its plain version and the reference
 # wrapper (``bkv = min(128, Skv)``): the per-tile maxima follow it
 KV_TILE = 128
+# the largest head dims the dense kernels take (MAX_D of
+# csrc/flash_attention.cuh, which chip_smoke.py holds against the built
+# library): the "auto" attention route demotes wider heads to gather
+MAX_D = 128
 
 
 def reset_launches() -> None:
@@ -90,35 +106,40 @@ def _online_softmax(q, block_table, lengths, scale, page_rows):
     return out.reshape(b, h, -1).to(q.dtype)
 
 
-def flash_attention_plain(q, k, v, scale: float,
-                          causal: bool = True) -> torch.Tensor:
-    """Kernel #7's function in plain torch, the Pallas body (``_kernel``)
-    step by step, batched over sequences, heads and every query row (a row's
-    result does not depend on its query tile): q in f32 times ``scale``
-    first; per key tile of ``min(KV_TILE, Skv)`` rows, ascending, the
-    scores, -1e30 where kpos > qpos (positions from 0), the running max,
-    ``corr``, ``l`` and ``acc``; then ``acc / max(l, 1e-30)`` in q's dtype.
-    The last tile may be ragged.  q (B, Sq, H, D), k/v (B, Skv, KH, D|Dv)
-    f32 or bf16; returns (B, Sq, H, Dv)."""
-    LAUNCHES["flash_attention_plain"] += 1
+def _causal_online_softmax(q, tiles, skv: int, dv: int, scale: float,
+                           causal: bool, q_start):
+    """The dense Pallas bodies (``_kernel``, ``_kernel_quant``) step by
+    step, batched over sequences, heads and every query row (a row's result
+    does not depend on its query tile): q in f32 times ``scale`` first; per
+    key tile of ``min(KV_TILE, Skv)`` rows from key 0, ascending, the
+    scores, -1e30 where kpos > qpos (query row i of sequence b at
+    ``q_start[b] + i``), the running max, ``corr``, ``l`` and ``acc``; then
+    ``acc / max(l, 1e-30)`` in q's dtype.  ``tiles(k0, k1)`` returns the f32
+    K and V rows k0…k1-1 as (B, T, KH, D|Dv).  Returns (B, Sq, H, Dv)."""
     b, sq, h, d = q.shape
-    skv, kh, dv = k.shape[1], k.shape[2], v.shape[-1]
-    g = h // kh
     f32 = torch.float32
-    qf = q.to(f32).reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4)  # (B,KH,G,Sq,D)
-    qf = qf * scalar(scale, qf)
-    m = torch.full((b, kh, g, sq, 1), NEG_INF, dtype=f32, device=q.device)
-    l = torch.zeros((b, kh, g, sq, 1), dtype=f32, device=q.device)
-    acc = torch.zeros((b, kh, g, sq, dv), dtype=f32, device=q.device)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    m = l = acc = qf = None
+    qpos = torch.arange(sq, device=q.device)[None, :]
+    if q_start is not None:
+        qpos = qpos + q_start.to(q.device).long()[:, None]
+    qpos = qpos[:, None, None, :, None]  # (B|1, 1, 1, Sq, 1)
     bkv = min(KV_TILE, skv)
     for k0 in range(0, skv, bkv):
-        kt = k[:, k0:k0 + bkv].to(f32).permute(0, 2, 1, 3)[:, :, None]  # (B,KH,1,T,D)
-        vt = v[:, k0:k0 + bkv].to(f32).permute(0, 2, 1, 3)[:, :, None]
+        k, v = tiles(k0, min(k0 + bkv, skv))
+        kh = k.shape[2]
+        if m is None:
+            g = h // kh
+            qf = q.to(f32).reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4)  # (B,KH,G,Sq,D)
+            qf = qf * scalar(scale, qf)
+            m = torch.full((b, kh, g, sq, 1), NEG_INF, dtype=f32, device=q.device)
+            l = torch.zeros((b, kh, g, sq, 1), dtype=f32, device=q.device)
+            acc = torch.zeros((b, kh, g, sq, dv), dtype=f32, device=q.device)
+        kt = k.permute(0, 2, 1, 3)[:, :, None]  # (B,KH,1,T,D)
+        vt = v.permute(0, 2, 1, 3)[:, :, None]
         s = qf @ kt.transpose(-1, -2)  # (B, KH, G, Sq, T)
         if causal:
             kpos = k0 + torch.arange(kt.shape[3], device=q.device)
-            s = torch.where(kpos[None, :] <= qpos, s, NEG_INF)
+            s = torch.where(kpos <= qpos, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
@@ -127,6 +148,43 @@ def flash_attention_plain(q, k, v, scale: float,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v, scale: float, causal: bool = True,
+                          q_start=None) -> torch.Tensor:
+    """Kernel #7's function in plain torch (:func:`_causal_online_softmax`
+    on k/v in f32).  q (B, Sq, H, D), k/v (B, Skv, KH, D|Dv) f32 or bf16;
+    ``q_start`` (B,) integer or None (0); returns (B, Sq, H, Dv) in q's
+    dtype."""
+    LAUNCHES["flash_attention_plain"] += 1
+    f32 = torch.float32
+    return _causal_online_softmax(
+        q, lambda k0, k1: (k[:, k0:k1].to(f32), v[:, k0:k1].to(f32)),
+        k.shape[1], v.shape[-1], scale, causal, q_start)
+
+
+def flash_attention_quant_plain(q, k_quant, k_scales, v_quant, v_scales,
+                                scale: float, kv_spec, causal: bool = True,
+                                q_start=None) -> torch.Tensor:
+    """Kernel #8's function in plain torch: the reference's
+    ``_kernel_quant`` with ``_dequant_tile``, each key tile's codes and
+    scale rows dequantized through ``kvquant.dequantize_kv`` (one f32
+    multiply per element) right before the steps of
+    :func:`flash_attention_plain`, which it therefore equals bitwise on the
+    dequantized K/V.  q (B, Sq, H, D) f32 or bf16; k/v_quant (B, Skv, KH,
+    D | D/2) int8 or packed uint8; k/v_scales (B, Skv, KH, D/group) f32.
+    Returns (B, Sq, H, D) in q's dtype."""
+    from repro_torch.serve.kvquant import dequantize_kv
+
+    LAUNCHES["flash_attention_quant_plain"] += 1
+    d = q.shape[-1]
+
+    def tiles(k0, k1):
+        return (dequantize_kv(k_quant[:, k0:k1], k_scales[:, k0:k1], kv_spec, d),
+                dequantize_kv(v_quant[:, k0:k1], v_scales[:, k0:k1], kv_spec, d))
+
+    return _causal_online_softmax(q, tiles, k_quant.shape[1], d, scale, causal,
+                                  q_start)
 
 
 def paged_flash_attention_plain(q, k_pages, v_pages, block_table, lengths,
@@ -164,9 +222,14 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_attention":
-        lib.flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, i, p]
+        lib.flash_attention.argtypes = [p, i, p, p, i, p, p, i, i, i, i, i, i, i, f, i, p]
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_max_d.restype = ctypes.c_int
+    elif name == "flash_attention_quant":
+        lib.flash_attention_quant.argtypes = [p, i, p, p, p, p, i, i, p, p,
+                                              i, i, i, i, i, i, f, i, p]
+        lib.flash_attention_quant.restype = ctypes.c_int
+        lib.flash_attention_quant_max_d.restype = ctypes.c_int
     elif name == "paged_flash_attention":
         lib.paged_flash_attention.argtypes = [p, i, p, p, i, p, p, p,
                                               i, i, i, i, i, i, i, f, p]
@@ -281,43 +344,106 @@ def paged_flash_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
     return out
 
 
-def flash_attention(q, k, v, scale: float, causal: bool = True) -> torch.Tensor:
-    """One launch of kernel #7; returns (B, Sq, H, Dv) in q's dtype.
-
-    Arguments as :func:`flash_attention_plain`; on the card q, k and v share
-    one dtype (f32 or bf16), are contiguous and D, Dv <= 128.  A CPU ``q``
-    runs the plain version; a CUDA ``q`` launches the kernel on the current
-    stream, or raises."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+def _check_dense(q, kq, vq, q_start):
+    """Shapes both dense kernels ask for; returns (B, Sq, H, D, Skv, KH)."""
+    if q.dim() != 4 or kq.dim() != 4 or vq.dim() != 4:
         raise ValueError(f"q, k, v must be (B, S, heads, D); got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must be float32 or bfloat16 alike; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+                         f"{tuple(kq.shape)}, {tuple(vq.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     b, sq, h, d = q.shape
-    skv, kh, dv = k.shape[1], k.shape[2], v.shape[3]
-    if k.shape[0] != b or k.shape[3] != d or v.shape[:3] != k.shape[:3]:
-        raise ValueError(f"k must be ({b}, Skv, KH, {d}) and v (B, Skv, KH, Dv); "
-                         f"got {tuple(k.shape)}, {tuple(v.shape)}")
+    skv, kh = kq.shape[1], kq.shape[2]
+    if kq.shape[0] != b or vq.shape[:3] != kq.shape[:3]:
+        raise ValueError(f"k and v must be ({b}, Skv, KH, ·) alike; got "
+                         f"{tuple(kq.shape)}, {tuple(vq.shape)}")
     if kh == 0 or h % kh:
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
-    lib = _lib("flash_attention")
-    if max(d, dv) > lib.flash_attention_max_d():
-        raise ValueError(f"head dims {d}/{dv} exceed the kernel's "
-                         f"{lib.flash_attention_max_d()}")
-    build.check_operands(q, [q, k, v])
+    if q_start is not None and (q_start.dtype != torch.int32
+                                or tuple(q_start.shape) != (b,)):
+        raise ValueError(f"q_start must be int32 ({b},); got {q_start.dtype} "
+                         f"{tuple(q_start.shape)}")
+    return b, sq, h, d, skv, kh
+
+
+def flash_attention(q, k, v, scale: float, causal: bool = True,
+                    q_start=None) -> torch.Tensor:
+    """One launch of kernel #7; returns (B, Sq, H, Dv) in q's dtype.
+
+    Arguments as :func:`flash_attention_plain`; on the card q is f32 or
+    bf16, k and v share one dtype, f32 or bf16, every operand is
+    contiguous, D, Dv <= ``MAX_D`` and ``q_start`` is None or (B,) int32.
+    A CPU ``q`` runs the plain version; a CUDA ``q`` launches the kernel on
+    the current stream, or raises."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, causal, q_start)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, sq, h, d, skv, kh = _check_dense(q, k, v, q_start)
+    dv = v.shape[3]
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise TypeError(f"k and v must be float32 or bfloat16 alike; got "
+                        f"{k.dtype}, {v.dtype}")
+    if k.shape[3] != d:
+        raise ValueError(f"k rows are {k.shape[3]} wide, q rows {d}")
+    if max(d, dv) > MAX_D:
+        raise ValueError(f"head dims {d}/{dv} exceed the kernel's {MAX_D}")
+    build.check_operands(q, [t for t in (q, k, v, q_start) if t is not None])
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
-    rc = lib.flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, sq, skv, h, kh, d, dv, float(scale),
-        int(causal), build.stream_of(q))
+    rc = _lib("flash_attention").flash_attention(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
+        int(k.dtype == torch.bfloat16),
+        None if q_start is None else q_start.data_ptr(), out.data_ptr(),
+        b, sq, skv, h, kh, d, dv, float(scale), int(causal), build.stream_of(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc} at "
                            f"(B={b}, Sq={sq}, Skv={skv}, H={h}, KH={kh}, D={d}, Dv={dv})")
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention_quant(q, k_quant, k_scales, v_quant, v_scales,
+                          scale: float, kv_spec, causal: bool = True,
+                          q_start=None) -> torch.Tensor:
+    """One launch of kernel #8; returns (B, Sq, H, D) in q's dtype.
+
+    Arguments as :func:`flash_attention_quant_plain`; on the card every
+    operand is contiguous, D <= ``MAX_D`` and ``q_start`` is None or (B,)
+    int32.  A CPU ``q`` runs the plain version; a CUDA ``q`` launches the
+    kernel on the current stream, or raises."""
+    if q.device.type == "cpu":
+        return flash_attention_quant_plain(q, k_quant, k_scales, v_quant,
+                                           v_scales, scale, kv_spec, causal,
+                                           q_start)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, sq, h, d, skv, kh = _check_dense(q, k_quant, v_quant, q_start)
+    if not kv_spec.is_quantized:
+        raise ValueError(f"kv spec {kv_spec.describe()!r} is not quantized")
+    if k_quant.dtype != kv_spec.pool_dtype or v_quant.dtype != k_quant.dtype \
+            or k_quant.shape[3] != kv_spec.packed_head_dim(d):
+        raise TypeError(f"{kv_spec.describe()} k/v must be {kv_spec.pool_dtype} "
+                        f"(B, Skv, KH, {kv_spec.packed_head_dim(d)}); got "
+                        f"{k_quant.dtype} {tuple(k_quant.shape)}")
+    if d > MAX_D:
+        raise ValueError(f"head dim {d} exceeds the kernel's {MAX_D}")
+    group = kv_spec.group_for(d)
+    want = k_quant.shape[:3] + (d // group,)
+    for sc in (k_scales, v_scales):
+        if sc.dtype != torch.float32 or sc.shape != want:
+            raise ValueError(f"scales must be float32 {tuple(want)}; got "
+                             f"{sc.dtype} {tuple(sc.shape)}")
+    build.check_operands(q, [t for t in (q, k_quant, k_scales, v_quant, v_scales,
+                                         q_start) if t is not None])
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    rc = _lib("flash_attention_quant").flash_attention_quant(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k_quant.data_ptr(),
+        k_scales.data_ptr(), v_quant.data_ptr(), v_scales.data_ptr(),
+        int(kv_spec.dtype == "int4"), group,
+        None if q_start is None else q_start.data_ptr(), out.data_ptr(),
+        b, sq, skv, h, kh, d, float(scale), int(causal), build.stream_of(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_quant launch failed: cudaError {rc} "
+                           f"at (B={b}, Sq={sq}, Skv={skv}, H={h}, KH={kh}, D={d}, "
+                           f"{kv_spec.describe()})")
+    LAUNCHES["flash_attention_quant"] += 1
     return out

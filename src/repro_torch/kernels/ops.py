@@ -1,6 +1,7 @@
 """Kernel dispatch (counterpart of ``repro/kernels/ops.py``): the
 W4A4+LRC forward (per-token scales, no rotation), dense causal flash
-attention, and paged decode attention over float and quantized KV pools.
+attention over float and quantized K/V, and paged decode attention over
+float and quantized KV pools.
 
 ``w4a4_lrc_forward`` runs one of three paths, picked by a
 :class:`~repro_torch.kernels.context.KernelContext` (module docstring
@@ -12,9 +13,13 @@ three paths give bitwise equal outputs there (the reference's contract for
 its interpret mode): they share the quantizer, the K-chunked x·V and the
 epilogue bodies of ``rowops``.
 
-``flash_attention`` keeps the reference's signature and layouts, q (B, Sq,
-H, D) and k/v (B, Skv, KH, D); its kernel reads each kv head in place for
-its query group, where the reference's wrapper repeats the KV heads.
+``flash_attention`` and ``flash_attention_quant`` keep the reference's
+signatures and layouts, q (B, Sq, H, D) and k/v (B, Skv, KH, ·), the
+quantized one with its scale planes and the ``KVSpec``; their kernels read
+each kv head in place for its query group, where the reference's wrappers
+repeat the KV heads.  Both add ``q_start`` (B,) int32, the absolute
+position of each sequence's first query row (default 0, the reference's
+aligned mask), which a prefill chunk over the paged pool needs.
 
 ``paged_flash_attention[_quant]`` keep the reference's signatures and
 layouts: q (B, H, D), pages (NP, P, KH, ·), block_table (B, MPB) and
@@ -37,7 +42,8 @@ from repro_torch.kernels.w4a4 import w4a4_lowrank_matmul
 
 __all__ = ["KernelContext", "w4a4_lrc_forward", "act_quant", "fused_prologue",
            "w4a4_lowrank_matmul", "fused_w4a4_lrc", "flash_attention",
-           "paged_flash_attention", "paged_flash_attention_quant"]
+           "flash_attention_quant", "paged_flash_attention",
+           "paged_flash_attention_quant"]
 
 DEFAULT_CONTEXT = KernelContext()
 # rows per x·V tile of the unfused path (the kernels' larger M-tile)
@@ -92,11 +98,28 @@ def w4a4_lrc_forward(x: torch.Tensor, wpacked: torch.Tensor,
     return w4a4_lowrank_matmul(xq, sx, wpacked, sw, xv, u)
 
 
-def flash_attention(q, k, v, scale: float, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, scale: float, causal: bool = True,
+                    q_start=None) -> torch.Tensor:
     """GQA flash attention. q: (B, Sq, H, D); k/v: (B, Skv, KH, D[v]);
-    causal with query and key positions both from 0.  Returns (B, Sq, H,
-    Dv) in q's dtype."""
-    return flash_attn.flash_attention(q, k, v, scale, causal)
+    causal with query row i of sequence b at position ``q_start[b] + i``
+    (None: 0) and key positions from 0.  Returns (B, Sq, H, Dv) in q's
+    dtype."""
+    return flash_attn.flash_attention(q, k, v, scale, causal, q_start)
+
+
+def flash_attention_quant(q, k_quant, k_scales, v_quant, v_scales,
+                          scale: float, kv_spec, causal: bool = True,
+                          q_start=None) -> torch.Tensor:
+    """:func:`flash_attention` over quantized K/V (the dense prefill
+    layout).  q: (B, Sq, H, D); k/v_quant: (B, Skv, KH, D | D//2) int8 /
+    packed uint8 with f32 scale planes (B, Skv, KH, D // group);
+    ``kv_spec`` a :class:`~repro_torch.serve.kvquant.KVSpec` (its
+    ``group_for(D)``, packed when int4).  Each tile dequantizes inside the
+    kernel, so the f32 K/V never reach device memory.  Returns (B, Sq, H,
+    D) in q's dtype."""
+    return flash_attn.flash_attention_quant(q, k_quant, k_scales, v_quant,
+                                            v_scales, scale, kv_spec, causal,
+                                            q_start)
 
 
 def paged_flash_attention(q, k_pages, v_pages, block_table, lengths,

@@ -6,9 +6,13 @@ a plain tensor runs a dense matmul; a ``QLinear`` runs the W4A4+LRC path.
 Norms and RoPE are plain torch, as the reference leaves them to XLA
 outside any Pallas kernel.  Attention against the paged pool takes one of
 two routes: the reference's (gather each row's pages into a dense view,
-then :func:`attention`, plain torch), or for a decode step the paged
-attention kernels (``ops.paged_flash_attention[_quant]``), which read the
-pool in place; ``transformer.paged_step`` chooses.  The cache-free
+dequantized to f32 for a quantized pool, then :func:`attention`, plain
+torch), or the kernels: for a decode step the paged attention kernels
+(``ops.paged_flash_attention[_quant]``), which read the pool in place; for
+a prefill chunk or a full sequence the dense flash kernels
+(``ops.flash_attention[_quant]``) over each row's pages gathered as they
+are stored (float rows, or codes and scale planes, no dequant), with the
+row's query offset; ``transformer.paged_step`` chooses.  The cache-free
 forward's causal attention likewise takes :func:`attention` or the dense
 flash-attention kernel (:func:`causal_attention`).
 
@@ -189,6 +193,12 @@ def _project_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     return q, k, v
 
 
+def _gathered(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Each row's pages as stored, (NP, P, KH, ·) → (B, MPB·P, KH, ·)."""
+    b = block_table.shape[0]
+    return pages[block_table].reshape(b, -1, *pages.shape[2:])
+
+
 def _decode_query(q: torch.Tensor) -> torch.Tensor:
     """(B, 1, H, hd) → the kernels' (B, H, hd)."""
     if q.shape[1] != 1:
@@ -202,18 +212,23 @@ def paged_gqa_attention_block(p: dict, x: torch.Tensor,
                               cfg, mask, pages_k: torch.Tensor,
                               pages_v: torch.Tensor,
                               block_table: torch.Tensor, rope_cs=None,
-                              slots=None, decode=None):
+                              slots=None, decode=None, prefill=None):
     """GQA attention against a paged KV pool: writes this step's k/v into
-    the owning pages, then attends.  With ``decode`` None, the reference's
-    route: gather each row's pages into a dense (B, MPB*P, ...) view and
-    attend under the caller's per-row mask.  With ``decode`` =
-    (block_table int32, lengths int32) of a step of one token per row, the
-    paged kernel attends over the pool in place.  ``rope_cs`` and ``slots``
-    (:func:`rope_table`, :func:`page_slots`) depend only on the step, so a
-    caller running many layers computes them once, as it does ``decode``.
-    Returns (out (B,S,D), pages_k, pages_v)."""
+    the owning pages, then attends.  With ``decode`` and ``prefill`` None,
+    the reference's route: gather each row's pages into a dense (B, MPB*P,
+    ...) view in the activations' dtype and attend under the caller's
+    per-row mask.  With ``decode`` = (block_table int32, lengths int32) of
+    a step of one token per row, the paged kernel attends over the pool in
+    place.  With ``prefill`` = q_start (B,) int32 of a step whose row b
+    holds positions ``q_start[b] + arange(S)``, the rows' pages are
+    gathered in the pool's dtype and the dense flash kernel attends
+    causally from that offset (the caller's mask is not read).  ``rope_cs``
+    and ``slots`` (:func:`rope_table`, :func:`page_slots`) depend only on
+    the step, so a caller running many layers computes them once, as it
+    does ``decode`` and ``prefill``.  Returns (out (B,S,D), pages_k,
+    pages_v)."""
     b, s, _ = x.shape
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, positions, cfg, rope_cs)
     if slots is None:
         slots = page_slots(block_table, positions, valid, pages_k.shape[1])
@@ -222,9 +237,13 @@ def paged_gqa_attention_block(p: dict, x: torch.Tensor,
     if decode is not None:
         out = ops.paged_flash_attention(_decode_query(q), pages_k, pages_v,
                                         *decode, scale=1.0 / (hd**0.5))
+    elif prefill is not None:
+        out = ops.flash_attention(q.contiguous(), _gathered(pages_k, block_table),
+                                  _gathered(pages_v, block_table), 1.0 / (hd**0.5),
+                                  causal=True, q_start=prefill)
     else:
-        kc = pages_k[block_table].reshape(b, -1, kh, hd).to(x.dtype)
-        vc = pages_v[block_table].reshape(b, -1, kh, hd).to(x.dtype)
+        kc = _gathered(pages_k, block_table).to(x.dtype)
+        vc = _gathered(pages_v, block_table).to(x.dtype)
         out = attention(q, kc, vc, mask, scale=1.0 / (hd**0.5))
     out = apply_linear(p["wo"], out.reshape(b, s, h * hd))
     return out, pages_k, pages_v
@@ -238,16 +257,18 @@ def paged_gqa_attention_block_quantized(p: dict, x: torch.Tensor,
                                         scales_k: torch.Tensor,
                                         scales_v: torch.Tensor,
                                         block_table: torch.Tensor, kv_spec,
-                                        rope_cs=None, slots=None, decode=None):
+                                        rope_cs=None, slots=None, decode=None,
+                                        prefill=None):
     """The quantized-KV sibling of :func:`paged_gqa_attention_block`: k/v
     quantize at append time (:func:`paged_cache_update_quantized`).  The
     gather route dequantizes each row's pages through
     ``kvquant.dequantize_kv`` and runs the same :func:`attention`; the
-    kernel route (``decode``) dequantizes each element inside the kernel
-    with the same single multiply.  Returns (out, pages_k, pages_v,
-    scales_k, scales_v)."""
+    kernel routes (``decode``; ``prefill``, which gathers each row's codes
+    and scale planes without dequantizing them) dequantize each element
+    inside the kernel with the same single multiply.  Returns (out,
+    pages_k, pages_v, scales_k, scales_v)."""
     b, s, _ = x.shape
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, positions, cfg, rope_cs)
     if slots is None:
         slots = page_slots(block_table, positions, valid, pages_k.shape[1])
@@ -259,14 +280,17 @@ def paged_gqa_attention_block_quantized(p: dict, x: torch.Tensor,
         out = ops.paged_flash_attention_quant(
             _decode_query(q), pages_k, scales_k, pages_v, scales_v, *decode,
             scale=1.0 / (hd**0.5), kv_spec=kv_spec)
+    elif prefill is not None:
+        out = ops.flash_attention_quant(
+            q.contiguous(), _gathered(pages_k, block_table),
+            _gathered(scales_k, block_table), _gathered(pages_v, block_table),
+            _gathered(scales_v, block_table), 1.0 / (hd**0.5), kv_spec,
+            causal=True, q_start=prefill)
     else:
-        phd, n_g = kv_spec.packed_head_dim(hd), kv_spec.n_groups(hd)
-        kc = dequantize_kv(pages_k[block_table].reshape(b, -1, kh, phd),
-                           scales_k[block_table].reshape(b, -1, kh, n_g),
-                           kv_spec, hd).to(x.dtype)
-        vc = dequantize_kv(pages_v[block_table].reshape(b, -1, kh, phd),
-                           scales_v[block_table].reshape(b, -1, kh, n_g),
-                           kv_spec, hd).to(x.dtype)
+        kc = dequantize_kv(_gathered(pages_k, block_table),
+                           _gathered(scales_k, block_table), kv_spec, hd).to(x.dtype)
+        vc = dequantize_kv(_gathered(pages_v, block_table),
+                           _gathered(scales_v, block_table), kv_spec, hd).to(x.dtype)
         out = attention(q, kc, vc, mask, scale=1.0 / (hd**0.5))
     out = apply_linear(p["wo"], out.reshape(b, s, h * hd))
     return out, pages_k, pages_v, scales_k, scales_v

@@ -38,11 +38,11 @@ def init_paged_cache(cfg, num_pages: int, page_size: int,
 
 
 def paged_step(cfg, params, tokens, positions, valid, cache, block_table,
-               sample_row=None, kv_spec=None, ctx=None):
+               sample_row=None, kv_spec=None, ctx=None, is_prefill=None):
     """Chunked-prefill / batched-decode step against a paged KV pool; see
     ``transformer.paged_step`` for the contract."""
     if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(cfg.family)
     return transformer.paged_step(cfg, params, tokens, positions, valid,
                                   cache, block_table, sample_row,
-                                  kv_spec=kv_spec, ctx=ctx)
+                                  kv_spec=kv_spec, ctx=ctx, is_prefill=is_prefill)

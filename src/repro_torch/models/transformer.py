@@ -97,7 +97,8 @@ def forward(cfg, params, tokens, ctx=None):
     x = embed_tokens(cfg, params, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    route = (DEFAULT_CONTEXT if ctx is None else ctx).attention_route(x.device)
+    route = (DEFAULT_CONTEXT if ctx is None else ctx).attention_route(
+        x.device, cfg.head_dim)
     mask = None if route == "kernel" else causal_mask(s, s, 0, device=x.device)
     for lp in params["layers"]:
         x = decoder_layer(cfg, lp, x, positions, mask, route)
@@ -144,8 +145,17 @@ def decode_operands(block_table, positions, valid):
             lengths.to(torch.int32).contiguous())
 
 
+def prefill_operands(positions):
+    """What the dense flash kernels take besides q and the gathered pages,
+    for a prefill step: ``q_start`` (B,) int32, each row's first position,
+    the row's tokens sitting at ``q_start + arange(S)`` (a prefill chunk at
+    its offset, a full sequence at 0).  The same for every layer: computed
+    once per step."""
+    return positions[:, 0].to(torch.int32).contiguous()
+
+
 def paged_step(cfg, params, tokens, positions, valid, cache, block_table,
-               sample_row=None, kv_spec=None, ctx=None):
+               sample_row=None, kv_spec=None, ctx=None, is_prefill=None):
     """One forward step against the paged KV pool — the single entry point
     for BOTH chunked prefill (B=1, S=chunk) and batched decode (B=slots,
     S=1).
@@ -159,20 +169,31 @@ def paged_step(cfg, params, tokens, positions, valid, cache, block_table,
     pool stores k/v; a quantized spec needs the scale leaves of
     :func:`init_paged_cache`.  ``ctx.attention`` (a
     :class:`~repro_torch.kernels.context.KernelContext`; None = "auto")
-    picks the route of a decode step's attention: the paged kernels or the
-    reference's gather.  Returns (logits (B, S|1, V), cache); the cache's
-    pages are written in place."""
+    picks the route of the step's attention: the kernels (the paged ones
+    for a decode step; the dense flash ones over the gathered pages for a
+    prefill step, whose rows must hold consecutive positions, as a prefill
+    chunk's and a full sequence's do) or the reference's gather.
+    ``is_prefill`` (None: S > 1) says which a step is, so that a one-token
+    prefill chunk sums its attention as a wider chunk does.  Returns
+    (logits (B, S|1, V), cache); the cache's pages are written in place."""
     x = embed_tokens(cfg, params, tokens)
     ctx = DEFAULT_CONTEXT if ctx is None else ctx
-    decode = None
-    if tokens.shape[1] == 1 and ctx.attention_route(cache["k"].device) == "kernel":
-        decode = decode_operands(block_table, positions, valid)
+    if is_prefill is None:
+        is_prefill = tokens.shape[1] > 1
+    decode = prefill = mask = None
+    if ctx.attention_route(cache["k"].device, cfg.head_dim,
+                           decode=not is_prefill) == "kernel":
+        if is_prefill:
+            prefill = prefill_operands(positions)
+        else:
+            decode = decode_operands(block_table, positions, valid)
     block_table = block_table.long()
     positions = positions.long()
     page_size = cache["k"].shape[2]
-    kv_len = block_table.shape[1] * page_size
-    kj = torch.arange(kv_len, device=x.device)
-    mask = (kj[None, None, :] <= positions[:, :, None]) & valid[:, :, None]
+    if decode is None and prefill is None:
+        kv_len = block_table.shape[1] * page_size
+        kj = torch.arange(kv_len, device=x.device)
+        mask = (kj[None, None, :] <= positions[:, :, None]) & valid[:, :, None]
     # the same for every layer: computed once per step
     rope_cs = (rope_table(positions, cfg.head_dim, cfg.rope_theta)
                if cfg.rope_theta > 0 else None)
@@ -184,11 +205,11 @@ def paged_step(cfg, params, tokens, positions, valid, cache, block_table,
             a = paged_gqa_attention_block_quantized(
                 lp["attn"], h, positions, valid, cfg, mask, cache["k"][li],
                 cache["v"][li], cache["k_scale"][li], cache["v_scale"][li],
-                block_table, kv_spec, rope_cs, slots, decode)[0]
+                block_table, kv_spec, rope_cs, slots, decode, prefill)[0]
         else:
             a = paged_gqa_attention_block(
                 lp["attn"], h, positions, valid, cfg, mask, cache["k"][li],
-                cache["v"][li], block_table, rope_cs, slots, decode)[0]
+                cache["v"][li], block_table, rope_cs, slots, decode, prefill)[0]
         x = x + a
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + mlp_block(lp["mlp"], h, cfg.act)

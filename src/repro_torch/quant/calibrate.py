@@ -194,7 +194,8 @@ def _quantize_dense(cfg, params, tokens, policy, progress=None,
     x = embed_tokens(cfg, params, tokens).to(torch.float32)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    route = (DEFAULT_CONTEXT if ctx is None else ctx).attention_route(x.device)
+    route = (DEFAULT_CONTEXT if ctx is None else ctx).attention_route(
+        x.device, cfg.head_dim)
     mask = None if route == "kernel" else causal_mask(s, s, 0, device=x.device)
     rope_cs = (rope_table(positions, cfg.head_dim, cfg.rope_theta)
                if cfg.rope_theta > 0 else None)

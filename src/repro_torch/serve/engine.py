@@ -43,10 +43,16 @@ is attached to every QLinear and picks each site's path: fused where the
 site fits the one-kernel path, else chained, unless pinned.
 ``health()["decode_plan"]`` lists the path each distinct (K, N, R) site
 resolves to at decode (M = ``batch_slots``), so a run shows which sites
-went where.  ``ctx.attention`` routes each decode step's attention:
-``"auto"`` takes the paged attention kernels on the card and the
-reference's gather route on the CPU; ``health()["decode_attention"]``
-names the route and the kernel it launches.
+went where.  ``ctx.attention`` routes the attention of every model call:
+``"auto"`` takes the kernels on the card and the reference's gather route
+on the CPU, and demotes a prefill's attention to gather, from shapes,
+for a head dim the flash kernels cannot take (decode keeps its kernels).  On the kernel route each decode step's attention launches a
+paged attention kernel and each prefill chunk's (every chunk, whatever its
+offset or width, one token included) a dense flash kernel over the slot's
+gathered pages, so a token's K/V, and the greedy stream, do not depend on
+the chunk width.
+``health()["decode_attention"]`` and ``health()["prefill_attention"]``
+name the route, the kernel it launches and the reason of a demotion.
 """
 
 from __future__ import annotations
@@ -70,11 +76,30 @@ from repro_torch.serve.sampling import (NonFiniteLogitsError, sample_token,
                                         sampling_generator)
 
 __all__ = ["PagesExhausted", "Request", "RequestRecord", "RequestState",
-           "ServeEngine"]
+           "ServeEngine", "attention_report"]
 
 
 class PagesExhausted(RuntimeError):
     """The free list could not cover a page allocation."""
+
+
+def attention_report(ctx, device, head_dim: int, kv_spec: KVSpec,
+                     decode: bool) -> dict:
+    """``health()["decode_attention"]`` (``decode``) or
+    ``["prefill_attention"]``: the route ``ctx.attention_plan`` gives on
+    ``device`` for ``head_dim``, the kernel it launches
+    ("paged_flash_attention" for decode, "flash_attention" for prefill; its
+    ``_quant`` sibling for a quantized pool; None on the gather route), the
+    KV scheme, and why "auto" demoted the kernel route (None when it did
+    not)."""
+    plan = ctx.attention_plan(device, head_dim, decode)
+    kernel = None
+    if plan.route == "kernel":
+        kernel = "paged_flash_attention" if decode else "flash_attention"
+        if kv_spec.is_quantized:
+            kernel += "_quant"
+    return {"route": plan.route, "kernel": kernel,
+            "kv": kv_spec.describe(), "demoted": plan.demoted}
 
 
 def _classify_error(e: BaseException) -> Tuple[ErrorKind, str]:
@@ -148,7 +173,11 @@ class ServeEngine:
         self._paged = functools.partial(model_lib.paged_step, cfg,
                                         kv_spec=self.kv_spec, ctx=ctx)
         self.decode_plan = self._resolve_decode_plan()
-        self.decode_attention = self._resolve_decode_attention()
+        route_ctx = ctx if ctx is not None else ops.DEFAULT_CONTEXT
+        self.decode_attention = attention_report(
+            route_ctx, self.device, cfg.head_dim, self.kv_spec, decode=True)
+        self.prefill_attention = attention_report(
+            route_ctx, self.device, cfg.head_dim, self.kv_spec, decode=False)
 
     # -- public API ---------------------------------------------------------
 
@@ -206,6 +235,7 @@ class ServeEngine:
             "kv": self._kv_health(),
             "decode_plan": self.decode_plan,
             "decode_attention": self.decode_attention,
+            "prefill_attention": self.prefill_attention,
         }
 
     def _kv_health(self) -> dict:
@@ -218,18 +248,6 @@ class ServeEngine:
                     self.cfg.n_kv_heads, self.cfg.head_dim)}
 
     # -- kernel-plan introspection ------------------------------------------
-
-    def _resolve_decode_attention(self) -> dict:
-        """The route of every decode step's attention (``ctx.attention``
-        on this engine's device) and the kernel it launches, None on the
-        gather route.  Prefill chunks always take the gather route."""
-        ctx = self.ctx if self.ctx is not None else ops.DEFAULT_CONTEXT
-        route = ctx.attention_route(self.device)
-        kernel = None
-        if route == "kernel":
-            kernel = ("paged_flash_attention_quant" if self.kv_spec.is_quantized
-                      else "paged_flash_attention")
-        return {"route": route, "kernel": kernel, "kv": self.kv_spec.describe()}
 
     def _resolve_decode_plan(self) -> List[dict]:
         """The path each distinct (K, N, R) QLinear site runs at decode: the
@@ -355,7 +373,8 @@ class ServeEngine:
             logits, self.pool = self._paged(
                 self.params, self._dev(tokens), self._dev(positions),
                 self._dev(valid), self.pool,
-                self._dev(self.block_tables[i:i + 1]), self._dev(srow))
+                self._dev(self.block_tables[i:i + 1]), self._dev(srow),
+                is_prefill=True)
             if final:
                 tok = int(self._sample(req, logits[:, -1])[0])
             else:

@@ -72,9 +72,9 @@ def test_one_model_call_per_decode_step(setup):
     calls = []
     inner, step = eng._paged, eng._step
 
-    def paged(params, tokens, *rest):
+    def paged(params, tokens, *rest, **kw):
         calls.append(tuple(tokens.shape))
-        return inner(params, tokens, *rest)
+        return inner(params, tokens, *rest, **kw)
 
     per_step = []
 

@@ -38,7 +38,7 @@ def test_port_modules_found():
     assert "repro_torch.serve.kvquant" in MODULES
     for name in ("data.tokens", "data.loader", "core.stats", "core.hadamard",
                  "core.rotation", "core.gptq", "core.lrc", "quant.rotate",
-                 "quant.calibrate"):
+                 "quant.calibrate", "bench.kv_sweep"):
         assert f"repro_torch.{name}" in MODULES
 
 

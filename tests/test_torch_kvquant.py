@@ -268,21 +268,26 @@ def test_engine_validates_geometry_eagerly(setup):
 @pytest.mark.parametrize("spec", [KVSpec(), KVSpec("bf16"), KVSpec("int8"),
                                   KVSpec("int4", group=8)], ids=lambda s: s.describe())
 def test_kernel_route_launch_counts(setup, spec):
-    """Every decode step's attention goes through the spec's kernel wrapper
-    once per layer (its plain version here, the tensors being on the CPU);
-    prefill chunks take the gather route and touch no wrapper."""
+    """Every decode step's attention goes through the spec's paged kernel
+    wrapper once per layer, and every prefill chunk's through the spec's
+    dense flash kernel wrapper once per layer (their plain versions here,
+    the tensors being on the CPU); no other wrapper runs."""
     _, tcfg, _, ported = setup
     flash_attn.reset_launches()
     eng, _ = _serve(tcfg, ported["int8"], _prompts(tcfg), kv_spec=spec,
                     ctx=KERNEL_ROUTE)
     name = ("paged_flash_attention_quant" if spec.is_quantized
             else "paged_flash_attention")
+    prefill = name[len("paged_"):]
     want = {k: 0 for k in flash_attn.LAUNCHES}
     want[name + "_plain"] = tcfg.n_layers * eng.counters["decode_calls"]
+    want[prefill + "_plain"] = tcfg.n_layers * eng.counters["prefill_calls"]
     assert eng.counters["decode_calls"] > 0
     assert flash_attn.LAUNCHES == want
     assert eng.health()["decode_attention"] == {
-        "route": "kernel", "kernel": name, "kv": spec.describe()}
+        "route": "kernel", "kernel": name, "kv": spec.describe(), "demoted": None}
+    assert eng.health()["prefill_attention"] == {
+        "route": "kernel", "kernel": prefill, "kv": spec.describe(), "demoted": None}
 
 
 @pytest.mark.parametrize("spec", [KVSpec(), KVSpec("int8")], ids=lambda s: s.describe())
@@ -343,10 +348,11 @@ def test_kernel_route_logits_near_gather_route(spec):
 
 
 def test_attention_route_choice():
-    assert KernelContext().attention_route("cpu") == "gather"
-    assert KernelContext().attention_route(torch.device("cuda", 0)) == "kernel"
-    assert KERNEL_ROUTE.attention_route("cpu") == "kernel"
-    assert KernelContext(attention="gather").attention_route("cuda") == "gather"
+    hd = 64
+    assert KernelContext().attention_route("cpu", hd) == "gather"
+    assert KernelContext().attention_route(torch.device("cuda", 0), hd) == "kernel"
+    assert KERNEL_ROUTE.attention_route("cpu", hd) == "kernel"
+    assert KernelContext(attention="gather").attention_route("cuda", hd) == "gather"
     assert KERNEL_ROUTE.with_layer_overrides({"mlp/wd": "unfused"}).attention == "kernel"
     with pytest.raises(ValueError, match="attention route"):
         KernelContext(attention="flash")

@@ -216,15 +216,16 @@ def run_pallas(tmp_path, script: str, **arrays) -> dict:
     return dict(np.load(tmp_path / "out.npz"))
 
 
-def flash_bound(q, k, v, scale, y, extra_dot=0):
+def flash_bound(q, k, v, scale, y, extra_dot=0, q_start=0):
     """Elementwise bound on two f32 evaluations of dense causal attention
     that take the Pallas steps and differ only in the order of three sums
-    (the D-term score dot, Σp and p·V), q (B, S, H, D), k/v (B, S, KH, ·):
-    2·v_max·(2·(D + extra_dot)·u·S + 2·(N + 2·tiles + 4)·u), with u = 2⁻²⁴,
-    S = Σ_d |q_d·scale|·max_keys |k_d| per query row, N = qpos + 1 keys,
-    tiles = ⌈N/128⌉ and v_max = max |v| of the kv head; a bf16 ``y`` adds
-    one bf16 ulp of the larger side (2⁻⁶|y|).  ``extra_dot`` counts extra
-    roundings per score.  Returns (tol, S, v_max), broadcastable to y."""
+    (the D-term score dot, Σp and p·V), q (B, Sq, H, D), k/v (B, Skv, KH,
+    ·): 2·v_max·(2·(D + extra_dot)·u·S + 2·(N + 2·tiles + 4)·u), with u =
+    2⁻²⁴, S = Σ_d |q_d·scale|·max_keys |k_d| per query row, N = qpos + 1
+    keys (query row i at qpos = q_start + i), tiles = ⌈N/128⌉ and v_max =
+    max |v| of the kv head; a bf16 ``y`` adds one bf16 ulp of the larger
+    side (2⁻⁶|y|).  ``extra_dot`` counts extra roundings per score.
+    Returns (tol, S, v_max), broadcastable to y."""
     q, k, v = (np.asarray(a, np.float64) for a in (q, k, v))
     b, s, h, d = q.shape
     kh = k.shape[2]
@@ -232,7 +233,7 @@ def flash_bound(q, k, v, scale, y, extra_dot=0):
     kmax = np.repeat(np.abs(k).max(axis=1), g, axis=1)  # (B, H, D)
     s_max = np.einsum("bshd,bhd->bsh", np.abs(q * scale), kmax)
     vmax = np.repeat(np.abs(v).max(axis=(1, 3)), g, axis=1)[:, None]  # (B, 1, H)
-    n = np.arange(1, s + 1, dtype=np.float64)[None, :, None]
+    n = q_start + np.arange(1, s + 1, dtype=np.float64)[None, :, None]
     rel = (2 * (d + extra_dot) * 2.0 ** -24 * s_max
            + 2 * (n + 2 * np.ceil(n / 128) + 4) * 2.0 ** -24)
     tol = (2 * vmax * rel)[..., None]
