@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the port from ``src/repro_torch/kernels/csrc``
-     (``build.KERNELS``, eight: one ``nvcc`` per source, all at once);
+     (``build.KERNELS``, nine: one ``nvcc`` per source, all at once), and
+     check the rotation's host constant against the plain version's;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the serving and calibration paths give it plus ragged ones,
      with times: the fused kernel at SmolLM-135M's sites, the prologue,
@@ -22,7 +23,12 @@ Phases, each fatal on failure:
      dequantized codes, and #7 with a query offset (f32, bf16, and the
      served models' bf16 q over an f32 pool at the Phi-3 chunk, a SmolLM
      serving slot and the kv_sweep shape); a chunk's rows bitwise the
-     whole prompt's rows;
+     whole prompt's rows; the online rotation: the transform kernel (#5)
+     bitwise its plain version (f32, bf16; Phi-3's wd at decode, 256 and
+     2048 rows, a ragged short row, D = 2 and 16384) beside a matmul by
+     H_D, the fused kernel's rotate branch at SmolLM-width sites with K a
+     power of two, and the prologue's at Phi-3's wd (R 922, with V and
+     without; M 4, 100 and 2048), codes and scales bitwise;
   4. serve SmolLM-135M at full width (random weights from seed 0, W4A4+LRC
      by RTN+SVD, f32 KV pool) through ``ServeEngine.submit``/``run`` and
      count that every QLinear went through the fused kernel, every decode
@@ -69,6 +75,12 @@ Phases, each fatal on failure:
      routes: layer 0's kernel call within the f32 bound of its plain
      version, its output within the bound of the gather route's, PPL, ACC
      and the logits' correlation;
+ 12. the paper's layer-latency tables (``repro_torch.bench.latency_kernels``,
+     Tables 6-8): the smoke rows, then the W4A4+LRC layer rotated and
+     unrotated at the paper's Llama sizes, every rank of RANKS and M of MS,
+     and at Phi-3-mini's mlp/wd site, beside a bf16 matmul, each output held
+     against its plain version; every rotated unfused call launches the
+     transform kernel once, and nothing else launches it;
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
 result.
@@ -115,9 +127,10 @@ def phase(title):
 
 
 def _kernel_modules():
-    from repro_torch.kernels import actquant, flash_attn, fused_gemm, prologue, w4a4
+    from repro_torch.kernels import (actquant, flash_attn, fused_gemm, hadamard,
+                                     prologue, w4a4)
 
-    return (fused_gemm, prologue, w4a4, actquant, flash_attn)
+    return (fused_gemm, prologue, w4a4, actquant, flash_attn, hadamard)
 
 
 def reset_launches():
@@ -136,62 +149,6 @@ def launches():
 # ---------------------------------------------------------------------------
 # phase 3: kernel against its plain version
 # ---------------------------------------------------------------------------
-
-
-def _problem(gen, m, k, n, r, x_dtype, f_dtype, device):
-    import torch
-
-    from repro_torch.core.quantizers import pack_int4
-
-    x = torch.randn((m, k), generator=gen, device=device).to(x_dtype)
-    q = torch.randint(-8, 8, (k, n), generator=gen, device=device,
-                      dtype=torch.int8)
-    wp = pack_int4(q.T).T.contiguous()
-    sw = torch.rand((n,), generator=gen, device=device) * 0.02 + 0.001
-    u = v = None
-    if r:
-        u = (torch.randn((n, r), generator=gen, device=device) * 0.05).to(f_dtype)
-        v = (torch.randn((k, r), generator=gen, device=device) * 0.05).to(f_dtype)
-    return x, v, wp, sw, u
-
-
-def _tolerance(x, v, u, k, r, y_plain):
-    """Elementwise bound on |kernel - plain|: only the two LR sums (K terms
-    of x·V, R terms of xv·Uᵀ) are added in another order, so they may differ
-    by twice the recursive-summation bound (K+R+1)·2⁻²⁴ of the sum of
-    absolute terms, plus the output's final rounding."""
-    import torch
-
-    u_eps = 2.0 ** -24
-    mag = y_plain.abs()
-    if r:
-        lr = (x.float().abs() @ v.float().abs()) @ u.float().abs().T
-        mag = mag + lr
-    return 2.0 * (k + r + 1) * u_eps * mag + torch.finfo(torch.float32).tiny
-
-
-def _time_ms(fn, flush, reps=30, warmup=5):
-    """Median device time of one call, each run after an L2 flush (the
-    serving path streams ~60 MB of weights per step, more than the 50 MB
-    L2, so a site's weights are cold when it runs)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        # keep the card busy while the host enqueues the call, so the events
-        # time the device work and not the host's launch overhead
-        torch.cuda._sleep(2_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def _bound(nbytes, int8_ops=0, f32_ops=0):
@@ -223,6 +180,7 @@ def phase_kernels(device):
     one tile), bf16 activations and factors as served, and one f32 case."""
     import torch
 
+    from repro_torch.bench.common import flush_buffer, lr_tolerance, time_ms, w4a4_problem
     from repro_torch.kernels import fused_gemm
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -233,19 +191,19 @@ def phase_kernels(device):
     cases += [(17, 200, 97, 7, bf16, bf16), (3, 90, 33, 0, bf16, bf16),
               (1, 576, 577, 58, bf16, bf16), (33, 1536, 1, 5, bf16, bf16),
               (5, 256, 130, 40, f32, f32), (16, 576, 64, 58, f32, bf16)]
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buffer(device)
     one = torch.zeros(1, device=device)
-    floor = _time_ms(lambda: one.add_(1), flush)
+    floor = time_ms(lambda: one.add_(1), flush)
     print(f"  timing floor (one 1-element add, same method): {floor * 1e3:.2f} us",
           flush=True)
     worst = 0.0
     timed = {}
     for (m, k, n, r, xd, fd) in cases:
-        x, v, wp, sw, u = _problem(gen, m, k, n, r, xd, fd, device)
+        x, v, wp, sw, u = w4a4_problem(gen, m, k, n, r, xd, fd, device)
         y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9)
         torch.cuda.synchronize()
         y_plain = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4, 0.9)
-        tol = _tolerance(x, v, u, k, r, y_plain)
+        tol = lr_tolerance(x, v, u, k, r, y_plain)
         err = (y - y_plain).abs()
         ok = bool(torch.isfinite(y).all()) and bool((err <= tol).all())
         print(f"  M={m:<3} K={k:<5} N={n:<5} R={r:<3} x={str(xd)[6:]:<8} "
@@ -257,8 +215,8 @@ def phase_kernels(device):
                              f"M={m} K={k} N={n} R={r}")
         worst = max(worst, err.max().item())
         if xd is bf16 and fd is bf16 and (k, n, r) in shapes:
-            t_k = _time_ms(lambda: fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9), flush)
-            t_p = _time_ms(lambda: fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4, 0.9), flush)
+            t_k = time_ms(lambda: fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9), flush)
+            t_p = time_ms(lambda: fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4, 0.9), flush)
             b, by = _bound_ms(m, k, n, r, 2, 2)
             timed[("fused_w4a4_lrc", m, k, n, r)] = (t_k, t_p, b, by)
             print(f"    kernel {t_k * 1e3:.2f} us  plain {t_p * 1e3:.2f} us  "
@@ -288,27 +246,6 @@ def _chain_bounds(m, k, n, r, x_bytes, f_bytes):
             "w4a4_lowrank_matmul": gemm}
 
 
-def _xv_tolerance(x, v, k, xv_plain):
-    """|kernel - plain| bound on x·V: only the order of its K-term sum
-    differs, so twice the recursive-summation bound (K+1)·2⁻²⁴ of the sum
-    of absolute terms, plus the final rounding."""
-    import torch
-
-    mag = x.float().abs() @ v.float().abs() + xv_plain.abs()
-    return 2.0 * (k + 1) * 2.0 ** -24 * mag + torch.finfo(torch.float32).tiny
-
-
-def _gemm_tolerance(xv, u, r, y_plain):
-    """|kernel - plain| bound on the GEMM output: the integer part and its
-    rescale are bitwise; only the R-term LR sum is ordered differently."""
-    import torch
-
-    mag = y_plain.abs()
-    if r:
-        mag = mag + xv.abs() @ u.float().abs().T
-    return 2.0 * (r + 1) * 2.0 ** -24 * mag + torch.finfo(torch.float32).tiny
-
-
 def phase_chain_kernels(device):
     """The prologue, GEMM and quantizer kernels at Phi-3-mini's three site
     shapes (M = decode slots and prefill chunk), the paper's 30 % rank
@@ -318,6 +255,8 @@ def phase_chain_kernels(device):
     x·V and the GEMM output within their summation bounds."""
     import torch
 
+    from repro_torch.bench.common import (flush_buffer, gemm_tolerance, time_ms,
+                                          w4a4_problem, xv_tolerance)
     from repro_torch.kernels import actquant, prologue, w4a4
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -329,11 +268,11 @@ def phase_chain_kernels(device):
               (17, 200, 97, 7, bf16, bf16), (3, 90, 33, 0, bf16, bf16),
               (1, 3072, 3073, 307, bf16, bf16), (33, 8194, 1, 5, bf16, bf16),
               (5, 16384, 130, 40, f32, f32), (20, 1030, 64, 1024, f32, bf16)]
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buffer(device)
     worst = {"fused_prologue": 0.0, "w4a4_lowrank_matmul": 0.0, "act_quant": 0.0}
     timed = {}
     for (m, k, n, r, xd, fd) in cases:
-        x, v, wp, sw, u = _problem(gen, m, k, n, r, xd, fd, device)
+        x, v, wp, sw, u = w4a4_problem(gen, m, k, n, r, xd, fd, device)
         xq, sx, xv = prologue.fused_prologue(x, v, 4, 0.9)
         aq, asx = actquant.act_quant(x, 4, 0.9)
         torch.cuda.synchronize()
@@ -343,7 +282,7 @@ def phase_chain_kernels(device):
         xv_err = xv_ok = 0.0
         if r:
             err = (xv - xv_p).abs()
-            xv_ok = bool((err <= _xv_tolerance(x, v, k, xv_p)).all())
+            xv_ok = bool((err <= xv_tolerance(x, v, k, xv_p)).all())
             xv_err = err.max().item()
         # the GEMM on the plain prologue's outputs, so both see one input
         y = w4a4.w4a4_lowrank_matmul(xq_p, sx_p, wp, sw, xv_p, u)
@@ -351,7 +290,7 @@ def phase_chain_kernels(device):
         y_p = w4a4.w4a4_lowrank_matmul_plain(xq_p, sx_p, wp, sw, xv_p, u)
         err = (y - y_p).abs()
         y_ok = (bool(torch.isfinite(y).all())
-                and bool((err <= _gemm_tolerance(xv_p, u, r, y_p)).all()))
+                and bool((err <= gemm_tolerance(xv_p, u, r, y_p)).all()))
         ok = codes and (xv_ok or not r) and y_ok
         print(f"  M={m:<3} K={k:<5} N={n:<5} R={r:<4} x={str(xd)[6:]:<8} "
               f"codes+scales {'bitwise' if codes else 'DIFFER'}  "
@@ -375,7 +314,7 @@ def phase_chain_kernels(device):
                     lambda: w4a4.w4a4_lowrank_matmul_plain(xq_p, sx_p, wp, sw, xv_p, u)),
             }
             for name, (kern, plain) in runs.items():
-                t_k, t_p = _time_ms(kern, flush), _time_ms(plain, flush)
+                t_k, t_p = time_ms(kern, flush), time_ms(plain, flush)
                 b, by = bounds[name]
                 timed[(name, m, k, n, r)] = (t_k, t_p, b, by)
                 print(f"    {name:<20} kernel {t_k * 1e3:8.2f} us  plain "
@@ -384,6 +323,157 @@ def phase_chain_kernels(device):
     print("  library_ms is null for all three: no single PyTorch call computes "
           "the int4 GEMM with its rescale and LR epilogue, the quantizer, or "
           "the quantizer with x·V", flush=True)
+    return worst, timed
+
+
+# kernel #5 (M, D): Phi-3-mini's mlp/wd at decode, phase 12's K at M 256 and
+# 2048, a ragged short row, the narrowest row and a row wider than any site
+FWHT_SHAPES = [(4, 8192), (256, 4096), (2048, 8192), (13, 512), (1, 2), (8, 16384)]
+# the fused kernel's rotate branch at SmolLM-width sites (K, N, R), K a power
+# of two; then a ragged one (odd N, M over one tile) and f32 operands
+ROT_FUSED_SITES = [(256, 576, 58), (512, 1536, 58), (1024, 576, 58)]
+# the prologue's rotate branch (M, K, R): Phi-3-mini's mlp/wd at the paper's
+# 30 % rank at decode, a 100-row chunk and prefill M, then without V
+ROT_PROLOGUE_CASES = [(SLOTS, 8192, 922), (100, 8192, 922), (2048, 8192, 922),
+                      (SLOTS, 8192, 0), (100, 8192, 0)]
+
+
+def _hadamard_matrix(d, device):
+    """The normalized Walsh-Hadamard matrix H_D in f32 on the card: entry
+    (i, j) is (-1)^popcount(i & j) / sqrt(D)."""
+    import torch
+
+    i = torch.arange(d, device=device, dtype=torch.int32)
+    a = i[:, None] & i[None, :]
+    parity = torch.zeros_like(a)
+    for _ in range(max(1, d.bit_length() - 1)):
+        parity ^= a & 1
+        a >>= 1
+    del a
+    return (1 - 2 * parity).to(torch.float32) * (1.0 / d**0.5)
+
+
+def _log2(d):
+    return d.bit_length() - 1
+
+
+def phase_rotate_kernels(device):
+    """The online rotation's kernels against their plain versions.
+
+    (a) kernel #5 (``csrc/fwht.cu``) at FWHT_SHAPES, f32 and bf16: bitwise
+        ``fwht_plain``; times beside its bytes bound and one
+        ``torch.matmul(x.float(), H_D)`` (TF32 off).
+    (b) the fused kernel's rotate branch at ROT_FUSED_SITES (M = decode
+        slots and prefill chunk, bf16 as served) and ragged cases: within
+        the LR-sum bound of its plain version on the rotated rows; timed
+        beside the unrotated branch at M = SLOTS.
+    (c) the prologue's rotate branch at ROT_PROLOGUE_CASES (bf16): codes and
+        scales bitwise its plain version, x·V within its bound on the
+        rotated rows; with an f32 x, its codes and scales bitwise those of
+        #5 then the quantizer kernel (the unfused path's); timed beside the
+        unrotated branch."""
+    import torch
+
+    from repro_torch.bench.common import (flush_buffer, lr_tolerance, time_ms,
+                                          w4a4_problem, xv_tolerance)
+    from repro_torch.kernels import actquant, fused_gemm, hadamard, prologue
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=device).manual_seed(2)
+    flush = flush_buffer(device)
+    worst = {"fwht": 0.0, "fused_w4a4_lrc": 0.0, "fused_prologue": 0.0}
+    timed = {}
+
+    print("  (a) fwht (#5) against fwht_plain, bitwise", flush=True)
+    for m, d in FWHT_SHAPES:
+        h = _hadamard_matrix(d, device)
+        for dt in (f32, bf16):
+            x = torch.randn((m, d), generator=gen, device=device).to(dt)
+            y = hadamard.fwht(x)
+            torch.cuda.synchronize()
+            y_p = hadamard.fwht_plain(x)
+            err = (y.float() - y_p.float()).abs().max().item()
+            ok = torch.equal(y, y_p) and y.dtype == dt
+            t_k = time_ms(lambda: hadamard.fwht(x), flush)
+            t_p = time_ms(lambda: hadamard.fwht_plain(x), flush)
+            t_l = time_ms(lambda: torch.matmul(x.float(), h), flush)
+            b, by = _bound(2 * m * d * x.element_size(), f32_ops=m * d * _log2(d))
+            timed[("fwht", m, d, str(dt)[6:])] = (t_k, t_p, b, by, t_l)
+            print(f"    M={m:<5} D={d:<6} {str(dt)[6:]:<9} "
+                  f"{'bitwise' if ok else 'DIFFER'}  kernel {t_k * 1e3:9.2f} us  plain "
+                  f"{t_p * 1e3:9.2f} us  bound {b * 1e3:8.3f} us ({by})  "
+                  f"library (matmul by H_D, f32) {t_l * 1e3:9.2f} us", flush=True)
+            if not ok:
+                raise SystemExit(f"fwht disagrees with its plain version at M={m} "
+                                 f"D={d} {dt} (max |diff| {err:.3e})")
+        del h
+
+    print("  (b) fused_w4a4_lrc rotate branch against its plain version", flush=True)
+    cases = [(mm, k, n, r, bf16, bf16) for (k, n, r) in ROT_FUSED_SITES for mm in (SLOTS, CHUNK)]
+    cases += [(17, 512, 97, 7, bf16, bf16), (5, 256, 130, 40, f32, f32), (3, 64, 33, 0, bf16, bf16)]
+    for (m, k, n, r, xd, fd) in cases:
+        x, v, wp, sw, u = w4a4_problem(gen, m, k, n, r, xd, fd, device)
+        y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9, rotate=True)
+        torch.cuda.synchronize()
+        y_p = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4, 0.9, rotate=True)
+        x_rot = hadamard.fwht_plain(x.float())
+        err = (y - y_p).abs()
+        ok = bool(torch.isfinite(y).all()) and bool((err <= lr_tolerance(x_rot, v, u, k, r, y_p)).all())
+        print(f"    M={m:<3} K={k:<5} N={n:<5} R={r:<3} x={str(xd)[6:]:<8} "
+              f"max_abs_err={err.max().item():.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"fused rotate branch disagrees with its plain version "
+                             f"at M={m} K={k} N={n} R={r}")
+        worst["fused_w4a4_lrc"] = max(worst["fused_w4a4_lrc"], err.max().item())
+        if m == SLOTS and (k, n, r) in ROT_FUSED_SITES:
+            t_r = time_ms(lambda: fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9,
+                                                             rotate=True), flush)
+            t_u = time_ms(lambda: fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9), flush)
+            t_p = time_ms(lambda: fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4, 0.9,
+                                                                   rotate=True), flush)
+            # _bound_ms's bytes and operations, plus the rotation's adds
+            b, by = _bound(k * n // 2 + 4 * n + 2 * r * (k + n) + 2 * m * k + 4 * m * n,
+                           int8_ops=2 * m * k * n,
+                           f32_ops=2 * m * r * (k + n) + m * k * _log2(k))
+            timed[("fused_w4a4_lrc", m, k, n, r)] = (t_r, t_u, t_p, b, by)
+            print(f"      rotated {t_r * 1e3:.2f} us  unrotated {t_u * 1e3:.2f} us  plain "
+                  f"{t_p * 1e3:.2f} us  bound {b * 1e3:.3f} us ({by})", flush=True)
+
+    print("  (c) fused_prologue rotate branch against its plain version", flush=True)
+    cases = [(m, k, r, bf16) for (m, k, r) in ROT_PROLOGUE_CASES] + [(2048, 8192, 922, f32),
+                                                                    (7, 256, 33, f32)]
+    for (m, k, r, xd) in cases:
+        x, v, _, _, _ = w4a4_problem(gen, m, k, 1, r, xd, bf16, device)
+        xq, sx, xv = prologue.fused_prologue(x, v, 4, 0.9, rotate=True)
+        torch.cuda.synchronize()
+        xq_p, sx_p, xv_p = prologue.fused_prologue_plain(x, v, 4, 0.9, rotate=True)
+        codes = torch.equal(xq, xq_p) and torch.equal(sx, sx_p)
+        if xd is f32:  # the unfused path's codes: #5, then the quantizer kernel
+            aq, asx = actquant.act_quant(hadamard.fwht(x), 4, 0.9)
+            codes = codes and torch.equal(aq, xq) and torch.equal(asx, sx)
+        xv_err, xv_ok = 0.0, True
+        if r:
+            x_rot = hadamard.fwht_plain(x.float())
+            err = (xv - xv_p).abs()
+            xv_ok = bool((err <= xv_tolerance(x_rot, v, k, xv_p)).all())
+            xv_err = err.max().item()
+        print(f"    M={m:<5} K={k:<5} R={r:<4} x={str(xd)[6:]:<8} codes+scales "
+              f"{'bitwise' if codes else 'DIFFER'}"
+              f"{' (also #5 then act_quant)' if xd is f32 else ''}  xv max_abs_err="
+              f"{xv_err:.3e} {'ok' if codes and xv_ok else 'FAIL'}", flush=True)
+        if not (codes and xv_ok):
+            raise SystemExit(f"prologue rotate branch disagrees at M={m} K={k} R={r}")
+        worst["fused_prologue"] = max(worst["fused_prologue"], xv_err)
+        if xd is bf16:
+            t_r = time_ms(lambda: prologue.fused_prologue(x, v, 4, 0.9, rotate=True), flush)
+            t_u = time_ms(lambda: prologue.fused_prologue(x, v, 4, 0.9), flush)
+            t_p = time_ms(lambda: prologue.fused_prologue_plain(x, v, 4, 0.9, rotate=True),
+                           flush)
+            b, by = _bound(2 * m * k + 2 * k * r + m * k + 4 * m + 4 * m * r,
+                           f32_ops=2 * m * k * r + 3 * m * k + m * k * _log2(k))
+            timed[("fused_prologue", m, k, r)] = (t_r, t_u, t_p, b, by)
+            print(f"      rotated {t_r * 1e3:.2f} us  unrotated {t_u * 1e3:.2f} us  plain "
+                  f"{t_p * 1e3:.2f} us  bound {b * 1e3:.3f} us ({by})", flush=True)
     return worst, timed
 
 
@@ -508,6 +598,8 @@ def _attn_library_ms(args, dense, flush):
     length: the PyTorch call that computes the same function from a dense
     copy (timed as the yardstick; the port never calls it)."""
     import torch
+
+    from repro_torch.bench.common import time_ms
     import torch.nn.functional as F
 
     q, k_pages, _, bt, lengths, scale = args
@@ -520,7 +612,7 @@ def _attn_library_ms(args, dense, flush):
               for t in (kd, vd))
     mask = (torch.arange(kl.shape[2], device=q.device)[None, :]
             < lengths[:, None].long())[:, None, None]
-    return _time_ms(lambda: F.scaled_dot_product_attention(
+    return time_ms(lambda: F.scaled_dot_product_attention(
         ql, kl, vl, attn_mask=mask, scale=scale), flush)
 
 
@@ -531,9 +623,10 @@ def phase_attention_kernels(device):
     library call."""
     import torch
 
+    from repro_torch.bench.common import flush_buffer, time_ms
     from repro_torch.kernels import flash_attn
 
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buffer(device)
     worst = {name: 0.0 for name in ATTN_POOLS}
     timed = {}
     for name, pools in ATTN_POOLS.items():
@@ -560,8 +653,8 @@ def phase_attention_kernels(device):
                     raise SystemExit(f"{name} disagrees with its plain version at "
                                      f"{label} {pool}")
                 worst[name] = max(worst[name], e)
-                t_k = _time_ms(lambda: kern(*args), flush)
-                t_p = _time_ms(lambda: plain(*args), flush)
+                t_k = time_ms(lambda: kern(*args), flush)
+                t_p = time_ms(lambda: plain(*args), flush)
                 b_ms, by = _bound(_attn_bytes(shape, spec),
                                   f32_ops=4 * sum(shape[6]) * shape[1] * shape[3])
                 t_l = None if spec.is_quantized else _attn_library_ms(args, dense, flush)
@@ -636,11 +729,13 @@ def phase_flash_kernels(device):
     its bound and ``scaled_dot_product_attention(is_causal=True)`` on an
     expanded-KV copy (the copy made outside the timing)."""
     import torch
+
+    from repro_torch.bench.common import flush_buffer, time_ms
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attn
 
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buffer(device)
     gen = torch.Generator(device=device).manual_seed(3)
     worst, timed = 0.0, {}
     for label, shape in FLASH_SHAPES.items():
@@ -662,11 +757,11 @@ def phase_flash_kernels(device):
         if not ok:
             raise SystemExit(f"flash_attention disagrees with its plain version at {label}")
         worst = max(worst, e)
-        t_k = _time_ms(lambda: flash_attn.flash_attention(q, k, v, scale), flush)
-        t_p = _time_ms(lambda: flash_attn.flash_attention_plain(q, k, v, scale), flush)
+        t_k = time_ms(lambda: flash_attn.flash_attention(q, k, v, scale), flush)
+        t_p = time_ms(lambda: flash_attn.flash_attention_plain(q, k, v, scale), flush)
         ql, kl, vl = (t.transpose(1, 2).repeat_interleave(h // t.shape[2], dim=1)
                       .contiguous() for t in (q, k, v))
-        t_l = _time_ms(lambda: F.scaled_dot_product_attention(
+        t_l = time_ms(lambda: F.scaled_dot_product_attention(
             ql, kl, vl, is_causal=True, scale=scale), flush)
         del ql, kl, vl
         b_ms, by = _flash_bound(shape)
@@ -730,6 +825,8 @@ def _sdpa_timer(q, kd, vd, q0, scale, flush):
     of K/V in q's dtype (made outside the timing), causal from ``q0``
     (``is_causal`` at 0 over a square problem, else an explicit mask)."""
     import torch
+
+    from repro_torch.bench.common import time_ms
     import torch.nn.functional as F
 
     b, sq, h, d = q.shape
@@ -738,11 +835,11 @@ def _sdpa_timer(q, kd, vd, q0, scale, flush):
     kl, vl = (t.to(q.dtype).transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
               for t in (kd, vd))
     if q0 == 0 and sq == kd.shape[1]:
-        return _time_ms(lambda: F.scaled_dot_product_attention(
+        return time_ms(lambda: F.scaled_dot_product_attention(
             ql, kl, vl, is_causal=True, scale=scale), flush)
     mask = (torch.arange(kd.shape[1], device=q.device)[None, :]
             <= q0 + torch.arange(sq, device=q.device)[:, None])
-    return _time_ms(lambda: F.scaled_dot_product_attention(
+    return time_ms(lambda: F.scaled_dot_product_attention(
         ql, kl, vl, attn_mask=mask, scale=scale), flush)
 
 
@@ -765,10 +862,11 @@ def phase_prefill_kernels(device):
     KV-expanded copy is timed as context only."""
     import torch
 
+    from repro_torch.bench.common import flush_buffer, time_ms
     from repro_torch.kernels import flash_attn
     from repro_torch.serve.kvquant import dequantize_kv, quantize_kv
 
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buffer(device)
     gen = torch.Generator(device=device).manual_seed(4)
     worst = {"flash_attention_quant": 0.0, "flash_attention": 0.0}
     timed, problems, whole = {}, {}, {}
@@ -825,8 +923,8 @@ def phase_prefill_kernels(device):
                 whole[(parent, pool)] = y
             gate("flash_attention_quant", label, pool, y, y_plain,
                  _flash_tolerance(q, kd, vd, scale, y_plain, q0), torch.equal(y, y7), rows)
-            t_k = _time_ms(lambda: flash_attn.flash_attention_quant(*args, q_start=qs), flush)
-            t_p = _time_ms(lambda: flash_attn.flash_attention_quant_plain(*args, q_start=qs),
+            t_k = time_ms(lambda: flash_attn.flash_attention_quant(*args, q_start=qs), flush)
+            t_p = time_ms(lambda: flash_attn.flash_attention_quant_plain(*args, q_start=qs),
                            flush)
             t_c = _sdpa_timer(q, kd, vd, q0, scale, flush)
             b_ms, by = _prefill_bound(shape, spec.packed_head_dim(d) + 4 * spec.n_groups(d))
@@ -864,8 +962,8 @@ def phase_prefill_kernels(device):
             del y_whole
         gate("flash_attention", label, pool, y, y_plain,
              _flash_tolerance(q, k, v, scale, y_plain, q0), True, rows)
-        t_k = _time_ms(lambda: flash_attn.flash_attention(q, k, v, scale, q_start=qs), flush)
-        t_p = _time_ms(lambda: flash_attn.flash_attention_plain(q, k, v, scale, q_start=qs),
+        t_k = time_ms(lambda: flash_attn.flash_attention(q, k, v, scale, q_start=qs), flush)
+        t_p = time_ms(lambda: flash_attn.flash_attention_plain(q, k, v, scale, q_start=qs),
                        flush)
         t_l = _sdpa_timer(q, k, v, q0, scale, flush)
         b_ms, by = _prefill_bound((b, sq, skv, h, kh, d, q0, qd), k.element_size() * d)
@@ -1106,6 +1204,7 @@ def phase_parity(cfg, qparams, device):
     import numpy as np
     import torch
 
+    from repro_torch.bench.common import lr_tolerance
     from repro_torch.kernels import fused_gemm, ops
     from repro_torch.models import model
     from repro_torch.quant.qlinear import retag_qlinear_impl
@@ -1131,11 +1230,11 @@ def phase_parity(cfg, qparams, device):
 
     site = {"calls": 0, "worst": 0.0, "bad": 0}
 
-    def checked(x, v, wp, sw, u, bits=4, clip_ratio=1.0):
-        y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, bits, clip_ratio)
-        yp = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, bits, clip_ratio)
+    def checked(x, v, wp, sw, u, bits=4, clip_ratio=1.0, rotate=False):
+        y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, bits, clip_ratio, rotate)
+        yp = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, bits, clip_ratio, rotate)
         err = (y - yp).abs()
-        tol = _tolerance(x, v, u, x.shape[1], 0 if v is None else v.shape[1], yp)
+        tol = lr_tolerance(x, v, u, x.shape[1], 0 if v is None else v.shape[1], yp)
         site["calls"] += 1
         site["worst"] = max(site["worst"], err.max().item())
         site["bad"] += int(not bool((err <= tol).all()))
@@ -1190,6 +1289,7 @@ def phase_paths(cfg, qparams, device):
     import numpy as np
     import torch
 
+    from repro_torch.bench.common import gemm_tolerance, xv_tolerance
     from repro_torch.kernels import actquant, ops, prologue, w4a4
     from repro_torch.kernels.context import KernelContext
     from repro_torch.models import model
@@ -1217,15 +1317,15 @@ def phase_paths(cfg, qparams, device):
 
     site = {"calls": 0, "xv": 0.0, "gemm": 0.0, "bad": 0}
 
-    def checked_prologue(x, v, bits=4, clip_ratio=1.0):
-        xq, sx, xv = prologue.fused_prologue(x, v, bits, clip_ratio)
-        xq_p, sx_p, xv_p = prologue.fused_prologue_plain(x, v, bits, clip_ratio)
+    def checked_prologue(x, v, bits=4, clip_ratio=1.0, rotate=False):
+        xq, sx, xv = prologue.fused_prologue(x, v, bits, clip_ratio, rotate)
+        xq_p, sx_p, xv_p = prologue.fused_prologue_plain(x, v, bits, clip_ratio, rotate)
         site["calls"] += 1
         bad = not (torch.equal(xq, xq_p) and torch.equal(sx, sx_p))
         if v is not None:
             err = (xv - xv_p).abs()
             site["xv"] = max(site["xv"], err.max().item())
-            bad |= not bool((err <= _xv_tolerance(x, v, x.shape[1], xv_p)).all())
+            bad |= not bool((err <= xv_tolerance(x, v, x.shape[1], xv_p)).all())
         site["bad"] += int(bad)
         return xq, sx, xv
 
@@ -1242,7 +1342,7 @@ def phase_paths(cfg, qparams, device):
         err = (y - y_p).abs()
         r = 0 if xv is None else xv.shape[1]
         site["gemm"] = max(site["gemm"], err.max().item())
-        site["bad"] += int(not bool((err <= _gemm_tolerance(xv, u, r, y_p)).all()))
+        site["bad"] += int(not bool((err <= gemm_tolerance(xv, u, r, y_p)).all()))
         return y
 
     n_sites = 7 * cfg.n_layers
@@ -2159,6 +2259,85 @@ def phase_kv_sweep(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the paper's layer-latency tables, rotated and unrotated
+# ---------------------------------------------------------------------------
+
+
+def phase_latency(device):
+    """``repro_torch.bench.latency_kernels`` on the card: the smoke rows
+    (codes and scales bitwise across the chained and unfused paths), then
+    the measured Tables 6-8 rows and Phi-3-mini's mlp/wd site.  Every
+    configuration is held once, step by step (``check_path``): codes,
+    scales and rotated rows bitwise their plain versions, x·V within its
+    K-term bound, the output bitwise the GEMM kernel's on the path's own
+    operands and within the R-term bound of the plain GEMM on them (the
+    fused path, K <= 1024, within the whole layer's bound).  The measured
+    rows are the main path: their kernel launches must be exactly those of
+    the calls they made (one fwht per rotated unfused call, none
+    otherwise); the checks' own launches are not counted."""
+    import torch
+
+    from repro_torch.bench import latency_kernels as lk
+
+    t0 = time.perf_counter()
+    smoke = lk.smoke_rows(device)
+    torch.cuda.synchronize()
+    print(f"  smoke rows ({time.perf_counter() - t0:.1f} s; µs of one call, L2 "
+          f"flushed; each path held step by step against its plain version, "
+          f"max_err_over_bound the largest |kernel - plain| over its bound):", flush=True)
+    lk.print_table(smoke, out=lambda line: print("    " + line, flush=True))
+    t1 = time.perf_counter()
+    calls = lk.Calls()
+    reset_launches()
+    print(f"  measured rows (bf16 x and factors; median of {lk.REPS} timed calls, "
+          f"{lk.REPS_PREFILL} at M = {max(lk.MS)}, L2 flushed before each):", flush=True)
+    print("    " + ",".join(lk.HEADER), flush=True)
+    measured = lk.measured_rows(device, calls, log=lambda row: lk.print_table(
+        [row], header=None, out=lambda line: print("    " + line, flush=True)))
+    torch.cuda.synchronize()
+    counts = {k: c for k, c in launches().items() if not k.endswith("_plain")}
+    want = {k: 0 for k in counts}
+    want.update(calls.expected_launches())
+    print(f"  {sum(calls.n.values())} forward calls {dict((f'{p}/rot={r}', c) for (p, r), c in calls.n.items())}; "
+          f"launches {counts} (want {want}); {time.perf_counter() - t1:.1f} s", flush=True)
+    if counts != want:
+        raise SystemExit("latency: the measured calls' kernel launches are not one "
+                         "fwht per rotated unfused call and the path's kernels")
+    return {"smoke": smoke, "measured": measured, "launches": counts,
+            "seconds": time.perf_counter() - t0}
+
+
+def add_rotation_entries(kernels, rot_worst, rot_timed, lat):
+    """The online rotation's part of the ``kernels`` line: phase 12's
+    launches and the rotate branches' phase-3 times on the fused kernel's
+    and the prologue's entries (``kernels[0]``, ``kernels[1]``), and the
+    transform kernel's (#5) own entry, appended."""
+    rot_keys = ("ms", "unrotated_ms", "plain_ms", "bound_ms", "bound_by")
+    kernels[0]["launches"] += lat["fused_w4a4_lrc"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], rot_worst["fused_w4a4_lrc"])
+    kernels[0]["rotate"] = {"M{}_K{}_N{}_R{}".format(*key[1:]): dict(zip(rot_keys, v))
+                            for key, v in rot_timed.items() if key[0] == "fused_w4a4_lrc"}
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], rot_worst["fused_prologue"])
+    kernels[1]["rotate"] = {"M{}_K{}_R{}".format(*key[1:]): dict(zip(rot_keys, v))
+                            for key, v in rot_timed.items() if key[0] == "fused_prologue"}
+    fwht_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    t_k, t_p, b_ms, by, t_l = rot_timed[("fwht", 2048, 8192, "bfloat16")]
+    kernels.append({
+        "name": "fwht", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fwht.cu",
+        "replaces": "src/repro/kernels/hadamard.py:27",
+        "launches": lat["fwht"], "max_abs_err": rot_worst["fwht"],
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": t_l, "checked": True,
+        "at": ("M 2048, D 8192, bf16 (phase 12's prefill rows at K 8192), L2 flushed; "
+               "library: torch.matmul(x.float(), H_D) with TF32 off; launches from "
+               "phase 12's measured rows (one per rotated unfused call)"),
+        "shapes": {"M{}_D{}_{}".format(*key[1:]): dict(zip(fwht_keys, v))
+                   for key, v in rot_timed.items() if key[0] == "fwht"},
+    })
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2198,8 +2377,24 @@ def main() -> int:
         want = fused_gemm._lib("fused_w4a4_lrc").fused_w4a4_lrc_smem_bytes(k, r)
         if fused_gemm.smem_bytes(k, r) != want:
             raise SystemExit(f"fused_gemm.smem_bytes({k}, {r}) is not the source's {want}")
-    from repro_torch.kernels import flash_attn
+    from repro_torch.kernels import flash_attn, hadamard, prologue
 
+    # the kernels' normalization constant, (float)(1.0 / sqrt((double)d)) on
+    # the host, against the plain version's 1.0 / d**0.5 rounded to f32
+    import numpy as np
+
+    lib = hadamard._lib("fwht")
+    if lib.fwht_max_d() != hadamard.MAX_D or (
+            prologue._lib("fused_prologue").fused_prologue_max_rotate_k() != hadamard.MAX_D):
+        raise SystemExit("hadamard.MAX_D is not the sources' widest rotated row")
+    for e in range(_log2(hadamard.MAX_D) + 1):
+        d = 2 ** e
+        c, want = lib.fwht_norm(d), np.float32(1.0 / d**0.5)
+        if np.float32(c) != want:
+            raise SystemExit(f"fwht_norm({d}) = {c!r} is not 1.0 / {d}**0.5 = {want!r}")
+        if d in (2, 512, 8192):
+            print(f"  fwht_norm({d}) = {np.float32(c)!r}, 1.0 / {d}**0.5 in f32 = {want!r}",
+                  flush=True)
     for name in ("flash_attention", "flash_attention_quant"):
         got = getattr(flash_attn._lib(name), f"{name}_max_d")()
         if got != flash_attn.MAX_D:
@@ -2208,6 +2403,7 @@ def main() -> int:
     phase("3. kernels against their plain versions")
     worst, timed = phase_kernels(device)
     chain_worst, chain_timed = phase_chain_kernels(device)
+    rot_worst, rot_timed = phase_rotate_kernels(device)
     attn_worst, attn_timed = phase_attention_kernels(device)
     flash_worst, flash_timed = phase_flash_kernels(device)
     prefill_worst, prefill_timed = phase_prefill_kernels(device)
@@ -2256,6 +2452,10 @@ def main() -> int:
     phase("11. the kv_sweep pass, SmolLM-135M (f32, int8, int4 pools)")
     sweep, sweep_counts = phase_kv_sweep(device)
 
+    phase("12. the paper's layer-latency tables (Tables 6-8), rotated and unrotated")
+    latency = phase_latency(device)
+    lat = latency["launches"]
+
     # launches of the two dense kernels on the main paths: every prefill
     # chunk of phases 4, 6, 8, 9 (its served model) and 10, the walk of
     # phase 9, phase 11's pass
@@ -2291,15 +2491,18 @@ def main() -> int:
         entry("fused_w4a4_lrc", "src/repro/kernels/fused_gemm.py:208",
               smol_counts["fused_w4a4_lrc"], SITES, timed, worst, at_smol),
         entry("fused_prologue", "src/repro/kernels/prologue.py:93",
-              phi3_counts["fused_prologue"], PHI3_SITES, chain_timed,
+              phi3_counts["fused_prologue"] + lat["fused_prologue"], PHI3_SITES, chain_timed,
               chain_worst["fused_prologue"], at_phi3),
         entry("w4a4_lowrank_matmul", "src/repro/kernels/w4a4.py:98",
-              phi3_counts["w4a4_lowrank_matmul"],
+              phi3_counts["w4a4_lowrank_matmul"] + lat["w4a4_lowrank_matmul"],
               PHI3_SITES, chain_timed, chain_worst["w4a4_lowrank_matmul"], at_phi3),
         entry("act_quant", "src/repro/kernels/actquant.py:31",
-              paths["act_quant_launches"], PHI3_SITES, chain_timed,
-              chain_worst["act_quant"], at_phi3 + "; launches from phase 7's unfused run"),
+              paths["act_quant_launches"] + lat["act_quant"], PHI3_SITES, chain_timed,
+              chain_worst["act_quant"], at_phi3 + "; launches from phase 7's unfused run "
+              "and phase 12"),
     ]
+
+    add_rotation_entries(kernels, rot_worst, rot_timed, lat)
 
     def attn_entry(name, replaces, n, pool, at):
         t_k, t_p, b, by, t_l = attn_timed[(name, "phi3-serve", pool)]
@@ -2368,7 +2571,7 @@ def main() -> int:
     print(json.dumps({"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
                       "phi3_paths": paths, "phi3_kv_serve": kv_serve,
                       "calibration": calib, "long_prefill": long_prefill,
-                      "kv_sweep": sweep}, default=str))
+                      "kv_sweep": sweep, "latency": latency}, default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

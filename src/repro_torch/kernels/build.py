@@ -27,7 +27,7 @@ CSRC = Path(__file__).parent / "csrc"
 # every kernel of the port, one csrc/<name>.cu each
 KERNELS = ("fused_w4a4_lrc", "fused_prologue", "w4a4_lowrank_matmul",
            "act_quant", "paged_flash_attention", "paged_flash_attention_quant",
-           "flash_attention", "flash_attention_quant")
+           "flash_attention", "flash_attention_quant", "fwht")
 BUILD_DIR = Path(__file__).parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",

@@ -6,8 +6,8 @@ Three kernel paths serve a W4A4+LRC linear, strongest fusion first:
   fused   — ONE kernel (``fused_gemm.py``): quantize, x·V, int4 GEMM and
             epilogue; xq never reaches device memory.
   chained — TWO kernels: ``prologue.py`` (xq, sx, xv) → ``w4a4.py``.
-  unfused — ``actquant.py`` (xq, sx), x·V in plain torch per row tile,
-            then the same GEMM kernel.
+  unfused — ``actquant.py`` (xq, sx), x·V in plain torch, then the same
+            GEMM kernel.
 
 The reference picks tiles and demotes a path when its VMEM working set does
 not fit.  Here the tiles are constants of the CUDA sources, so a plan is a
@@ -171,13 +171,16 @@ class KernelContext:
 
     def resolve_plan(self, m: int, k: int, n: int, r: int = 0,
                      layer: Optional[str] = None,
-                     impl: Optional[str] = None) -> Plan:
+                     impl: Optional[str] = None, rotate: bool = False) -> Plan:
         """The path a (M, K, N, R) problem runs.  ``impl`` (None → this
         context's) other than "auto" pins the path, trusted as it is.
         Under "auto" a layer override sets the path, else fused; a fused
         path is then demoted to chained when the site does not fit it, as
         the reference demotes a layer override too.  M does not enter: the
-        kernels' shared memory does not depend on it."""
+        kernels' shared memory does not depend on it.  ``rotate`` is
+        accepted for the reference's signature and ignored: the fused
+        kernel rotates the rows it stages in the same shared memory, so no
+        decision depends on it."""
         impl = self.impl if impl is None else impl
         if impl not in IMPLS:
             raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")

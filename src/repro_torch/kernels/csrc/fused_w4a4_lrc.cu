@@ -3,9 +3,13 @@
 //     out = (Q_a(x) · unpack(W)) · sx · sw  +  (x · V) · Uᵀ        (M, N) f32
 //
 // Replaces the TPU kernel repro/kernels/fused_gemm.py::fused_w4a4_lrc_kernel
-// for per-token activation scales and rotate=False.  As there, the int8 codes
-// of x (xq) never reach device memory: each block quantizes its rows into
-// shared memory and runs the int4 GEMM straight from there.
+// for per-token activation scales, with and without the online rotation.  As
+// there, the int8 codes of x (xq) never reach device memory: each block
+// quantizes its rows into shared memory and runs the int4 GEMM straight from
+// there.  With `rotate`, Q_a and x·V take x·H_K (K a power of two): the
+// block rotates its staged f32 rows in place with fwht_rows.cuh (the body of
+// fwht.cu and of the prologue's rotation, bitwise rowops.fwht_rows) before
+// the amax, so the shared-memory footprint does not change.
 //
 // Layouts (the JAX package's): x (M, K) f32 or bf16, row-major; V (K, R) and
 // U (N, R) in the LR storage dtype (bf16 or f32); W (K/2, N) uint8 holding two
@@ -44,6 +48,8 @@
 #include <cuda_bf16.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "fwht_rows.cuh"
 
 namespace {
 
@@ -115,7 +121,8 @@ __global__ void __launch_bounds__(THREADS)
 fused_w4a4_lrc_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
                       const uint8_t* __restrict__ w, const float* __restrict__ sw,
                       const TF* __restrict__ u, float* __restrict__ out,
-                      int M, int K, int N, int R, int qmax, float clip_ratio) {
+                      int M, int K, int N, int R, int qmax, float clip_ratio,
+                      int rotate, float nrm) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int K16 = (K + 15) & ~15;  // xq row stride; K padded with zero codes
   float* xs = reinterpret_cast<float*>(smem);         // [ROWS][K]  rows in f32
@@ -194,6 +201,9 @@ fused_w4a4_lrc_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
     }
   }
   __syncthreads();
+
+  // 1b. the online rotation of the staged rows, in place (rows past M stay 0)
+  if (rotate) fwht_rows::rotate<THREADS>(xs, ROWS * K, K, nrm);
 
   // 2. per-row amax -> scale, one warp per row (a zero row gets scale
   //    clip/qmax and zero codes)
@@ -334,7 +344,7 @@ fused_w4a4_lrc_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
 template <int ROWS, typename TX, typename TF>
 int launch(const void* x, const void* v, const void* w, const void* sw,
            const void* u, void* out, int M, int K, int N, int R, int qmax,
-           float clip_ratio, cudaStream_t stream) {
+           float clip_ratio, int rotate, cudaStream_t stream) {
   auto kern = fused_w4a4_lrc_kernel<ROWS, TX, TF>;
   const size_t smem = smem_bytes(ROWS, K, R);
   static size_t configured = 48 * 1024;  // per instantiation
@@ -349,18 +359,19 @@ int launch(const void* x, const void* v, const void* w, const void* sw,
       static_cast<const TX*>(x), static_cast<const TF*>(v),
       static_cast<const uint8_t*>(w), static_cast<const float*>(sw),
       static_cast<const TF*>(u), static_cast<float*>(out),
-      M, K, N, R, qmax, clip_ratio);
+      M, K, N, R, qmax, clip_ratio, rotate, fwht_rows::norm(K));
   return (int)cudaGetLastError();
 }
 
 template <typename TX, typename TF>
 int launch_rows(const void* x, const void* v, const void* w, const void* sw,
                 const void* u, void* out, int M, int K, int N, int R, int qmax,
-                float clip_ratio, cudaStream_t stream) {
+                float clip_ratio, int rotate, cudaStream_t stream) {
   // decode batches of up to 4 rows take the 4-row tile, larger M the 16-row one
   if (M <= 4)
-    return launch<4, TX, TF>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, stream);
-  return launch<MAX_ROWS, TX, TF>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, stream);
+    return launch<4, TX, TF>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate, stream);
+  return launch<MAX_ROWS, TX, TF>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate,
+                                  stream);
 }
 
 }  // namespace
@@ -371,19 +382,22 @@ extern "C" {
 size_t fused_w4a4_lrc_smem_bytes(int K, int R) { return smem_bytes(MAX_ROWS, K, R); }
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// x_bf16 / f_bf16 select bf16 (1) or f32 (0) for x and for the U/V factors.
+// x_bf16 / f_bf16 select bf16 (1) or f32 (0) for x and for the U/V factors;
+// rotate (1) applies the online rotation, K a power of two (the wrapper
+// checks).
 int fused_w4a4_lrc(const void* x, int x_bf16, const void* v, const void* w,
                    const void* sw, const void* u, int f_bf16, void* out,
                    int M, int K, int N, int R, int qmax, float clip_ratio,
-                   void* stream) {
+                   int rotate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rotate && (K & (K - 1))) return (int)cudaErrorInvalidValue;
   if (x_bf16 && f_bf16)
-    return launch_rows<__nv_bfloat16, __nv_bfloat16>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, s);
+    return launch_rows<__nv_bfloat16, __nv_bfloat16>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate, s);
   if (x_bf16)
-    return launch_rows<__nv_bfloat16, float>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, s);
+    return launch_rows<__nv_bfloat16, float>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate, s);
   if (f_bf16)
-    return launch_rows<float, __nv_bfloat16>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, s);
-  return launch_rows<float, float>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, s);
+    return launch_rows<float, __nv_bfloat16>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate, s);
+  return launch_rows<float, float>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate, s);
 }
 
 }  // extern "C"

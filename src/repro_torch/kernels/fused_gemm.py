@@ -3,10 +3,13 @@ its launch counters.
 
 The kernel (``csrc/fused_w4a4_lrc.cu``, CUDA C++ for sm_90a) replaces the
 TPU kernel ``repro/kernels/fused_gemm.py::fused_w4a4_lrc_kernel`` for
-per-token activation scales and ``rotate=False``: one launch quantizes the
-rows of x into shared memory (xq never reaches device memory), projects
-``xv = x·V``, runs the int4 GEMM with ``__dp4a`` and writes the f32 epilogue
-``acc·sx·sw + xv·Uᵀ``.
+per-token activation scales: one launch quantizes the rows of x into shared
+memory (xq never reaches device memory), projects ``xv = x·V``, runs the
+int4 GEMM with ``__dp4a`` and writes the f32 epilogue ``acc·sx·sw + xv·Uᵀ``.
+With ``rotate`` the quantizer and x·V take ``x·H_K`` (K a power of two):
+the block rotates its staged f32 rows in place (``csrc/fwht_rows.cuh``,
+bitwise ``rowops.fwht_rows``), so its shared memory, and :func:`fits`, do
+not change.
 
 Bound on an H100 SXM (3.35 TB/s): at decode the call is memory-bound.  Its
 bytes are K·N/2 (packed W) + 4·N (sw) + 2·R·(K+N) (bf16 V, U) plus the
@@ -30,7 +33,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rowops import (int_matmul, project_rows,
+from repro_torch.kernels.hadamard import check_width
+from repro_torch.kernels.rowops import (fwht_rows, int_matmul, project_rows,
                                         rescale_lowrank, scale_round_quantize,
                                         unpack_int4_rows)
 
@@ -65,14 +69,20 @@ def reset_launches() -> None:
 
 
 def fused_w4a4_lrc_plain(x, v, wpacked, sw, u, bits: int = 4,
-                         clip_ratio: float = 1.0) -> torch.Tensor:
+                         clip_ratio: float = 1.0,
+                         rotate: bool = False) -> torch.Tensor:
     """The kernel's function in plain torch, in ``rowops``' operation order.
 
     x (M, K) float; v (K, R) or None; wpacked (K/2, N) uint8; sw (N,) or
-    (1, N) f32; u (N, R) or None.  Returns (M, N) f32."""
+    (1, N) f32; u (N, R) or None; ``rotate`` quantizes and projects the f32
+    rows of ``x·H_K`` (K a power of two).  Returns (M, N) f32."""
+    if rotate:
+        check_width(x.shape[1])
     LAUNCHES["fused_w4a4_lrc_plain"] += 1
     qmax = 2 ** (bits - 1) - 1
     xf = x.to(torch.float32)
+    if rotate:
+        xf = fwht_rows(xf, xf.shape[1])
     xq, sx = scale_round_quantize(xf, qmax, clip_ratio)
     acc = int_matmul(xq, unpack_int4_rows(wpacked))
     return rescale_lowrank(acc, sx, sw, None if v is None else project_rows(xf, v), u)
@@ -84,7 +94,7 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_w4a4_lrc.argtypes = [p, i, p, p, p, p, i, p, i, i, i, i, i,
-                                   ctypes.c_float, p]
+                                   ctypes.c_float, i, p]
     lib.fused_w4a4_lrc.restype = ctypes.c_int
     lib.fused_w4a4_lrc_smem_bytes.argtypes = [i, i]
     lib.fused_w4a4_lrc_smem_bytes.restype = ctypes.c_size_t
@@ -124,18 +134,20 @@ def _check(x, v, wpacked, sw, u, bits):
 
 
 def fused_w4a4_lrc(x, v, wpacked, sw, u, bits: int = 4,
-                   clip_ratio: float = 1.0) -> torch.Tensor:
+                   clip_ratio: float = 1.0, rotate: bool = False) -> torch.Tensor:
     """One launch of the fused W4A4+LRC kernel; returns (M, N) f32.
 
     Arguments as :func:`fused_w4a4_lrc_plain`.  A CPU ``x`` runs the plain
     version; a CUDA ``x`` launches the kernel on the current stream, or
     raises if it cannot."""
     if x.device.type == "cpu":
-        return fused_w4a4_lrc_plain(x, v, wpacked, sw, u, bits, clip_ratio)
+        return fused_w4a4_lrc_plain(x, v, wpacked, sw, u, bits, clip_ratio, rotate)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(x, v, wpacked, sw, u, bits)
     m, k = x.shape
+    if rotate:
+        check_width(k)
     n = wpacked.shape[1]
     r = 0 if v is None else v.shape[1]
     if smem_bytes(k, r) > SMEM_LIMIT:
@@ -149,7 +161,8 @@ def fused_w4a4_lrc(x, v, wpacked, sw, u, bits: int = 4,
         None if v is None else v.data_ptr(), wpacked.data_ptr(),
         sw.data_ptr(), None if u is None else u.data_ptr(),
         int(v is not None and v.dtype == torch.bfloat16), out.data_ptr(),
-        m, k, n, r, 2 ** (bits - 1) - 1, float(clip_ratio), build.stream_of(x))
+        m, k, n, r, 2 ** (bits - 1) - 1, float(clip_ratio), int(rotate),
+        build.stream_of(x))
     if rc != 0:
         raise RuntimeError(f"fused_w4a4_lrc launch failed: cudaError {rc} "
                            f"at (M={m}, K={k}, N={n}, R={r})")

@@ -1,17 +1,24 @@
 """Kernel dispatch (counterpart of ``repro/kernels/ops.py``): the
-W4A4+LRC forward (per-token scales, no rotation), dense causal flash
-attention over float and quantized K/V, and paged decode attention over
-float and quantized KV pools.
+W4A4+LRC forward (per-token scales, with or without the online rotation),
+the Walsh-Hadamard transform of rows, dense causal flash attention over
+float and quantized K/V, and paged decode attention over float and
+quantized KV pools.
 
 ``w4a4_lrc_forward`` runs one of three paths, picked by a
 :class:`~repro_torch.kernels.context.KernelContext` (module docstring
 there): fused (one kernel), chained (prologue → GEMM kernel) or unfused
-(quantizer kernel, x·V in plain torch per row tile, GEMM kernel).  The
-kernels mask the ragged edges of M, N, K and R themselves, so nothing is
-padded here.  On the CPU every wrapper runs its plain version, and the
+(quantizer kernel, x·V in plain torch, GEMM kernel).  The kernels mask the
+ragged edges of M, N, K and R themselves, so nothing is padded here.  On the CPU every wrapper runs its plain version, and the
 three paths give bitwise equal outputs there (the reference's contract for
 its interpret mode): they share the quantizer, the K-chunked x·V and the
 epilogue bodies of ``rowops``.
+
+``rotate=True`` (K a power of two) quantizes and projects ``x·H_K``: the
+fused and chained paths rotate the f32 rows inside their kernels, the
+unfused path runs the transform kernel (:func:`fwht`) first, whose output
+is in x's dtype, as the reference's is.  So with an f32 x the three paths
+stay bitwise equal; with a bf16 x the unfused path quantizes the rotated
+rows rounded to bf16 and the other two the f32 ones, as in the reference.
 
 ``flash_attention`` and ``flash_attention_quant`` keep the reference's
 signatures and layouts, q (B, Sq, H, D) and k/v (B, Skv, KH, ·), the
@@ -33,31 +40,25 @@ import torch
 
 from repro_torch.core.quantizers import QuantSpec
 from repro_torch.kernels.actquant import act_quant
-from repro_torch.kernels import flash_attn
+from repro_torch.kernels import flash_attn, hadamard
 from repro_torch.kernels.context import KernelContext
 from repro_torch.kernels.fused_gemm import fused_w4a4_lrc
 from repro_torch.kernels.prologue import fused_prologue
 from repro_torch.kernels.rowops import project_rows
 from repro_torch.kernels.w4a4 import w4a4_lowrank_matmul
 
-__all__ = ["KernelContext", "w4a4_lrc_forward", "act_quant", "fused_prologue",
+__all__ = ["KernelContext", "w4a4_lrc_forward", "act_quant", "fwht", "fused_prologue",
            "w4a4_lowrank_matmul", "fused_w4a4_lrc", "flash_attention",
            "flash_attention_quant", "paged_flash_attention",
            "paged_flash_attention_quant"]
 
 DEFAULT_CONTEXT = KernelContext()
-# rows per x·V tile of the unfused path (the kernels' larger M-tile)
-PROJ_ROWS = 16
 
 
-def _project_tiles(x: torch.Tensor, v: torch.Tensor, bm: int = PROJ_ROWS):
-    """(x·V) for the unfused path: per (bm, K) row tile, the K-chunked,
-    R-tiled order of ``rowops.project_rows_tiled`` (the reference's jnp
-    product outside any kernel; plain torch here as there).  Returns (M, R)
-    f32."""
-    xf = x.to(torch.float32)
-    tiles = [project_rows(xf[t:t + bm], v) for t in range(0, xf.shape[0], bm)]
-    return tiles[0] if len(tiles) == 1 else torch.cat(tiles, dim=0)
+def fwht(x: torch.Tensor) -> torch.Tensor:
+    """The normalized Walsh-Hadamard transform ``x @ H_D`` of the rows of x
+    (M, D), D a power of two, in x's dtype (the transform kernel)."""
+    return hadamard.fwht(x)
 
 
 def w4a4_lrc_forward(x: torch.Tensor, wpacked: torch.Tensor,
@@ -67,15 +68,13 @@ def w4a4_lrc_forward(x: torch.Tensor, wpacked: torch.Tensor,
                      layer: str = None) -> torch.Tensor:
     """The W4A4+LRC serving hot path: x (M, K) float, wpacked (K/2, N)
     uint8, w_scale (N,) f32, u (N, R) / v (K, R) or None.  Returns (M, N)
-    f32.
+    f32.  ``rotate`` applies the online rotation first (K a power of two,
+    else ``ValueError``).
 
     ``impl=None`` defers to ``ctx.impl`` (``ctx=None`` → the default
     context, ``"auto"``): the fused path where the site fits it, else
     chained, with any per-layer override for ``layer`` (the QLinear's
     name) or the site's shape.  An explicit path is run as asked."""
-    if rotate:
-        raise NotImplementedError(
-            "online rotation is not ported yet (ROADMAP Queue 1)")
     if act_spec.group_size is not None:
         raise NotImplementedError(
             "group-wise activation scales are not ported yet (ROADMAP Queue 1)")
@@ -83,18 +82,27 @@ def w4a4_lrc_forward(x: torch.Tensor, wpacked: torch.Tensor,
     m, k = x.shape
     n = wpacked.shape[1]
     r = 0 if v is None else v.shape[-1]
-    path = ctx.resolve_plan(m, k, n, r, layer=layer, impl=impl).path
+    if rotate:
+        hadamard.check_width(k)
+    path = ctx.resolve_plan(m, k, n, r, layer=layer, impl=impl,
+                            rotate=rotate).path
     x = x.contiguous()
     v, u = (v, u) if r else (None, None)
     sw = w_scale.reshape(-1)
     bits, clip = act_spec.bits, act_spec.clip_ratio
     if path == "fused":
-        return fused_w4a4_lrc(x, v, wpacked, sw, u, bits=bits, clip_ratio=clip)
+        return fused_w4a4_lrc(x, v, wpacked, sw, u, bits=bits, clip_ratio=clip,
+                              rotate=rotate)
     if path == "chained":
-        xq, sx, xv = fused_prologue(x, v, bits=bits, clip_ratio=clip)
+        xq, sx, xv = fused_prologue(x, v, bits=bits, clip_ratio=clip,
+                                    rotate=rotate)
     else:  # unfused
+        if rotate:
+            x = hadamard.fwht(x)
         xq, sx = act_quant(x, bits=bits, clip_ratio=clip)
-        xv = None if v is None else _project_tiles(x, v)
+        # x·V over all rows in one call, as the fused and chained plain
+        # versions project: the same rows then give the same sums at any M
+        xv = None if v is None else project_rows(x.to(torch.float32), v)
     return w4a4_lowrank_matmul(xq, sx, wpacked, sw, xv, u)
 
 

@@ -3,10 +3,13 @@ counters.
 
 The kernel (``csrc/fused_prologue.cu``, CUDA C++ for sm_90a) replaces the
 TPU kernel ``repro/kernels/prologue.py::fused_prologue_kernel`` for
-per-token scales and ``rotate=False``: one launch quantizes the rows of x
-(M, K) to xq int8 and sx (M, 1) f32, and projects ``xv = x·V`` (M, R) f32.
-It is the first kernel of the chained path (``kernels/ops.py``), whose GEMM
-is ``kernels/w4a4.py``.
+per-token scales: one launch quantizes the rows of x (M, K) to xq int8 and
+sx (M, 1) f32, and projects ``xv = x·V`` (M, R) f32; with ``rotate`` it
+does both on ``x·H_K`` (K a power of two, with V or without), each block
+staging and rotating one whole row at a time (``csrc/fwht_rows.cuh``,
+bitwise ``rowops.fwht_rows``; the source's head comment says what that
+costs).  It is the first kernel of the chained path (``kernels/ops.py``),
+whose GEMM is ``kernels/w4a4.py``.
 
 The codes and scales are bitwise those of ``rowops.scale_round_quantize``
 (the quantizer is ``csrc/quant_rows.cuh``, shared with ``act_quant``).  x·V
@@ -31,7 +34,9 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rowops import project_rows, scale_round_quantize
+from repro_torch.kernels.hadamard import MAX_D, check_width
+from repro_torch.kernels.rowops import (fwht_rows, project_rows,
+                                        scale_round_quantize)
 
 KERNEL = "fused_prologue"
 LAUNCHES = {"fused_prologue": 0, "fused_prologue_plain": 0}
@@ -42,13 +47,19 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-def fused_prologue_plain(x, v=None, bits: int = 4, clip_ratio: float = 1.0):
+def fused_prologue_plain(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
+                         rotate: bool = False):
     """The kernel's function in plain torch, in ``rowops``' operation order.
 
-    x (M, K) float; v (K, R) or None.  Returns (xq (M, K) int8, sx (M, 1)
-    f32, xv (M, R) f32 or None)."""
+    x (M, K) float; v (K, R) or None; ``rotate`` quantizes and projects the
+    f32 rows of ``x·H_K`` (K a power of two).  Returns (xq (M, K) int8, sx
+    (M, 1) f32, xv (M, R) f32 or None)."""
+    if rotate:
+        check_width(x.shape[1])
     LAUNCHES["fused_prologue_plain"] += 1
     xf = x.to(torch.float32)
+    if rotate:
+        xf = fwht_rows(xf, xf.shape[1])
     xq, sx = scale_round_quantize(xf, 2 ** (bits - 1) - 1, clip_ratio)
     return xq, sx, None if v is None else project_rows(xf, v)
 
@@ -59,25 +70,32 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_prologue.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i,
-                                   ctypes.c_float, p]
+                                   ctypes.c_float, i, p]
     lib.fused_prologue.restype = ctypes.c_int
     lib.fused_prologue_scratch_bytes.argtypes = [i, i, i]
     lib.fused_prologue_scratch_bytes.restype = ctypes.c_size_t
+    lib.fused_prologue_max_rotate_k.argtypes = []
+    lib.fused_prologue_max_rotate_k.restype = i
     return lib
 
 
-def fused_prologue(x, v=None, bits: int = 4, clip_ratio: float = 1.0):
+def fused_prologue(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
+                   rotate: bool = False):
     """One launch of the prologue kernel; returns (xq, sx, xv-or-None).
 
     Arguments as :func:`fused_prologue_plain`.  A CPU ``x`` runs the plain
     version; a CUDA ``x`` launches the kernel on the current stream, or
     raises if it cannot."""
     if x.device.type == "cpu":
-        return fused_prologue_plain(x, v, bits, clip_ratio)
+        return fused_prologue_plain(x, v, bits, clip_ratio, rotate)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     build.check_activations(x, bits)
     m, k = x.shape
+    if rotate:
+        check_width(k)
+        if k > MAX_D:
+            raise ValueError(f"rotated K={k} exceeds the kernel's {MAX_D}")
     r = 0
     tensors = [x]
     if v is not None:
@@ -103,7 +121,7 @@ def fused_prologue(x, v=None, bits: int = 4, clip_ratio: float = 1.0):
         int(v is not None and v.dtype == torch.bfloat16), xq.data_ptr(),
         sx.data_ptr(), None if xv is None else xv.data_ptr(),
         scratch.data_ptr() if scratch.numel() else None, m, k, r,
-        2 ** (bits - 1) - 1, float(clip_ratio), build.stream_of(x))
+        2 ** (bits - 1) - 1, float(clip_ratio), int(rotate), build.stream_of(x))
     if rc != 0:
         raise RuntimeError(f"fused_prologue launch failed: cudaError {rc} "
                            f"at (M={m}, K={k}, R={r})")

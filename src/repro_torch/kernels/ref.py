@@ -1,10 +1,16 @@
 """Plain-torch oracles for the W4A4+LRC kernels (counterpart of
-``repro/kernels/ref.py``, per-token scales, no rotation)."""
+``repro/kernels/ref.py``, per-token scales).
+
+The rotation here is the reference oracle's: ``core/hadamard.fwht``, which
+divides by ``sqrt(d)``.  The kernels and their plain versions multiply by
+``1 / sqrt(d)`` (``rowops.fwht_rows``), which differs in the last bit when
+d is 2·4^k, so the rotated oracles hold them only to a tolerance."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.hadamard import fwht
 from repro_torch.core.quantizers import unpack_int4
 from repro_torch.kernels.rowops import int_matmul, scalar
 
@@ -29,13 +35,19 @@ def act_quant_ref(x, bits: int = 4, clip_ratio: float = 1.0):
     return q, s
 
 
+def fwht_ref(x):
+    """The normalized Walsh-Hadamard transform of the f32 rows of x, in x's
+    dtype (the dividing form)."""
+    return fwht(x.to(torch.float32)).to(x.dtype)
+
+
 def fused_prologue_ref(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
                        rotate: bool = False):
-    """Per-token quantization and the (x·V) projection, back to back."""
-    if rotate:
-        raise NotImplementedError(
-            "online rotation is not ported yet (ROADMAP Queue 1)")
+    """WHT rotation (optional), per-token quantization and the (x·V)
+    projection, back to back."""
     x = x.to(torch.float32)
+    if rotate:
+        x = fwht_ref(x)
     q, s = act_quant_ref(x, bits=bits, clip_ratio=clip_ratio)
     xv = None if v is None else x @ v.to(torch.float32)
     return q, s, xv

@@ -4,10 +4,10 @@ Counterpart of the per-token bodies in ``repro/kernels/rowops.py``.  These
 are THE operation order the fused kernel follows and its plain version
 runs: zero-guarded amax → ``s = (clip·amax)/qmax`` → ``q = clip(round(x/s))``
 (a true division, rounding half to even), the int4 nibble layout, and the
-K-chunked, R-tiled (x·V) projection; and the one group dequant body
+K-chunked, R-tiled (x·V) projection; the online Walsh-Hadamard rotation
+(:func:`fwht_rows`); and the one group dequant body
 (:func:`dequant_rows_grouped`) of the quantized KV cache.  Group-wise
-activation scales and the online Walsh-Hadamard rotation are not ported
-yet.
+activation scales are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +41,27 @@ def scalar(value, like: torch.Tensor) -> torch.Tensor:
     scalar does, and on CUDA a division by a Python number is computed as a
     multiplication by its rounded reciprocal, which is not ``x / s``."""
     return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def fwht_rows(y: torch.Tensor, d: int) -> torch.Tensor:
+    """Normalized Walsh-Hadamard transform over the last axis of a (bm, d)
+    f32 tile, d a power of two: sweeps h = 1, 2, ... d/2, each ``(a + b,
+    a - b)`` over the (bm, d/2h, 2, h) reshape, then ONE multiply by the f32
+    value of ``1.0 / d**0.5``.
+
+    This is the kernels' operation order (the reference's ``fwht_rows``,
+    which every rotating kernel and the jitted transform share).  It is not
+    ``core/hadamard.fwht``, which divides by ``sqrt(d)``: the two differ in
+    the last bit when d is 2·4^k (512, 2048, 8192)."""
+    bm = y.shape[0]
+    h = 1
+    while h < d:
+        y = y.reshape(bm, d // (2 * h), 2, h)
+        a = y[:, :, 0, :]
+        b = y[:, :, 1, :]
+        y = torch.stack([a + b, a - b], dim=2)
+        h *= 2
+    return y.reshape(bm, d) * scalar(1.0 / d**0.5, y)
 
 
 def row_amax(x: torch.Tensor) -> torch.Tensor:

@@ -101,8 +101,12 @@ def test_ops_dispatch_and_unported_options():
     y0 = fused_gemm.fused_w4a4_lrc_plain(t(x), _port(v), t(wp), t(sw),
                                          _port(u), 4, 0.9)
     assert torch.equal(y, y0)
-    with pytest.raises(NotImplementedError):
-        ops.w4a4_lrc_forward(t(x), t(wp), t(sw), None, None, spec, rotate=True)
+    # the online rotation is ported: the fused kernel's plain version with
+    # its rotate branch, which differs from the unrotated forward
+    yr = ops.w4a4_lrc_forward(t(x), t(wp), t(sw), _port(u), _port(v), spec, rotate=True)
+    assert torch.equal(yr, fused_gemm.fused_w4a4_lrc_plain(
+        t(x), _port(v), t(wp), t(sw), _port(u), 4, 0.9, rotate=True))
+    assert not torch.equal(yr, y0)
     with pytest.raises(NotImplementedError):
         ops.w4a4_lrc_forward(t(x), t(wp), t(sw), None, None,
                              QuantSpec(group_size=16))

@@ -38,7 +38,8 @@ def test_port_modules_found():
     assert "repro_torch.serve.kvquant" in MODULES
     for name in ("data.tokens", "data.loader", "core.stats", "core.hadamard",
                  "core.rotation", "core.gptq", "core.lrc", "quant.rotate",
-                 "quant.calibrate", "bench.kv_sweep"):
+                 "quant.calibrate", "bench.kv_sweep", "kernels.hadamard",
+                 "bench.latency_kernels", "bench.common"):
         assert f"repro_torch.{name}" in MODULES
 
 

@@ -144,5 +144,15 @@ def test_prologue_ref_bitwise(rng, clip):
     assert np.array_equal(st.numpy(), np.asarray(sj))
     tol = 2 * 97 * 2.0 ** -24 * (np.abs(x) @ np.abs(v)) + 1e-30
     assert np.all(np.abs(xvt.numpy() - np.asarray(xvj)) <= tol)
-    with pytest.raises(NotImplementedError):
+    # the rotated oracle: its K (96) is no power of two, as in the reference
+    with pytest.raises(ValueError):
         tref.fused_prologue_ref(t(x), rotate=True)
+    xr, vr = x[:, :64], v[:64]
+    qj, sj, xvj = jref.fused_prologue_ref(jnp.asarray(xr), jnp.asarray(vr),
+                                          clip_ratio=clip, rotate=True)
+    qt, st, xvt = tref.fused_prologue_ref(t(xr), t(vr), clip_ratio=clip, rotate=True)
+    assert np.array_equal(qt.numpy(), np.asarray(qj))
+    assert np.array_equal(st.numpy(), np.asarray(sj))
+    rot = np.asarray(jref.fwht_ref(jnp.asarray(xr)))
+    tol = 2 * 65 * 2.0 ** -24 * (np.abs(rot) @ np.abs(vr)) + 1e-30
+    assert np.all(np.abs(xvt.numpy() - np.asarray(xvj)) <= tol)
