@@ -80,7 +80,25 @@ Phases, each fatal on failure:
      unrotated at the paper's Llama sizes, every rank of RANKS and M of MS,
      and at Phi-3-mini's mlp/wd site, beside a bf16 matmul, each output held
      against its plain version; every rotated unfused call launches the
-     transform kernel once, and nothing else launches it;
+     transform kernel once, and nothing else launches it; the reference's
+     grouped smoke row (g = 128) and a chained g = 128 column;
+ 13. grouped activation scales (paper Table 2): (a) the group branches of
+     #1 (SmolLM's sites at g 64, a rotated K 512 at g 128, groups that end
+     inside a four-code word) and #2-#4 (Phi-3's sites and its rotated wd
+     at g 128, K 192 in three groups, g = K, groups of 8, 10 and 45)
+     against their plain versions at M 4, 100
+     and 2048, bf16 and f32: codes and scale planes bitwise, the GEMMs
+     without the LR term bitwise the canonical ``rowops.gemm_grouped``
+     order, every row bitwise the same row of the M 2048 call (K split at
+     decode or not), g = K bitwise the per-token kernel; each beside its
+     per-token time; (b) SmolLM-135M served at g 64 (fused: one #1 per
+     QLinear call) and Phi-3-mini at g 128 (chained: one #3 and one #2),
+     phases 4 and 6's weights retagged; (c) Phi-3's teacher-forced step on
+     the chained and unfused paths at g 128, each call held against its
+     plain pair, and two of phase 10's prompts whose greedy streams must be
+     bitwise equal across prefill chunk widths None and 100; (d) one
+     Phi-3-mini layer calibrated with act_group 128 (Update-LR never raises
+     a loss);
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
 result.
@@ -1230,9 +1248,10 @@ def phase_parity(cfg, qparams, device):
 
     site = {"calls": 0, "worst": 0.0, "bad": 0}
 
-    def checked(x, v, wp, sw, u, bits=4, clip_ratio=1.0, rotate=False):
-        y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, bits, clip_ratio, rotate)
-        yp = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, bits, clip_ratio, rotate)
+    def checked(x, v, wp, sw, u, bits=4, clip_ratio=1.0, rotate=False, group=None):
+        y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, bits, clip_ratio, rotate, group)
+        yp = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, bits, clip_ratio, rotate,
+                                             group)
         err = (y - yp).abs()
         tol = lr_tolerance(x, v, u, x.shape[1], 0 if v is None else v.shape[1], yp)
         site["calls"] += 1
@@ -1317,9 +1336,10 @@ def phase_paths(cfg, qparams, device):
 
     site = {"calls": 0, "xv": 0.0, "gemm": 0.0, "bad": 0}
 
-    def checked_prologue(x, v, bits=4, clip_ratio=1.0, rotate=False):
-        xq, sx, xv = prologue.fused_prologue(x, v, bits, clip_ratio, rotate)
-        xq_p, sx_p, xv_p = prologue.fused_prologue_plain(x, v, bits, clip_ratio, rotate)
+    def checked_prologue(x, v, bits=4, clip_ratio=1.0, rotate=False, group=None):
+        xq, sx, xv = prologue.fused_prologue(x, v, bits, clip_ratio, rotate, group)
+        xq_p, sx_p, xv_p = prologue.fused_prologue_plain(x, v, bits, clip_ratio, rotate,
+                                                         group)
         site["calls"] += 1
         bad = not (torch.equal(xq, xq_p) and torch.equal(sx, sx_p))
         if v is not None:
@@ -1329,16 +1349,16 @@ def phase_paths(cfg, qparams, device):
         site["bad"] += int(bad)
         return xq, sx, xv
 
-    def checked_quant(x, bits=4, clip_ratio=1.0):
-        xq, sx = actquant.act_quant(x, bits, clip_ratio)
-        xq_p, sx_p = actquant.act_quant_plain(x, bits, clip_ratio)
+    def checked_quant(x, bits=4, clip_ratio=1.0, group=None):
+        xq, sx = actquant.act_quant(x, bits, clip_ratio, group)
+        xq_p, sx_p = actquant.act_quant_plain(x, bits, clip_ratio, group)
         site["calls"] += 1
         site["bad"] += int(not (torch.equal(xq, xq_p) and torch.equal(sx, sx_p)))
         return xq, sx
 
-    def checked_gemm(xq, sx, wp, sw, xv=None, u=None):
-        y = w4a4.w4a4_lowrank_matmul(xq, sx, wp, sw, xv, u)
-        y_p = w4a4.w4a4_lowrank_matmul_plain(xq, sx, wp, sw, xv, u)
+    def checked_gemm(xq, sx, wp, sw, xv=None, u=None, group=None):
+        y = w4a4.w4a4_lowrank_matmul(xq, sx, wp, sw, xv, u, group)
+        y_p = w4a4.w4a4_lowrank_matmul_plain(xq, sx, wp, sw, xv, u, group)
         err = (y - y_p).abs()
         r = 0 if xv is None else xv.shape[1]
         site["gemm"] = max(site["gemm"], err.max().item())
@@ -2338,6 +2358,348 @@ def add_rotation_entries(kernels, rot_worst, rot_timed, lat):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: grouped activation scales
+# ---------------------------------------------------------------------------
+
+# SmolLM-135M's K = 576 takes no 128, so it is served at the reference
+# harness's group 64; Phi-3-mini at the paper's Table 2 group 128
+SMOL_GROUP = 64
+PHI3_GROUP = 128
+GROUP_MS = (SLOTS, 100, 2048)
+# kernel #1: SmolLM's site shapes at g 64, then a rotated K 512 at g 128
+# and ragged ones (odd N, K % 16 != 0): groups of 10 and of 45 (K % 4 == 2)
+# end inside a four-code word (K, N, R, rotate, g)
+GROUP_FUSED_CASES = ([(k, n, r, False, SMOL_GROUP) for (k, n, r) in sorted(set(SITES.values()))]
+                     + [(512, 1536, 58, True, 128), (200, 97, 7, False, 10),
+                        (90, 33, 0, False, 45)])
+# kernels #2-#4: Phi-3's site shapes at g 128, its rotated wd at R 922, then
+# ragged ones: K 192 in three groups, g = K with odd N, K 200 at g = K
+# (K % 16 != 0), groups of 8, of 10 and of 45 (K % 4 == 2; the last two
+# end inside a four-code word) (K, N, R, rotate, g)
+GROUP_CHAIN_CASES = ([(k, n, r, False, PHI3_GROUP)
+                      for (k, n, r) in sorted(set(PHI3_SITES.values()))]
+                     + [(8192, 3072, 922, True, PHI3_GROUP), (192, 97, 7, False, 64),
+                        (3072, 3073, 307, False, 3072), (200, 33, 5, False, 200),
+                        (200, 33, 5, False, 8), (200, 33, 5, False, 10),
+                        (90, 33, 0, False, 45)])
+# Phi-3 prompts of phase 10 whose grouped streams must not depend on the
+# prefill chunk width
+GROUP_LONG_PROMPTS = (777, 130)
+
+
+def _group_bounds(m, k, n, r, g, x_bytes, f_bytes):
+    """Bounds of the four kernels' group branches at one site (each input
+    read once, each output written once): as per-token, with the (M, K/g)
+    f32 scale plane in place of the (M, 1) scales."""
+    plane = 4 * m * (k // g)
+    prologue = _bound(x_bytes * m * k + f_bytes * k * r + m * k + plane + 4 * m * r,
+                      f32_ops=2 * m * k * r + 3 * m * k)
+    quant = _bound(x_bytes * m * k + m * k + plane, f32_ops=3 * m * k)
+    gemm = _bound(m * k + plane + k * n // 2 + 4 * n + 4 * m * r + f_bytes * n * r
+                  + 4 * m * n, int8_ops=2 * m * k * n,
+                  f32_ops=2 * m * n * r + 2 * m * n * (k // g) + m * n)
+    fused = _bound(k * n // 2 + 4 * n + f_bytes * r * (k + n) + x_bytes * m * k + 4 * m * n,
+                   int8_ops=2 * m * k * n,
+                   f32_ops=2 * m * r * (k + n) + 2 * m * n * (k // g) + 3 * m * k)
+    return {"fused_w4a4_lrc": fused, "fused_prologue": prologue, "act_quant": quant,
+            "w4a4_lowrank_matmul": gemm}
+
+
+def _same(a, b, what):
+    import torch
+
+    if not torch.equal(a, b):
+        raise SystemExit(f"grouped kernels: {what} is not bitwise its reference")
+
+
+def phase_group_kernels(device):
+    """13(a): each kernel's group branch against its plain version at the
+    shapes the grouped paths give it, M = SLOTS, 100 and 2048 (the smaller
+    M the first rows of the 2048-row problem), bf16 x and factors at the
+    sites, f32 at the ragged shapes:
+
+      * #1 (SmolLM's sites at g 64, a rotated K 512 at g 128): without V
+        bitwise the plain version, with V within the LR sums' bound;
+      * #4 and #3 (Phi-3's sites at g 128, its rotated wd at R 922, ragged
+        groups): codes and scale planes bitwise the plain versions' (and
+        each other's, unrotated), #3's x·V within its bound, with V and
+        without;
+      * #2 on the plain prologue's operands: without the LR term bitwise the
+        plain ``gemm_grouped`` order, with it within the R-term bound;
+      * every kernel's rows at M = SLOTS and 100 bitwise the same rows of
+        the M = 2048 call (#2 without the LR term, whose plain x·V operand
+        is a cuBLAS product; #2 splits K at Phi-3's wd, M = SLOTS, and not
+        at 2048: the split does not enter);
+      * g = K bitwise the per-token kernel.
+
+    At M = SLOTS each site's grouped and per-token kernels and the grouped
+    plain version are timed (CUDA events, L2 flushed) beside the grouped
+    bound.  Returns (worst error per kernel, times)."""
+    import torch
+
+    from repro_torch.bench.common import (flush_buffer, gemm_tolerance, lr_tolerance,
+                                          time_ms, w4a4_problem, xv_tolerance)
+    from repro_torch.kernels import actquant, fused_gemm, hadamard, prologue, w4a4
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=device).manual_seed(13)
+    flush = flush_buffer(device)
+    worst = {"fused_w4a4_lrc": 0.0, "fused_prologue": 0.0, "w4a4_lowrank_matmul": 0.0,
+             "act_quant": 0.0}
+    timed = {}
+    smol_shapes = set(SITES.values())
+    phi3_shapes = set(PHI3_SITES.values())
+
+    def rows_of(out, whole, m, what):
+        """The first m rows of the 2048-row call's ``whole`` output."""
+        for a, b in zip(out, whole):
+            if a is not None:
+                _same(a, b[:m], f"{what}: rows of M={m} against M={max(GROUP_MS)}")
+
+    for (k, n, r, rot, g) in GROUP_FUSED_CASES:
+        xd = bf16 if (k, n, r) in smol_shapes else f32
+        x_all, v, wp, sw, u = w4a4_problem(gen, max(GROUP_MS), k, n, r, xd, xd, device, g)
+        whole = {}
+        for m in sorted(GROUP_MS, reverse=True):
+            x = x_all[:m]
+            y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9, rot, g)
+            y0 = fused_gemm.fused_w4a4_lrc(x, None, wp, sw, None, 4, 0.9, rot, g)
+            torch.cuda.synchronize()
+            y_p = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4, 0.9, rot, g)
+            y0_p = fused_gemm.fused_w4a4_lrc_plain(x, None, wp, sw, None, 4, 0.9, rot, g)
+            _same(y0, y0_p, f"#1 without V at M={m} K={k} N={n} g={g} rotate={rot}")
+            rows = hadamard.fwht_plain(x.float()) if rot else x
+            err = (y - y_p).abs()
+            if not (bool(torch.isfinite(y).all())
+                    and bool((err <= lr_tolerance(rows, v, u, k, r, y_p)).all())):
+                raise SystemExit(f"grouped kernels: #1 disagrees with its plain version "
+                                 f"at M={m} K={k} N={n} R={r} g={g}")
+            worst["fused_w4a4_lrc"] = max(worst["fused_w4a4_lrc"], err.max().item())
+            if m == max(GROUP_MS):
+                whole = (y, y0)
+            else:
+                rows_of((y, y0), whole, m, f"#1 K={k} N={n} g={g}")
+            if m == 100:
+                _same(fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9, rot, k),
+                      fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9, rot),
+                      f"#1 at g = K={k} against per-token")
+            if m == SLOTS and (k, n, r) in smol_shapes:
+                t_g = time_ms(lambda: fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9,
+                                                                rot, g), flush)
+                t_t = time_ms(lambda: fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9,
+                                                                rot), flush)
+                t_p = time_ms(lambda: fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4,
+                                                                      0.9, rot, g), flush)
+                b, by = _group_bounds(m, k, n, r, g, 2, 2)["fused_w4a4_lrc"]
+                timed[("fused_w4a4_lrc", k, n, r)] = (t_g, t_t, t_p, b, by)
+        print(f"  #1 K={k:<5} N={n:<5} R={r:<3} g={g:<4} rotate={rot!s:<5} x={str(xd)[6:]:<8} "
+              f"M {GROUP_MS}: without V bitwise, rows independent of M, g = K bitwise "
+              f"per-token; max |kernel - plain| {worst['fused_w4a4_lrc']:.3e}", flush=True)
+
+    for (k, n, r, rot, g) in GROUP_CHAIN_CASES:
+        xd = bf16 if (k, n, r) in phi3_shapes else f32
+        x_all, v, wp, sw, u = w4a4_problem(gen, max(GROUP_MS), k, n, r, xd, xd, device, g)
+        whole, worst_case = {}, {"xv": 0.0, "gemm": 0.0}
+        for m in sorted(GROUP_MS, reverse=True):
+            x = x_all[:m]
+            xq, sx, xv = prologue.fused_prologue(x, v, 4, 0.9, rot, g)
+            q0, s0, _ = prologue.fused_prologue(x, None, 4, 0.9, rot, g)
+            xr = hadamard.fwht(x) if rot else x
+            aq, asx = actquant.act_quant(xr, 4, 0.9, g)
+            torch.cuda.synchronize()
+            xq_p, sx_p, xv_p = prologue.fused_prologue_plain(x, v, 4, 0.9, rot, g)
+            aq_p, asx_p = actquant.act_quant_plain(xr, 4, 0.9, g)
+            what = f"M={m} K={k} N={n} R={r} g={g} rotate={rot}"
+            for a, b, name in ((xq, xq_p, "#3 codes"), (sx, sx_p, "#3 scale plane"),
+                               (q0, xq_p, "#3 codes without V"),
+                               (s0, sx_p, "#3 scale plane without V"),
+                               (aq, aq_p, "#4 codes"), (asx, asx_p, "#4 scale plane")):
+                _same(a, b, f"{name} at {what}")
+            if not rot or xd is f32:  # a bf16 rotated row rounds before #4
+                _same(aq, xq_p, f"#4 codes against #3's at {what}")
+                _same(asx, sx_p, f"#4 scale plane against #3's at {what}")
+            if r:
+                err = (xv - xv_p).abs()
+                rows = hadamard.fwht_plain(x.float()) if rot else x
+                if not bool((err <= xv_tolerance(rows, v, k, xv_p)).all()):
+                    raise SystemExit(f"grouped kernels: #3's x·V outside its bound at {what}")
+                worst_case["xv"] = max(worst_case["xv"], err.max().item())
+            y0 = w4a4.w4a4_lowrank_matmul(xq_p, sx_p, wp, sw, None, None, g)
+            y = w4a4.w4a4_lowrank_matmul(xq_p, sx_p, wp, sw, xv_p, u, g)
+            torch.cuda.synchronize()
+            _same(y0, w4a4.w4a4_lowrank_matmul_plain(xq_p, sx_p, wp, sw, None, None, g),
+                  f"#2 without the LR term at {what}")
+            y_p = w4a4.w4a4_lowrank_matmul_plain(xq_p, sx_p, wp, sw, xv_p, u, g)
+            err = (y - y_p).abs()
+            if not (bool(torch.isfinite(y).all())
+                    and bool((err <= gemm_tolerance(xv_p, u, r, y_p)).all())):
+                raise SystemExit(f"grouped kernels: #2 disagrees with its plain version "
+                                 f"at {what}")
+            worst_case["gemm"] = max(worst_case["gemm"], err.max().item())
+            # x·V of the plain version is a cuBLAS product whose order may
+            # change with M, so the GEMM's rows are compared without it
+            out = (xq, sx, xv, q0, s0, aq, asx, y0)
+            if m == max(GROUP_MS):
+                whole = out
+            else:
+                rows_of(out, whole, m, f"K={k} N={n} g={g} rotate={rot}")
+            if m == 100 and not rot:
+                qk, sk = actquant.act_quant(x, 4, 0.9, k)
+                qt, st = actquant.act_quant(x, 4, 0.9)
+                _same(qk, qt, f"#4 codes at g = K={k} against per-token")
+                _same(sk, st, f"#4 scales at g = K={k} against per-token")
+                pk = prologue.fused_prologue(x, v, 4, 0.9, False, k)
+                pt = prologue.fused_prologue(x, v, 4, 0.9)
+                for a, b in zip(pk, pt):
+                    if a is not None:
+                        _same(a, b, f"#3 at g = K={k} against per-token")
+                _same(w4a4.w4a4_lowrank_matmul(qt, st, wp, sw, xv_p, u, k),
+                      w4a4.w4a4_lowrank_matmul(qt, st, wp, sw, xv_p, u),
+                      f"#2 at g = K={k} against per-token")
+            if m == SLOTS and (k, n, r) in phi3_shapes and not rot:
+                bounds = _group_bounds(m, k, n, r, g, 2, 2)
+                runs = {
+                    "fused_prologue": (
+                        lambda: prologue.fused_prologue(x, v, 4, 0.9, False, g),
+                        lambda: prologue.fused_prologue(x, v, 4, 0.9),
+                        lambda: prologue.fused_prologue_plain(x, v, 4, 0.9, False, g)),
+                    "act_quant": (lambda: actquant.act_quant(x, 4, 0.9, g),
+                                  lambda: actquant.act_quant(x, 4, 0.9),
+                                  lambda: actquant.act_quant_plain(x, 4, 0.9, g)),
+                    "w4a4_lowrank_matmul": (
+                        lambda: w4a4.w4a4_lowrank_matmul(xq_p, sx_p, wp, sw, xv_p, u, g),
+                        lambda: w4a4.w4a4_lowrank_matmul(xq_p, sx_p[:, :1].contiguous(),
+                                                         wp, sw, xv_p, u),
+                        lambda: w4a4.w4a4_lowrank_matmul_plain(xq_p, sx_p, wp, sw, xv_p,
+                                                               u, g)),
+                }
+                for name, (kern, per_token, plain) in runs.items():
+                    timed[(name, k, n, r)] = (time_ms(kern, flush), time_ms(per_token, flush),
+                                              time_ms(plain, flush), *bounds[name])
+        worst["fused_prologue"] = max(worst["fused_prologue"], worst_case["xv"])
+        worst["w4a4_lowrank_matmul"] = max(worst["w4a4_lowrank_matmul"], worst_case["gemm"])
+        print(f"  #2-#4 K={k:<5} N={n:<5} R={r:<4} g={g:<5} rotate={rot!s:<5} "
+              f"x={str(xd)[6:]:<8} M {GROUP_MS}: codes and scale planes bitwise, #2 "
+              f"without LR bitwise, rows independent of M; max |kernel - plain| x·V "
+              f"{worst_case['xv']:.3e}, GEMM {worst_case['gemm']:.3e}", flush=True)
+    for key, (t_g, t_t, t_p, b, by) in sorted(timed.items()):
+        print(f"    {key[0]:<20} K={key[1]:<5} N={key[2]:<5} R={key[3]:<3} M={SLOTS}: "
+              f"grouped {t_g * 1e3:8.2f} us, per-token {t_t * 1e3:8.2f} us, plain grouped "
+              f"{t_p * 1e3:9.2f} us, grouped bound {b * 1e3:.3f} us ({by})", flush=True)
+    return worst, timed
+
+
+def phase_groups(device, cfg, qparams, pcfg, pparams):
+    """Phase 13: (a) :func:`phase_group_kernels`; (b) SmolLM-135M served at
+    g = SMOL_GROUP (the fused path) and Phi-3-mini at g = PHI3_GROUP (the
+    chained path), phases 4 and 6's RTN+SVD weights retagged with the
+    policy's groups (``retag_act_group``: bitwise what ``quantize_model``
+    gives under that policy, which reads no statistics here), with the
+    launch gates of :func:`phase_serve`; (c) Phi-3's teacher-forced step
+    on the chained and unfused paths (:func:`phase_paths`) at g =
+    PHI3_GROUP, and two of phase 10's prompts served whole and in 100-row
+    chunks, whose greedy streams must be bitwise equal; (d) one full-width
+    Phi-3-mini layer calibrated with act_group = PHI3_GROUP (Update-LR
+    never raises a loss).  Returns the phase's stats."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import calib_sequences
+    from repro_torch.models import model
+    from repro_torch.quant.policy import QuantPolicy
+    from repro_torch.quant.qlinear import retag_act_group
+
+    t0 = time.perf_counter()
+    print("  (a) each kernel's group branch against its plain version", flush=True)
+    worst, timed = phase_group_kernels(device)
+    out = {"kernels_s": time.perf_counter() - t0}
+
+    print(f"  (b) SmolLM-135M at act_group {SMOL_GROUP} (fused path)", flush=True)
+    sq = retag_act_group(qparams, QuantPolicy(act_group=SMOL_GROUP))
+    smol_counts, out["smollm_serve"] = phase_serve(cfg, sq, device, ["fused_w4a4_lrc"])
+    print(f"  (b) Phi-3-mini at act_group {PHI3_GROUP} (chained path)", flush=True)
+    pq = retag_act_group(pparams, QuantPolicy(act_group=PHI3_GROUP))
+    phi3_counts, out["phi3_serve"] = phase_serve(
+        pcfg, pq, device, ["fused_prologue", "w4a4_lowrank_matmul"])
+
+    print(f"  (c) Phi-3-mini teacher-forced paged_step at act_group {PHI3_GROUP}",
+          flush=True)
+    out["phi3_paths"] = phase_paths(pcfg, pq, device)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, pcfg.vocab_size, n).astype(np.int32) for n in LONG_PROMPTS]
+    prompts = [p for p in prompts if len(p) in GROUP_LONG_PROMPTS]
+    streams = {}
+    for chunk in LONG_CHUNKS:
+        streams[chunk], out[f"long/{chunk}"], _ = _serve_long(
+            pcfg, pq, device, prompts, "f32", chunk, "kernel")
+    same = streams[None] == streams[LONG_CHUNKS[1]]
+    print(f"  (c) prompts {GROUP_LONG_PROMPTS} at act_group {PHI3_GROUP}: greedy streams "
+          f"chunk None vs {LONG_CHUNKS[1]} {'bitwise equal' if same else 'DIFFER'}",
+          flush=True)
+    if not same:
+        raise SystemExit("grouped serving: the streams depend on the prefill chunk width")
+    del sq, pq
+    torch.cuda.empty_cache()
+
+    print(f"  (d) one Phi-3-mini layer calibrated with act_group {PHI3_GROUP}", flush=True)
+    policy = QuantPolicy(**CALIB_POLICY, act_group=PHI3_GROUP)
+    lcfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=1)
+    lparams = model.init_params(lcfg, seed=0, device=device)
+    tokens = calib_sequences(lcfg, n_seq=PHI3_CALIB_SEQS, seq_len=CALIB_SEQ_LEN,
+                             device=device)
+    stage = StageTimes()
+    reset_launches()
+    calibrated = stage.run(lcfg, lparams, tokens, policy)
+    tags = {q.act_group for q in calibrated["layers"][0]["attn"].values()}
+    tags |= {q.act_group for q in calibrated["layers"][0]["mlp"].values()}
+    if launches()["flash_attention"] != 1 or len(stage.lrc) != 7 or tags != {PHI3_GROUP}:
+        raise SystemExit("grouped calibration: the layer's attention did not go through "
+                         "the kernel, not every site was solved, or a site is not tagged "
+                         f"with act_group {PHI3_GROUP} ({tags})")
+    _check_update_lr(stage)
+    out["calibration"] = stage.summary()
+    _print_times(f"{lcfg.name} (1 layer, act_group {PHI3_GROUP})", out["calibration"])
+    print(f"  Update-LR lowered or kept the loss at all {len(stage.lrc)} sites", flush=True)
+    del stage, lparams, tokens, calibrated
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out, worst, timed, smol_counts, phi3_counts
+
+
+def add_group_entries(kernels, worst, timed, smol_counts, phi3_counts, paths):
+    """The ``grouped`` sub-entry of kernels #1-#4 (``kernels[0:4]``): one
+    layer's sites at M = SLOTS (SmolLM's 7 at g 64 for #1, Phi-3's 7 at g
+    128 for the others), the per-token kernel's time at the same sites
+    beside it, the launches of phase 13's main paths (serving for #1-#3,
+    the teacher-forced unfused step for #4), which the kernel's own
+    ``launches`` then include, and the largest |kernel - plain|."""
+    launched = {"fused_w4a4_lrc": smol_counts["fused_w4a4_lrc"],
+                "fused_prologue": phi3_counts["fused_prologue"],
+                "w4a4_lowrank_matmul": phi3_counts["w4a4_lowrank_matmul"],
+                "act_quant": paths["act_quant_launches"]}
+    for entry in kernels[:4]:
+        name = entry["name"]
+        sites = SITES if name == "fused_w4a4_lrc" else PHI3_SITES
+        layer = [timed[(name, *sites[s])] for s in sites]
+        entry["grouped"] = {
+            "group": SMOL_GROUP if name == "fused_w4a4_lrc" else PHI3_GROUP,
+            "ms": sum(t[0] for t in layer), "per_token_ms": sum(t[1] for t in layer),
+            "plain_ms": sum(t[2] for t in layer), "bound_ms": sum(t[3] for t in layer),
+            "bound_by": ("bytes" if all(t[4] == "bytes" for t in layer)
+                         else "operations"),
+            "launches": launched[name], "max_abs_err": worst[name],
+            "at": (f"one layer's 7 sites at M={SLOTS}, bf16, L2 flushed; launches from "
+                   f"phase 13's serving (#1 SmolLM, #2/#3 Phi-3) and teacher-forced "
+                   f"unfused step (#4)"),
+        }
+        entry["launches"] += launched[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], worst[name])
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2373,10 +2735,14 @@ def main() -> int:
                         if "registers" in line or "spill" in line), flush=True)
     from repro_torch.kernels import fused_gemm
 
-    for k, r in ((576, 58), (1536, 58), (3072, 307), (8192, 922)):
-        want = fused_gemm._lib("fused_w4a4_lrc").fused_w4a4_lrc_smem_bytes(k, r)
-        if fused_gemm.smem_bytes(k, r) != want:
-            raise SystemExit(f"fused_gemm.smem_bytes({k}, {r}) is not the source's {want}")
+    # per-token sites, then grouped ones (phase 13's SmolLM g 64, the
+    # rotated K 512 at g 128, Phi-3's demoted g 128)
+    for k, r, g in ((576, 58, None), (1536, 58, None), (3072, 307, None), (8192, 922, None),
+                    (576, 58, 64), (1536, 58, 64), (512, 58, 128), (3072, 307, 128)):
+        want = fused_gemm._lib("fused_w4a4_lrc").fused_w4a4_lrc_smem_bytes(k, r, g or 0)
+        if fused_gemm.smem_bytes(k, r, g) != want:
+            raise SystemExit(f"fused_gemm.smem_bytes({k}, {r}, {g}) is not the source's "
+                             f"{want}")
     from repro_torch.kernels import flash_attn, hadamard, prologue
 
     # the kernels' normalization constant, (float)(1.0 / sqrt((double)d)) on
@@ -2414,8 +2780,7 @@ def main() -> int:
     smol_counts, serve = phase_serve(cfg, qparams, device, ["fused_w4a4_lrc"])
 
     phase("5. SmolLM-135M teacher-forced paged_step, kernel path against int8")
-    parity = phase_parity(cfg, qparams, device)
-    del qparams
+    parity = phase_parity(cfg, qparams, device)  # qparams stay for phase 13
 
     phase(f"6. serve Phi-3-mini, {PHI3_LAYERS} layers (chained path)")
     pcfg, pparams = build_model(device, "phi3-mini-3.8b", PHI3_LAYERS)
@@ -2446,8 +2811,7 @@ def main() -> int:
 
     phase(f"10. long-prompt prefill, Phi-3-mini, {PHI3_LAYERS} layers (f32, int8, "
           f"int4 group 32 pools)")
-    long_prefill = phase_long_prefill(pcfg, pparams, device)
-    del pparams
+    long_prefill = phase_long_prefill(pcfg, pparams, device)  # pparams stay for phase 13
 
     phase("11. the kv_sweep pass, SmolLM-135M (f32, int8, int4 pools)")
     sweep, sweep_counts = phase_kv_sweep(device)
@@ -2455,6 +2819,12 @@ def main() -> int:
     phase("12. the paper's layer-latency tables (Tables 6-8), rotated and unrotated")
     latency = phase_latency(device)
     lat = latency["launches"]
+
+    phase(f"13. grouped activation scales (SmolLM-135M g {SMOL_GROUP}, Phi-3-mini "
+          f"g {PHI3_GROUP})")
+    groups, group_worst, group_timed, group_smol, group_phi3 = phase_groups(
+        device, cfg, qparams, pcfg, pparams)
+    del qparams, pparams
 
     # launches of the two dense kernels on the main paths: every prefill
     # chunk of phases 4, 6, 8, 9 (its served model) and 10, the walk of
@@ -2503,6 +2873,8 @@ def main() -> int:
     ]
 
     add_rotation_entries(kernels, rot_worst, rot_timed, lat)
+    add_group_entries(kernels, group_worst, group_timed, group_smol, group_phi3,
+                      groups["phi3_paths"])
 
     def attn_entry(name, replaces, n, pool, at):
         t_k, t_p, b, by, t_l = attn_timed[(name, "phi3-serve", pool)]
@@ -2571,7 +2943,8 @@ def main() -> int:
     print(json.dumps({"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
                       "phi3_paths": paths, "phi3_kv_serve": kv_serve,
                       "calibration": calib, "long_prefill": long_prefill,
-                      "kv_sweep": sweep, "latency": latency}, default=str))
+                      "kv_sweep": sweep, "latency": latency, "groups": groups},
+                     default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

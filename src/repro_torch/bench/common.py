@@ -15,15 +15,19 @@ import time
 import torch
 
 from repro_torch.core.quantizers import pack_int4
+from repro_torch.kernels.rowops import check_group
 
 U_EPS = 2.0 ** -24
 TINY = torch.finfo(torch.float32).tiny
 
 
-def w4a4_problem(gen, m, k, n, r, x_dtype, f_dtype, device):
+def w4a4_problem(gen, m, k, n, r, x_dtype, f_dtype, device, act_group=None):
     """Random x (M, K), packed int4 W (K/2, N), w_scale (N,) and factors
     v (K, R), u (N, R) (None at R = 0) on ``device``, drawn from ``gen``.
-    Returns (x, v, wp, sw, u)."""
+    ``act_group`` (the activation scale group the problem is run with;
+    None: per-token) must divide K.  Returns (x, v, wp, sw, u)."""
+    if act_group is not None:
+        check_group(k, act_group)
     x = torch.randn((m, k), generator=gen, device=device).to(x_dtype)
     q = torch.randint(-8, 8, (k, n), generator=gen, device=device, dtype=torch.int8)
     wp = pack_int4(q.T).T.contiguous()

@@ -6,14 +6,13 @@ The paper timed an int4 layer with its low-rank correction and found that
 (``kernels/ops.w4a4_lrc_forward``) runs through the port's kernels:
 
   * :func:`smoke_rows` — the reference's smoke shapes (decode and mixed M,
-    odd N, the rank-1024 K = 8192 shape), rotation on and off, through the
-    unfused, chained, fused and "auto" paths.  On the CPU (the plain
-    versions) the four outputs must be bitwise equal, as the reference's
-    interpret mode promises.  On the card every path is held step by step
-    against its plain version (:func:`check_path`), and the chained and
-    unfused paths' codes and scales must be bitwise equal.  The
-    reference's g = 128 row waits for grouped activation scales (ROADMAP
-    Queue 1).
+    odd N, the rank-1024 K = 8192 shape, the g = 128 group-wise row),
+    rotation on and off, through the unfused, chained, fused and "auto"
+    paths.  On the CPU (the plain versions) the four outputs must be
+    bitwise equal, as the reference's interpret mode promises.  On the card
+    every path is held step by step against its plain version
+    (:func:`check_path`), and the chained and unfused paths' codes and
+    scales must be bitwise equal.
   * :func:`measured_rows` — the card only (it raises elsewhere): every
     paper size whose K is a power of two with the rotation on and off
     (5120 x 13824 unrotated only, K = 5·1024), each rank of ``RANKS``, each
@@ -21,9 +20,12 @@ The paper timed an int4 layer with its low-rank correction and found that
     and its served rank 307.  Each row has the µs of the unfused and
     chained paths (the fused path where "auto" picks it), of a bf16
     ``torch.matmul`` of the same (M, K, N) (the "fp16" layer the paper
-    divides by) and the LR overhead against rank 0.  Each configuration's
-    output is held once, step by step (:func:`check_path`); the last column
-    is the largest |kernel - plain| over its bound.
+    divides by), the LR overhead against rank 0, and the chained path with
+    the paper's g = 128 activation groups (``us_chained_g128``: the
+    measured counterpart of the reference's roofline ``_g128`` column).
+    Each configuration's output is held once, step by step
+    (:func:`check_path`); the last column is the largest |kernel - plain|
+    over its bound.
 
 The reference's activation-byte columns need ``launch/roofline.py``, which
 is not ported (ROADMAP Queue 1 item 9), and its analytic rows are a model
@@ -57,14 +59,17 @@ MS = [16, 256, 2048]
 # the served one (rank_frac 0.10 of 3072)
 PHI3_WD = (8192, 3072)
 PHI3_RANKS = [0, 307]
-# the reference's smoke shapes (m, k, n, r, rotate), its g = 128 row aside
+# the reference's smoke shapes (m, k, n, r, rotate, act_group)
 SMOKE_SHAPES = [
-    (16, 256, 512, 0, False),
-    (16, 256, 512, 32, True),
-    (16, 512, 300, 64, False),
-    (64, 256, 256, 32, True),
-    (16, 8192, 256, 1024, True),
+    (16, 256, 512, 0, False, None),
+    (16, 256, 512, 32, True, None),
+    (16, 512, 300, 64, False, None),
+    (64, 256, 256, 32, True, None),
+    (16, 8192, 256, 1024, True, None),
+    (16, 512, 256, 32, True, 128),
 ]
+# the activation group of the measured rows' g = 128 column (paper Table 2)
+GROUP = 128
 SPEC = QuantSpec(bits=4, clip_ratio=0.9)
 # timing repetitions: fewer at M = 2048, where one call takes milliseconds
 REPS, REPS_PREFILL, WARMUP = 20, 5, 2
@@ -74,7 +79,7 @@ KERNEL_MODULES = (fused_gemm, prologue, w4a4, actquant, hadamard)
 HEADER = ["matrix", "ranks", "rotate", "us_unfused", "us_chained", "us_fused",
           "auto_path", "us_bf16_matmul", "speedup_vs_bf16_unfused",
           "speedup_vs_bf16_chained", "lr_overhead_unfused",
-          "lr_overhead_chained", "max_err_over_bound"]
+          "lr_overhead_chained", "us_chained_g128", "max_err_over_bound"]
 
 
 def is_pow2(k: int) -> bool:
@@ -87,13 +92,15 @@ class Calls:
     def __init__(self):
         self.n = {}
 
-    def forward(self, x, wp, sw, u, v, rotate, impl):
+    def forward(self, x, wp, sw, u, v, rotate, impl, group=None):
         ctx = KernelContext()
         path = ctx.resolve_plan(x.shape[0], x.shape[1], wp.shape[1],
-                                0 if v is None else v.shape[1], impl=impl).path
+                                0 if v is None else v.shape[1], impl=impl,
+                                act_group=group).path
         key = (path, rotate)
         self.n[key] = self.n.get(key, 0) + 1
-        return ops.w4a4_lrc_forward(x, wp, sw, u, v, SPEC, rotate=rotate,
+        spec = QuantSpec(bits=SPEC.bits, clip_ratio=SPEC.clip_ratio, group_size=group)
+        return ops.w4a4_lrc_forward(x, wp, sw, u, v, spec, rotate=rotate,
                                     impl=impl, ctx=ctx)
 
     def expected_launches(self) -> dict:
@@ -137,9 +144,10 @@ def _bitwise(got, want, what):
         raise AssertionError(f"{what}: not bitwise its plain version")
 
 
-def check_path(x, wp, sw, u, v, rotate, path, y):
-    """Holds one path's output ``y`` on the card, step by step, so that each
-    bound stays far below the values it compares:
+def check_path(x, wp, sw, u, v, rotate, path, y, group=None):
+    """Holds one path's output ``y`` (with activation group ``group``; None:
+    per-token) on the card, step by step, so that each bound stays far
+    below the values it compares:
 
       * fused: ``y`` against the plain version within the whole layer's
         bound (``lr_tolerance``; the fused path runs at K <= 1024 only);
@@ -152,21 +160,25 @@ def check_path(x, wp, sw, u, v, rotate, path, y):
         x·V, and that within ``gemm_tolerance`` (the R-term sum only) of
         the plain GEMM on the same operands.
 
+    Group-wise the GEMM's sum over groups follows the canonical order on
+    the card and in the plain version alike, so the same bounds hold.
+
     Returns the path's codes and scales (None for fused) and the largest
     |kernel - plain| / bound."""
     k, r = x.shape[1], 0 if v is None else v.shape[1]
     bits, clip = SPEC.bits, SPEC.clip_ratio
-    what = f"{path} M{x.shape[0]} K{k} N{wp.shape[1]} R{r} rotate={rotate}"
+    what = f"{path} M{x.shape[0]} K{k} N{wp.shape[1]} R{r} rotate={rotate} group={group}"
     with uncounted():
         if path == "fused":
             rows = hadamard.fwht_plain(x.float()) if rotate else x
-            y_plain = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, bits, clip, rotate)
+            y_plain = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, bits, clip, rotate,
+                                                      group)
             return None, None, _within(y, y_plain, lr_tolerance(rows, v, u, k, r, y_plain),
                                        what)
         worst = 0.0
         if path == "chained":
-            xq, sx, xv = prologue.fused_prologue(x, v, bits, clip, rotate)
-            pq, psx, pxv = prologue.fused_prologue_plain(x, v, bits, clip, rotate)
+            xq, sx, xv = prologue.fused_prologue(x, v, bits, clip, rotate, group)
+            pq, psx, pxv = prologue.fused_prologue_plain(x, v, bits, clip, rotate, group)
             if r:
                 rows = hadamard.fwht_plain(x.float()) if rotate else x
                 worst = _within(xv, pxv, xv_tolerance(rows, v, k, pxv), what + " x·V")
@@ -175,27 +187,28 @@ def check_path(x, wp, sw, u, v, rotate, path, y):
             if rotate:
                 xr = hadamard.fwht(x)
                 _bitwise(xr, hadamard.fwht_plain(x), what + " transform")
-            xq, sx = actquant.act_quant(xr, bits, clip)
-            pq, psx = actquant.act_quant_plain(xr, bits, clip)
+            xq, sx = actquant.act_quant(xr, bits, clip, group)
+            pq, psx = actquant.act_quant_plain(xr, bits, clip, group)
             xv = project_rows(xr.float(), v) if r else None
         _bitwise(xq, pq, what + " codes")
         _bitwise(sx, psx, what + " scales")
-        y_k = w4a4.w4a4_lowrank_matmul(xq, sx, wp, sw, xv, u)
+        y_k = w4a4.w4a4_lowrank_matmul(xq, sx, wp, sw, xv, u, group)
         if not torch.equal(y, y_k):
             raise AssertionError(f"{what}: the output is not the GEMM kernel's on "
                                  f"the path's own operands")
-        y_plain = w4a4.w4a4_lowrank_matmul_plain(xq, sx, wp, sw, xv, u)
+        y_plain = w4a4.w4a4_lowrank_matmul_plain(xq, sx, wp, sw, xv, u, group)
         worst = max(worst, _within(y_k, y_plain, gemm_tolerance(xv, u, r, y_plain), what))
     return xq, sx, worst
 
 
-def plan_label(plan, k, r) -> str:
+def plan_label(plan, k, r, group=None) -> str:
     """The path "auto" takes, and why it demoted the fused path."""
     if not plan.demoted:
         return plan.path
     if r > fused_gemm.MAX_RANK:
         return f"{plan.path} (rank > {fused_gemm.MAX_RANK})"
-    return f"{plan.path} (fused needs {fused_gemm.smem_bytes(k, r)} B > {fused_gemm.SMEM_LIMIT} B)"
+    return (f"{plan.path} (fused needs {fused_gemm.smem_bytes(k, r, group)} B > "
+            f"{fused_gemm.SMEM_LIMIT} B)")
 
 
 def smoke_rows(device="cuda", calls: Calls = None):
@@ -207,20 +220,21 @@ def smoke_rows(device="cuda", calls: Calls = None):
     gen = torch.Generator(device=device).manual_seed(0)
     flush = flush_buffer(device)
     rows = []
-    for m, k, n, r, rot in SMOKE_SHAPES:
+    for m, k, n, r, rot, g in SMOKE_SHAPES:
         x, v, wp, sw, u = w4a4_problem(gen, m, k, n, r, torch.float32,
-                                       torch.float32, device)
-        plan = KernelContext().resolve_plan(m, k, n, r)
+                                       torch.float32, device, g)
+        plan = KernelContext().resolve_plan(m, k, n, r, act_group=g)
         # the fused kernel holds a whole row tile: on the card it runs where
         # it fits; the plain version on the CPU takes any K
         impls = [p for p in KERNEL_PATHS
-                 if p != "fused" or device.type == "cpu" or fused_gemm.fits(k, r)]
+                 if p != "fused" or device.type == "cpu" or fused_gemm.fits(k, r, g)]
         outs, times = {}, {}
         for impl in impls + ["auto"]:
-            outs[impl] = calls.forward(x, wp, sw, u, v, rot, impl)
-            times[impl] = 1e3 * time_ms(lambda: calls.forward(x, wp, sw, u, v, rot, impl),
-                                        flush, reps=3, warmup=1)
-        label = f"M{m}_{n}x{k}_r{r}{'_rot' if rot else ''}"
+            outs[impl] = calls.forward(x, wp, sw, u, v, rot, impl, g)
+            times[impl] = 1e3 * time_ms(
+                lambda: calls.forward(x, wp, sw, u, v, rot, impl, g), flush, reps=3,
+                warmup=1)
+        label = smoke_label(m, k, n, r, rot, g)
         worst = 0.0
         if device.type == "cpu":
             if not all(torch.equal(outs["fused"], y) for y in outs.values()):
@@ -230,16 +244,22 @@ def smoke_rows(device="cuda", calls: Calls = None):
                 raise AssertionError(f"auto is not its path {plan.path} at {label}")
             codes = {}
             for impl in impls:
-                xq, sx, err = check_path(x, wp, sw, u, v, rot, impl, outs[impl])
+                xq, sx, err = check_path(x, wp, sw, u, v, rot, impl, outs[impl], g)
                 codes[impl] = (xq, sx)
                 worst = max(worst, err)
             # an f32 x: both paths quantize the same rows
             if not all(torch.equal(a, b) for a, b in zip(codes["chained"], codes["unfused"])):
                 raise AssertionError(f"codes or scales differ across paths at {label}")
         rows.append([label, r, rot, times["unfused"], times["chained"],
-                     times.get("fused"), plan_label(plan, k, r), None, None,
-                     None, None, None, worst])
+                     times.get("fused"), plan_label(plan, k, r, g), None, None,
+                     None, None, None, None, worst])
     return rows
+
+
+def smoke_label(m, k, n, r, rotate, group) -> str:
+    """The row label of one smoke shape."""
+    return (f"M{m}_{n}x{k}_r{r}{'_rot' if rotate else ''}"
+            f"{f'_g{group}' if group else ''}")
 
 
 def _configs():
@@ -281,19 +301,20 @@ def measured_rows(device="cuda", calls: Calls = None, log=None):
                     plan = KernelContext().resolve_plan(m, k, n, r)
                     paths = ["unfused", "chained"] + (["fused"] if plan.path == "fused" else [])
                     t, worst = {}, 0.0
-                    for path in paths:
-                        y = calls.forward(x, wp, sw, u, v, rot, path)
-                        worst = max(worst, check_path(x, wp, sw, u, v, rot, path, y)[2])
+                    for path, g in [(p, None) for p in paths] + [("chained", GROUP)]:
+                        y = calls.forward(x, wp, sw, u, v, rot, path, g)
+                        worst = max(worst, check_path(x, wp, sw, u, v, rot, path, y, g)[2])
                         del y
-                        t[path] = 1e3 * time_ms(
-                            lambda: calls.forward(x, wp, sw, u, v, rot, path),
+                        t[path if g is None else f"{path}_g{g}"] = 1e3 * time_ms(
+                            lambda: calls.forward(x, wp, sw, u, v, rot, path, g),
                             flush, reps, WARMUP)
                     if r == 0:
                         base[rot] = t
                     over = {p: t[p] / base[rot][p] - 1.0 for p in ("unfused", "chained")}
                     row = [f"M{m}_{label}", r, rot, t["unfused"], t["chained"],
                            t.get("fused"), plan_label(plan, k, r), t_mm, t_mm / t["unfused"],
-                           t_mm / t["chained"], over["unfused"], over["chained"], worst]
+                           t_mm / t["chained"], over["unfused"], over["chained"],
+                           t[f"chained_g{GROUP}"], worst]
                     rows.append(row)
                     if log is not None:
                         log(row)

@@ -12,9 +12,11 @@ Three kernel paths serve a W4A4+LRC linear, strongest fusion first:
 The reference picks tiles and demotes a path when its VMEM working set does
 not fit.  Here the tiles are constants of the CUDA sources, so a plan is a
 path only.  ``"auto"`` takes the fused path unless its one block cannot
-hold the site: its shared memory (``fused_gemm.smem_bytes(K, R)``, which
-grows with K) above ``fused_gemm.SMEM_LIMIT``, or R above
-``fused_gemm.MAX_RANK``; it then demotes to chained, which any K fits.
+hold the site: its shared memory (``fused_gemm.smem_bytes(K, R,
+act_group)``, which grows with K and, group-wise, with the K/g scale plane)
+above ``fused_gemm.SMEM_LIMIT``, or R above ``fused_gemm.MAX_RANK``; it
+then demotes to chained, which any K and any group that divides K fit.  A
+group that does not divide K raises, as in the reference.
 The decision is made from shapes alone, before anything is built or
 launched, and ``ServeEngine.health()`` reports it.  An explicit impl is
 trusted: the wrapper raises if it cannot run it.
@@ -66,6 +68,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import flash_attn, fused_gemm
+from repro_torch.kernels.rowops import check_group
 
 KERNEL_PATHS = ("fused", "chained", "unfused")
 IMPLS = ("auto",) + KERNEL_PATHS
@@ -171,16 +174,21 @@ class KernelContext:
 
     def resolve_plan(self, m: int, k: int, n: int, r: int = 0,
                      layer: Optional[str] = None,
-                     impl: Optional[str] = None, rotate: bool = False) -> Plan:
+                     impl: Optional[str] = None, rotate: bool = False,
+                     act_group: Optional[int] = None) -> Plan:
         """The path a (M, K, N, R) problem runs.  ``impl`` (None → this
         context's) other than "auto" pins the path, trusted as it is.
         Under "auto" a layer override sets the path, else fused; a fused
-        path is then demoted to chained when the site does not fit it, as
-        the reference demotes a layer override too.  M does not enter: the
-        kernels' shared memory does not depend on it.  ``rotate`` is
-        accepted for the reference's signature and ignored: the fused
-        kernel rotates the rows it stages in the same shared memory, so no
-        decision depends on it."""
+        path is then demoted to chained when the site does not fit it
+        (``act_group``'s scale plane included), as the reference demotes a
+        layer override too.  ``act_group`` must divide K (``ValueError``
+        otherwise, on every path).  M does not enter: the kernels' shared
+        memory does not depend on it.  ``rotate`` is accepted for the
+        reference's signature and ignored: the fused kernel rotates the
+        rows it stages in the same shared memory, so no decision depends on
+        it."""
+        if act_group is not None:
+            check_group(k, act_group)
         impl = self.impl if impl is None else impl
         if impl not in IMPLS:
             raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
@@ -188,7 +196,7 @@ class KernelContext:
             return Plan(impl, True, False)
         path = self.layer_path(layer, k, n, r)
         pinned = path is not None
-        if (path or "fused") == "fused" and not fused_gemm.fits(k, r):
+        if (path or "fused") == "fused" and not fused_gemm.fits(k, r, act_group):
             return Plan("chained", pinned, True)
         return Plan(path or "fused", pinned, False)
 

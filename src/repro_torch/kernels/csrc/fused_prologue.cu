@@ -5,9 +5,11 @@
 //
 // from x (M, K) f32 or bf16 and V (K, R) bf16 or f32, or with `rotate` the
 // same of x·H_K (K a power of two; H_K the normalized Walsh-Hadamard
-// matrix).  Replaces the TPU kernel repro/kernels/prologue.py::
-// fused_prologue_kernel for per-token scales, with and without the rotation
-// and V; its output feeds w4a4_lowrank_matmul.cu (the chained path).
+// matrix).  With `group` g > 0 (g divides K) sx is the (M, K/g) scale
+// plane, one scale per g contiguous values of the (rotated) row.  Replaces
+// the TPU kernel repro/kernels/prologue.py::fused_prologue_kernel, per-token
+// and with its `act_group` branch, with and without the rotation and V; its
+// output feeds w4a4_lowrank_matmul.cu (the chained path).
 //
 // Numerics.  The quantizer is quant_rows.cuh, shared with act_quant.cu: the
 // codes and scales are bitwise those of rowops.scale_round_quantize.  x·V
@@ -35,7 +37,8 @@
 //     threadfence reduction) adds the nk partials in ascending order and
 //     writes xv.  The sums are floats but their order is fixed, so the
 //     result is deterministic: no float atomics.
-//   * quantizer block: one per row of the tile, the act_quant body.
+//   * quantizer block: one per row of the tile, the act_quant body (grouped:
+//     quant_rows.cuh's group body, one warp per group in turn).
 // Every row's result is computed by the same operations whatever M is and
 // whichever rows share its tile, so a request's outputs do not depend on
 // its co-tenants.  No tensor cores, TMA or cp.async yet.
@@ -131,7 +134,7 @@ __global__ void __launch_bounds__(THREADS)
 fused_prologue_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
                       int8_t* __restrict__ xq, float* __restrict__ sx,
                       float* __restrict__ xv, float* __restrict__ part,
-                      int* __restrict__ tickets, int M, int K, int R,
+                      int* __restrict__ tickets, int M, int K, int R, int group,
                       int qmax, float clip_ratio, int rotate, int G, float nrm) {
   extern __shared__ __align__(16) float buf[];
   __shared__ int last;
@@ -145,16 +148,25 @@ fused_prologue_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
     const int m = (int)blockIdx.x - nproj;
     if (m >= mv) return;
     const size_t row = (size_t)(m0 + m);
+    float* srow = sx + row * (group > 0 ? K / group : 1);
     if (!rotate) {
-      quant_rows::quantize_row<THREADS>(x + row * K, K, xq + row * K, sx + row,
-                                        qmax, clip_ratio, buf);
+      if (group > 0)
+        quant_rows::quantize_row_grouped<THREADS>(x + row * K, K, group, xq + row * K,
+                                                  srow, qmax, clip_ratio);
+      else
+        quant_rows::quantize_row<THREADS>(x + row * K, K, xq + row * K, srow,
+                                          qmax, clip_ratio, buf);
       return;
     }
     stage_row(x + row * K, K, buf);  // buf: [K] the row, then the reduction
     __syncthreads();
-    fwht_rows::rotate<THREADS>(buf, K, K, nrm);
-    quant_rows::quantize_row<THREADS>(buf, K, xq + row * K, sx + row, qmax,
-                                      clip_ratio, buf + K);
+    fwht_rows::rotate<THREADS>(buf, K, K, nrm);  // ends with a barrier
+    if (group > 0)
+      quant_rows::quantize_row_grouped<THREADS>(buf, K, group, xq + row * K, srow,
+                                                qmax, clip_ratio);
+    else
+      quant_rows::quantize_row<THREADS>(buf, K, xq + row * K, srow, qmax,
+                                        clip_ratio, buf + K);
     return;
   }
 
@@ -250,7 +262,7 @@ fused_prologue_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
 
 template <int ROWS, typename TX, typename TF>
 int launch(const void* x, const void* v, void* xq, void* sx, void* xv,
-           void* scratch, int M, int K, int R, int qmax, float clip_ratio,
+           void* scratch, int M, int K, int R, int group, int qmax, float clip_ratio,
            int rotate, cudaStream_t stream) {
   auto kern = fused_prologue_kernel<ROWS, TX, TF>;
   const int bk = chunk_k(K);
@@ -275,20 +287,20 @@ int launch(const void* x, const void* v, void* xq, void* sx, void* xv,
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const TX*>(x), static_cast<const TF*>(v),
       static_cast<int8_t*>(xq), static_cast<float*>(sx),
-      static_cast<float*>(xv), part, tickets, M, K, R, qmax, clip_ratio,
+      static_cast<float*>(xv), part, tickets, M, K, R, group, qmax, clip_ratio,
       rotate, G, fwht_rows::norm(K));
   return (int)cudaGetLastError();
 }
 
 template <typename TX, typename TF>
 int launch_rows(const void* x, const void* v, void* xq, void* sx, void* xv,
-                void* scratch, int M, int K, int R, int qmax, float clip_ratio,
-                int rotate, cudaStream_t stream) {
+                void* scratch, int M, int K, int R, int group, int qmax,
+                float clip_ratio, int rotate, cudaStream_t stream) {
   // decode batches of up to 4 rows take the 4-row tile, larger M the 16-row one
   if (M <= 4)
-    return launch<4, TX, TF>(x, v, xq, sx, xv, scratch, M, K, R, qmax, clip_ratio,
-                             rotate, stream);
-  return launch<MAX_ROWS, TX, TF>(x, v, xq, sx, xv, scratch, M, K, R, qmax,
+    return launch<4, TX, TF>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax,
+                             clip_ratio, rotate, stream);
+  return launch<MAX_ROWS, TX, TF>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax,
                                   clip_ratio, rotate, stream);
 }
 
@@ -309,21 +321,24 @@ size_t fused_prologue_scratch_bytes(int M, int K, int R) {
 
 // Launch on `stream`; returns the first CUDA error of the launch (0 = ok).
 // x_bf16 / f_bf16 select bf16 (1) or f32 (0) for x and for V; with R = 0,
-// v, xv and scratch may be null and only xq and sx are written.  rotate (1)
-// quantizes and projects x·H_K, K a power of two within fused_prologue_max_
-// rotate_k() (the wrapper checks).
+// v, xv and scratch may be null and only xq and sx are written.  group 0
+// writes per-token scales sx (M, 1), group g > 0 (dividing K) the (M, K/g)
+// plane.  rotate (1) quantizes and projects x·H_K, K a power of two within
+// fused_prologue_max_rotate_k() (the wrapper checks).
 int fused_prologue(const void* x, int x_bf16, const void* v, int f_bf16,
                    void* xq, void* sx, void* xv, void* scratch, int M, int K,
-                   int R, int qmax, float clip_ratio, int rotate, void* stream) {
+                   int R, int group, int qmax, float clip_ratio, int rotate,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rotate && ((K & (K - 1)) || K > MAX_ROTATE_K)) return (int)cudaErrorInvalidValue;
+  if (group < 0 || (group > 0 && K % group)) return (int)cudaErrorInvalidValue;
   if (x_bf16 && f_bf16)
-    return launch_rows<__nv_bfloat16, __nv_bfloat16>(x, v, xq, sx, xv, scratch, M, K, R, qmax, clip_ratio, rotate, s);
+    return launch_rows<__nv_bfloat16, __nv_bfloat16>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax, clip_ratio, rotate, s);
   if (x_bf16)
-    return launch_rows<__nv_bfloat16, float>(x, v, xq, sx, xv, scratch, M, K, R, qmax, clip_ratio, rotate, s);
+    return launch_rows<__nv_bfloat16, float>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax, clip_ratio, rotate, s);
   if (f_bf16)
-    return launch_rows<float, __nv_bfloat16>(x, v, xq, sx, xv, scratch, M, K, R, qmax, clip_ratio, rotate, s);
-  return launch_rows<float, float>(x, v, xq, sx, xv, scratch, M, K, R, qmax, clip_ratio, rotate, s);
+    return launch_rows<float, __nv_bfloat16>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax, clip_ratio, rotate, s);
+  return launch_rows<float, float>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax, clip_ratio, rotate, s);
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 //     out = (Q_a(x) · unpack(W)) · sx · sw  +  (x · V) · Uᵀ        (M, N) f32
 //
 // Replaces the TPU kernel repro/kernels/fused_gemm.py::fused_w4a4_lrc_kernel
-// for per-token activation scales, with and without the online rotation.  As
-// there, the int8 codes of x (xq) never reach device memory: each block
+// with per-token activation scales and with its `act_group` branch, with and
+// without the online rotation.  As there, the int8 codes of x (xq) never
+// reach device memory: each block
 // quantizes its rows into shared memory and runs the int4 GEMM straight from
 // there.  With `rotate`, Q_a and x·V take x·H_K (K a power of two): the
 // block rotates its staged f32 rows in place with fwht_rows.cuh (the body of
@@ -24,6 +25,15 @@
 // Only the LR sums (x·V and xv·Uᵀ) are ordered differently from the plain
 // version, so the output agrees with it to f32 rounding of those sums.
 //
+// Group-wise (`group` g > 0, g divides K): the block quantizes each staged
+// (rotated) row in groups of g with quant_rows.cuh's group body, one warp
+// per group, into a [ROWS][K/g] scale plane in shared memory, and the GEMM
+// sums fl(p_g · s_g) in f32 in ascending g from 0.f (rowops.gemm_grouped's
+// canonical order, p_g the exact int32 partial of group g), then
+// multiplies by sw: thread (r, n) owns whole outputs, column n of rows r and
+// r + 8, over all of K, so each p_g is exact in one register.  The
+// grouped GEMM output (before the LR term) is bitwise the plain version's.
+//
 // Bound on an H100 SXM: at decode (M = a few rows) the work is memory-bound.
 // The bytes are K·N/2 (packed W) + 4N (sw) + 2·R·(K+N) (bf16 V and U) + the
 // activations (M·K in, 4·M·N out), at 3.35 TB/s: about 0.2 us for the widest
@@ -42,7 +52,7 @@
 // next chunk in registers while the current one is used.  The GEMM runs on
 // CUDA cores, one column per thread, K split eight ways.  There are no
 // tensor cores, TMA or cp.async yet, and the shared-memory footprint (about
-// 112·K bytes) limits K to about 1600.
+// 112·K bytes, plus 64·K/g for the scale plane) limits K to about 1600.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,6 +60,7 @@
 #include <stdint.h>
 
 #include "fwht_rows.cuh"
+#include "quant_rows.cuh"
 
 namespace {
 
@@ -79,9 +90,11 @@ __device__ __forceinline__ int quad_codes(unsigned b0, unsigned b1) {
                | (nibble_byte(b1 & 0xFu) << 16) | (nibble_byte(b1 >> 4) << 24));
 }
 
-__host__ __device__ inline size_t smem_bytes(int rows, int K, int R) {
+// S scales per row: 1 per-token, K/g group-wise
+__host__ __device__ inline size_t smem_bytes(int rows, int K, int R, int S) {
   const size_t k16 = (size_t)((K + 15) & ~15);
-  return sizeof(float) * ((size_t)rows * K + (size_t)rows * R + (size_t)BN * R + rows)
+  return sizeof(float) * ((size_t)rows * K + (size_t)rows * R + (size_t)BN * R
+                          + (size_t)rows * S)
        + (size_t)VBYTES + (size_t)rows * k16 + k16 * BN;
 }
 
@@ -116,20 +129,21 @@ __device__ __forceinline__ void store_chunk(uint4* dst, const uint4 (&pre)[VPIEC
   }
 }
 
-template <int ROWS, typename TX, typename TF>
+template <int ROWS, bool GROUPED, typename TX, typename TF>
 __global__ void __launch_bounds__(THREADS)
 fused_w4a4_lrc_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
                       const uint8_t* __restrict__ w, const float* __restrict__ sw,
                       const TF* __restrict__ u, float* __restrict__ out,
-                      int M, int K, int N, int R, int qmax, float clip_ratio,
-                      int rotate, float nrm) {
+                      int M, int K, int N, int R, int group, int qmax,
+                      float clip_ratio, int rotate, float nrm) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int K16 = (K + 15) & ~15;  // xq row stride; K padded with zero codes
+  const int S = GROUPED ? K / group : 1;               // scales per row
   float* xs = reinterpret_cast<float*>(smem);         // [ROWS][K]  rows in f32
   float* xvs = xs + (size_t)ROWS * K;                  // [ROWS][R]  x·V
   float* us = xvs + (size_t)ROWS * R;                  // [BN][R]    U tile in f32
-  float* sxs = us + (size_t)BN * R;                    // [ROWS]     row scales
-  int* red = reinterpret_cast<int*>(sxs + ROWS);       // VBYTES, see VPIECES
+  float* sxs = us + (size_t)BN * R;                    // [ROWS][S]  row or group scales
+  int* red = reinterpret_cast<int*>(sxs + (size_t)ROWS * S);  // VBYTES, see VPIECES
   int8_t* xq = reinterpret_cast<int8_t*>(red) + VBYTES;      // [ROWS][K16] codes
   int* ws = reinterpret_cast<int*>(xq + (size_t)ROWS * K16);  // [K16/4][BN] W codes
 
@@ -205,6 +219,19 @@ fused_w4a4_lrc_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
   // 1b. the online rotation of the staged rows, in place (rows past M stay 0)
   if (rotate) fwht_rows::rotate<THREADS>(xs, ROWS * K, K, nrm);
 
+  const float qlo = (float)(-qmax - 1), qhi = (float)qmax;
+  if constexpr (GROUPED) {
+    // 2-3 group-wise: one warp per (row, group) quantizes into shared int8
+    // and the scale plane; K is padded to a multiple of 16 with zero codes
+    for (int i = warp; i < ROWS * S; i += NWARPS) {
+      const int m = i / S, grp = i % S;
+      quant_rows::quantize_group(xs + (size_t)m * K + (size_t)grp * group, group,
+                                 xq + (size_t)m * K16 + (size_t)grp * group,
+                                 sxs + i, qmax, clip_ratio);
+    }
+    for (int i = tid; i < ROWS * (K16 - K); i += THREADS)
+      xq[(i / (K16 - K)) * K16 + K + i % (K16 - K)] = 0;
+  } else {
   // 2. per-row amax -> scale, one warp per row (a zero row gets scale
   //    clip/qmax and zero codes)
   for (int m = warp; m < ROWS; m += NWARPS) {
@@ -220,7 +247,6 @@ fused_w4a4_lrc_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
   __syncthreads();
 
   // 3. quantize into shared int8; K is padded to a multiple of 16 with zeros
-  const float qlo = (float)(-qmax - 1), qhi = (float)qmax;
   for (int m = 0; m < ROWS; ++m) {
     const float s = sxs[m];
 #pragma unroll 4
@@ -230,6 +256,7 @@ fused_w4a4_lrc_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
       xq[m * K16 + k] = (int8_t)q;
     }
   }
+  }  // per-token
 
   // 4. xv = x·V in f32.  V streams through shared memory in chunks of vc
   //    rows, copied as flat 16-byte pieces (the chunk is contiguous in V),
@@ -298,8 +325,73 @@ fused_w4a4_lrc_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
 
   // 5. int4 GEMM from shared memory: thread (kg, nl) owns column n0+nl
   //    over an eighth of K and accumulates every row with __dp4a, 16 K
-  //    values of a row per 16-byte load of its codes
-  {
+  //    values of a row per 16-byte load of its codes.  Group-wise, thread
+  //    (mr, nl) owns rows mr + KG·j of column n0+nl over all of K and sums
+  //    each group's exact partial times its scale in ascending g; the f32
+  //    sums go to `red` as [ROWS][BN]
+  if constexpr (GROUPED) {
+    constexpr int RPT = (ROWS + KG - 1) / KG;
+    const int nl = tid % BN, mr = tid / BN;
+    int gacc[RPT], gcur = 0, gend = group;
+    float gsum[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      gacc[j] = 0;
+      gsum[j] = 0.f;
+    }
+    auto flush = [&]() {
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int m = mr + KG * j;
+        if (m < ROWS)
+          gsum[j] = __fadd_rn(gsum[j], __fmul_rn((float)gacc[j], sxs[m * S + gcur]));
+        gacc[j] = 0;
+      }
+      ++gcur;
+      gend += group;
+    };
+    if (mr < ROWS) {
+      for (int q = 0; q < nq; q += 4) {
+        const int kq = 4 * q;
+        if (kq >= K) break;
+        if (kq + 16 <= gend) {  // four whole quads of the current group
+          const int w0 = ws[q * BN + nl], w1 = ws[(q + 1) * BN + nl];
+          const int w2 = ws[(q + 2) * BN + nl], w3 = ws[(q + 3) * BN + nl];
+#pragma unroll
+          for (int j = 0; j < RPT; ++j) {
+            const int4 a = *reinterpret_cast<const int4*>(xq + (mr + KG * j) * K16 + kq);
+            gacc[j] = __dp4a(a.x, w0, gacc[j]);
+            gacc[j] = __dp4a(a.y, w1, gacc[j]);
+            gacc[j] = __dp4a(a.z, w2, gacc[j]);
+            gacc[j] = __dp4a(a.w, w3, gacc[j]);
+          }
+          if (kq + 16 == gend) flush();
+          continue;
+        }
+        for (int qq = q; qq < q + 4; ++qq) {  // a group ends inside
+          const int k4 = 4 * qq;
+          if (k4 >= K) break;
+          const int wq = ws[qq * BN + nl];
+          for (int b = 0; b < 4 && k4 + b < K;) {
+            const int e = min(4, gend - k4);  // bytes [b, e) are in group gcur
+            const unsigned hi = e >= 4 ? 0xFFFFFFFFu : (1u << (8 * e)) - 1u;
+            const int mask = (int)(hi & ~((1u << (8 * b)) - 1u));
+#pragma unroll
+            for (int j = 0; j < RPT; ++j)
+              gacc[j] = __dp4a(
+                  *reinterpret_cast<const int*>(xq + (mr + KG * j) * K16 + k4) & mask,
+                  wq, gacc[j]);
+            if (k4 + e == gend) flush();
+            b = e;
+          }
+        }
+      }
+    }
+    float* gout = reinterpret_cast<float*>(red);
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+      if (mr + KG * j < ROWS) gout[(mr + KG * j) * BN + nl] = gsum[j];
+  } else {
     const int nl = tid % BN, kg = tid / BN;
     const int qper = ((nq + KG - 1) / KG + 3) & ~3;
     const int qb = kg * qper, qe = min(nq, qb + qper);
@@ -324,14 +416,20 @@ fused_w4a4_lrc_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
   }
   __syncthreads();
 
-  // 6. epilogue: ((float)acc * sx) * sw + xv·Uᵀ, one f32 write per output
+  // 6. epilogue: ((float)acc * sx) * sw + xv·Uᵀ (group-wise: the f32 sum
+  //    times sw, + xv·Uᵀ), one f32 write per output
   for (int i = tid; i < ROWS * BN; i += THREADS) {
     const int m = i / BN, nl = i % BN;
     if (m >= mv || nl >= nv) continue;
-    int a = 0;
+    float o;
+    if constexpr (GROUPED) {
+      o = __fmul_rn(reinterpret_cast<const float*>(red)[m * BN + nl], sw[n0 + nl]);
+    } else {
+      int a = 0;
 #pragma unroll
-    for (int g = 0; g < KG; ++g) a += red[(g * ROWS + m) * BN + nl];
-    float o = __fmul_rn(__fmul_rn((float)a, sxs[m]), sw[n0 + nl]);
+      for (int g = 0; g < KG; ++g) a += red[(g * ROWS + m) * BN + nl];
+      o = __fmul_rn(__fmul_rn((float)a, sxs[m]), sw[n0 + nl]);
+    }
     if (R > 0) {
       float lr = 0.f;
       for (int r = 0; r < R; ++r) lr = fmaf(xvs[m * R + r], us[nl * R + r], lr);
@@ -341,12 +439,12 @@ fused_w4a4_lrc_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
   }
 }
 
-template <int ROWS, typename TX, typename TF>
+template <int ROWS, bool GROUPED, typename TX, typename TF>
 int launch(const void* x, const void* v, const void* w, const void* sw,
-           const void* u, void* out, int M, int K, int N, int R, int qmax,
-           float clip_ratio, int rotate, cudaStream_t stream) {
-  auto kern = fused_w4a4_lrc_kernel<ROWS, TX, TF>;
-  const size_t smem = smem_bytes(ROWS, K, R);
+           const void* u, void* out, int M, int K, int N, int R, int group,
+           int qmax, float clip_ratio, int rotate, cudaStream_t stream) {
+  auto kern = fused_w4a4_lrc_kernel<ROWS, GROUPED, TX, TF>;
+  const size_t smem = smem_bytes(ROWS, K, R, group > 0 ? K / group : 1);
   static size_t configured = 48 * 1024;  // per instantiation
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -359,45 +457,52 @@ int launch(const void* x, const void* v, const void* w, const void* sw,
       static_cast<const TX*>(x), static_cast<const TF*>(v),
       static_cast<const uint8_t*>(w), static_cast<const float*>(sw),
       static_cast<const TF*>(u), static_cast<float*>(out),
-      M, K, N, R, qmax, clip_ratio, rotate, fwht_rows::norm(K));
+      M, K, N, R, group, qmax, clip_ratio, rotate, fwht_rows::norm(K));
   return (int)cudaGetLastError();
 }
 
 template <typename TX, typename TF>
 int launch_rows(const void* x, const void* v, const void* w, const void* sw,
-                const void* u, void* out, int M, int K, int N, int R, int qmax,
-                float clip_ratio, int rotate, cudaStream_t stream) {
-  // decode batches of up to 4 rows take the 4-row tile, larger M the 16-row one
-  if (M <= 4)
-    return launch<4, TX, TF>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate, stream);
-  return launch<MAX_ROWS, TX, TF>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate,
-                                  stream);
+                const void* u, void* out, int M, int K, int N, int R, int group,
+                int qmax, float clip_ratio, int rotate, cudaStream_t stream) {
+  // decode batches of up to 4 rows take the 4-row tile, larger M the 16-row
+  // one; the group branch is its own instantiation, so the per-token code is
+  // compiled as if it were not there
+  auto fn = M <= 4 ? (group > 0 ? launch<4, true, TX, TF> : launch<4, false, TX, TF>)
+                   : (group > 0 ? launch<MAX_ROWS, true, TX, TF>
+                                : launch<MAX_ROWS, false, TX, TF>);
+  return fn(x, v, w, sw, u, out, M, K, N, R, group, qmax, clip_ratio, rotate, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs at (K, R), with the larger tile.
-size_t fused_w4a4_lrc_smem_bytes(int K, int R) { return smem_bytes(MAX_ROWS, K, R); }
+// Dynamic shared memory one block needs at (K, R, group), with the larger
+// tile (group 0: per-token scales).
+size_t fused_w4a4_lrc_smem_bytes(int K, int R, int group) {
+  return smem_bytes(MAX_ROWS, K, R, group > 0 ? K / group : 1);
+}
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // x_bf16 / f_bf16 select bf16 (1) or f32 (0) for x and for the U/V factors;
+// group 0 quantizes per token, group g > 0 (dividing K) per group of g;
 // rotate (1) applies the online rotation, K a power of two (the wrapper
 // checks).
 int fused_w4a4_lrc(const void* x, int x_bf16, const void* v, const void* w,
                    const void* sw, const void* u, int f_bf16, void* out,
-                   int M, int K, int N, int R, int qmax, float clip_ratio,
-                   int rotate, void* stream) {
+                   int M, int K, int N, int R, int group, int qmax,
+                   float clip_ratio, int rotate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rotate && (K & (K - 1))) return (int)cudaErrorInvalidValue;
+  if (group < 0 || (group > 0 && K % group)) return (int)cudaErrorInvalidValue;
   if (x_bf16 && f_bf16)
-    return launch_rows<__nv_bfloat16, __nv_bfloat16>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate, s);
+    return launch_rows<__nv_bfloat16, __nv_bfloat16>(x, v, w, sw, u, out, M, K, N, R, group, qmax, clip_ratio, rotate, s);
   if (x_bf16)
-    return launch_rows<__nv_bfloat16, float>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate, s);
+    return launch_rows<__nv_bfloat16, float>(x, v, w, sw, u, out, M, K, N, R, group, qmax, clip_ratio, rotate, s);
   if (f_bf16)
-    return launch_rows<float, __nv_bfloat16>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate, s);
-  return launch_rows<float, float>(x, v, w, sw, u, out, M, K, N, R, qmax, clip_ratio, rotate, s);
+    return launch_rows<float, __nv_bfloat16>(x, v, w, sw, u, out, M, K, N, R, group, qmax, clip_ratio, rotate, s);
+  return launch_rows<float, float>(x, v, w, sw, u, out, M, K, N, R, group, qmax, clip_ratio, rotate, s);
 }
 
 }  // extern "C"

@@ -3,15 +3,25 @@
 //     out = (xq · unpack(W)) · sx · sw  +  xv · Uᵀ                 (M, N) f32
 //
 // from precomputed xq (M, K) int8, sx (M, 1) f32, W (K/2, N) uint8, sw (N,)
-// f32, xv (M, R) f32 and U (N, R) bf16 or f32 (R may be 0).  Replaces the
-// TPU kernel repro/kernels/w4a4.py::w4a4_lowrank_matmul_kernel for
-// per-token scales: the GEMM of the chained (after fused_prologue.cu) and
+// f32, xv (M, R) f32 and U (N, R) bf16 or f32 (R may be 0).  With `group`
+// g > 0 (g divides K), sx is the (M, K/g) scale plane of group-wise
+// activation scales, and the GEMM dequantizes in the K loop:
+//
+//     out = (Σ_g fl(p_g · sx[:, g])) · sw  +  xv · Uᵀ
+//
+// p_g the exact int32 partial over group g.  Replaces the TPU kernel
+// repro/kernels/w4a4.py::w4a4_lowrank_matmul_kernel, per-token and with its
+// `group` branch: the GEMM of the chained (after fused_prologue.cu) and
 // unfused (after act_quant.cu) paths.
 //
 // Numerics are those of fused_w4a4_lrc.cu: the int32 accumulation is exact
 // in any order; the epilogue is ((float)acc * sx) * sw without FMA
 // contraction, plus the LR term as one f32 FMA chain over R in ascending
 // order.  Only that LR sum is ordered differently from the plain version.
+// Group-wise, the f32 sum over groups is the canonical order of
+// rowops.gemm_grouped: ascending g from 0.f, __fmul_rn then __fadd_rn, so
+// the result is bitwise the plain version's whatever the grid, the K-split,
+// the row tile or M (with g = K, bitwise the per-token result).
 //
 // Bound on an H100 SXM: at decode, memory.  The bytes are K·N/2 (packed W)
 // + 4N (sw) + R·N·2 (bf16 U) + the activations (M·K + 4M + 4·M·R in, 4·M·N
@@ -34,6 +44,19 @@
 // order, so neither the split nor the finishing order changes a bit of the
 // result.  The LR epilogue streams U and xv through shared memory in chunks
 // of 128 ranks.  No tensor cores, TMA or cp.async yet.
+//
+// The group branch (a template parameter) stages the same chunks, but
+// thread (r, n) owns whole outputs, column n of rows r and r + 8, over every
+// quad of the chunk, so each group's int32 partial is exact in one register
+// and no in-block reduction is needed.  Unsplit, the thread adds
+// fl(p_g · s_g) to its f32 sum as each group ends; split, each block adds its
+// groups' int32 partials into a zeroed (tile, group, row, column) plane with
+// integer atomics (a group may straddle two splits), and the tile's last
+// block runs the f32 sum over the plane in ascending g.  The plane is
+// M·N·(K/g)·4 bytes, at the few-tile decode shapes only (3.1 MB at
+// Phi-3-mini's wd, M 4, g 128).  A quad that a group boundary cuts (g not a
+// multiple of 4) is split with byte masks.  At decode a 4-row tile leaves
+// half the threads without a row in the products.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -110,14 +133,21 @@ __device__ __forceinline__ void fetch_x(uint4 (&pre)[XItems<ROWS>::N],
   }
 }
 
-template <int ROWS>
+// bytes [b, e) of a word of four codes (0 <= b < e <= 4)
+__device__ __forceinline__ int byte_mask(int b, int e) {
+  const unsigned hi = e >= 4 ? 0xFFFFFFFFu : (1u << (8 * e)) - 1u;
+  return (int)(hi & ~((1u << (8 * b)) - 1u));
+}
+
+template <int ROWS, bool GROUPED>
 __global__ void __launch_bounds__(THREADS)
 w4a4_lowrank_matmul_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
                            const uint8_t* __restrict__ w, const float* __restrict__ sw,
                            const float* __restrict__ xv, const void* __restrict__ u,
                            int u_bf16, float* __restrict__ out,
                            int* __restrict__ part, int* __restrict__ tickets,
-                           int M, int K, int N, int R, int cps, int vec_w, int vec_x) {
+                           int M, int K, int N, int R, int group, int cps,
+                           int vec_w, int vec_x) {
   __shared__ __align__(16) unsigned char smem[Smem<ROWS>::BYTES];
   __shared__ int last;
   int* ws = reinterpret_cast<int*>(smem);  // [QC][BN] W codes, four per word
@@ -135,6 +165,41 @@ w4a4_lowrank_matmul_kernel(const int8_t* __restrict__ xq, const float* __restric
   int acc[ROWS];
 #pragma unroll
   for (int m = 0; m < ROWS; ++m) acc[m] = 0;
+
+  // group branch: thread (mr, nl) owns rows mr + KG·j (j < RPT) of column nl
+  constexpr int RPT = (ROWS + KG - 1) / KG;
+  const int mr = tid / BN;
+  const int G = GROUPED ? K / group : 1;
+  const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  int* plane = part + tile * G * ROWS * BN;  // split: [G][ROWS][BN] int32
+  const int kend = min(K, ce * KC);          // this block's K range ends here
+  int gcur = GROUPED ? (cb * KC) / group : 0, gend = (gcur + 1) * group;
+  int gacc[RPT];
+  float gsum[RPT];
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+    gacc[j] = 0;
+    gsum[j] = 0.f;
+  }
+  // the current group ends: its exact partial into the f32 sum (unsplit)
+  // or into the plane (split)
+  auto flush = [&]() {
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int m = mr + KG * j;
+      if (m < mv) {
+        if (gridDim.z > 1) {
+          if (gacc[j]) atomicAdd(plane + ((size_t)gcur * ROWS + m) * BN + nl, gacc[j]);
+        } else {
+          gsum[j] = __fadd_rn(gsum[j], __fmul_rn((float)gacc[j],
+                                                 __ldg(sx + (size_t)(m0 + m) * G + gcur)));
+        }
+      }
+      gacc[j] = 0;
+    }
+    ++gcur;
+    gend += group;
+  };
 
   uint32_t lo[WITEMS], hi[WITEMS];
   uint4 xpre[XItems<ROWS>::N];
@@ -187,75 +252,144 @@ w4a4_lowrank_matmul_kernel(const int8_t* __restrict__ xq, const float* __restric
       if (vec_w) fetch_w(lo, hi, w, q0 + QC, nq, kh, N, n0, tid);
       if (vec_x) fetch_x<ROWS>(xpre, xq, c + 1, mv, m0, K, tid);
     }
-    // this thread's QPER quads of the chunk, every row
-    const int qb = kg * QPER;
+    if constexpr (GROUPED) {
+      // every quad of the chunk for this thread's rows, in ascending K; a
+      // group's partial is flushed where the group ends
+      if (mr < ROWS) {
+        for (int q = 0; q < QC; q += 4) {
+          const int kq = (q0 + q) * 4;
+          if (kq >= kend) break;
+          if (kq + 16 <= gend) {  // four whole quads of the current group
+            const int w0 = ws[q * BN + nl], w1 = ws[(q + 1) * BN + nl];
+            const int w2 = ws[(q + 2) * BN + nl], w3 = ws[(q + 3) * BN + nl];
 #pragma unroll
-    for (int q = qb; q < qb + QPER; q += 4) {
-      const int w0 = ws[q * BN + nl], w1 = ws[(q + 1) * BN + nl];
-      const int w2 = ws[(q + 2) * BN + nl], w3 = ws[(q + 3) * BN + nl];
+            for (int j = 0; j < RPT; ++j) {
+              const int4 a = *reinterpret_cast<const int4*>(xs + (mr + KG * j) * QC + q);
+              gacc[j] = __dp4a(a.x, w0, gacc[j]);
+              gacc[j] = __dp4a(a.y, w1, gacc[j]);
+              gacc[j] = __dp4a(a.z, w2, gacc[j]);
+              gacc[j] = __dp4a(a.w, w3, gacc[j]);
+            }
+            if (kq + 16 == gend) flush();
+            continue;
+          }
+          for (int qq = q; qq < q + 4; ++qq) {  // a group ends inside
+            const int k4 = (q0 + qq) * 4;
+            if (k4 >= kend) break;
+            const int wq = ws[qq * BN + nl];
+            for (int b = 0; b < 4 && k4 + b < kend;) {
+              const int e = min(4, gend - k4);  // bytes [b, e) are in group gcur
+              const int mask = byte_mask(b, e);
 #pragma unroll
-      for (int m = 0; m < ROWS; ++m) {
-        const int4 a = *reinterpret_cast<const int4*>(xs + m * QC + q);
-        acc[m] = __dp4a(a.x, w0, acc[m]);
-        acc[m] = __dp4a(a.y, w1, acc[m]);
-        acc[m] = __dp4a(a.z, w2, acc[m]);
-        acc[m] = __dp4a(a.w, w3, acc[m]);
+              for (int j = 0; j < RPT; ++j)
+                gacc[j] = __dp4a(xs[(mr + KG * j) * QC + qq] & mask, wq, gacc[j]);
+              if (k4 + e == gend) flush();
+              b = e;
+            }
+          }
+        }
+      }
+    } else {
+      // this thread's QPER quads of the chunk, every row
+      const int qb = kg * QPER;
+#pragma unroll
+      for (int q = qb; q < qb + QPER; q += 4) {
+        const int w0 = ws[q * BN + nl], w1 = ws[(q + 1) * BN + nl];
+        const int w2 = ws[(q + 2) * BN + nl], w3 = ws[(q + 3) * BN + nl];
+#pragma unroll
+        for (int m = 0; m < ROWS; ++m) {
+          const int4 a = *reinterpret_cast<const int4*>(xs + m * QC + q);
+          acc[m] = __dp4a(a.x, w0, acc[m]);
+          acc[m] = __dp4a(a.y, w1, acc[m]);
+          acc[m] = __dp4a(a.z, w2, acc[m]);
+          acc[m] = __dp4a(a.w, w3, acc[m]);
+        }
       }
     }
   }
-  __syncthreads();  // the chunk buffers become the partial-sum buffer
 
-  int* red = reinterpret_cast<int*>(smem);  // [KG][ROWS][BN]
-#pragma unroll
-  for (int m = 0; m < ROWS; ++m) red[(kg * ROWS + m) * BN + nl] = acc[m];
-  __syncthreads();
-
-  // this block's int32 sums, one per output it owns
   constexpr int OUTS = (ROWS * BN + THREADS - 1) / THREADS;
-  int a[OUTS];
+  float o[OUTS];
+  if constexpr (GROUPED) {
+    // output j of this thread is (mr + KG·j, nl): the rows it summed
+    static_assert(OUTS == RPT, "group outputs follow the epilogue's layout");
+    if (gridDim.z > 1) {  // K is split: the tile's last block sums the plane
+      if (mr < ROWS && gcur < G) flush();  // a group that runs on into the next split
+      __threadfence();  // the partials are visible before the ticket is taken
+      __syncthreads();
+      if (tid == 0) last = (atomicAdd(&tickets[tile], 1) == (int)gridDim.z - 1);
+      __syncthreads();
+      if (!last) return;
+      __threadfence();
 #pragma unroll
-  for (int j = 0; j < OUTS; ++j) {
-    const int i = j * THREADS + tid, m = i / BN, cc = i % BN;
-    a[j] = 0;
-    if (i < ROWS * BN) {
-#pragma unroll
-      for (int g = 0; g < KG; ++g) a[j] += red[(g * ROWS + m) * BN + cc];
+      for (int j = 0; j < RPT; ++j) {
+        const int m = mr + KG * j;
+        gsum[j] = 0.f;
+        if (m < mv) {
+          const float* srow = sx + (size_t)(m0 + m) * G;
+          for (int g = 0; g < G; ++g)
+            gsum[j] = __fadd_rn(gsum[j], __fmul_rn(
+                (float)__ldcg(plane + ((size_t)g * ROWS + m) * BN + nl), __ldg(srow + g)));
+        }
+      }
     }
-  }
+#pragma unroll
+    for (int j = 0; j < OUTS; ++j) {
+      const int m = mr + KG * j;
+      o[j] = (m < mv && nl < nv) ? __fmul_rn(gsum[j], sw[n0 + nl]) : 0.f;
+    }
+  } else {
+    __syncthreads();  // the chunk buffers become the partial-sum buffer
 
-  if (gridDim.z > 1) {  // K is split: the tile's last block adds the partials
-    const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    int* mine = part + tile * gridDim.z * ROWS * BN;
+    int* red = reinterpret_cast<int*>(smem);  // [KG][ROWS][BN]
+#pragma unroll
+    for (int m = 0; m < ROWS; ++m) red[(kg * ROWS + m) * BN + nl] = acc[m];
+    __syncthreads();
+
+    // this block's int32 sums, one per output it owns
+    int a[OUTS];
 #pragma unroll
     for (int j = 0; j < OUTS; ++j) {
-      const int i = j * THREADS + tid;
-      if (i < ROWS * BN) mine[(size_t)blockIdx.z * ROWS * BN + i] = a[j];
-    }
-    __threadfence();  // the partial is visible before the ticket is taken
-    __syncthreads();
-    if (tid == 0) last = (atomicAdd(&tickets[tile], 1) == (int)gridDim.z - 1);
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-#pragma unroll
-    for (int j = 0; j < OUTS; ++j) {
-      const int i = j * THREADS + tid;
+      const int i = j * THREADS + tid, m = i / BN, cc = i % BN;
       a[j] = 0;
       if (i < ROWS * BN) {
-        for (int z = 0; z < (int)gridDim.z; ++z)  // integer sums: exact in any order
-          a[j] += __ldcg(mine + (size_t)z * ROWS * BN + i);
+#pragma unroll
+        for (int g = 0; g < KG; ++g) a[j] += red[(g * ROWS + m) * BN + cc];
       }
     }
-  }
 
-  // epilogue: ((float)acc * sx) * sw per output, kept in registers
-  float o[OUTS];
+    if (gridDim.z > 1) {  // K is split: the tile's last block adds the partials
+      int* mine = part + tile * gridDim.z * ROWS * BN;
 #pragma unroll
-  for (int j = 0; j < OUTS; ++j) {
-    const int i = j * THREADS + tid, m = i / BN, cc = i % BN;
-    o[j] = (i < ROWS * BN && m < mv && cc < nv)
-               ? __fmul_rn(__fmul_rn((float)a[j], sx[m0 + m]), sw[n0 + cc]) : 0.f;
-  }
+      for (int j = 0; j < OUTS; ++j) {
+        const int i = j * THREADS + tid;
+        if (i < ROWS * BN) mine[(size_t)blockIdx.z * ROWS * BN + i] = a[j];
+      }
+      __threadfence();  // the partial is visible before the ticket is taken
+      __syncthreads();
+      if (tid == 0) last = (atomicAdd(&tickets[tile], 1) == (int)gridDim.z - 1);
+      __syncthreads();
+      if (!last) return;
+      __threadfence();
+#pragma unroll
+      for (int j = 0; j < OUTS; ++j) {
+        const int i = j * THREADS + tid;
+        a[j] = 0;
+        if (i < ROWS * BN) {
+          for (int z = 0; z < (int)gridDim.z; ++z)  // integer sums: exact in any order
+            a[j] += __ldcg(mine + (size_t)z * ROWS * BN + i);
+        }
+      }
+    }
+
+    // epilogue: ((float)acc * sx) * sw per output, kept in registers
+#pragma unroll
+    for (int j = 0; j < OUTS; ++j) {
+      const int i = j * THREADS + tid, m = i / BN, cc = i % BN;
+      o[j] = (i < ROWS * BN && m < mv && cc < nv)
+                 ? __fmul_rn(__fmul_rn((float)a[j], sx[m0 + m]), sw[n0 + cc]) : 0.f;
+    }
+  }  // per-token
 
   if (R > 0) {  // + xv·Uᵀ, U and xv staged RC ranks at a time
     __syncthreads();  // done with the partials
@@ -343,30 +477,41 @@ inline Split split_of(int M, int K, int N) {
   return s;
 }
 
-size_t scratch_bytes(const Split& s) {
+// int32 partials per tile: [ks][ROWS][BN] per-token, the [K/g][ROWS][BN]
+// group plane group-wise
+size_t partial_ints(const Split& s, int K, int group) {
+  return (size_t)s.tiles * (group > 0 ? K / group : s.ks) * s.rows * BN;
+}
+
+size_t scratch_bytes(const Split& s, int K, int group) {
   if (s.ks <= 1) return 0;
-  return sizeof(int) * ((size_t)s.tiles * s.ks * s.rows * BN + s.tiles);
+  return sizeof(int) * (partial_ints(s, K, group) + s.tiles);
 }
 
 template <int ROWS>
 int launch(const void* xq, const void* sx, const void* w, const void* sw,
            const void* xv, const void* u, int u_bf16, void* out, void* scratch,
-           const Split& sp, int M, int K, int N, int R, cudaStream_t stream) {
+           const Split& sp, int M, int K, int N, int R, int group,
+           cudaStream_t stream) {
   // word loads of W need N % 4 == 0, vector loads of the codes K % 16 == 0
   const int vec_w = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(w) % 4 == 0);
   const int vec_x = (K % 16 == 0) && (reinterpret_cast<uintptr_t>(xq) % 16 == 0);
   int* part = static_cast<int*>(scratch);
-  int* tickets = sp.ks > 1 ? part + (size_t)sp.tiles * sp.ks * ROWS * BN : nullptr;
-  if (sp.ks > 1) {
-    cudaError_t e = cudaMemsetAsync(tickets, 0, sizeof(int) * sp.tiles, stream);
+  int* tickets = sp.ks > 1 ? part + partial_ints(sp, K, group) : nullptr;
+  if (sp.ks > 1) {  // group-wise the plane is summed into, so it is zeroed too
+    cudaError_t e = group > 0
+        ? cudaMemsetAsync(part, 0, scratch_bytes(sp, K, group), stream)
+        : cudaMemsetAsync(tickets, 0, sizeof(int) * sp.tiles, stream);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((N + BN - 1) / BN, (M + ROWS - 1) / ROWS, sp.ks);
-  w4a4_lowrank_matmul_kernel<ROWS><<<grid, THREADS, 0, stream>>>(
+  auto kern = group > 0 ? w4a4_lowrank_matmul_kernel<ROWS, true>
+                        : w4a4_lowrank_matmul_kernel<ROWS, false>;
+  kern<<<grid, THREADS, 0, stream>>>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
       static_cast<const uint8_t*>(w), static_cast<const float*>(sw),
       static_cast<const float*>(xv), u, u_bf16, static_cast<float*>(out),
-      part, tickets, M, K, N, R, sp.cps, vec_w, vec_x);
+      part, tickets, M, K, N, R, group, sp.cps, vec_w, vec_x);
   return (int)cudaGetLastError();
 }
 
@@ -374,23 +519,29 @@ int launch(const void* xq, const void* sx, const void* w, const void* sw,
 
 extern "C" {
 
-// Bytes of device scratch one launch at (M, K, N) needs (0 when K is not split).
-size_t w4a4_lowrank_matmul_scratch_bytes(int M, int K, int N) {
-  return scratch_bytes(split_of(M, K, N));
+// Bytes of device scratch one launch at (M, K, N, group) needs (0 when K is
+// not split).
+size_t w4a4_lowrank_matmul_scratch_bytes(int M, int K, int N, int group) {
+  return scratch_bytes(split_of(M, K, N), K, group);
 }
 
 // Launch on `stream`; returns the first CUDA error of the launch (0 = ok).
 // With R = 0, xv and u may be null; u_bf16 selects bf16 (1) or f32 (0) U;
-// scratch holds w4a4_lowrank_matmul_scratch_bytes(M, K, N) bytes.
+// group 0 takes per-token sx (M, 1), group g > 0 (dividing K) the (M, K/g)
+// plane; scratch holds w4a4_lowrank_matmul_scratch_bytes(M, K, N, group)
+// bytes.
 int w4a4_lowrank_matmul(const void* xq, const void* sx, const void* w,
                         const void* sw, const void* xv, const void* u,
                         int u_bf16, void* out, void* scratch, int M, int K,
-                        int N, int R, void* stream) {
+                        int N, int R, int group, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group < 0 || (group > 0 && K % group)) return (int)cudaErrorInvalidValue;
   const Split sp = split_of(M, K, N);
   // decode batches of up to 4 rows take the 4-row tile, larger M the 16-row one
-  if (M <= 4) return launch<4>(xq, sx, w, sw, xv, u, u_bf16, out, scratch, sp, M, K, N, R, s);
-  return launch<MAX_ROWS>(xq, sx, w, sw, xv, u, u_bf16, out, scratch, sp, M, K, N, R, s);
+  if (M <= 4)
+    return launch<4>(xq, sx, w, sw, xv, u, u_bf16, out, scratch, sp, M, K, N, R, group, s);
+  return launch<MAX_ROWS>(xq, sx, w, sw, xv, u, u_bf16, out, scratch, sp, M, K, N, R,
+                          group, s);
 }
 
 }  // extern "C"

@@ -2,10 +2,13 @@
 its launch counters.
 
 The kernel (``csrc/fused_w4a4_lrc.cu``, CUDA C++ for sm_90a) replaces the
-TPU kernel ``repro/kernels/fused_gemm.py::fused_w4a4_lrc_kernel`` for
-per-token activation scales: one launch quantizes the rows of x into shared
-memory (xq never reaches device memory), projects ``xv = x·V``, runs the
-int4 GEMM with ``__dp4a`` and writes the f32 epilogue ``acc·sx·sw + xv·Uᵀ``.
+TPU kernel ``repro/kernels/fused_gemm.py::fused_w4a4_lrc_kernel``: one
+launch quantizes the rows of x into shared memory (xq never reaches device
+memory), projects ``xv = x·V``, runs the int4 GEMM with ``__dp4a`` and
+writes the f32 epilogue ``acc·sx·sw + xv·Uᵀ``.  With ``group`` g (its
+``act_group`` branch) the rows are quantized per group of g into a
+ROWS × K/g scale plane in shared memory, and the GEMM sums the groups in
+``rowops.gemm_grouped``'s canonical order.
 With ``rotate`` the quantizer and x·V take ``x·H_K`` (K a power of two):
 the block rotates its staged f32 rows in place (``csrc/fwht_rows.cuh``,
 bitwise ``rowops.fwht_rows``), so its shared memory, and :func:`fits`, do
@@ -34,8 +37,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.hadamard import check_width
-from repro_torch.kernels.rowops import (fwht_rows, int_matmul, project_rows,
-                                        rescale_lowrank, scale_round_quantize,
+from repro_torch.kernels.rowops import (check_group, fwht_rows, gemm_lowrank,
+                                        project_rows, scale_round_quantize,
                                         unpack_int4_rows)
 
 KERNEL = "fused_w4a4_lrc"
@@ -47,20 +50,23 @@ MAX_RANK = 1024
 _MAX_ROWS, _BN, _VBYTES = 16, 32, 8 * 16 * 256
 
 
-def smem_bytes(k: int, r: int) -> int:
-    """Dynamic shared memory one block of the kernel needs at (K, R), with
-    the larger row tile: the source's ``fused_w4a4_lrc_smem_bytes``,
-    computed here from shapes alone so a plan can be chosen before anything
-    is built or launched (``chip_smoke.py`` holds the two equal)."""
+def smem_bytes(k: int, r: int, act_group: int = None) -> int:
+    """Dynamic shared memory one block of the kernel needs at (K, R) and
+    ``act_group`` (None: per-token), with the larger row tile: the source's
+    ``fused_w4a4_lrc_smem_bytes``, computed here from shapes alone so a
+    plan can be chosen before anything is built or launched
+    (``chip_smoke.py`` holds the two equal).  Group-wise the rows' scales
+    are a ROWS × K/g plane."""
     k16 = (k + 15) & ~15
-    return (4 * (_MAX_ROWS * k + _MAX_ROWS * r + _BN * r + _MAX_ROWS)
+    scales = 1 if act_group is None else k // act_group
+    return (4 * (_MAX_ROWS * k + _MAX_ROWS * r + _BN * r + _MAX_ROWS * scales)
             + _VBYTES + _MAX_ROWS * k16 + k16 * _BN)
 
 
-def fits(k: int, r: int) -> bool:
-    """Whether the kernel takes (K, R): its shared memory within the
-    limit and the rank within MAX_RANK."""
-    return smem_bytes(k, r) <= SMEM_LIMIT and r <= MAX_RANK
+def fits(k: int, r: int, act_group: int = None) -> bool:
+    """Whether the kernel takes (K, R, act_group): its shared memory
+    within the limit and the rank within MAX_RANK."""
+    return smem_bytes(k, r, act_group) <= SMEM_LIMIT and r <= MAX_RANK
 
 
 def reset_launches() -> None:
@@ -69,13 +75,14 @@ def reset_launches() -> None:
 
 
 def fused_w4a4_lrc_plain(x, v, wpacked, sw, u, bits: int = 4,
-                         clip_ratio: float = 1.0,
-                         rotate: bool = False) -> torch.Tensor:
+                         clip_ratio: float = 1.0, rotate: bool = False,
+                         group: int = None) -> torch.Tensor:
     """The kernel's function in plain torch, in ``rowops``' operation order.
 
     x (M, K) float; v (K, R) or None; wpacked (K/2, N) uint8; sw (N,) or
     (1, N) f32; u (N, R) or None; ``rotate`` quantizes and projects the f32
-    rows of ``x·H_K`` (K a power of two).  Returns (M, N) f32."""
+    rows of ``x·H_K`` (K a power of two); ``group`` (dividing K) quantizes
+    them per group.  Returns (M, N) f32."""
     if rotate:
         check_width(x.shape[1])
     LAUNCHES["fused_w4a4_lrc_plain"] += 1
@@ -83,9 +90,9 @@ def fused_w4a4_lrc_plain(x, v, wpacked, sw, u, bits: int = 4,
     xf = x.to(torch.float32)
     if rotate:
         xf = fwht_rows(xf, xf.shape[1])
-    xq, sx = scale_round_quantize(xf, qmax, clip_ratio)
-    acc = int_matmul(xq, unpack_int4_rows(wpacked))
-    return rescale_lowrank(acc, sx, sw, None if v is None else project_rows(xf, v), u)
+    xq, sx = scale_round_quantize(xf, qmax, clip_ratio, group)
+    xv = None if v is None else project_rows(xf, v)
+    return gemm_lowrank(xq, unpack_int4_rows(wpacked), sx, sw, xv, u, group)
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,10 +100,10 @@ def _lib(name: str) -> ctypes.CDLL:
     """The built library with its C signatures declared (once per name)."""
     lib = build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_w4a4_lrc.argtypes = [p, i, p, p, p, p, i, p, i, i, i, i, i,
+    lib.fused_w4a4_lrc.argtypes = [p, i, p, p, p, p, i, p, i, i, i, i, i, i,
                                    ctypes.c_float, i, p]
     lib.fused_w4a4_lrc.restype = ctypes.c_int
-    lib.fused_w4a4_lrc_smem_bytes.argtypes = [i, i]
+    lib.fused_w4a4_lrc_smem_bytes.argtypes = [i, i, i]
     lib.fused_w4a4_lrc_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -134,24 +141,29 @@ def _check(x, v, wpacked, sw, u, bits):
 
 
 def fused_w4a4_lrc(x, v, wpacked, sw, u, bits: int = 4,
-                   clip_ratio: float = 1.0, rotate: bool = False) -> torch.Tensor:
+                   clip_ratio: float = 1.0, rotate: bool = False,
+                   group: int = None) -> torch.Tensor:
     """One launch of the fused W4A4+LRC kernel; returns (M, N) f32.
 
     Arguments as :func:`fused_w4a4_lrc_plain`.  A CPU ``x`` runs the plain
     version; a CUDA ``x`` launches the kernel on the current stream, or
     raises if it cannot."""
     if x.device.type == "cpu":
-        return fused_w4a4_lrc_plain(x, v, wpacked, sw, u, bits, clip_ratio, rotate)
+        return fused_w4a4_lrc_plain(x, v, wpacked, sw, u, bits, clip_ratio, rotate,
+                                    group)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(x, v, wpacked, sw, u, bits)
     m, k = x.shape
     if rotate:
         check_width(k)
+    if group is not None:
+        check_group(k, group)
     n = wpacked.shape[1]
     r = 0 if v is None else v.shape[1]
-    if smem_bytes(k, r) > SMEM_LIMIT:
-        raise ValueError(f"(K={k}, R={r}) needs {smem_bytes(k, r)} bytes of "
+    need = smem_bytes(k, r, group)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"(K={k}, R={r}, group={group}) needs {need} bytes of "
                          f"shared memory per block; the limit is {SMEM_LIMIT}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
@@ -161,10 +173,10 @@ def fused_w4a4_lrc(x, v, wpacked, sw, u, bits: int = 4,
         None if v is None else v.data_ptr(), wpacked.data_ptr(),
         sw.data_ptr(), None if u is None else u.data_ptr(),
         int(v is not None and v.dtype == torch.bfloat16), out.data_ptr(),
-        m, k, n, r, 2 ** (bits - 1) - 1, float(clip_ratio), int(rotate),
+        m, k, n, r, group or 0, 2 ** (bits - 1) - 1, float(clip_ratio), int(rotate),
         build.stream_of(x))
     if rc != 0:
         raise RuntimeError(f"fused_w4a4_lrc launch failed: cudaError {rc} "
-                           f"at (M={m}, K={k}, N={n}, R={r})")
+                           f"at (M={m}, K={k}, N={n}, R={r}, group={group})")
     LAUNCHES["fused_w4a4_lrc"] += 1
     return out

@@ -1,5 +1,6 @@
 """Kernel dispatch (counterpart of ``repro/kernels/ops.py``): the
-W4A4+LRC forward (per-token scales, with or without the online rotation),
+W4A4+LRC forward (per-token or group-wise activation scales, with or
+without the online rotation),
 the Walsh-Hadamard transform of rows, dense causal flash attention over
 float and quantized K/V, and paged decode attention over float and
 quantized KV pools.
@@ -12,6 +13,13 @@ ragged edges of M, N, K and R themselves, so nothing is padded here.  On the CPU
 three paths give bitwise equal outputs there (the reference's contract for
 its interpret mode): they share the quantizer, the K-chunked x·V and the
 epilogue bodies of ``rowops``.
+
+``act_spec.group_size`` g (dividing K; paper Table 2, g = 128) quantizes
+each row per group of g contiguous features: every path's quantizer
+returns the (M, K/g) scale plane and its GEMM sums the groups in
+``rowops.gemm_grouped``'s canonical order, so the three paths stay bitwise
+equal on the card too (given the same codes and x·V) and a row's output
+does not depend on M.
 
 ``rotate=True`` (K a power of two) quantizes and projects ``x·H_K``: the
 fused and chained paths rotate the f32 rows inside their kernels, the
@@ -69,41 +77,40 @@ def w4a4_lrc_forward(x: torch.Tensor, wpacked: torch.Tensor,
     """The W4A4+LRC serving hot path: x (M, K) float, wpacked (K/2, N)
     uint8, w_scale (N,) f32, u (N, R) / v (K, R) or None.  Returns (M, N)
     f32.  ``rotate`` applies the online rotation first (K a power of two,
-    else ``ValueError``).
+    else ``ValueError``); ``act_spec.group_size`` (dividing K, else
+    ``ValueError``) quantizes per group.
 
     ``impl=None`` defers to ``ctx.impl`` (``ctx=None`` → the default
     context, ``"auto"``): the fused path where the site fits it, else
     chained, with any per-layer override for ``layer`` (the QLinear's
     name) or the site's shape.  An explicit path is run as asked."""
-    if act_spec.group_size is not None:
-        raise NotImplementedError(
-            "group-wise activation scales are not ported yet (ROADMAP Queue 1)")
     ctx = DEFAULT_CONTEXT if ctx is None else ctx
     m, k = x.shape
     n = wpacked.shape[1]
     r = 0 if v is None else v.shape[-1]
     if rotate:
         hadamard.check_width(k)
+    group = act_spec.group_size
     path = ctx.resolve_plan(m, k, n, r, layer=layer, impl=impl,
-                            rotate=rotate).path
+                            rotate=rotate, act_group=group).path
     x = x.contiguous()
     v, u = (v, u) if r else (None, None)
     sw = w_scale.reshape(-1)
     bits, clip = act_spec.bits, act_spec.clip_ratio
     if path == "fused":
         return fused_w4a4_lrc(x, v, wpacked, sw, u, bits=bits, clip_ratio=clip,
-                              rotate=rotate)
+                              rotate=rotate, group=group)
     if path == "chained":
         xq, sx, xv = fused_prologue(x, v, bits=bits, clip_ratio=clip,
-                                    rotate=rotate)
+                                    rotate=rotate, group=group)
     else:  # unfused
         if rotate:
             x = hadamard.fwht(x)
-        xq, sx = act_quant(x, bits=bits, clip_ratio=clip)
+        xq, sx = act_quant(x, bits=bits, clip_ratio=clip, group=group)
         # x·V over all rows in one call, as the fused and chained plain
         # versions project: the same rows then give the same sums at any M
         xv = None if v is None else project_rows(x.to(torch.float32), v)
-    return w4a4_lowrank_matmul(xq, sx, wpacked, sw, xv, u)
+    return w4a4_lowrank_matmul(xq, sx, wpacked, sw, xv, u, group=group)
 
 
 def flash_attention(q, k, v, scale: float, causal: bool = True,

@@ -2,9 +2,10 @@
 counters.
 
 The kernel (``csrc/fused_prologue.cu``, CUDA C++ for sm_90a) replaces the
-TPU kernel ``repro/kernels/prologue.py::fused_prologue_kernel`` for
-per-token scales: one launch quantizes the rows of x (M, K) to xq int8 and
-sx (M, 1) f32, and projects ``xv = x·V`` (M, R) f32; with ``rotate`` it
+TPU kernel ``repro/kernels/prologue.py::fused_prologue_kernel``: one launch
+quantizes the rows of x (M, K) to xq int8 and sx (M, 1) f32 (with
+``group`` g, dividing K, the (M, K/g) scale plane of its ``act_group``
+branch), and projects ``xv = x·V`` (M, R) f32; with ``rotate`` it
 does both on ``x·H_K`` (K a power of two, with V or without), each block
 staging and rotating one whole row at a time (``csrc/fwht_rows.cuh``,
 bitwise ``rowops.fwht_rows``; the source's head comment says what that
@@ -35,7 +36,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.hadamard import MAX_D, check_width
-from repro_torch.kernels.rowops import (fwht_rows, project_rows,
+from repro_torch.kernels.rowops import (check_group, fwht_rows, project_rows,
                                         scale_round_quantize)
 
 KERNEL = "fused_prologue"
@@ -48,19 +49,22 @@ def reset_launches() -> None:
 
 
 def fused_prologue_plain(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
-                         rotate: bool = False):
+                         rotate: bool = False, group: int = None):
     """The kernel's function in plain torch, in ``rowops``' operation order.
 
     x (M, K) float; v (K, R) or None; ``rotate`` quantizes and projects the
-    f32 rows of ``x·H_K`` (K a power of two).  Returns (xq (M, K) int8, sx
-    (M, 1) f32, xv (M, R) f32 or None)."""
+    f32 rows of ``x·H_K`` (K a power of two); ``group`` (dividing K)
+    quantizes them per group.  Returns (xq (M, K) int8, sx (M, 1) f32 or
+    the (M, K // group) plane, xv (M, R) f32 or None)."""
     if rotate:
         check_width(x.shape[1])
+    if group is not None:
+        check_group(x.shape[1], group)
     LAUNCHES["fused_prologue_plain"] += 1
     xf = x.to(torch.float32)
     if rotate:
         xf = fwht_rows(xf, xf.shape[1])
-    xq, sx = scale_round_quantize(xf, 2 ** (bits - 1) - 1, clip_ratio)
+    xq, sx = scale_round_quantize(xf, 2 ** (bits - 1) - 1, clip_ratio, group)
     return xq, sx, None if v is None else project_rows(xf, v)
 
 
@@ -69,7 +73,7 @@ def _lib(name: str) -> ctypes.CDLL:
     """The built library with its C signatures declared (once per name)."""
     lib = build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_prologue.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i,
+    lib.fused_prologue.argtypes = [p, i, p, i, p, p, p, p, i, i, i, i, i,
                                    ctypes.c_float, i, p]
     lib.fused_prologue.restype = ctypes.c_int
     lib.fused_prologue_scratch_bytes.argtypes = [i, i, i]
@@ -80,14 +84,14 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def fused_prologue(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
-                   rotate: bool = False):
+                   rotate: bool = False, group: int = None):
     """One launch of the prologue kernel; returns (xq, sx, xv-or-None).
 
     Arguments as :func:`fused_prologue_plain`.  A CPU ``x`` runs the plain
     version; a CUDA ``x`` launches the kernel on the current stream, or
     raises if it cannot."""
     if x.device.type == "cpu":
-        return fused_prologue_plain(x, v, bits, clip_ratio, rotate)
+        return fused_prologue_plain(x, v, bits, clip_ratio, rotate, group)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     build.check_activations(x, bits)
@@ -96,6 +100,8 @@ def fused_prologue(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
         check_width(k)
         if k > MAX_D:
             raise ValueError(f"rotated K={k} exceeds the kernel's {MAX_D}")
+    if group is not None:
+        check_group(k, group)
     r = 0
     tensors = [x]
     if v is not None:
@@ -107,7 +113,8 @@ def fused_prologue(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
         tensors.append(v)
     build.check_operands(x, tensors)
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    sx = torch.empty((m, 1 if group is None else k // group), dtype=torch.float32,
+                     device=x.device)
     xv = None if v is None else torch.empty((m, r), dtype=torch.float32,
                                             device=x.device)
     if m == 0:
@@ -120,10 +127,10 @@ def fused_prologue(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
         None if v is None else v.data_ptr(),
         int(v is not None and v.dtype == torch.bfloat16), xq.data_ptr(),
         sx.data_ptr(), None if xv is None else xv.data_ptr(),
-        scratch.data_ptr() if scratch.numel() else None, m, k, r,
+        scratch.data_ptr() if scratch.numel() else None, m, k, r, group or 0,
         2 ** (bits - 1) - 1, float(clip_ratio), int(rotate), build.stream_of(x))
     if rc != 0:
         raise RuntimeError(f"fused_prologue launch failed: cudaError {rc} "
-                           f"at (M={m}, K={k}, R={r})")
+                           f"at (M={m}, K={k}, R={r}, group={group})")
     LAUNCHES["fused_prologue"] += 1
     return xq, sx, xv

@@ -1,13 +1,29 @@
-"""Per-token row bodies of the W4A4+LRC prologue and GEMM, in torch.
+"""Row bodies of the W4A4+LRC prologue and GEMM, in torch.
 
-Counterpart of the per-token bodies in ``repro/kernels/rowops.py``.  These
-are THE operation order the fused kernel follows and its plain version
-runs: zero-guarded amax → ``s = (clip·amax)/qmax`` → ``q = clip(round(x/s))``
+Counterpart of the bodies in ``repro/kernels/rowops.py``.  These are THE
+operation order the kernels follow and their plain versions run: zero-guarded amax → ``s = (clip·amax)/qmax`` → ``q = clip(round(x/s))``
 (a true division, rounding half to even), the int4 nibble layout, and the
 K-chunked, R-tiled (x·V) projection; the online Walsh-Hadamard rotation
 (:func:`fwht_rows`); and the one group dequant body
-(:func:`dequant_rows_grouped`) of the quantized KV cache.  Group-wise
-activation scales are not ported yet.
+(:func:`dequant_rows_grouped`) of the quantized KV cache.
+
+Group-wise activation scales (paper Table 2, g = 128) replace the (bm, 1)
+per-token scale with a (bm, d/g) scale plane, one scale per g contiguous
+K features (:func:`group_amax`, :func:`quantize_rows_grouped`).  The GEMM
+then rescales each group's exact int32 partial before an f32 sum, whose
+value depends on the order of its terms.  :func:`gemm_grouped` spells the
+port's one canonical order: per group in ascending K, ``fl(partial · s_g)``
+added to an f32 sum that starts at 0, one rounding per multiply and per
+add; the epilogue then multiplies by ``sw`` (:func:`lowrank_epilogue`).
+Every grouped kernel follows it whatever its launch geometry (grid,
+K-split, row tile, M), so its output is bitwise this body's and a row's
+result does not depend on its co-tenants or the prefill chunk.  With g = K
+the sum is one term and the result is bitwise the per-token one.  The
+reference's ``gemm_chunk_grouped`` sums each K-chunk's groups in one
+``dot_general`` and then adds the chunks, another order: the two agree to
+f32 rounding, not bitwise.  The reference's ``snap_bk_to_group`` and its
+scale-plane padding have no counterpart: the port's plan carries no tiles
+and its kernels mask ragged edges.
 """
 
 from __future__ import annotations
@@ -80,14 +96,38 @@ def quantize_rows(x: torch.Tensor, s: torch.Tensor, qmax: int) -> torch.Tensor:
     return torch.clamp(torch.round(x / s), -qmax - 1, qmax).to(torch.int8)
 
 
+def check_group(k: int, group: int) -> None:
+    """Raises unless ``group`` is a positive int that divides K."""
+    if isinstance(group, bool) or not isinstance(group, int) or group <= 0 or k % group:
+        raise ValueError(f"act_group {group!r} must be a positive int dividing K={k}")
+
+
+def group_amax(x: torch.Tensor, group: int) -> torch.Tensor:
+    """Per-group |x| max of a (bm, d) tile -> (bm, d // group), groups
+    contiguous along K."""
+    bm, d = x.shape
+    check_group(d, group)
+    return x.abs().reshape(bm, d // group, group).amax(dim=-1)
+
+
+def quantize_rows_grouped(x: torch.Tensor, s: torch.Tensor, qmax: int,
+                          group: int) -> torch.Tensor:
+    """Elementwise q = clip(round(x/s)) with one scale per K group (the
+    (bm, d // group) plane ``s``)."""
+    bm, d = x.shape
+    xs = x.reshape(bm, d // group, group) / s[..., None]
+    return torch.clamp(torch.round(xs), -qmax - 1, qmax).to(torch.int8).reshape(bm, d)
+
+
 def scale_round_quantize(x: torch.Tensor, qmax: int, clip_ratio: float,
                          group: int = None):
-    """amax → scale → round.  Per-token only: returns (q int8, s f32 (bm, 1))."""
-    if group is not None:
-        raise NotImplementedError(
-            "group-wise activation scales are not ported yet (ROADMAP Queue 1)")
-    s = amax_to_scale(row_amax(x), qmax, clip_ratio)
-    return quantize_rows(x, s, qmax), s
+    """amax → scale → round.  Per-token (``group`` None) returns (q int8,
+    s f32 (bm, 1)); group-wise the (bm, d // group) scale plane instead."""
+    if group is None:
+        s = amax_to_scale(row_amax(x), qmax, clip_ratio)
+        return quantize_rows(x, s, qmax), s
+    s = amax_to_scale(group_amax(x, group), qmax, clip_ratio)
+    return quantize_rows_grouped(x, s, qmax, group), s
 
 
 def project_chunk_rows(x_chunk: torch.Tensor, v_tile: torch.Tensor):
@@ -129,14 +169,53 @@ def project_rows(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return project_rows_tiled(xp, vp, bk, br)[:, :r].contiguous()
 
 
-def rescale_lowrank(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
-                    xv=None, u=None) -> torch.Tensor:
-    """The GEMM epilogue ``acc·sx·sw (+ xv·Uᵀ)`` in f32: int32 acc (M, N),
-    sx (M, 1), sw (N,) or (1, N), xv (M, R) f32, u (N, R) any float."""
-    out = acc.to(torch.float32) * sx * sw.reshape(1, -1)
+def lowrank_epilogue(out: torch.Tensor, sw: torch.Tensor, xv=None,
+                     u=None) -> torch.Tensor:
+    """``out·sw (+ xv·Uᵀ)`` in f32, where ``out`` (M, N) f32 already holds
+    the activation scales: sw (N,) or (1, N), xv (M, R) f32, u (N, R) any
+    float."""
+    out = out * sw.reshape(1, -1)
     if xv is not None:
         out = out + xv @ u.to(torch.float32).T
     return out
+
+
+def rescale_lowrank(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                    xv=None, u=None) -> torch.Tensor:
+    """The per-token GEMM epilogue ``(acc·sx)·sw (+ xv·Uᵀ)`` in f32: int32
+    acc (M, N), sx (M, 1), the rest as :func:`lowrank_epilogue`."""
+    return lowrank_epilogue(acc.to(torch.float32) * sx, sw, xv, u)
+
+
+def gemm_grouped(xq: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+                 group: int) -> torch.Tensor:
+    """THE canonical group-rescaled int GEMM: xq (M, K) int8, w (K, N) int8
+    codes, s the (M, K // group) f32 scale plane -> (M, N) f32
+    ``Σ_g fl(p_g · s_g)``, p_g the exact int32 partial over group g, added
+    in ascending g to an f32 sum that starts at 0 (module docstring).  Each
+    multiply and add is a separate rounded torch operation, so nothing is
+    contracted into an FMA."""
+    m, k = xq.shape
+    check_group(k, group)
+    if tuple(s.shape) != (m, k // group):
+        raise ValueError(f"the scale plane must be ({m}, {k // group}); got "
+                         f"{tuple(s.shape)}")
+    out = torch.zeros((m, w.shape[1]), dtype=torch.float32, device=xq.device)
+    for g in range(k // group):
+        part = int_matmul(xq[:, g * group:(g + 1) * group], w[g * group:(g + 1) * group])
+        out = out + part.to(torch.float32) * s[:, g:g + 1]
+    return out
+
+
+def gemm_lowrank(xq: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
+                 sw: torch.Tensor, xv=None, u=None, group: int = None) -> torch.Tensor:
+    """The whole W4A4 GEMM with its epilogue on int8 codes xq (M, K) and w
+    (K, N): per-token (``sx`` (M, 1)) :func:`rescale_lowrank` of the exact
+    int GEMM, group-wise (``sx`` the (M, K // group) plane)
+    :func:`gemm_grouped` then :func:`lowrank_epilogue`."""
+    if group is None:
+        return rescale_lowrank(int_matmul(xq, w), sx, sw, xv, u)
+    return lowrank_epilogue(gemm_grouped(xq, w, sx, group), sw, xv, u)
 
 
 def dequant_rows_grouped(q: torch.Tensor, s: torch.Tensor,

@@ -22,8 +22,12 @@ params and the stream after it, written with ``torch.save`` and read with
 and gives the same result, bitwise.
 
 Ported: the dense family; ``solve_site`` with lrc / svd / none over gptq or
-rtn.  Not ported (they raise): grouped activation scales, the ssm and moe
-walkers (ROADMAP Queue 1).
+rtn; group-wise activation scales (``policy.act_group``): the statistics
+quantize with the policy-wide group, and each QLinear is tagged with
+``policy.act_group_for(name)``, so an override changes the layer's
+serving scales but not the statistics it was solved from, as in the
+reference.  Not ported (they raise): the ssm and moe walkers (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -70,11 +74,9 @@ def collect_stats(acts, spec_a: QuantSpec, pre_rot: bool = False):
 def solve_site(w, stats, policy: QuantPolicy, pre_rot: bool = False,
                name: str = None) -> QLinear:
     """w: model-layout (d_in, d_out).  Solves Ŵ and (U, V) per the policy;
-    ``name`` tags the QLinear.  RTN without a correction, or with the SVD
-    one, reads no statistics (``stats`` may be None)."""
-    if policy.act_group is not None:
-        raise NotImplementedError(
-            "grouped activation scales are not ported (ROADMAP Queue 1)")
+    ``name`` tags the QLinear, whose activation group is
+    ``policy.act_group_for(name)``.  RTN without a correction, or with the
+    SVD one, reads no statistics (``stats`` may be None)."""
     w_paper = w.to(torch.float64).T  # (d_out, d_in)
     spec_w = QuantSpec(bits=policy.bits)
     k = policy.rank(w.shape[0], w.shape[1])
@@ -93,7 +95,7 @@ def solve_site(w, stats, policy: QuantPolicy, pre_rot: bool = False,
                                     hessian="x")
         u = v = None
     return make_qlinear(q, s, u, v, act_bits=policy.act_bits,
-                        act_group=policy.act_group,
+                        act_group=policy.act_group_for(name),
                         clip_ratio=policy.clip_ratio, impl=policy.impl,
                         name=name)
 

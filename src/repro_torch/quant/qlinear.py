@@ -6,7 +6,8 @@ Counterpart of ``repro/quant/qlinear.py``.  Execution paths (``impl``):
   sim    — fake-quant float math (plain torch).
   int8   — integer GEMM with per-token rescale (plain torch; the LR term in
            the LR storage dtype).
-  pallas — the hand-written kernels through ``kernels/ops.py``, on the
+  pallas — the hand-written kernels through ``kernels/ops.py`` (per-token
+           or group-wise activation scales, ``act_group``), on the
            path the layer's :class:`KernelContext` (``ctx``; None → the
            default, ``"auto"``) resolves: fused where the site fits the
            one-kernel path, else chained (prologue → GEMM), or as pinned.
@@ -165,6 +166,26 @@ def _first_qlinear(node) -> Optional[QLinear]:
         if found is not None:
             return found
     return None
+
+
+def retag_act_group(params, policy):
+    """Every QLinear of a param tree with the activation group
+    ``policy.act_group_for(name)`` (a :class:`~repro_torch.quant.policy.
+    QuantPolicy`), the tag ``quantize_model`` gives it under that policy.
+    RTN with an SVD or no correction reads no statistics, so retagging such
+    a model is bitwise the same as quantizing it again with the policy's
+    groups."""
+
+    def _retag(node):
+        if isinstance(node, QLinear):
+            return dataclasses.replace(node, act_group=policy.act_group_for(node.name))
+        if isinstance(node, dict):
+            return {k: _retag(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [_retag(v) for v in node]
+        return node
+
+    return _retag(params)
 
 
 def retag_qlinear_impl(params, impl: Optional[str],

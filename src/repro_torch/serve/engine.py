@@ -41,8 +41,8 @@ card and keeps its calibrated impl on the CPU, as the reference does on its
 CPU backend.  ``ctx=`` (a :class:`~repro_torch.kernels.context.KernelContext`)
 is attached to every QLinear and picks each site's path: fused where the
 site fits the one-kernel path, else chained, unless pinned.
-``health()["decode_plan"]`` lists the path each distinct (K, N, R) site
-resolves to at decode (M = ``batch_slots``), so a run shows which sites
+``health()["decode_plan"]`` lists the path each distinct (K, N, R,
+act_group) site resolves to at decode (M = ``batch_slots``), so a run shows which sites
 went where.  ``ctx.attention`` routes the attention of every model call:
 ``"auto"`` takes the kernels on the card and the reference's gather route
 on the CPU, and demotes a prefill's attention to gather, from shapes,
@@ -250,24 +250,26 @@ class ServeEngine:
     # -- kernel-plan introspection ------------------------------------------
 
     def _resolve_decode_plan(self) -> List[dict]:
-        """The path each distinct (K, N, R) QLinear site runs at decode: the
-        batched step flattens (B, 1, K) activations to an (M = batch_slots,
-        K) GEMM.  A site on a plain impl (sim, int8) reports that impl as
-        its path.  Empty for float params."""
+        """The path each distinct (K, N, R, act_group) QLinear site runs at
+        decode: the batched step flattens (B, 1, K) activations to an (M =
+        batch_slots, K) GEMM, and the site's activation group (None:
+        per-token) enters the plan as it does in the forward.  A site on a
+        plain impl (sim, int8) reports that impl as its path.  Empty for
+        float params."""
         sites: Dict[tuple, dict] = {}
 
         def visit(node):
             if isinstance(node, QLinear):
                 r = 0 if node.u is None else int(node.u.shape[1])
                 entry = {"m": self.b, "k": node.d_in, "n": node.d_out, "r": r,
-                         "impl": node.impl, "path": node.impl,
-                         "pinned": False, "demoted": False}
+                         "act_group": node.act_group, "impl": node.impl,
+                         "path": node.impl, "pinned": False, "demoted": False}
                 if node.impl in KERNEL_IMPLS:
                     ctx = ops.DEFAULT_CONTEXT if node.ctx is None else node.ctx
                     entry.update(ctx.resolve_plan(
                         self.b, node.d_in, node.d_out, r, layer=node.name,
-                        impl=None if node.impl == "pallas" else node.impl
-                    )._asdict())
+                        impl=None if node.impl == "pallas" else node.impl,
+                        act_group=node.act_group)._asdict())
                 site = sites.setdefault(tuple(entry.values()),
                                         dict(entry, layers=[]))
                 if node.name not in site["layers"]:

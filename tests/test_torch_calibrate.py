@@ -73,9 +73,9 @@ def test_svd_correction_product(models, block, name):
 
 
 def test_none_correction_and_unported_branches(rng):
-    """Every branch of ``solve_site`` and ``quantize_model`` that the
-    calibration slice ported runs (LRC, GPTQ, the rotation); what is still
-    unported raises: grouped activation scales and the non-dense walkers."""
+    """Every branch of ``solve_site`` and ``quantize_model`` that the port
+    has runs (LRC, GPTQ, the rotation, grouped activation scales); what is
+    still unported raises: the non-dense walkers."""
     w = t(rng.standard_normal((32, 16)).astype(np.float32))
     q = solve_site(w, None, QuantPolicy(quant_method="rtn", correction="none"))
     assert q.u is None and q.v is None and q.d_in == 32 and q.d_out == 16
@@ -86,16 +86,19 @@ def test_none_correction_and_unported_branches(rng):
                    QuantPolicy(quant_method="gptq", correction="lrc", lrc_iters=2)):
         q = solve_site(w, stats, policy)
         assert q.u.shape == (16, policy.rank(32, 16)) and q.v.shape[0] == 32
-    with pytest.raises(NotImplementedError):
-        solve_site(w, stats, QuantPolicy(act_group=8))
+    # grouped activation scales: the QLinear carries its layer's group
+    grouped = QuantPolicy(act_group=8, act_group_overrides={"mlp/wd": None})
+    assert solve_site(w, stats, grouped, name="attn/wq").act_group == 8
+    assert solve_site(w, stats, grouped, name="mlp/wd").act_group is None
     jcfg, tcfg = configs()
     params = bridge.params_from_jax(to_numpy_tree(jax_params(jcfg)), device="cpu")
     tokens = torch.from_numpy(rng.integers(0, tcfg.vocab_size, (2, 8)))
     rotated = quantize_model(tcfg, params, tokens, QuantPolicy(impl="sim"))
     assert "lm_head" in rotated and "lm_head" not in params
     assert torch.equal(rotated["final_norm"], torch.ones_like(params["final_norm"]))
-    with pytest.raises(NotImplementedError):
-        quantize_model(tcfg, params, tokens, QuantPolicy(act_group=8))
+    grouped = quantize_model(tcfg, params, tokens, QuantPolicy(impl="sim", act_group=8))
+    assert {q.act_group for lp in grouped["layers"] for block in ("attn", "mlp")
+            for q in lp[block].values()} == {8}
     for family in ("ssm", "moe"):
         with pytest.raises(NotImplementedError):
             quantize_model(dataclasses.replace(tcfg, family=family), params, tokens,

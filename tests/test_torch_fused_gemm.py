@@ -107,9 +107,13 @@ def test_ops_dispatch_and_unported_options():
     assert torch.equal(yr, fused_gemm.fused_w4a4_lrc_plain(
         t(x), _port(v), t(wp), t(sw), _port(u), 4, 0.9, rotate=True))
     assert not torch.equal(yr, y0)
-    with pytest.raises(NotImplementedError):
-        ops.w4a4_lrc_forward(t(x), t(wp), t(sw), None, None,
-                             QuantSpec(group_size=16))
+    # grouped activation scales are ported: the fused kernel's plain version
+    # with its group branch, which differs from the per-token forward
+    yg = ops.w4a4_lrc_forward(t(x), t(wp), t(sw), None, None, QuantSpec(group_size=16))
+    assert torch.equal(yg, fused_gemm.fused_w4a4_lrc_plain(
+        t(x), None, t(wp), t(sw), None, 4, 1.0, group=16))
+    assert not torch.equal(yg, ops.w4a4_lrc_forward(t(x), t(wp), t(sw), None, None,
+                                                    QuantSpec()))
     # the chained path is ported now: on the CPU it is bitwise the fused one
     yc = ops.w4a4_lrc_forward(t(x), t(wp), t(sw), _port(u), _port(v), spec,
                               impl="chained")

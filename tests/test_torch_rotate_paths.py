@@ -150,11 +150,11 @@ def test_latency_smoke_rows_on_the_cpu():
     hadamard.reset_launches()
     rows = latency_kernels.smoke_rows("cpu", calls)
     assert [row[0] for row in rows] == [
-        f"M{m}_{n}x{k}_r{r}{'_rot' if rot else ''}"
-        for m, k, n, r, rot in latency_kernels.SMOKE_SHAPES]
+        latency_kernels.smoke_label(*shape) for shape in latency_kernels.SMOKE_SHAPES]
     assert all(len(row) == len(latency_kernels.HEADER) for row in rows)
     # the K = 8192, rank-1024 shape demotes to chained and says why
-    assert rows[-1][6].startswith("chained (fused needs")
+    widest = [shape[1] for shape in latency_kernels.SMOKE_SHAPES].index(8192)
+    assert rows[widest][6].startswith("chained (fused needs")
     # every rotated unfused call ran the transform once, nothing else did
     assert hadamard.LAUNCHES["fwht_plain"] == calls.expected_launches()["fwht"] > 0
     with pytest.raises(RuntimeError):

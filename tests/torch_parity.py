@@ -147,6 +147,28 @@ def xv_tolerance(x, v, k, xv):
     return 2.0 * (k + 1) * 2.0 ** -24 * mag + 1e-30
 
 
+def group_terms(xq, sx, w, group):
+    """Σ_g |p_g·s_g| per output (M, N) in f64: p_g the exact int partial of
+    group g of codes xq (M, K) and w (K, N), s_g its (M, K/g) scale."""
+    m, k = xq.shape
+    g = k // group
+    p = np.einsum("mgk,gkn->mgn", xq.reshape(m, g, group).astype(np.float64),
+                  w.reshape(g, group, -1).astype(np.float64))
+    return np.einsum("mgn,mg->mn", np.abs(p), sx.astype(np.float64))
+
+
+def group_tolerance(xq, sx, w, sw, group, scale_ulps=0):
+    """Elementwise bound on two f32 evaluations of the group-rescaled GEMM
+    ``(Σ_g fl(p_g·s_g))·sw`` that add the G = K/g terms in different
+    orders: each is within (G + 1)·2⁻²⁴·Σ_g|p_g·s_g|·|sw| of the exact
+    value (G multiplies and G - 1 adds, then sw), so the two within twice
+    that; ``scale_ulps`` more ulps for scales that differ by that many
+    (the reference's jitted ones)."""
+    g = xq.shape[1] // group
+    mag = group_terms(xq, sx, w, group) * np.abs(sw.reshape(1, -1)).astype(np.float64)
+    return (2.0 * (g + 1) + 2.0 * scale_ulps) * 2.0 ** -24 * mag + 1e-30
+
+
 def scales_match_jitted(sx, s_jit):
     """The port's scales are bitwise the reference's eager ones
     (``ref.act_quant_ref``, ``rowops.scale_round_quantize``).  Under ``jit``
