@@ -99,6 +99,20 @@ Phases, each fatal on failure:
      bitwise equal across prefill chunk widths None and 100; (d) one
      Phi-3-mini layer calibrated with act_group 128 (Update-LR never raises
      a loss);
+ 14. Gemma-7b, head_dim 256: (a) the dense flash kernels' wide
+     instantiation bitwise the narrow one at D 64/96/128 (ragged S, GQA,
+     MQA, a query offset, D != Dv, int8 and int4 codes), then #7 and #8 at
+     Gemma's heads (B 1, S 2048, H 16, D 256; f32 and bf16 q), a 100-row
+     chunk at 1900, MQA at D 256 and #7 at D 192 / Dv 128, each within the
+     f32 bound of its plain version, #8 bitwise #7 on the dequantized codes
+     and a chunk's rows bitwise the whole prompt's, with times beside the
+     bound and SDPA; (b) Gemma-7b at full width (GEMMA_LAYERS layers, RTN +
+     SVD on the card, the bf16 weights freed) served as in phase 6: every
+     site on the chained path, prefill attention on #7 undemoted, exact
+     launches; (c) prompts of 777 and 130 tokens whole and in 100-row chunks
+     on f32 and int8 pools, the greedy streams bitwise equal across chunk
+     widths; (d) the engine's deadlines on the card (a 1e-9 s deadline
+     times out, a -1 s one is rejected, finished records carry timings);
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
 result.
@@ -126,6 +140,11 @@ F32_OPS_PER_S = 67e12
 # quantization (a float64 SVD of up to 8192 x 3072 per site, ~1 s each on
 # the card) dominates the script's time; cut this first if it must shrink
 PHI3_LAYERS = 32
+# Gemma-7b's depth served in phase 14: all of its 28 layers.  Its RTN+SVD
+# quantization (a float64 SVD of up to 24576 x 3072 per site) is the
+# longest step of the script; cut this first, then PHI3_LAYERS, if the
+# script must shrink (width is never cut)
+GEMMA_LAYERS = 28
 
 # the chained and unfused paths' logits differ only by the order of x·V's
 # f32 sums, which can flip a 4-bit code at a rounding boundary; at least
@@ -499,8 +518,8 @@ def phase_rotate_kernels(device):
 # row, lengths).  The serve shapes are the engine's in phases 4, 6 and 8
 # (SLOTS rows, max_seq 64), with one inactive row; the long one is a ragged
 # Phi-3-mini batch at up to 4096 tokens; the last has Gemma-7b's heads
-# (16/16, head_dim 256), wider than the flash kernels take: "auto" gathers
-# such a model's prefill but keeps its decode on the paged kernels.
+# (16/16, head_dim 256), whose prefill phase 14 serves through the dense
+# kernels' wide instantiation.
 ATTN_SHAPES = {
     "smollm-serve": (SLOTS, 9, 3, 64, PAGE, 4, (64, 37, 13, 0)),
     "phi3-serve": (SLOTS, 32, 32, 96, PAGE, 4, (64, 37, 13, 0)),
@@ -823,19 +842,41 @@ OFFSET_CASES = (
 QUANT_POOLS = ATTN_POOLS["paged_flash_attention_quant"]
 
 
-def _prefill_bound(shape, kv_row_bytes):
+def _prefill_bound(shape, k_row_bytes, v_row_bytes):
     """Least time of one causal call with a query offset on an H100 SXM (ms)
-    and what bounds it: q and the output in q's dtype, and every K and V
-    row at or before the last query position (``kv_row_bytes`` per kv head:
-    its codes and scales, or its floats) moved once, over 3.35 TB/s; or the
-    4·B·H·D·Σ_rows (qpos + 1) f32 operations (2·D for the score and 2·D for
-    p·V per row and key at or before it) over 67 TFLOP/s."""
-    b, sq, skv, h, kh, d, q0, qd = shape
+    and what bounds it; ``shape`` is (B, Sq, Skv, H, KH, D, Dv, q_start, q
+    dtype): q and the output in q's dtype, and every K and V row at or
+    before the last query position (``*_row_bytes`` per kv head: its codes
+    and scales, or its floats) moved once, over 3.35 TB/s; or the
+    2·B·H·(D + Dv)·Σ_rows (qpos + 1) f32 operations (2·D for the score and
+    2·Dv for p·V per row and key at or before it) over 67 TFLOP/s."""
+    b, sq, skv, h, kh, d, dv, q0, qd = shape
     item = 4 if qd == "float32" else 2
     keys = min(skv, q0 + sq)
     row_keys = sum(min(q0 + i + 1, skv) for i in range(sq))
-    nbytes = 2 * item * b * sq * h * d + 2 * b * keys * kh * kv_row_bytes
-    return _bound(nbytes, f32_ops=4 * b * h * d * row_keys)
+    nbytes = item * b * sq * h * (d + dv) + b * keys * kh * (k_row_bytes + v_row_bytes)
+    return _bound(nbytes, f32_ops=2 * b * h * (d + dv) * row_keys)
+
+
+def _prefill_gate(worst, name, label, pool, y, y_plain, tol, bitwise, rows):
+    """The gates of a dense flash kernel's call, fatal: finite, within
+    ``tol`` of its plain version, ``bitwise`` (#8 against #7 on the
+    dequantized codes) and ``rows`` (a chunk's rows against the whole
+    prompt's; None where the call is no chunk); ``worst[name]`` keeps the
+    largest error."""
+    import torch
+
+    err = (y.double() - y_plain.double()).abs()
+    ok = (bool(torch.isfinite(y).all()) and bool((err <= tol).all()) and bitwise
+          and rows is not False)
+    e = err.max().item()
+    print(f"  {name:<21} {label:<16} {pool:<15} max_abs_err={e:.3e} "
+          f"limit(min)={tol.min().item():.3e} bitwise-vs-#7(deq) "
+          f"{bitwise if name.endswith('quant') else '-'} chunk-rows-bitwise "
+          f"{'-' if rows is None else rows} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"{name} failed its gates at {label} {pool}")
+    worst[name] = max(worst[name], e)
 
 
 def _sdpa_timer(q, kd, vd, q0, scale, flush):
@@ -889,19 +930,6 @@ def phase_prefill_kernels(device):
     worst = {"flash_attention_quant": 0.0, "flash_attention": 0.0}
     timed, problems, whole = {}, {}, {}
 
-    def gate(name, label, pool, y, y_plain, tol, bitwise, rows):
-        err = (y.double() - y_plain.double()).abs()
-        ok = bool(torch.isfinite(y).all()) and bool((err <= tol).all()) and bitwise \
-            and rows is not False
-        e = err.max().item()
-        print(f"  {name:<21} {label:<15} {pool:<15} max_abs_err={e:.3e} "
-              f"limit(min)={tol.min().item():.3e} bitwise-vs-#7(deq) "
-              f"{bitwise if name.endswith('quant') else '-'} chunk-rows-bitwise "
-              f"{'-' if rows is None else rows} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise SystemExit(f"{name} failed its gates at {label} {pool}")
-        worst[name] = max(worst[name], e)
-
     def problem(label, b, sq, skv, h, kh, d, qd):
         if label not in problems:
             q = torch.randn((b, sq, h, d), generator=gen, device=device).to(getattr(torch, qd))
@@ -939,13 +967,15 @@ def phase_prefill_kernels(device):
                         and torch.equal(one, full[:, q0 + sq - 1:q0 + sq]))
             else:
                 whole[(parent, pool)] = y
-            gate("flash_attention_quant", label, pool, y, y_plain,
-                 _flash_tolerance(q, kd, vd, scale, y_plain, q0), torch.equal(y, y7), rows)
+            _prefill_gate(worst, "flash_attention_quant", label, pool, y, y_plain,
+                          _flash_tolerance(q, kd, vd, scale, y_plain, q0),
+                          torch.equal(y, y7), rows)
             t_k = time_ms(lambda: flash_attn.flash_attention_quant(*args, q_start=qs), flush)
             t_p = time_ms(lambda: flash_attn.flash_attention_quant_plain(*args, q_start=qs),
                            flush)
             t_c = _sdpa_timer(q, kd, vd, q0, scale, flush)
-            b_ms, by = _prefill_bound(shape, spec.packed_head_dim(d) + 4 * spec.n_groups(d))
+            row = spec.packed_head_dim(d) + 4 * spec.n_groups(d)
+            b_ms, by = _prefill_bound((b, sq, skv, h, kh, d, d, q0, qd), row, row)
             timed[("flash_attention_quant", label, pool)] = (t_k, t_p, b_ms, by, None, t_c)
             print(f"    kernel {t_k * 1e3:10.2f} us  plain {t_p * 1e3:11.2f} us  bound "
                   f"{b_ms * 1e3:9.2f} us ({by})  library none (context: SDPA on a "
@@ -978,13 +1008,14 @@ def phase_prefill_kernels(device):
             rows = (torch.equal(y, y_whole[:, q0:q0 + sq])
                     and torch.equal(one, y_whole[:, q0 + sq - 1:q0 + sq]))
             del y_whole
-        gate("flash_attention", label, pool, y, y_plain,
-             _flash_tolerance(q, k, v, scale, y_plain, q0), True, rows)
+        _prefill_gate(worst, "flash_attention", label, pool, y, y_plain,
+                      _flash_tolerance(q, k, v, scale, y_plain, q0), True, rows)
         t_k = time_ms(lambda: flash_attn.flash_attention(q, k, v, scale, q_start=qs), flush)
         t_p = time_ms(lambda: flash_attn.flash_attention_plain(q, k, v, scale, q_start=qs),
                        flush)
         t_l = _sdpa_timer(q, k, v, q0, scale, flush)
-        b_ms, by = _prefill_bound((b, sq, skv, h, kh, d, q0, qd), k.element_size() * d)
+        row = k.element_size() * d
+        b_ms, by = _prefill_bound((b, sq, skv, h, kh, d, d, q0, qd), row, row)
         timed[("flash_attention", label, pool)] = (t_k, t_p, b_ms, by, t_l, None)
         print(f"    kernel {t_k * 1e3:10.2f} us  plain {t_p * 1e3:11.2f} us  bound "
               f"{b_ms * 1e3:9.2f} us ({by})  library {t_l * 1e3:.2f} us (SDPA, "
@@ -2700,6 +2731,291 @@ def add_group_entries(kernels, worst, timed, smol_counts, phi3_counts, paths):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: Gemma-7b, head_dim 256
+# ---------------------------------------------------------------------------
+
+# the wide dense-attention instantiation at the narrow one's head dims, each
+# (B, Sq, Skv, H, KH, D, Dv, q_start, q dtype, K/V dtype or quantized pool):
+# it must be bitwise the narrow kernel there (ragged S, GQA and MQA, a chunk
+# with a query offset, D != Dv, bf16 q over f32 K/V, int8 and int4 codes)
+WIDE_BITWISE = (
+    (2, 300, 300, 8, 2, 64, 64, 0, "float32", "float32"),
+    (1, 100, 400, 6, 6, 96, 96, 300, "bfloat16", "float32"),
+    (2, 200, 200, 4, 1, 128, 128, 0, "bfloat16", "bfloat16"),
+    (1, 256, 256, 8, 4, 128, 96, 0, "float32", "float32"),
+    (2, 300, 300, 8, 2, 64, 64, 0, "float32", "int8"),
+    (1, 100, 400, 8, 8, 128, 128, 300, "bfloat16", "int4-g32"),
+)
+# kernels #7 and #8 at D 256 (and #7 at D 192 / Dv 128), each (B, Sq, Skv,
+# H, KH, D, Dv, q_start, q dtype): Gemma-7b's heads over a whole 2048-token
+# prompt with an f32 and a bf16 q, a 100-row chunk of that prompt at 1900
+# (its rows must be bitwise the whole prompt's), MQA at D 256, and the
+# q·k / v widths 192 / 128 (MLA's); #8 takes D = Dv only
+GEMMA_FLASH = {
+    "gemma": (1, 2048, 2048, 16, 16, 256, 256, 0, "float32"),
+    "gemma-bf16": (1, 2048, 2048, 16, 16, 256, 256, 0, "bfloat16"),
+    "gemma-chunk": (1, 100, 2048, 16, 16, 256, 256, 1900, "float32"),
+    "gemma-chunk-bf16": (1, 100, 2048, 16, 16, 256, 256, 1900, "bfloat16"),
+    "mqa": (4, 512, 512, 8, 1, 256, 256, 0, "float32"),
+    "d192-dv128": (2, 512, 512, 16, 4, 192, 128, 0, "float32"),
+}
+
+
+def phase_gemma_kernels(device):
+    """Phase 14(a).  The wide instantiation bitwise the narrow one at every
+    case of WIDE_BITWISE; then at every shape of GEMMA_FLASH kernel #7 (and
+    #8 on each pool of QUANT_POOLS where D = Dv) within ``_flash_tolerance``
+    of its plain version, #8 bitwise #7 on the dequantized codes, a chunk's
+    rows (and the prompt's last row alone) bitwise the whole prompt's, all
+    fatal; timed (median of 30, L2 flushed) beside the bound, the plain
+    version and SDPA on an expanded-KV copy (for #8 as context only).
+    Returns (worst error per kernel, times per (kernel, label, pool))."""
+    import torch
+
+    from repro_torch.bench.common import flush_buffer, time_ms
+    from repro_torch.kernels import flash_attn
+    from repro_torch.serve.kvquant import dequantize_kv, quantize_kv
+
+    flush = flush_buffer(device)
+    gen = torch.Generator(device=device).manual_seed(14)
+
+    def randn(*shape, dtype="float32"):
+        return torch.randn(shape, generator=gen, device=device).to(getattr(torch, dtype))
+
+    for b, sq, skv, h, kh, d, dv, q0, qd, kvd in WIDE_BITWISE:
+        q = randn(b, sq, h, d, dtype=qd)
+        k, v = randn(b, skv, kh, d), randn(b, skv, kh, dv) * 1.5
+        qs = torch.full((b,), q0, dtype=torch.int32, device=device) if q0 else None
+        scale = d ** -0.5
+        if kvd in QUANT_POOLS:
+            spec = _kv_spec(kvd)
+            args = (q, *quantize_kv(k, spec), *quantize_kv(v, spec), scale, spec)
+            narrow = flash_attn.flash_attention_quant(*args, q_start=qs)
+            wide = flash_attn.flash_attention_quant_wide(*args, q_start=qs)
+        else:
+            k, v = k.to(getattr(torch, kvd)), v.to(getattr(torch, kvd))
+            narrow = flash_attn.flash_attention(q, k, v, scale, q_start=qs)
+            wide = flash_attn.flash_attention_wide(q, k, v, scale, q_start=qs)
+        torch.cuda.synchronize()
+        same = torch.equal(narrow, wide)
+        print(f"  wide vs narrow B={b} Sq={sq} Skv={skv} H={h} KH={kh} D={d} Dv={dv} "
+              f"q_start {q0} {qd} q, {kvd} K/V: {'bitwise equal' if same else 'DIFFER'}",
+              flush=True)
+        if not same:
+            raise SystemExit("the wide flash-attention instantiation is not bitwise the "
+                             "narrow one at a head dim both take")
+
+    worst = {"flash_attention": 0.0, "flash_attention_quant": 0.0}
+    timed, whole = {}, {}
+
+    def chunk_rows(y, full, q0, sq, last):
+        """A chunk's rows, and the prompt's last row alone, against the
+        whole prompt's (None where the call is not a chunk)."""
+        if not q0:
+            return None
+        return (torch.equal(y, full[:, q0:q0 + sq])
+                and torch.equal(last, full[:, q0 + sq - 1:q0 + sq]))
+
+    problems = {}
+    for label, shape in GEMMA_FLASH.items():
+        b, sq, skv, h, kh, d, dv, q0, qd = shape
+        parent = label.replace("-chunk", "")
+        if q0:  # rows q0… of the whole prompt of `parent`
+            q_all, k, v = problems[parent]
+            q = q_all[:, q0:q0 + sq].contiguous()
+        else:
+            q, k, v = randn(b, sq, h, d, dtype=qd), randn(b, skv, kh, d), randn(b, skv, kh, dv)
+            problems[label] = (q, k, v)
+        qs = torch.full((b,), q0, dtype=torch.int32, device=device) if q0 else None
+        one_qs = None if qs is None else qs + sq - 1
+        scale = d ** -0.5
+
+        y = flash_attn.flash_attention(q, k, v, scale, q_start=qs)
+        last = None if qs is None else flash_attn.flash_attention(
+            q[:, -1:].contiguous(), k, v, scale, q_start=one_qs)
+        torch.cuda.synchronize()
+        y_plain = flash_attn.flash_attention_plain(q, k, v, scale, q_start=qs)
+        if not q0:
+            whole[(label, "f32")] = y
+        rows = chunk_rows(y, whole.get((parent, "f32")), q0, sq, last)
+        _prefill_gate(worst, "flash_attention", label, "f32", y, y_plain,
+                      _flash_tolerance(q, k, v, scale, y_plain, q0), True, rows)
+        t_k = time_ms(lambda: flash_attn.flash_attention(q, k, v, scale, q_start=qs), flush)
+        t_p = time_ms(lambda: flash_attn.flash_attention_plain(q, k, v, scale, q_start=qs),
+                       flush)
+        t_l = _sdpa_timer(q, k, v, q0, scale, flush)
+        b_ms, by = _prefill_bound(shape, 4 * d, 4 * dv)
+        timed[("flash_attention", label, "f32")] = (t_k, t_p, b_ms, by, t_l)
+        print(f"    kernel {t_k * 1e3:10.2f} us  plain {t_p * 1e3:11.2f} us  bound "
+              f"{b_ms * 1e3:9.2f} us ({by})  library {t_l * 1e3:.2f} us (SDPA, "
+              f"{'is_causal' if q0 == 0 else 'explicit mask'}, expanded KV in q's dtype)",
+              flush=True)
+        del y, y_plain, last
+        if d != dv:
+            continue
+        for pool in QUANT_POOLS:
+            spec = _kv_spec(pool)
+            (kq, ks), (vq, vs) = quantize_kv(k, spec), quantize_kv(v, spec)
+            kd, vd = dequantize_kv(kq, ks, spec, d), dequantize_kv(vq, vs, spec, d)
+            args = (q, kq, ks, vq, vs, scale, spec)
+            y = flash_attn.flash_attention_quant(*args, q_start=qs)
+            y7 = flash_attn.flash_attention(q, kd, vd, scale, q_start=qs)
+            last = None if qs is None else flash_attn.flash_attention_quant(
+                q[:, -1:].contiguous(), *args[1:], q_start=one_qs)
+            torch.cuda.synchronize()
+            y_plain = flash_attn.flash_attention_quant_plain(*args, q_start=qs)
+            if not q0:
+                whole[(label, pool)] = y
+            rows = chunk_rows(y, whole.get((parent, pool)), q0, sq, last)
+            _prefill_gate(worst, "flash_attention_quant", label, pool, y, y_plain,
+                          _flash_tolerance(q, kd, vd, scale, y_plain, q0),
+                          torch.equal(y, y7), rows)
+            t_k = time_ms(lambda: flash_attn.flash_attention_quant(*args, q_start=qs), flush)
+            t_p = time_ms(lambda: flash_attn.flash_attention_quant_plain(*args, q_start=qs),
+                           flush)
+            t_c = _sdpa_timer(q, kd, vd, q0, scale, flush)
+            row = spec.packed_head_dim(d) + 4 * spec.n_groups(d)
+            b_ms, by = _prefill_bound(shape, row, row)
+            timed[("flash_attention_quant", label, pool)] = (t_k, t_p, b_ms, by, t_c)
+            print(f"    kernel {t_k * 1e3:10.2f} us  plain {t_p * 1e3:11.2f} us  bound "
+                  f"{b_ms * 1e3:9.2f} us ({by})  library none (context: SDPA on a "
+                  f"pre-dequantized KV-expanded copy {t_c * 1e3:.2f} us)", flush=True)
+            del kq, ks, vq, vs, kd, vd, y, y7, y_plain, last
+    return worst, timed
+
+
+def phase_gemma(device):
+    """Phase 14: (a) :func:`phase_gemma_kernels`; (b) Gemma-7b at full width
+    (GEMMA_LAYERS layers; random bf16 weights from seed 0, RTN + SVD
+    W4A4+LRC on the card, the bf16 weights freed) served on phase 4's
+    traffic: ``health()`` must show prefill attention on #7 undemoted and
+    every site on the chained path, and :func:`phase_serve` holds the
+    launches exact; (c) two of phase 10's prompts (777, 130 tokens) whole
+    and in 100-row chunks on f32 and int8 pools, whose greedy streams must
+    be bitwise equal across the chunk widths; (d) the engine's deadlines on
+    the card: a 1e-9 s deadline times out as ``deadline``, a -1 s one is
+    rejected ``bad_deadline``, a finished record carries its timings.
+    Returns the phase's stats and the kernels' checks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import Request, RequestState, ServeEngine
+
+    t0 = time.perf_counter()
+    print("  (a) kernels #7 and #8 at head_dim 256 (the wide instantiation)", flush=True)
+    worst, timed = phase_gemma_kernels(device)
+    out = {"kernels_s": time.perf_counter() - t0}
+
+    print(f"  (b) Gemma-7b, {GEMMA_LAYERS} layers, served (chained path)", flush=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gcfg, gparams = build_model(device, "gemma-7b", GEMMA_LAYERS)
+    out["build_s"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["weights_gb"] = torch.cuda.memory_allocated() / 1e9
+    print(f"  quantized weights resident: {out['weights_gb']:.2f} GB (the bf16 weights "
+          f"freed)", flush=True)
+    health = ServeEngine(gcfg, gparams, batch_slots=SLOTS, max_seq=64, page_size=PAGE,
+                         prefill_chunk=CHUNK, device=device).health()
+    paths = {site["path"] for site in health["decode_plan"]}
+    if health["prefill_attention"] != {"route": "kernel", "kernel": "flash_attention",
+                                       "kv": "f32", "demoted": None} or paths != {"chained"}:
+        raise SystemExit(f"Gemma-7b: prefill attention {health['prefill_attention']} "
+                         f"or site paths {paths} are not the kernel route and chained")
+    counts, out["serve"] = phase_serve(gcfg, gparams, device,
+                                       ["fused_prologue", "w4a4_lowrank_matmul"])
+
+    print("  (c) prompts of 777 and 130 tokens, whole and in 100-row chunks", flush=True)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, gcfg.vocab_size, n).astype(np.int32) for n in LONG_PROMPTS]
+    prompts = [p for p in prompts if len(p) in GROUP_LONG_PROMPTS]
+    long_counts = {}
+    for pool in ("f32", "int8"):
+        streams = {}
+        for chunk in LONG_CHUNKS:
+            streams[chunk], out[f"long/{pool}/{chunk}"], _ = _serve_long(
+                gcfg, gparams, device, prompts, pool, chunk, "kernel")
+            for name, n in out[f"long/{pool}/{chunk}"]["launches"].items():
+                long_counts[name] = long_counts.get(name, 0) + n
+        same = streams[None] == streams[LONG_CHUNKS[1]]
+        print(f"  (c) {pool}: greedy streams chunk None vs {LONG_CHUNKS[1]} "
+              f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+        if not same:
+            raise SystemExit(f"Gemma-7b: the {pool} streams depend on the prefill chunk width")
+    pool_bytes = out["long/f32/None"]["bytes_per_token"]
+    print(f"  f32 pool: {pool_bytes} B per token", flush=True)
+
+    print("  (d) deadlines on the card", flush=True)
+    eng = ServeEngine(gcfg, gparams, batch_slots=SLOTS, max_seq=64, page_size=PAGE,
+                      prefill_chunk=CHUNK, device=device)
+    rng = np.random.default_rng(0)
+    for rid, deadline in ((0, None), (1, 1e-9), (2, -1.0), (3, None)):
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, gcfg.vocab_size, PROMPT_LEN)
+                           .astype(np.int32), max_new_tokens=4, deadline_s=deadline))
+    reset_launches()
+    done = eng.run()
+    torch.cuda.synchronize()
+    deadline_counts = launches()
+    timings = {rid: rec.timings for rid, rec in done.items()}
+    ok = (done[1].status is RequestState.TIMED_OUT and done[1].error_kind == "deadline"
+          and done[2].status is RequestState.REJECTED and done[2].error_kind == "bad_deadline"
+          and all(done[r].ok and set(timings[r]) == {"queue_s", "first_token_s", "total_s"}
+                  for r in (0, 3))
+          and deadline_counts["flash_attention"]
+          == gcfg.n_layers * eng.counters["prefill_calls"])
+    print(f"  rid 1 {done[1].status.value} ({done[1].error_kind}: {done[1].error}); rid 2 "
+          f"{done[2].status.value} ({done[2].error_kind}); timings {timings}; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("Gemma-7b: the engine's deadlines or timings are wrong on the card")
+    out["deadlines"] = {rid: {"status": rec.status.value, "error_kind": rec.error_kind,
+                              "timings": rec.timings} for rid, rec in done.items()}
+    del eng, gparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    for name, n in deadline_counts.items():
+        counts[name] = counts.get(name, 0) + n + long_counts.get(name, 0)
+    return out, worst, timed, counts
+
+
+def add_gemma_entries(kernels, worst, timed, counts):
+    """The ``d256`` sub-entry of the dense flash kernels: Gemma-7b's whole
+    2048-token prompt (f32 q; #8 over int8 codes), its launches in phase
+    14's main paths, which the entries' own ``launches`` then include, and
+    the largest |kernel - plain| of phase 14(a).  Phase 14's launches of
+    #2, #3, #6 and #9 join their entries too."""
+    at = ("Gemma-7b's heads, B 1 S 2048 H 16 KH 16 D 256, f32 q, L2 flushed; launches "
+          "from phase 14's serving, long prompts and deadline run")
+    for entry in kernels:
+        name = entry["name"]
+        if name in ("fused_prologue", "w4a4_lowrank_matmul", "paged_flash_attention",
+                    "paged_flash_attention_quant"):
+            entry["launches"] += counts[name]
+        if name not in worst:
+            continue
+        pool = "int8" if name.endswith("quant") else "f32"
+        t_k, t_p, b_ms, by, t_l = timed[(name, "gemma", pool)]
+        entry["d256"] = {
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None if name.endswith("quant") else t_l,
+            "launches": counts[name], "max_abs_err": worst[name],
+            "at": at + ("; library none (context_sdpa_ms: SDPA over a pre-dequantized "
+                        "KV-expanded copy)" if name.endswith("quant") else
+                        "; library: SDPA is_causal on an expanded-KV copy"),
+            "shapes": {f"{label}-{p}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "context_sdpa_ms" if name.endswith("quant")
+                                                 else "library_ms"), v))
+                       for (n, label, p), v in timed.items() if n == name},
+        }
+        if name.endswith("quant"):
+            entry["d256"]["context_sdpa_ms"] = t_l
+        entry["launches"] += counts[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], worst[name])
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2826,6 +3142,10 @@ def main() -> int:
         device, cfg, qparams, pcfg, pparams)
     del qparams, pparams
 
+    phase(f"14. Gemma-7b, head_dim 256 ({GEMMA_LAYERS} layers, chained path, prefill "
+          f"through the wide flash kernels)")
+    gemma, gemma_worst, gemma_timed, gemma_counts = phase_gemma(device)
+
     # launches of the two dense kernels on the main paths: every prefill
     # chunk of phases 4, 6, 8, 9 (its served model) and 10, the walk of
     # phase 9, phase 11's pass
@@ -2940,11 +3260,12 @@ def main() -> int:
                    for (name, label, pool), v in prefill_timed.items()
                    if name == "flash_attention_quant"},
     })
+    add_gemma_entries(kernels, gemma_worst, gemma_timed, gemma_counts)
     print(json.dumps({"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
                       "phi3_paths": paths, "phi3_kv_serve": kv_serve,
                       "calibration": calib, "long_prefill": long_prefill,
-                      "kv_sweep": sweep, "latency": latency, "groups": groups},
-                     default=str))
+                      "kv_sweep": sweep, "latency": latency, "groups": groups,
+                      "gemma": gemma}, default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

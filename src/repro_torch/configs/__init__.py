@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["smollm-135m", "phi3-mini-3.8b"]
+ARCH_IDS = ["smollm-135m", "phi3-mini-3.8b", "gemma-7b"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

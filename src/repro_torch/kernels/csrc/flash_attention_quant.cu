@@ -16,8 +16,8 @@
 // never reach device memory and this kernel on codes is bitwise
 // flash_attention.cu on dequantize_kv(codes).  Bound: operations, as
 // flash_attention.cu, against D or D/2 bytes a row plus 4·D/group of
-// scales.  The body, its numerics and its design are in
-// flash_attention.cuh.
+// scales.  Head dims up to 256 (the wide instantiation above 128).  The
+// body, its numerics and its design are in flash_attention.cuh.
 
 #include "flash_attention.cuh"
 
@@ -27,7 +27,7 @@ template <typename Q>
 int dispatch(const void* q, const void* k, const void* k_scales, const void* v,
              const void* v_scales, int packed, int group, const void* q_start, void* out,
              int b, int sq, int skv, int h, int kh, int d, float scale, int causal,
-             void* stream) {
+             void* stream, bool wide) {
   const int n_groups = d / group;
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
@@ -35,20 +35,32 @@ int dispatch(const void* q, const void* k, const void* k_scales, const void* v,
     kv::Int4Rows kr{static_cast<const uint8_t*>(k), ks, d, group, n_groups};
     kv::Int4Rows vr{static_cast<const uint8_t*>(v), vs, d, group, n_groups};
     return flash::launch<Q>(q, kr, vr, q_start, out, b, sq, skv, h, kh, d, d, scale, causal,
-                            stream);
+                            stream, wide);
   }
   kv::Int8Rows kr{static_cast<const int8_t*>(k), ks, d, group, n_groups};
   kv::Int8Rows vr{static_cast<const int8_t*>(v), vs, d, group, n_groups};
   return flash::launch<Q>(q, kr, vr, q_start, out, b, sq, skv, h, kh, d, d, scale, causal,
-                          stream);
+                          stream, wide);
+}
+
+int run(const void* q, int q_bf16, const void* k, const void* k_scales, const void* v,
+        const void* v_scales, int packed, int group, const void* q_start, void* out, int b,
+        int sq, int skv, int h, int kh, int d, float scale, int causal, void* stream,
+        bool wide) {
+  if (group <= 0 || d % group != 0 || (packed && d % 2)) return static_cast<int>(cudaErrorInvalidValue);
+  if (q_bf16)
+    return dispatch<__nv_bfloat16>(q, k, k_scales, v, v_scales, packed, group, q_start, out, b,
+                                   sq, skv, h, kh, d, scale, causal, stream, wide);
+  return dispatch<float>(q, k, k_scales, v, v_scales, packed, group, q_start, out, b, sq, skv,
+                         h, kh, d, scale, causal, stream, wide);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest D the kernel takes (its per-thread acc block).
-int flash_attention_quant_max_d() { return flash::MAX_D; }
+// The largest D the kernel takes (the wide instantiation's).
+int flash_attention_quant_max_d() { return flash::WIDE_MAX_D; }
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // q / out f32 (q_bf16 = 0) or bf16; k / v int8 (packed = 0) or packed
@@ -57,12 +69,18 @@ int flash_attention_quant(const void* q, int q_bf16, const void* k, const void* 
                           const void* v, const void* v_scales, int packed, int group,
                           const void* q_start, void* out, int b, int sq, int skv, int h,
                           int kh, int d, float scale, int causal, void* stream) {
-  if (group <= 0 || d % group != 0 || (packed && d % 2)) return static_cast<int>(cudaErrorInvalidValue);
-  if (q_bf16)
-    return dispatch<__nv_bfloat16>(q, k, k_scales, v, v_scales, packed, group, q_start, out, b,
-                                   sq, skv, h, kh, d, scale, causal, stream);
-  return dispatch<float>(q, k, k_scales, v, v_scales, packed, group, q_start, out, b, sq, skv,
-                         h, kh, d, scale, causal, stream);
+  return run(q, q_bf16, k, k_scales, v, v_scales, packed, group, q_start, out, b, sq, skv, h,
+             kh, d, scale, causal, stream, false);
+}
+
+// The same through the wide instantiation at any D <= 256: for tests only,
+// which hold it bitwise the narrow one at D <= 128.
+int flash_attention_quant_wide(const void* q, int q_bf16, const void* k, const void* k_scales,
+                               const void* v, const void* v_scales, int packed, int group,
+                               const void* q_start, void* out, int b, int sq, int skv, int h,
+                               int kh, int d, float scale, int causal, void* stream) {
+  return run(q, q_bf16, k, k_scales, v, v_scales, packed, group, q_start, out, b, sq, skv, h,
+             kh, d, scale, causal, stream, true);
 }
 
 }  // extern "C"

@@ -18,12 +18,17 @@ The kernels (CUDA C++ for sm_90a) replace the TPU kernels of
   ``paged_flash_attention_quant_kernel``, for int8 and packed-int4 pools
   with their f32 scale planes.
 
-The two dense kernels (body in ``csrc/flash_attention.cuh``) take a query
-offset: query row i of sequence b sits at absolute position q_start[b] + i
-(``q_start`` (B,) int32, default 0) and key positions count from 0, in key
-tiles of ``KV_TILE`` rows anchored at key 0.  A tile wholly above a row's
-diagonal is then an exact no-op for it, so a row's result is bitwise the
-same whatever chunk of its prompt it arrived in.
+The two dense kernels (body in ``csrc/flash_attention.cuh``) take head
+dims up to ``MAX_D`` = 256: a narrow instantiation for D, Dv <= 128 and a
+wide one, which stages K and V in 64-feature slices, above.  The wide one
+sums in the narrow one's order, so the test-only entry points
+:func:`flash_attention_wide` and :func:`flash_attention_quant_wide`, which
+force it at any head dim, are bitwise the narrow kernel at D <= 128.  They
+take a query offset: query row i of sequence b sits at absolute position
+q_start[b] + i (``q_start`` (B,) int32, default 0) and key positions count
+from 0, in key tiles of ``KV_TILE`` rows anchored at key 0.  A tile
+wholly above a row's diagonal is then an exact no-op for it, so a row's
+result is bitwise the same whatever chunk of its prompt it arrived in.
 
 The two paged kernels (body in ``csrc/paged_attention.cuh``) compute, for
 one query token per sequence,
@@ -54,6 +59,7 @@ from repro_torch.kernels.rowops import scalar
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_plain": 0,
             "flash_attention_quant": 0, "flash_attention_quant_plain": 0,
+            "flash_attention_wide": 0, "flash_attention_quant_wide": 0,
             "paged_flash_attention": 0, "paged_flash_attention_plain": 0,
             "paged_flash_attention_quant": 0,
             "paged_flash_attention_quant_plain": 0}
@@ -61,10 +67,10 @@ NEG_INF = -1e30
 # the key tile of the dense kernel, its plain version and the reference
 # wrapper (``bkv = min(128, Skv)``): the per-tile maxima follow it
 KV_TILE = 128
-# the largest head dims the dense kernels take (MAX_D of
+# the largest head dims the dense kernels take (WIDE_MAX_D of
 # csrc/flash_attention.cuh, which chip_smoke.py holds against the built
 # library): the "auto" attention route demotes wider heads to gather
-MAX_D = 128
+MAX_D = 256
 
 
 def reset_launches() -> None:
@@ -222,13 +228,14 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_attention":
-        lib.flash_attention.argtypes = [p, i, p, p, i, p, p, i, i, i, i, i, i, i, f, i, p]
-        lib.flash_attention.restype = ctypes.c_int
+        for fn in (lib.flash_attention, lib.flash_attention_wide):
+            fn.argtypes = [p, i, p, p, i, p, p, i, i, i, i, i, i, i, f, i, p]
+            fn.restype = ctypes.c_int
         lib.flash_attention_max_d.restype = ctypes.c_int
     elif name == "flash_attention_quant":
-        lib.flash_attention_quant.argtypes = [p, i, p, p, p, p, i, i, p, p,
-                                              i, i, i, i, i, i, f, i, p]
-        lib.flash_attention_quant.restype = ctypes.c_int
+        for fn in (lib.flash_attention_quant, lib.flash_attention_quant_wide):
+            fn.argtypes = [p, i, p, p, p, p, i, i, p, p, i, i, i, i, i, i, f, i, p]
+            fn.restype = ctypes.c_int
         lib.flash_attention_quant_max_d.restype = ctypes.c_int
     elif name == "paged_flash_attention":
         lib.paged_flash_attention.argtypes = [p, i, p, p, i, p, p, p,
@@ -374,6 +381,18 @@ def flash_attention(q, k, v, scale: float, causal: bool = True,
     contiguous, D, Dv <= ``MAX_D`` and ``q_start`` is None or (B,) int32.
     A CPU ``q`` runs the plain version; a CUDA ``q`` launches the kernel on
     the current stream, or raises."""
+    return _flash_attention("flash_attention", q, k, v, scale, causal, q_start)
+
+
+def flash_attention_wide(q, k, v, scale: float, causal: bool = True,
+                         q_start=None) -> torch.Tensor:
+    """Kernel #7 forced onto its wide instantiation at any D, Dv <=
+    ``MAX_D``, for the check that it is bitwise the narrow one at D <= 128
+    (``chip_smoke.py`` phase 14); the model never calls it."""
+    return _flash_attention("flash_attention_wide", q, k, v, scale, causal, q_start)
+
+
+def _flash_attention(symbol, q, k, v, scale, causal, q_start):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, causal, q_start)
     if q.device.type != "cuda":
@@ -389,15 +408,15 @@ def flash_attention(q, k, v, scale: float, causal: bool = True,
         raise ValueError(f"head dims {d}/{dv} exceed the kernel's {MAX_D}")
     build.check_operands(q, [t for t in (q, k, v, q_start) if t is not None])
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
-    rc = _lib("flash_attention").flash_attention(
+    rc = getattr(_lib("flash_attention"), symbol)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
         int(k.dtype == torch.bfloat16),
         None if q_start is None else q_start.data_ptr(), out.data_ptr(),
         b, sq, skv, h, kh, d, dv, float(scale), int(causal), build.stream_of(q))
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {rc} at "
+        raise RuntimeError(f"{symbol} launch failed: cudaError {rc} at "
                            f"(B={b}, Sq={sq}, Skv={skv}, H={h}, KH={kh}, D={d}, Dv={dv})")
-    LAUNCHES["flash_attention"] += 1
+    LAUNCHES[symbol] += 1
     return out
 
 
@@ -410,6 +429,21 @@ def flash_attention_quant(q, k_quant, k_scales, v_quant, v_scales,
     operand is contiguous, D <= ``MAX_D`` and ``q_start`` is None or (B,)
     int32.  A CPU ``q`` runs the plain version; a CUDA ``q`` launches the
     kernel on the current stream, or raises."""
+    return _flash_attention_quant("flash_attention_quant", q, k_quant, k_scales,
+                                  v_quant, v_scales, scale, kv_spec, causal, q_start)
+
+
+def flash_attention_quant_wide(q, k_quant, k_scales, v_quant, v_scales,
+                               scale: float, kv_spec, causal: bool = True,
+                               q_start=None) -> torch.Tensor:
+    """Kernel #8 forced onto its wide instantiation at any D <= ``MAX_D``,
+    as :func:`flash_attention_wide`; the model never calls it."""
+    return _flash_attention_quant("flash_attention_quant_wide", q, k_quant, k_scales,
+                                  v_quant, v_scales, scale, kv_spec, causal, q_start)
+
+
+def _flash_attention_quant(symbol, q, k_quant, k_scales, v_quant, v_scales,
+                           scale, kv_spec, causal, q_start):
     if q.device.type == "cpu":
         return flash_attention_quant_plain(q, k_quant, k_scales, v_quant,
                                            v_scales, scale, kv_spec, causal,
@@ -435,15 +469,15 @@ def flash_attention_quant(q, k_quant, k_scales, v_quant, v_scales,
     build.check_operands(q, [t for t in (q, k_quant, k_scales, v_quant, v_scales,
                                          q_start) if t is not None])
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    rc = _lib("flash_attention_quant").flash_attention_quant(
+    rc = getattr(_lib("flash_attention_quant"), symbol)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_quant.data_ptr(),
         k_scales.data_ptr(), v_quant.data_ptr(), v_scales.data_ptr(),
         int(kv_spec.dtype == "int4"), group,
         None if q_start is None else q_start.data_ptr(), out.data_ptr(),
         b, sq, skv, h, kh, d, float(scale), int(causal), build.stream_of(q))
     if rc != 0:
-        raise RuntimeError(f"flash_attention_quant launch failed: cudaError {rc} "
+        raise RuntimeError(f"{symbol} launch failed: cudaError {rc} "
                            f"at (B={b}, Sq={sq}, Skv={skv}, H={h}, KH={kh}, D={d}, "
                            f"{kv_spec.describe()})")
-    LAUNCHES["flash_attention_quant"] += 1
+    LAUNCHES[symbol] += 1
     return out

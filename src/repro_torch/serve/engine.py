@@ -13,8 +13,20 @@
   step per prefilling slot, through the same ``paged_step``; non-final
   chunks run a finite-logits check, only the final chunk samples.
 - **Admission.**  ``submit()`` validates prompts (length vs ``max_seq``,
-  pool capacity in pages, token ids, budget, unique rid); ``_admit`` holds
-  the queue FIFO until the free list covers the head's prompt.
+  pool capacity in pages, token ids, budget, deadline, unique rid);
+  ``_admit`` holds the queue FIFO until the free list covers the head's
+  prompt.
+- **Deadlines and the clock** (``clock=``, default ``time.monotonic``;
+  ``default_deadline_s=`` for requests that set none).  ``submit`` stamps
+  ``submitted_at``, admission ``started_at``, the prefill-sampled token
+  ``first_token_at``, and every terminal state ``finished_at``, so each
+  record's ``timings`` carries ``queue_s``, ``first_token_s`` and
+  ``total_s``.  A ``deadline_s <= 0`` is rejected ``bad_deadline``; at the
+  top of every ``run`` step a request past ``submitted_at + deadline_s``
+  times out (``ErrorKind.DEADLINE``), queued or in flight, its slot and
+  pages released as a failure's are.  The clock is read where the
+  reference reads it, so one fake clock gives both engines the same
+  timings.
 
 Sampling generators derive only from (engine seed, rid, token index) and
 masked attention positions weigh exactly zero, so a request's tokens do not
@@ -28,8 +40,9 @@ depend on its slot, its pages or its co-tenants.
 
 Not ported yet (ROADMAP Queue 1): fault injection and the chaos contract,
 retries with backoff (an attempt that raises fails its request at once),
-deadlines and cancel, the stall watchdog, the journal and snapshot/restore,
-meshes, and the stacked and per-slot modes of other families.
+cancel, the queue bound, the stall watchdog, the journal and
+snapshot/restore, meshes, and the stacked and per-slot modes of other
+families.
 
 The page pool is written in place by ``paged_step``, so a failed attempt
 may leave writes in the failing request's own pages (or the null page);
@@ -58,7 +71,8 @@ name the route, the kernel it launches and the reason of a demotion.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,7 +132,9 @@ class ServeEngine:
                  kernel_impl: Optional[str] = "auto", ctx=None, *,
                  page_size: int = 16, kv_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 kv_spec: Optional[KVSpec] = None, device="cuda"):
+                 kv_spec: Optional[KVSpec] = None,
+                 default_deadline_s: Optional[float] = None,
+                 clock: Callable[[], float] = time.monotonic, device="cuda"):
         self.device = resolve_device(device)
         if cfg.family not in model_lib.PAGED_FAMILIES:
             raise NotImplementedError(
@@ -145,6 +161,8 @@ class ServeEngine:
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.seed = seed
+        self.default_deadline_s = default_deadline_s
+        self.clock = clock
         self.mode = "paged"
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
@@ -184,12 +202,16 @@ class ServeEngine:
     def submit(self, req: Request) -> bool:
         """Validate and enqueue; returns False (with a ``REJECTED`` record)
         when admission control refuses the request."""
+        now = self.clock()
+        req.submitted_at = now
+        if req.deadline_s is None:
+            req.deadline_s = self.default_deadline_s
         err = self._validate(req)
         if err is not None:
             if err[0] is ErrorKind.DUPLICATE_RID:
                 # reject the duplicate in place; the original's record stays
                 req.error_kind, req.error = err
-                req.advance(RequestState.REJECTED)
+                req.advance(RequestState.REJECTED, now)
                 self.counters["rejected"] += 1
                 return False
             self._finalize(req, RequestState.REJECTED, *err)
@@ -204,6 +226,7 @@ class ServeEngine:
         ``TIMED_OUT`` records."""
         for _ in range(max_steps):
             self.counters["steps"] += 1
+            self._expire_deadlines()
             self._admit()
             if not any(r is not None for r in self.slot_req) and not self.queue:
                 break
@@ -314,6 +337,9 @@ class ServeEngine:
         if req.max_new_tokens < 1:
             return (ErrorKind.BAD_TOKEN_BUDGET,
                     f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
+        if req.deadline_s is not None and req.deadline_s <= 0:
+            return (ErrorKind.BAD_DEADLINE,
+                    f"deadline_s must be > 0, got {req.deadline_s}")
         return None
 
     def _admit(self) -> bool:
@@ -328,7 +354,7 @@ class ServeEngine:
                     return progressed
                 req = self.queue.pop(0)
                 progressed = True
-                req.advance(RequestState.PREFILLING)
+                req.advance(RequestState.PREFILLING, self.clock())
                 self.counters["admitted"] += 1
                 self.slot_req[i] = req
                 self._prefill_off[i] = 0
@@ -394,13 +420,14 @@ class ServeEngine:
 
     def _finish_prefill(self, i: int, req: Request, tok: int):
         req.out_tokens.append(int(tok))
+        req.first_token_at = self.clock()
         # the prefill-sampled token obeys the same termination predicate as
         # decode tokens
         if self._should_finish(req, tok):
             self._release_slot(i)
             self._finalize(req, RequestState.FINISHED)
         else:
-            req.advance(RequestState.DECODING)
+            req.advance(RequestState.DECODING, self.clock())
 
     # -- stepping -----------------------------------------------------------
 
@@ -518,9 +545,31 @@ class ServeEngine:
                   error_kind: Optional[str] = None, error: Optional[str] = None):
         req.error_kind = error_kind
         req.error = error
-        req.advance(status)
+        req.advance(status, self.clock())
         self.records[req.rid] = RequestRecord.from_request(req)
         self.counters[status.value] = self.counters.get(status.value, 0) + 1
+
+    def _expire_deadlines(self):
+        """Time out every request, queued or in flight, whose deadline has
+        passed on the engine clock; an in-flight one keeps its tokens and
+        frees its slot and pages."""
+        now = self.clock()
+        for req in list(self.queue):
+            at = req.deadline_at()
+            if at is not None and now >= at:
+                self.queue.remove(req)
+                self._finalize(req, RequestState.TIMED_OUT, ErrorKind.DEADLINE,
+                               f"deadline ({req.deadline_s:.3f}s) expired "
+                               f"while queued")
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            at = req.deadline_at()
+            if at is not None and now >= at:
+                self._release_slot(i)
+                self._finalize(req, RequestState.TIMED_OUT, ErrorKind.DEADLINE,
+                               f"deadline ({req.deadline_s:.3f}s) expired "
+                               f"after {len(req.out_tokens)} tokens")
 
     def _drain_unfinished(self, kind: str, msg: str):
         """Every request still queued or in a slot becomes a TIMED_OUT

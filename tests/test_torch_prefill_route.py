@@ -140,24 +140,25 @@ def test_streams_invariant_to_chunking_and_pages(setup, spec):
 def test_auto_route_demotes_wide_heads(setup):
     """Under "auto" a CUDA device takes the kernel route; a dense
     attention (prefill, forward, walk) only for head dims the flash kernels
-    take (``flash_attn.MAX_D``), wider heads demoting to gather from
-    shapes, with the reason in ``attention_plan`` and in the engine's
-    report.  Decode keeps the paged kernels, which have no such limit; an
-    explicit route is kept (its wrapper raises on the card).  Nothing here
-    needs a card."""
+    take (``flash_attn.MAX_D``, 256), wider heads (here MAX_D + 64)
+    demoting to gather from shapes, with the reason in ``attention_plan``
+    and in the engine's report.  Decode keeps the paged kernels, which have
+    no such limit; an explicit route is kept (its wrapper raises on the
+    card).  Nothing here needs a card."""
     cuda = torch.device("cuda")
     auto = KernelContext()
-    assert auto.attention_route(cuda, head_dim=256) == "gather"
+    wide = flash_attn.MAX_D + 64
+    assert auto.attention_route(cuda, head_dim=wide) == "gather"
     assert auto.attention_route(cuda, head_dim=flash_attn.MAX_D) == "kernel"
-    assert auto.attention_route(cuda, head_dim=256, decode=True) == "kernel"
-    plan = auto.attention_plan(cuda, 256)
+    assert auto.attention_route(cuda, head_dim=wide, decode=True) == "kernel"
+    plan = auto.attention_plan(cuda, wide)
     assert plan.route == "gather" and "MAX_D" in plan.demoted
-    assert KERNEL_ROUTE.attention_plan(cuda, 256) == ("kernel", None)
-    assert auto.attention_plan("cpu", 256) == ("gather", None)
-    rep = attention_report(auto, cuda, 256, KVSpec("int8"), decode=False)
+    assert KERNEL_ROUTE.attention_plan(cuda, wide) == ("kernel", None)
+    assert auto.attention_plan("cpu", wide) == ("gather", None)
+    rep = attention_report(auto, cuda, wide, KVSpec("int8"), decode=False)
     assert rep["route"] == "gather" and rep["kernel"] is None
-    assert "head_dim 256" in rep["demoted"]
-    assert attention_report(auto, cuda, 256, KVSpec("int8"), decode=True) == {
+    assert f"head_dim {wide}" in rep["demoted"]
+    assert attention_report(auto, cuda, wide, KVSpec("int8"), decode=True) == {
         "route": "kernel", "kernel": "paged_flash_attention_quant",
         "kv": "int8", "demoted": None}
     for decode, kernel in ((False, "flash_attention"),
@@ -175,8 +176,9 @@ def test_auto_route_demotes_wide_heads(setup):
 
 
 def test_wide_head_model_serves_on_the_gather_route():
-    """A head_dim-256 model (as Gemma's) under "auto" on the CPU: the
-    routes are planned from shapes, and the engine serves it."""
+    """A head_dim-256 model (as Gemma's) under "auto" on the CPU, where
+    "auto" takes the gather route: the routes are planned from shapes, and
+    the engine serves it (its kernel route: ``test_torch_gemma``)."""
     cfg = reduced(configs()[1], head_dim=256)
     params = model.init_params(cfg, seed=0, device="cpu")
     eng, got = _streams(cfg, params, [np.arange(5, dtype=np.int32)], page_size=4)
