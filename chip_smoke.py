@@ -101,9 +101,12 @@ Phases, each fatal on failure:
      a loss);
  14. Gemma-7b, head_dim 256: (a) the dense flash kernels' wide
      instantiation bitwise the narrow one at D 64/96/128 (ragged S, GQA,
-     MQA, a query offset, D != Dv, int8 and int4 codes), then #7 and #8 at
-     Gemma's heads (B 1, S 2048, H 16, D 256; f32 and bf16 q), a 100-row
-     chunk at 1900, MQA at D 256 and #7 at D 192 / Dv 128, each within the
+     MQA, a query offset, D != Dv, int8 and int4 codes) and at phase 3's
+     prefill shapes, timed beside it there; then #7 and #8 at Gemma's heads
+     (B 1, S 2048, H 16, D 256; f32 and bf16 q), a 100-row chunk at 1900,
+     the served shapes (a bf16 q over an f32 pool: 12 and 16 rows over one
+     slot's 64 gathered rows, a 777-token prompt whole and its last 77-row
+     chunk), MQA at D 256 and #7 at D 192 / Dv 128, each within the
      f32 bound of its plain version, #8 bitwise #7 on the dequantized codes
      and a chunk's rows bitwise the whole prompt's, with times beside the
      bound and SDPA; (b) Gemma-7b at full width (GEMMA_LAYERS layers, RTN +
@@ -2749,13 +2752,22 @@ WIDE_BITWISE = (
 # kernels #7 and #8 at D 256 (and #7 at D 192 / Dv 128), each (B, Sq, Skv,
 # H, KH, D, Dv, q_start, q dtype): Gemma-7b's heads over a whole 2048-token
 # prompt with an f32 and a bf16 q, a 100-row chunk of that prompt at 1900
-# (its rows must be bitwise the whole prompt's), MQA at D 256, and the
-# q·k / v widths 192 / 128 (MLA's); #8 takes D = Dv only
+# (its rows must be bitwise the whole prompt's), what serving launches (the
+# served model's bf16 q over an f32 pool: a 12-row prompt and the 16-row
+# second chunk of a 32-row one over one slot's gathered MPB·P = 64 rows, and
+# phase 14(c)'s 777-token prompt whole and its last 77-row chunk at 700, a
+# partial query and key tile each), MQA at D 256, and the q·k / v widths
+# 192 / 128 (MLA's); #8 takes D = Dv only
 GEMMA_FLASH = {
     "gemma": (1, 2048, 2048, 16, 16, 256, 256, 0, "float32"),
     "gemma-bf16": (1, 2048, 2048, 16, 16, 256, 256, 0, "bfloat16"),
     "gemma-chunk": (1, 100, 2048, 16, 16, 256, 256, 1900, "float32"),
     "gemma-chunk-bf16": (1, 100, 2048, 16, 16, 256, 256, 1900, "bfloat16"),
+    "gemma-serve12": (1, 12, 64, 16, 16, 256, 256, 0, "bfloat16"),
+    "gemma-serve": (1, 32, 64, 16, 16, 256, 256, 0, "bfloat16"),
+    "gemma-serve-chunk": (1, 16, 64, 16, 16, 256, 256, 16, "bfloat16"),
+    "gemma-777": (1, 777, 777, 16, 16, 256, 256, 0, "bfloat16"),
+    "gemma-777-chunk": (1, 77, 777, 16, 16, 256, 256, 700, "bfloat16"),
     "mqa": (4, 512, 512, 8, 1, 256, 256, 0, "float32"),
     "d192-dv128": (2, 512, 512, 16, 4, 192, 128, 0, "float32"),
 }
@@ -2763,13 +2775,16 @@ GEMMA_FLASH = {
 
 def phase_gemma_kernels(device):
     """Phase 14(a).  The wide instantiation bitwise the narrow one at every
-    case of WIDE_BITWISE; then at every shape of GEMMA_FLASH kernel #7 (and
+    case of WIDE_BITWISE and at every shape of PREFILL_SHAPES (#7 over f32
+    K/V, #8 over each pool of QUANT_POOLS), timed beside it there; then at
+    every shape of GEMMA_FLASH kernel #7 (and
     #8 on each pool of QUANT_POOLS where D = Dv) within ``_flash_tolerance``
     of its plain version, #8 bitwise #7 on the dequantized codes, a chunk's
     rows (and the prompt's last row alone) bitwise the whole prompt's, all
     fatal; timed (median of 30, L2 flushed) beside the bound, the plain
     version and SDPA on an expanded-KV copy (for #8 as context only).
-    Returns (worst error per kernel, times per (kernel, label, pool))."""
+    Returns (worst error per kernel, times per (kernel, label, pool), the
+    narrow and wide times per "label-pool" of PREFILL_SHAPES)."""
     import torch
 
     from repro_torch.bench.common import flush_buffer, time_ms
@@ -2804,6 +2819,35 @@ def phase_gemma_kernels(device):
         if not same:
             raise SystemExit("the wide flash-attention instantiation is not bitwise the "
                              "narrow one at a head dim both take")
+
+    # the wide instantiation's time beside the narrow one's at phase 3's
+    # prefill shapes (D 64 / 96): #7 over f32 K/V and #8 over each quantized
+    # pool, the outputs bitwise equal (fatal)
+    versus = {}
+    for label, (b, sq, skv, h, kh, d, q0, qd) in PREFILL_SHAPES.items():
+        q = randn(b, sq, h, d, dtype=qd)
+        k, v = randn(b, skv, kh, d), randn(b, skv, kh, d) * 1.5
+        qs = torch.full((b,), q0, dtype=torch.int32, device=device) if q0 else None
+        scale = d ** -0.5
+        calls = {"f32": (flash_attn.flash_attention, flash_attn.flash_attention_wide,
+                         (q, k, v, scale))}
+        for pool in QUANT_POOLS:
+            spec = _kv_spec(pool)
+            calls[pool] = (flash_attn.flash_attention_quant,
+                           flash_attn.flash_attention_quant_wide,
+                           (q, *quantize_kv(k, spec), *quantize_kv(v, spec), scale, spec))
+        for pool, (narrow_fn, wide_fn, args) in calls.items():
+            same = torch.equal(narrow_fn(*args, q_start=qs), wide_fn(*args, q_start=qs))
+            t_n = time_ms(lambda: narrow_fn(*args, q_start=qs), flush)
+            t_w = time_ms(lambda: wide_fn(*args, q_start=qs), flush)
+            versus[f"{label}-{pool}"] = {"narrow_ms": t_n, "wide_ms": t_w}
+            print(f"  wide vs narrow at {label:<16} {pool:<9} narrow {t_n * 1e3:10.2f} us  "
+                  f"wide {t_w * 1e3:10.2f} us  ({t_w / t_n:.3f}x)  "
+                  f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+            if not same:
+                raise SystemExit(f"the wide flash-attention instantiation is not bitwise "
+                                 f"the narrow one at {label} {pool}")
+        del q, k, v, calls
 
     worst = {"flash_attention": 0.0, "flash_attention_quant": 0.0}
     timed, whole = {}, {}
@@ -2881,7 +2925,7 @@ def phase_gemma_kernels(device):
                   f"{b_ms * 1e3:9.2f} us ({by})  library none (context: SDPA on a "
                   f"pre-dequantized KV-expanded copy {t_c * 1e3:.2f} us)", flush=True)
             del kq, ks, vq, vs, kd, vd, y, y7, y_plain, last
-    return worst, timed
+    return worst, timed, versus
 
 
 def phase_gemma(device):
@@ -2903,8 +2947,8 @@ def phase_gemma(device):
 
     t0 = time.perf_counter()
     print("  (a) kernels #7 and #8 at head_dim 256 (the wide instantiation)", flush=True)
-    worst, timed = phase_gemma_kernels(device)
-    out = {"kernels_s": time.perf_counter() - t0}
+    worst, timed, versus = phase_gemma_kernels(device)
+    out = {"kernels_s": time.perf_counter() - t0, "wide_vs_narrow": versus}
 
     print(f"  (b) Gemma-7b, {GEMMA_LAYERS} layers, served (chained path)", flush=True)
     torch.cuda.synchronize()
@@ -2980,11 +3024,12 @@ def phase_gemma(device):
     return out, worst, timed, counts
 
 
-def add_gemma_entries(kernels, worst, timed, counts):
+def add_gemma_entries(kernels, worst, timed, counts, versus):
     """The ``d256`` sub-entry of the dense flash kernels: Gemma-7b's whole
     2048-token prompt (f32 q; #8 over int8 codes), its launches in phase
-    14's main paths, which the entries' own ``launches`` then include, and
-    the largest |kernel - plain| of phase 14(a).  Phase 14's launches of
+    14's main paths, which the entries' own ``launches`` then include, the
+    largest |kernel - plain| of phase 14(a), and the wide instantiation's
+    times beside the narrow one's at phase 3's prefill shapes (``versus``).  Phase 14's launches of
     #2, #3, #6 and #9 join their entries too."""
     at = ("Gemma-7b's heads, B 1 S 2048 H 16 KH 16 D 256, f32 q, L2 flushed; launches "
           "from phase 14's serving, long prompts and deadline run")
@@ -3008,6 +3053,8 @@ def add_gemma_entries(kernels, worst, timed, counts):
                                                  "context_sdpa_ms" if name.endswith("quant")
                                                  else "library_ms"), v))
                        for (n, label, p), v in timed.items() if n == name},
+            "wide_vs_narrow": {k: t for k, t in versus.items()
+                               if k.endswith("-f32") != name.endswith("quant")},
         }
         if name.endswith("quant"):
             entry["d256"]["context_sdpa_ms"] = t_l
@@ -3260,7 +3307,8 @@ def main() -> int:
                    for (name, label, pool), v in prefill_timed.items()
                    if name == "flash_attention_quant"},
     })
-    add_gemma_entries(kernels, gemma_worst, gemma_timed, gemma_counts)
+    add_gemma_entries(kernels, gemma_worst, gemma_timed, gemma_counts,
+                      gemma["wide_vs_narrow"])
     print(json.dumps({"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
                       "phi3_paths": paths, "phi3_kv_serve": kv_serve,
                       "calibration": calib, "long_prefill": long_prefill,
