@@ -134,9 +134,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): device memory and non-tensor f32
+# H100 SXM peaks (NVIDIA data sheet): device memory, dense int8 and TF32
+# tensor cores, non-tensor f32
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+TF32_OPS_PER_S = 495e12
 F32_OPS_PER_S = 67e12
 
 # Phi-3-mini's depth served here: all of its 32 layers.  The RTN+SVD
@@ -191,11 +193,13 @@ def launches():
 # ---------------------------------------------------------------------------
 
 
-def _bound(nbytes, int8_ops=0, f32_ops=0):
+def _bound(nbytes, int8_ops=0, f32_ops=0, tf32_ops=0):
     """Least time on an H100 SXM (ms) and what bounds it: the bytes over
-    3.35 TB/s, or the int8 and f32 operations over their peak rates."""
+    3.35 TB/s, or the int8, f32 and TF32 operations over their peak
+    rates."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = int8_ops / INT8_OPS_PER_S + f32_ops / F32_OPS_PER_S
+    t_ops = (int8_ops / INT8_OPS_PER_S + f32_ops / F32_OPS_PER_S
+             + tf32_ops / TF32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -522,7 +526,7 @@ def phase_rotate_kernels(device):
 # (SLOTS rows, max_seq 64), with one inactive row; the long one is a ragged
 # Phi-3-mini batch at up to 4096 tokens; the last has Gemma-7b's heads
 # (16/16, head_dim 256), whose prefill phase 14 serves through the dense
-# kernels' wide instantiation.
+# kernels at D 256.
 ATTN_SHAPES = {
     "smollm-serve": (SLOTS, 9, 3, 64, PAGE, 4, (64, 37, 13, 0)),
     "phi3-serve": (SLOTS, 32, 32, 96, PAGE, 4, (64, 37, 13, 0)),
@@ -722,16 +726,37 @@ FLASH_SHAPES = {
 
 
 def _flash_tolerance(q, k, v, scale, y_plain, q_start=0):
-    """Elementwise bound on |kernel - plain| of dense causal attention: the
-    two take the same f32 steps on the same 128-row key tiles and differ
-    only in the order of three sums, so a score moves by at most 2·D·u·S
-    (u = 2⁻²⁴, S = Σ_d |q_d·scale|·max_keys |k_d| >= the row's largest
-    Σ|q·scale·k|) and each of the row's sums by 2·(N + 2·tiles + 4)·u
-    relative over its N = qpos + 1 keys (query row i at qpos = q_start +
-    i); twice both, times max |v| of the kv head.  A bf16 output adds one
-    bf16 ulp of the larger side (at most 2⁻⁶ of the plain value's
-    magnitude).  k and v are the values the kernel attends over (for a
-    quantized pool, its codes dequantized)."""
+    """Elementwise bound on |kernel - plain| of dense causal attention, the
+    accuracy standard of the tensor-core body (derived at the head of
+    ``csrc/flash_attention.cuh``, stated before its first card run and never
+    fitted to measured errors; phase 3's probe checks its two premises).
+    Both versions take the same f32 steps on the same 128-row key tiles; the
+    kernel's two products run as three TF32 passes (hi·hi apart from the
+    cross terms) of m16n8k8 mmas, n = ceil(D/8) of them per pass and score.
+
+    * Premise 1, the split (``flash_attn.tf32_split``, ``cvt.rna.tf32``):
+      a product errs by at most 12(1 + 2⁻¹⁰)·u·|a·b| (u = 2⁻²⁴).
+    * Premise 2, each mma: within (k + 1)·2⁻²³ = 18u (k = 8) of its largest
+      addend.
+    * So a kernel score is within (18n + 13)(1 + 2⁻⁸)·u·S of the exact one,
+      and the plain version's within D·u·S, S = Σ_d |q_d·scale|·max_keys
+      |k_d|: |kernel - plain| <= δ = (18n + 13 + D)(1 + 2⁻⁸)·u·S per score
+      (the CUDA-core body's bound was 2·D·u·S), which moves the output by at
+      most 2·δ·max|v|.
+    * The sums over a row's N = qpos + 1 keys in ``tiles`` = ceil(N / 128)
+      tiles (query row i at qpos = q_start + i): the plain version's Σp
+      and p·V, and the kernel's Σp (f32 on the CUDA cores), each err by at
+      most (N + 2·tiles + 4)·u relative; the kernel's p·V (16 mmas a pass
+      per tile) by ((18·16 + 13)(1 + 2⁻⁸) + 2·tiles + 4)·u; each moves the
+      output by that times max|v| of the kv head.
+
+    The bound before the tensor cores was 2·max|v|·(2·D·u·S + 2·(N +
+    2·tiles + 4)·u).  A bf16 output adds one bf16 ulp of the larger side
+    (at most 2⁻⁶ of the plain value's magnitude).  k and v are the values
+    the kernel attends over (for a quantized pool, its codes
+    dequantized)."""
+    import math
+
     import torch
 
     u = 2.0 ** -24
@@ -746,21 +771,161 @@ def _flash_tolerance(q, k, v, scale, y_plain, q_start=0):
     vmax = vmax.repeat_interleave(g, dim=1)[:, None, :]  # (B, 1, H)
     n = q_start + torch.arange(1, sq + 1, dtype=f64, device=q.device)[None, :, None]
     tiles = torch.ceil(n / 128)
-    rel = 2 * d * u * s_max + 2 * (n + 2 * tiles + 4) * u
-    tol = (2 * vmax * rel)[..., None]
+    score = (18 * math.ceil(d / 8) + 13 + d) * (1 + 2.0 ** -8) * u * s_max
+    sums = (3 * (n + 2 * tiles + 4) + (18 * 16 + 13) * (1 + 2.0 ** -8) + 2 * tiles + 4) * u
+    tol = (vmax * (2 * score + sums))[..., None]
     if y_plain.dtype == torch.bfloat16:
         tol = tol + 2.0 ** -6 * y_plain.double().abs()
     return tol
 
 
 def _flash_bound(shape):
-    """Least time of one causal call on an H100 SXM (ms) and what bounds it:
-    q, k, v and the output moved once each, or the 4·B·H·D·S(S+1)/2 f32
-    operations of the causal product at the non-tensor f32 rate."""
+    """Least time of one causal call on an H100 SXM (ms), what bounds it,
+    and the CUDA-core bound beside it: q, k, v and the output moved once
+    each, or the 4·B·H·D·S(S+1)/2 f32 operations of the causal products as
+    three TF32 passes at 495 TFLOP/s (the tensor-core body's arithmetic);
+    the last value counts the same operations at the non-tensor f32 rate
+    (the CUDA-core body's)."""
     b, s, h, kh, d, dtype = shape
     item = 4 if dtype == "float32" else 2
     nbytes = item * b * s * d * (2 * h + 2 * kh)
-    return _bound(nbytes, f32_ops=4 * b * h * d * s * (s + 1) // 2)
+    ops = 4 * b * h * d * s * (s + 1) // 2
+    return (*_bound(nbytes, tf32_ops=3 * ops), _bound(nbytes, f32_ops=ops)[0])
+
+
+def _tensor_core_instructions(names):
+    """The count of HMMA (tensor-core) instructions in each built library's
+    SASS (``cuobjdump -sass``)."""
+    from repro_torch.kernels import build
+
+    cuobjdump = str(Path(build.nvcc_path()).parent / "cuobjdump")
+    out = {}
+    for name in names:
+        sass = subprocess.run([cuobjdump, "-sass", str(build.target(name))],
+                              capture_output=True, text=True, check=True).stdout
+        out[name] = sum("HMMA" in line for line in sass.splitlines())
+    return out
+
+
+# the premises' probe: values whose TF32 rounding is known (ties at the 11th
+# significand bit both ways and both signs, a carry into the exponent, the
+# largest normals, the smallest normal, pi), and one value on each side of
+# a tie; subnormals are printed and held to the split's underflow floor
+TF32_PROBE_VALUES = (
+    1.0, 1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11), -(1 + 3 * 2 ** -11),
+    1 + 2 ** -11 + 2 ** -23, 1 + 2 ** -11 - 2 ** -23, 2 - 2 ** -23, 2 - 2 ** -12,
+    3.141592653589793, -0.1, 1e-3, 65504.0, 3.0e38, 2 ** -126, 0.0, -0.0,
+)
+TF32_PROBE_SUBNORMAL = (2 ** -140, 3 * 2 ** -149, -1e-40)
+
+
+def phase_tc_probe(device):
+    """Phase 3's probe of the two premises of the dense kernels' accuracy
+    standard (``csrc/flash_attention.cuh``, ``_flash_tolerance``), fatal:
+
+    * premise 1: the kernels' split of each value of TF32_PROBE_VALUES
+      bitwise ``flash_attn.tf32_split`` (round to nearest, ties away from
+      zero, 13 low bits cleared), hi and lo TF32 values, |x - hi - lo| <=
+      2⁻²²|x|; the subnormals of TF32_PROBE_SUBNORMAL within 2⁻¹³⁷ (printed
+      either way);
+    * premise 2: rows of one m16n8k8 TF32 mma on chosen addends (1 plus
+      tiny products, which round-to-nearest would round up; a 3/4-ulp
+      addend on each sign; cancelling sums; a wide spread; exact products;
+      zero products onto a nonzero C), each output within (k + 1)·2⁻²³ of
+      its largest addend of the exact sum.  What the card does is printed:
+      each result beside the exact sum and f32 round-to-nearest's, and
+      whether zero products leave C bitwise unchanged."""
+    import torch
+
+    from repro_torch.kernels import flash_attn
+
+    f32 = torch.float32
+    x = torch.tensor(TF32_PROBE_VALUES + TF32_PROBE_SUBNORMAL, dtype=f32, device=device)
+    hi, lo, _ = flash_attn.tc_probe(x, *(torch.zeros(shape, dtype=f32, device=device)
+                                        for shape in ((16, 8), (8, 8), (16, 8))))
+    want_hi, want_lo = flash_attn.tf32_split(x.cpu())
+    n = len(TF32_PROBE_VALUES)
+    hi, lo = hi.cpu(), lo.cpu()
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    normal_ok = (torch.equal(bits(hi[:n]), bits(want_hi[:n]))
+                 and torch.equal(bits(lo[:n]), bits(want_lo[:n]))
+                 and not bool((bits(hi) & 0x1FFF).any()) and not bool((bits(lo) & 0x1FFF).any()))
+    resid = (x.cpu().double() - hi.double() - lo.double()).abs()
+    normal_ok = normal_ok and bool((resid[:n] <= 2.0 ** -22 * x.cpu()[:n].double().abs()).all())
+    sub_ok = bool((resid[n:] <= 2.0 ** -137).all())
+    for i, v in enumerate(TF32_PROBE_VALUES + TF32_PROBE_SUBNORMAL):
+        print(f"    split {v!r:>24}: hi {hi[i].item()!r} lo {lo[i].item()!r} (emulation "
+              f"{want_hi[i].item()!r} / {want_lo[i].item()!r}); |x - hi - lo| "
+              f"{resid[i].item():.3e}", flush=True)
+    print(f"  premise 1 (cvt.rna.tf32.f32): normal values bitwise the emulation and "
+          f"within 2^-22|x|: {normal_ok}; subnormals within 2^-137: {sub_ok}", flush=True)
+
+    # premise 2: each row r of A against B's column 0 (all ones) gives
+    # D[r, 0] = C[r, 0] + Σ_k A[r, k]; column 1 holds 1 + 2^-10 in its first
+    # row, so D[r, 1] = C[r, 1] + A[r, 0]·(1 + 2^-10) (one product of two
+    # 11-bit significands, exact in f32 at "exact products"); columns 2-7
+    # are zeros, so D[r, j > 1] = C[r, j] plus zero products
+    t = 2.0 ** -24
+    ulp1 = 2.0 ** -23
+    rows = {
+        "1 + 8 x 2^-24": (1.0, [t] * 8),
+        "1 + 3/4 ulp": (1.0, [0.75 * ulp1] + [0.0] * 7),
+        "-1 - 3/4 ulp": (-1.0, [-0.75 * ulp1] + [0.0] * 7),
+        "1 + 1/2 ulp + tiny": (1.0, [0.5 * ulp1, 2.0 ** -40] + [0.0] * 6),
+        "cancel: 1 - 1 + 2^-20 + 2^-30": (1.0, [-1.0, 2.0 ** -20, 2.0 ** -30] + [0.0] * 5),
+        "spread: 0 + 1 + 7 x 2^-25": (0.0, [1.0] + [2.0 ** -25] * 7),
+        "2^24 + 8 x 1": (2.0 ** 24, [1.0] * 8),
+        "exact products": (0.0, [1 + 2 ** -10] + [0.0] * 7),
+        "alternating": (0.5, [1.0, -1.0 + ulp1, 2.0 ** -22, -(2.0 ** -22), 3.0, -3.0,
+                              2.0 ** -30, 0.0]),
+        "0 onto C = 1 + 2^-23": (1 + ulp1, [0.0] * 8),
+        "-0 onto C = -(1 + 2^-23)": (-(1 + ulp1), [-0.0] * 8),
+        "0 onto C = 1/3": (1 / 3, [0.0] * 8),
+        "0 onto C = 2^-120 x 1.7": (2.0 ** -120 * 1.7, [0.0] * 8),
+        "0 onto C = 0": (0.0, [0.0] * 8),
+        "mixed: 1/3 + 8 x 1/7": (1 / 3, [1 / 7] * 8),
+        "large: 3e38 - 3e38 + 1": (1.0, [3.0e38, -3.0e38] + [0.0] * 6),
+    }
+    a = torch.zeros((16, 8), dtype=f32)
+    c = torch.zeros((16, 8), dtype=f32)
+    for r, (c0, terms) in enumerate(rows.values()):
+        c[r, :] = c0
+        a[r] = flash_attn.tf32_split(torch.tensor(terms, dtype=f32))[0]  # TF32 values
+    bt = torch.zeros((8, 8), dtype=f32)
+    bt[0] = 1.0  # B's column 0: ones
+    bt[1, 0] = 1 + 2 ** -10
+    _, _, d = flash_attn.tc_probe(x, a.to(device), bt.to(device), c.to(device))
+    d = d.cpu()
+    model_ok, zero_same = True, True
+    for r, label in enumerate(rows):
+        exact = float(c[r, 0].double() + a[r].double().sum())
+        largest = max([abs(float(c[r, 0]))] + [abs(float(v)) for v in a[r]])
+        limit = 9 * 2.0 ** -23 * largest
+        got = float(d[r, 0])
+        rn = torch.tensor(float(c[r, 0]), dtype=f32)
+        for v in a[r]:
+            rn = rn + v
+        prod = float(a[r, 0].double() * (1 + 2 ** -10))
+        exact1 = float(c[r, 1].double()) + prod
+        ok = (abs(got - exact) <= limit and abs(float(d[r, 1]) - exact1)
+              <= 9 * 2.0 ** -23 * max(abs(float(c[r, 1])), abs(prod)))
+        same = torch.equal(bits(d[r, 2:]), bits(c[r, 2:]))
+        model_ok = model_ok and ok
+        zero_same = zero_same and same
+        print(f"    mma {label:<30} card {got!r:<24} exact {exact!r:<24} f32 round-to-"
+              f"nearest in order {rn.item()!r:<24} |card - exact| {abs(got - exact):.3e} "
+              f"<= {limit:.3e}; C + A[0]·(1 + 2^-10): card {float(d[r, 1])!r} exact "
+              f"{exact1!r}; within the model: {ok}; zero products onto C bitwise: {same}",
+              flush=True)
+    print(f"  premise 2 (m16n8k8 TF32 mma): every row within 9 x 2^-23 of its largest "
+          f"addend: {model_ok}; zero products leave C bitwise unchanged: {zero_same}",
+          flush=True)
+    if not (normal_ok and sub_ok and model_ok):
+        raise SystemExit("the card breaks a premise of the dense flash kernels' accuracy "
+                         "standard (see the probe above): widen the model and restate it")
+    return {"split_bitwise": normal_ok, "subnormal_within_floor": sub_ok,
+            "mma_within_model": model_ok, "zero_products_keep_c": zero_same,
+            "mma": {label: float(d[r, 0]) for r, label in enumerate(rows)}}
 
 
 def phase_flash_kernels(device):
@@ -804,11 +969,11 @@ def phase_flash_kernels(device):
         t_l = time_ms(lambda: F.scaled_dot_product_attention(
             ql, kl, vl, is_causal=True, scale=scale), flush)
         del ql, kl, vl
-        b_ms, by = _flash_bound(shape)
-        timed[label] = (t_k, t_p, b_ms, by, t_l)
+        b_ms, by, b_cc = _flash_bound(shape)
+        timed[label] = (t_k, t_p, b_ms, by, b_cc, t_l)
         print(f"    kernel {t_k * 1e3:10.2f} us  plain {t_p * 1e3:11.2f} us  bound "
-              f"{b_ms * 1e3:9.2f} us ({by})  library {t_l * 1e3:9.2f} us (SDPA, "
-              f"is_causal, expanded KV)", flush=True)
+              f"{b_ms * 1e3:9.2f} us ({by}; CUDA-core f32 {b_cc * 1e3:.2f} us)  library "
+              f"{t_l * 1e3:9.2f} us (SDPA, is_causal, expanded KV)", flush=True)
         del q, k, v, y, y_plain, tol, err
     return worst, timed
 
@@ -846,19 +1011,22 @@ QUANT_POOLS = ATTN_POOLS["paged_flash_attention_quant"]
 
 
 def _prefill_bound(shape, k_row_bytes, v_row_bytes):
-    """Least time of one causal call with a query offset on an H100 SXM (ms)
-    and what bounds it; ``shape`` is (B, Sq, Skv, H, KH, D, Dv, q_start, q
-    dtype): q and the output in q's dtype, and every K and V row at or
-    before the last query position (``*_row_bytes`` per kv head: its codes
-    and scales, or its floats) moved once, over 3.35 TB/s; or the
-    2·B·H·(D + Dv)·Σ_rows (qpos + 1) f32 operations (2·D for the score and
-    2·Dv for p·V per row and key at or before it) over 67 TFLOP/s."""
+    """Least time of one causal call with a query offset on an H100 SXM (ms),
+    what bounds it, and the CUDA-core bound beside it; ``shape`` is (B, Sq,
+    Skv, H, KH, D, Dv, q_start, q dtype): q and the output in q's dtype, and
+    every K and V row at or before the last query position (``*_row_bytes``
+    per kv head: its codes and scales, or its floats) moved once, over 3.35
+    TB/s; or the 2·B·H·(D + Dv)·Σ_rows (qpos + 1) f32 operations (2·D for
+    the score and 2·Dv for p·V per row and key at or before it) as three
+    TF32 passes at 495 TFLOP/s; the last value counts them at the non-tensor
+    f32 rate of 67 TFLOP/s."""
     b, sq, skv, h, kh, d, dv, q0, qd = shape
     item = 4 if qd == "float32" else 2
     keys = min(skv, q0 + sq)
     row_keys = sum(min(q0 + i + 1, skv) for i in range(sq))
     nbytes = item * b * sq * h * (d + dv) + b * keys * kh * (k_row_bytes + v_row_bytes)
-    return _bound(nbytes, f32_ops=2 * b * h * (d + dv) * row_keys)
+    ops = 2 * b * h * (d + dv) * row_keys
+    return (*_bound(nbytes, tf32_ops=3 * ops), _bound(nbytes, f32_ops=ops)[0])
 
 
 def _prefill_gate(worst, name, label, pool, y, y_plain, tol, bitwise, rows):
@@ -978,11 +1146,13 @@ def phase_prefill_kernels(device):
                            flush)
             t_c = _sdpa_timer(q, kd, vd, q0, scale, flush)
             row = spec.packed_head_dim(d) + 4 * spec.n_groups(d)
-            b_ms, by = _prefill_bound((b, sq, skv, h, kh, d, d, q0, qd), row, row)
-            timed[("flash_attention_quant", label, pool)] = (t_k, t_p, b_ms, by, None, t_c)
+            b_ms, by, b_cc = _prefill_bound((b, sq, skv, h, kh, d, d, q0, qd), row, row)
+            timed[("flash_attention_quant", label, pool)] = (t_k, t_p, b_ms, by, b_cc, None,
+                                                             t_c)
             print(f"    kernel {t_k * 1e3:10.2f} us  plain {t_p * 1e3:11.2f} us  bound "
-                  f"{b_ms * 1e3:9.2f} us ({by})  library none (context: SDPA on a "
-                  f"pre-dequantized KV-expanded copy {t_c * 1e3:.2f} us)", flush=True)
+                  f"{b_ms * 1e3:9.2f} us ({by}; CUDA-core f32 {b_cc * 1e3:.2f} us)  library "
+                  f"none (context: SDPA on a pre-dequantized KV-expanded copy "
+                  f"{t_c * 1e3:.2f} us)", flush=True)
             del kq, ks, vq, vs, kd, vd, y, y7, y_plain
     whole.clear()
 
@@ -1018,12 +1188,12 @@ def phase_prefill_kernels(device):
                        flush)
         t_l = _sdpa_timer(q, k, v, q0, scale, flush)
         row = k.element_size() * d
-        b_ms, by = _prefill_bound((b, sq, skv, h, kh, d, d, q0, qd), row, row)
-        timed[("flash_attention", label, pool)] = (t_k, t_p, b_ms, by, t_l, None)
+        b_ms, by, b_cc = _prefill_bound((b, sq, skv, h, kh, d, d, q0, qd), row, row)
+        timed[("flash_attention", label, pool)] = (t_k, t_p, b_ms, by, b_cc, t_l, None)
         print(f"    kernel {t_k * 1e3:10.2f} us  plain {t_p * 1e3:11.2f} us  bound "
-              f"{b_ms * 1e3:9.2f} us ({by})  library {t_l * 1e3:.2f} us (SDPA, "
-              f"{'is_causal' if q0 == 0 else 'explicit mask'}, expanded KV in q's dtype)",
-              flush=True)
+              f"{b_ms * 1e3:9.2f} us ({by}; CUDA-core f32 {b_cc * 1e3:.2f} us)  library "
+              f"{t_l * 1e3:.2f} us (SDPA, {'is_causal' if q0 == 0 else 'explicit mask'}, "
+              f"expanded KV in q's dtype)", flush=True)
         del q, k, v, y, y_plain
     return worst, timed
 
@@ -2737,17 +2907,20 @@ def add_group_entries(kernels, worst, timed, smol_counts, phi3_counts, paths):
 # phase 14: Gemma-7b, head_dim 256
 # ---------------------------------------------------------------------------
 
-# the wide dense-attention instantiation at the narrow one's head dims, each
-# (B, Sq, Skv, H, KH, D, Dv, q_start, q dtype, K/V dtype or quantized pool):
-# it must be bitwise the narrow kernel there (ragged S, GQA and MQA, a chunk
-# with a query offset, D != Dv, bf16 q over f32 K/V, int8 and int4 codes)
-WIDE_BITWISE = (
+# kernels #7 and #8 at head dims up to 128, each (B, Sq, Skv, H, KH, D, Dv,
+# q_start, q dtype, K/V dtype or quantized pool): ragged S, GQA and MQA, a
+# chunk with a query offset, D != Dv, bf16 q over f32 K/V, int8 and int4
+# codes, and head dims that are not multiples of 8 (zero-padded features;
+# rows too narrow for 16-byte copies, staged element by element)
+SMALL_D_CASES = (
     (2, 300, 300, 8, 2, 64, 64, 0, "float32", "float32"),
     (1, 100, 400, 6, 6, 96, 96, 300, "bfloat16", "float32"),
     (2, 200, 200, 4, 1, 128, 128, 0, "bfloat16", "bfloat16"),
     (1, 256, 256, 8, 4, 128, 96, 0, "float32", "float32"),
     (2, 300, 300, 8, 2, 64, 64, 0, "float32", "int8"),
     (1, 100, 400, 8, 8, 128, 128, 300, "bfloat16", "int4-g32"),
+    (2, 150, 150, 4, 2, 98, 60, 0, "float32", "float32"),
+    (1, 70, 200, 4, 4, 100, 100, 130, "bfloat16", "bfloat16"),
 )
 # kernels #7 and #8 at D 256 (and #7 at D 192 / Dv 128), each (B, Sq, Skv,
 # H, KH, D, Dv, q_start, q dtype): Gemma-7b's heads over a whole 2048-token
@@ -2774,17 +2947,17 @@ GEMMA_FLASH = {
 
 
 def phase_gemma_kernels(device):
-    """Phase 14(a).  The wide instantiation bitwise the narrow one at every
-    case of WIDE_BITWISE and at every shape of PREFILL_SHAPES (#7 over f32
-    K/V, #8 over each pool of QUANT_POOLS), timed beside it there; then at
-    every shape of GEMMA_FLASH kernel #7 (and
-    #8 on each pool of QUANT_POOLS where D = Dv) within ``_flash_tolerance``
-    of its plain version, #8 bitwise #7 on the dequantized codes, a chunk's
-    rows (and the prompt's last row alone) bitwise the whole prompt's, all
-    fatal; timed (median of 30, L2 flushed) beside the bound, the plain
-    version and SDPA on an expanded-KV copy (for #8 as context only).
-    Returns (worst error per kernel, times per (kernel, label, pool), the
-    narrow and wide times per "label-pool" of PREFILL_SHAPES)."""
+    """Phase 14(a).  Kernels #7 and #8 against their plain versions within
+    ``_flash_tolerance`` at every case of SMALL_D_CASES and at every shape of
+    PREFILL_SHAPES (#7 over f32 K/V, #8 over each pool of QUANT_POOLS, #8
+    bitwise #7 on the dequantized codes); then at every shape of
+    GEMMA_FLASH kernel #7 (and #8 on each pool of QUANT_POOLS where D = Dv)
+    within ``_flash_tolerance`` of its plain version, #8 bitwise #7 on the
+    dequantized codes, a chunk's rows (and the prompt's last row alone)
+    bitwise the whole prompt's, all fatal; GEMMA_FLASH timed (median of 30,
+    L2 flushed) beside the bound, the plain version and SDPA on an
+    expanded-KV copy (for #8 as context only).  Returns (worst error per
+    kernel, times per (kernel, label, pool))."""
     import torch
 
     from repro_torch.bench.common import flush_buffer, time_ms
@@ -2793,63 +2966,49 @@ def phase_gemma_kernels(device):
 
     flush = flush_buffer(device)
     gen = torch.Generator(device=device).manual_seed(14)
+    worst = {"flash_attention": 0.0, "flash_attention_quant": 0.0}
 
     def randn(*shape, dtype="float32"):
         return torch.randn(shape, generator=gen, device=device).to(getattr(torch, dtype))
 
-    for b, sq, skv, h, kh, d, dv, q0, qd, kvd in WIDE_BITWISE:
+    def small_d(label, q, k, v, qs, q0, kvd):
+        """#7 over k, v in ``kvd`` (or #8 over their codes, and #7 on the
+        dequantized codes) against the plain version."""
+        scale = q.shape[-1] ** -0.5
+        if kvd in QUANT_POOLS:
+            spec = _kv_spec(kvd)
+            (kq, ks), (vq, vs) = quantize_kv(k, spec), quantize_kv(v, spec)
+            kd, vd = (dequantize_kv(kq, ks, spec, q.shape[-1]),
+                      dequantize_kv(vq, vs, spec, q.shape[-1]))
+            args = (q, kq, ks, vq, vs, scale, spec)
+            y = flash_attn.flash_attention_quant(*args, q_start=qs)
+            y7 = flash_attn.flash_attention(q, kd, vd, scale, q_start=qs)
+            torch.cuda.synchronize()
+            y_plain = flash_attn.flash_attention_quant_plain(*args, q_start=qs)
+            _prefill_gate(worst, "flash_attention_quant", label, kvd, y, y_plain,
+                          _flash_tolerance(q, kd, vd, scale, y_plain, q0),
+                          torch.equal(y, y7), None)
+            return
+        k, v = k.to(getattr(torch, kvd)), v.to(getattr(torch, kvd))
+        y = flash_attn.flash_attention(q, k, v, scale, q_start=qs)
+        torch.cuda.synchronize()
+        y_plain = flash_attn.flash_attention_plain(q, k, v, scale, q_start=qs)
+        _prefill_gate(worst, "flash_attention", label, kvd, y, y_plain,
+                      _flash_tolerance(q, k, v, scale, y_plain, q0), True, None)
+
+    for b, sq, skv, h, kh, d, dv, q0, qd, kvd in SMALL_D_CASES:
         q = randn(b, sq, h, d, dtype=qd)
         k, v = randn(b, skv, kh, d), randn(b, skv, kh, dv) * 1.5
         qs = torch.full((b,), q0, dtype=torch.int32, device=device) if q0 else None
-        scale = d ** -0.5
-        if kvd in QUANT_POOLS:
-            spec = _kv_spec(kvd)
-            args = (q, *quantize_kv(k, spec), *quantize_kv(v, spec), scale, spec)
-            narrow = flash_attn.flash_attention_quant(*args, q_start=qs)
-            wide = flash_attn.flash_attention_quant_wide(*args, q_start=qs)
-        else:
-            k, v = k.to(getattr(torch, kvd)), v.to(getattr(torch, kvd))
-            narrow = flash_attn.flash_attention(q, k, v, scale, q_start=qs)
-            wide = flash_attn.flash_attention_wide(q, k, v, scale, q_start=qs)
-        torch.cuda.synchronize()
-        same = torch.equal(narrow, wide)
-        print(f"  wide vs narrow B={b} Sq={sq} Skv={skv} H={h} KH={kh} D={d} Dv={dv} "
-              f"q_start {q0} {qd} q, {kvd} K/V: {'bitwise equal' if same else 'DIFFER'}",
-              flush=True)
-        if not same:
-            raise SystemExit("the wide flash-attention instantiation is not bitwise the "
-                             "narrow one at a head dim both take")
-
-    # the wide instantiation's time beside the narrow one's at phase 3's
-    # prefill shapes (D 64 / 96): #7 over f32 K/V and #8 over each quantized
-    # pool, the outputs bitwise equal (fatal)
-    versus = {}
+        small_d(f"D{d}/{dv}-S{sq}/{skv}", q, k, v, qs, q0, kvd)
     for label, (b, sq, skv, h, kh, d, q0, qd) in PREFILL_SHAPES.items():
         q = randn(b, sq, h, d, dtype=qd)
         k, v = randn(b, skv, kh, d), randn(b, skv, kh, d) * 1.5
         qs = torch.full((b,), q0, dtype=torch.int32, device=device) if q0 else None
-        scale = d ** -0.5
-        calls = {"f32": (flash_attn.flash_attention, flash_attn.flash_attention_wide,
-                         (q, k, v, scale))}
-        for pool in QUANT_POOLS:
-            spec = _kv_spec(pool)
-            calls[pool] = (flash_attn.flash_attention_quant,
-                           flash_attn.flash_attention_quant_wide,
-                           (q, *quantize_kv(k, spec), *quantize_kv(v, spec), scale, spec))
-        for pool, (narrow_fn, wide_fn, args) in calls.items():
-            same = torch.equal(narrow_fn(*args, q_start=qs), wide_fn(*args, q_start=qs))
-            t_n = time_ms(lambda: narrow_fn(*args, q_start=qs), flush)
-            t_w = time_ms(lambda: wide_fn(*args, q_start=qs), flush)
-            versus[f"{label}-{pool}"] = {"narrow_ms": t_n, "wide_ms": t_w}
-            print(f"  wide vs narrow at {label:<16} {pool:<9} narrow {t_n * 1e3:10.2f} us  "
-                  f"wide {t_w * 1e3:10.2f} us  ({t_w / t_n:.3f}x)  "
-                  f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
-            if not same:
-                raise SystemExit(f"the wide flash-attention instantiation is not bitwise "
-                                 f"the narrow one at {label} {pool}")
-        del q, k, v, calls
+        for kvd in ("float32",) + QUANT_POOLS:
+            small_d(label, q, k, v, qs, q0, kvd)
+        del q, k, v
 
-    worst = {"flash_attention": 0.0, "flash_attention_quant": 0.0}
     timed, whole = {}, {}
 
     def chunk_rows(y, full, q0, sq, last):
@@ -2888,12 +3047,12 @@ def phase_gemma_kernels(device):
         t_p = time_ms(lambda: flash_attn.flash_attention_plain(q, k, v, scale, q_start=qs),
                        flush)
         t_l = _sdpa_timer(q, k, v, q0, scale, flush)
-        b_ms, by = _prefill_bound(shape, 4 * d, 4 * dv)
-        timed[("flash_attention", label, "f32")] = (t_k, t_p, b_ms, by, t_l)
+        b_ms, by, b_cc = _prefill_bound(shape, 4 * d, 4 * dv)
+        timed[("flash_attention", label, "f32")] = (t_k, t_p, b_ms, by, b_cc, t_l)
         print(f"    kernel {t_k * 1e3:10.2f} us  plain {t_p * 1e3:11.2f} us  bound "
-              f"{b_ms * 1e3:9.2f} us ({by})  library {t_l * 1e3:.2f} us (SDPA, "
-              f"{'is_causal' if q0 == 0 else 'explicit mask'}, expanded KV in q's dtype)",
-              flush=True)
+              f"{b_ms * 1e3:9.2f} us ({by}; CUDA-core f32 {b_cc * 1e3:.2f} us)  library "
+              f"{t_l * 1e3:.2f} us (SDPA, {'is_causal' if q0 == 0 else 'explicit mask'}, "
+              f"expanded KV in q's dtype)", flush=True)
         del y, y_plain, last
         if d != dv:
             continue
@@ -2919,13 +3078,14 @@ def phase_gemma_kernels(device):
                            flush)
             t_c = _sdpa_timer(q, kd, vd, q0, scale, flush)
             row = spec.packed_head_dim(d) + 4 * spec.n_groups(d)
-            b_ms, by = _prefill_bound(shape, row, row)
-            timed[("flash_attention_quant", label, pool)] = (t_k, t_p, b_ms, by, t_c)
+            b_ms, by, b_cc = _prefill_bound(shape, row, row)
+            timed[("flash_attention_quant", label, pool)] = (t_k, t_p, b_ms, by, b_cc, t_c)
             print(f"    kernel {t_k * 1e3:10.2f} us  plain {t_p * 1e3:11.2f} us  bound "
-                  f"{b_ms * 1e3:9.2f} us ({by})  library none (context: SDPA on a "
-                  f"pre-dequantized KV-expanded copy {t_c * 1e3:.2f} us)", flush=True)
+                  f"{b_ms * 1e3:9.2f} us ({by}; CUDA-core f32 {b_cc * 1e3:.2f} us)  library "
+                  f"none (context: SDPA on a pre-dequantized KV-expanded copy "
+                  f"{t_c * 1e3:.2f} us)", flush=True)
             del kq, ks, vq, vs, kd, vd, y, y7, y_plain, last
-    return worst, timed, versus
+    return worst, timed
 
 
 def phase_gemma(device):
@@ -2946,9 +3106,9 @@ def phase_gemma(device):
     from repro_torch.serve.engine import Request, RequestState, ServeEngine
 
     t0 = time.perf_counter()
-    print("  (a) kernels #7 and #8 at head_dim 256 (the wide instantiation)", flush=True)
-    worst, timed, versus = phase_gemma_kernels(device)
-    out = {"kernels_s": time.perf_counter() - t0, "wide_vs_narrow": versus}
+    print("  (a) kernels #7 and #8 at head dims up to 128, then at 256", flush=True)
+    worst, timed = phase_gemma_kernels(device)
+    out = {"kernels_s": time.perf_counter() - t0}
 
     print(f"  (b) Gemma-7b, {GEMMA_LAYERS} layers, served (chained path)", flush=True)
     torch.cuda.synchronize()
@@ -3024,15 +3184,15 @@ def phase_gemma(device):
     return out, worst, timed, counts
 
 
-def add_gemma_entries(kernels, worst, timed, counts, versus):
+def add_gemma_entries(kernels, worst, timed, counts):
     """The ``d256`` sub-entry of the dense flash kernels: Gemma-7b's whole
     2048-token prompt (f32 q; #8 over int8 codes), its launches in phase
-    14's main paths, which the entries' own ``launches`` then include, the
-    largest |kernel - plain| of phase 14(a), and the wide instantiation's
-    times beside the narrow one's at phase 3's prefill shapes (``versus``).  Phase 14's launches of
+    14's main paths, which the entries' own ``launches`` then include, and
+    the largest |kernel - plain| of phase 14(a).  Phase 14's launches of
     #2, #3, #6 and #9 join their entries too."""
     at = ("Gemma-7b's heads, B 1 S 2048 H 16 KH 16 D 256, f32 q, L2 flushed; launches "
           "from phase 14's serving, long prompts and deadline run")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_cuda_core_ms")
     for entry in kernels:
         name = entry["name"]
         if name in ("fused_prologue", "w4a4_lowrank_matmul", "paged_flash_attention",
@@ -3040,23 +3200,20 @@ def add_gemma_entries(kernels, worst, timed, counts, versus):
             entry["launches"] += counts[name]
         if name not in worst:
             continue
-        pool = "int8" if name.endswith("quant") else "f32"
-        t_k, t_p, b_ms, by, t_l = timed[(name, "gemma", pool)]
+        quant = name.endswith("quant")
+        last = "context_sdpa_ms" if quant else "library_ms"
+        t_k, t_p, b_ms, by, b_cc, t_l = timed[(name, "gemma", "int8" if quant else "f32")]
         entry["d256"] = {
             "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None if name.endswith("quant") else t_l,
+            "bound_cuda_core_ms": b_cc, "library_ms": None if quant else t_l,
             "launches": counts[name], "max_abs_err": worst[name],
             "at": at + ("; library none (context_sdpa_ms: SDPA over a pre-dequantized "
-                        "KV-expanded copy)" if name.endswith("quant") else
+                        "KV-expanded copy)" if quant else
                         "; library: SDPA is_causal on an expanded-KV copy"),
-            "shapes": {f"{label}-{p}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "context_sdpa_ms" if name.endswith("quant")
-                                                 else "library_ms"), v))
+            "shapes": {f"{label}-{p}": dict(zip(keys + (last,), v))
                        for (n, label, p), v in timed.items() if n == name},
-            "wide_vs_narrow": {k: t for k, t in versus.items()
-                               if k.endswith("-f32") != name.endswith("quant")},
         }
-        if name.endswith("quant"):
+        if quant:
             entry["d256"]["context_sdpa_ms"] = t_l
         entry["launches"] += counts[name]
         entry["max_abs_err"] = max(entry["max_abs_err"], worst[name])
@@ -3128,8 +3285,14 @@ def main() -> int:
         got = getattr(flash_attn._lib(name), f"{name}_max_d")()
         if got != flash_attn.MAX_D:
             raise SystemExit(f"flash_attn.MAX_D {flash_attn.MAX_D} is not {name}'s {got}")
+    hmma = _tensor_core_instructions(("flash_attention", "flash_attention_quant"))
+    print("  tensor-core (HMMA) instructions in the built SASS: "
+          + ", ".join(f"{name} {n}" for name, n in hmma.items()), flush=True)
+    if not all(hmma.values()):
+        raise SystemExit("a dense flash-attention library holds no tensor-core instruction")
 
     phase("3. kernels against their plain versions")
+    probe = phase_tc_probe(device)
     worst, timed = phase_kernels(device)
     chain_worst, chain_timed = phase_chain_kernels(device)
     rot_worst, rot_timed = phase_rotate_kernels(device)
@@ -3190,7 +3353,7 @@ def main() -> int:
     del qparams, pparams
 
     phase(f"14. Gemma-7b, head_dim 256 ({GEMMA_LAYERS} layers, chained path, prefill "
-          f"through the wide flash kernels)")
+          f"through the flash kernels at D 256)")
     gemma, gemma_worst, gemma_timed, gemma_counts = phase_gemma(device)
 
     # launches of the two dense kernels on the main paths: every prefill
@@ -3268,8 +3431,8 @@ def main() -> int:
                    quant_launches, "int8",
                    at_attn.format("int8", "phase 8 (int8 and int4 KV)")),
     ]
-    t_k, t_p, b_ms, by, t_l = flash_timed["smollm-calib"]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    t_k, t_p, b_ms, by, b_cc, t_l = flash_timed["smollm-calib"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_cuda_core_ms", "library_ms")
     shapes = {k: dict(zip(keys, v)) for k, v in flash_timed.items()}
     for (name, label, pool), v in prefill_timed.items():
         if name == "flash_attention":
@@ -3280,7 +3443,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attn.py:241",
         "launches": flash_launches, "max_abs_err": flash_worst,
         "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": by,
-        "library_ms": t_l, "checked": True,
+        "bound_cuda_core_ms": b_cc, "library_ms": t_l, "checked": True,
         "at": (f"one SmolLM-135M calibration layer's causal attention, B="
                f"{SMOL_CALIB_SEQS} S={CALIB_SEQ_LEN} H 9 KH 3 D 64 f32, L2 flushed; "
                f"library: SDPA is_causal on an expanded-KV copy; launches from "
@@ -3288,7 +3451,8 @@ def main() -> int:
                f"10 and 11"),
         "shapes": shapes,
     })
-    t_k, t_p, b_ms, by, _, t_c = prefill_timed[("flash_attention_quant", "smollm-b4", "int8")]
+    t_k, t_p, b_ms, by, b_cc, _, t_c = prefill_timed[("flash_attention_quant", "smollm-b4",
+                                                       "int8")]
     kernels.append({
         "name": "flash_attention_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_quant.cu",
@@ -3296,7 +3460,7 @@ def main() -> int:
         "launches": quant_flash_launches,
         "max_abs_err": prefill_worst["flash_attention_quant"],
         "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": by,
-        "library_ms": None, "checked": True,
+        "bound_cuda_core_ms": b_cc, "library_ms": None, "checked": True,
         "at": ("phase 11's layer call: B 4, S 2048, H 9, KH 3, D 64, int8 K/V, f32 q, "
                "L2 flushed; library none (no PyTorch call attends over quantized K/V; "
                "context_sdpa_ms: SDPA over a pre-dequantized KV-expanded copy); "
@@ -3307,13 +3471,12 @@ def main() -> int:
                    for (name, label, pool), v in prefill_timed.items()
                    if name == "flash_attention_quant"},
     })
-    add_gemma_entries(kernels, gemma_worst, gemma_timed, gemma_counts,
-                      gemma["wide_vs_narrow"])
+    add_gemma_entries(kernels, gemma_worst, gemma_timed, gemma_counts)
     print(json.dumps({"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
                       "phi3_paths": paths, "phi3_kv_serve": kv_serve,
                       "calibration": calib, "long_prefill": long_prefill,
                       "kv_sweep": sweep, "latency": latency, "groups": groups,
-                      "gemma": gemma}, default=str))
+                      "gemma": gemma, "tc_probe": probe}, default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

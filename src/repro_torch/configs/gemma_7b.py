@@ -1,7 +1,7 @@
 """Gemma-7B — GeGLU, head_dim=256, embed scaling. [arXiv:2403.08295; hf]
 
 A copy of ``repro/configs/gemma_7b.py``.  Its 16 heads of 256 take the
-dense flash kernels' wide instantiation (D up to 256) for prefill; every
+dense flash kernels (D up to 256) for prefill; every
 QLinear has K >= 3072 and takes the chained path (``kernels/context.py``).
 The head reads the embedding (``tie_embeddings``): the parameters hold no
 ``lm_head``.

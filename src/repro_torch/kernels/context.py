@@ -50,8 +50,7 @@ holds the kernels):
 and the reference's route on the CPU (where it keeps the reference's
 numerics, as QLinear keeps its calibrated impl there).  The dense flash
 kernels (prefill, forward, walk) take head dims up to ``flash_attn.MAX_D``
-= 256 (a narrow instantiation up to 128 and a wide one above it, so
-Gemma's and PaliGemma's 256 take the kernel route):
+= 256 (so Gemma's and PaliGemma's 256 take the kernel route):
 "auto" demotes a wider head's dense attention to gather from shapes alone,
 before anything is built or launched, as :meth:`KernelContext.resolve_plan`
 demotes a W4A4 site (:meth:`KernelContext.attention_plan` says why;

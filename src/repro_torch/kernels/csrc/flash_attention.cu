@@ -9,7 +9,12 @@
 // extends it with the query offset that a prefill chunk over the paged KV
 // pool needs.  q and out are f32 or bf16; K and V share one dtype, f32 or
 // bf16, which may differ from q's (a bf16 model over an f32 pool).  The
-// body, its numerics, its bound and its design are in flash_attention.cuh.
+// body, its numerics, its accuracy standard, its bound and its design are in
+// flash_attention.cuh.  flash_attention_probe runs the body's TF32 split
+// and one tensor-core product on chosen inputs, so a card run can check the
+// premises of the accuracy standard.
+
+#include <stdint.h>
 
 #include "flash_attention.cuh"
 
@@ -17,31 +22,47 @@ namespace {
 
 template <typename Q, typename T>
 int run(const void* q, const void* k, const void* v, const void* q_start, void* out, int b,
-        int sq, int skv, int h, int kh, int d, int dv, float scale, int causal, void* stream,
-        bool wide) {
+        int sq, int skv, int h, int kh, int d, int dv, float scale, int causal, void* stream) {
   kv::FloatRows<T> kr{static_cast<const T*>(k), d};
   kv::FloatRows<T> vr{static_cast<const T*>(v), dv};
+  // cp.async staging: every row starts on a 16-byte boundary
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const bool async = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % 16 == 0 && d % VEC == 0 && dv % VEC == 0;
   return flash::launch<Q>(q, kr, vr, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal,
-                          stream, wide);
+                          async, stream);
 }
 
-int dispatch(const void* q, int q_bf16, const void* k, const void* v, int kv_bf16,
-             const void* q_start, void* out, int b, int sq, int skv, int h, int kh, int d,
-             int dv, float scale, int causal, void* stream, bool wide) {
-  using bf16 = __nv_bfloat16;
-  if (q_bf16)
-    return kv_bf16 ? run<bf16, bf16>(q, k, v, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal, stream, wide)
-                   : run<bf16, float>(q, k, v, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal, stream, wide);
-  return kv_bf16 ? run<float, bf16>(q, k, v, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal, stream, wide)
-                 : run<float, float>(q, k, v, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal, stream, wide);
+__global__ void probe_kernel(const float* x, float* hi, float* lo, int n, const float* a,
+                             const float* bt, const float* c, float* d) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    uint32_t h, l;
+    flash::split(x[i], h, l);
+    hi[i] = __uint_as_float(h);
+    lo[i] = __uint_as_float(l);
+  }
+  if (threadIdx.x < 32) {
+    const int g = threadIdx.x >> 2;
+    const int t = threadIdx.x & 3;
+    const uint32_t af[4] = {__float_as_uint(a[g * 8 + t]), __float_as_uint(a[(g + 8) * 8 + t]),
+                            __float_as_uint(a[g * 8 + t + 4]),
+                            __float_as_uint(a[(g + 8) * 8 + t + 4])};
+    float acc[4] = {c[g * 8 + 2 * t], c[g * 8 + 2 * t + 1], c[(g + 8) * 8 + 2 * t],
+                    c[(g + 8) * 8 + 2 * t + 1]};
+    flash::mma_tf32(acc, af, __float_as_uint(bt[g * 8 + t]), __float_as_uint(bt[g * 8 + t + 4]));
+    d[g * 8 + 2 * t] = acc[0];
+    d[g * 8 + 2 * t + 1] = acc[1];
+    d[(g + 8) * 8 + 2 * t] = acc[2];
+    d[(g + 8) * 8 + 2 * t + 1] = acc[3];
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest D and Dv the kernel takes (the wide instantiation's).
-int flash_attention_max_d() { return flash::WIDE_MAX_D; }
+// The largest D and Dv the kernel takes.
+int flash_attention_max_d() { return flash::MAX_D; }
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // q / out are f32 (q_bf16 = 0) or bf16, k / v f32 (kv_bf16 = 0) or bf16,
@@ -49,17 +70,22 @@ int flash_attention_max_d() { return flash::WIDE_MAX_D; }
 int flash_attention(const void* q, int q_bf16, const void* k, const void* v, int kv_bf16,
                     const void* q_start, void* out, int b, int sq, int skv, int h, int kh,
                     int d, int dv, float scale, int causal, void* stream) {
-  return dispatch(q, q_bf16, k, v, kv_bf16, q_start, out, b, sq, skv, h, kh, d, dv, scale,
-                  causal, stream, false);
+  using bf16 = __nv_bfloat16;
+  if (q_bf16)
+    return kv_bf16 ? run<bf16, bf16>(q, k, v, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal, stream)
+                   : run<bf16, float>(q, k, v, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal, stream);
+  return kv_bf16 ? run<float, bf16>(q, k, v, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal, stream)
+                 : run<float, float>(q, k, v, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal, stream);
 }
 
-// The same through the wide instantiation at any D, Dv <= 256: for tests
-// only, which hold it bitwise the narrow one at D, Dv <= 128.
-int flash_attention_wide(const void* q, int q_bf16, const void* k, const void* v, int kv_bf16,
-                         const void* q_start, void* out, int b, int sq, int skv, int h, int kh,
-                         int d, int dv, float scale, int causal, void* stream) {
-  return dispatch(q, q_bf16, k, v, kv_bf16, q_start, out, b, sq, skv, h, kh, d, dv, scale,
-                  causal, stream, true);
+// The premises' probe, one block on `stream`: hi / lo (n,) = the body's
+// split of x (n,); d (16, 8) = c (16, 8) + a (16, 8) · btᵀ, bt (8, 8) holding
+// B's columns as rows, through one m16n8k8 TF32 mma (a and bt must be TF32
+// values already).  All f32, contiguous.  Returns cudaGetLastError().
+int flash_attention_probe(const float* x, float* hi, float* lo, int n, const float* a,
+                          const float* bt, const float* c, float* d, void* stream) {
+  probe_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, hi, lo, n, a, bt, c, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -18,17 +18,19 @@ The kernels (CUDA C++ for sm_90a) replace the TPU kernels of
   ``paged_flash_attention_quant_kernel``, for int8 and packed-int4 pools
   with their f32 scale planes.
 
-The two dense kernels (body in ``csrc/flash_attention.cuh``) take head
-dims up to ``MAX_D`` = 256: a narrow instantiation for D, Dv <= 128 and a
-wide one, which stages K and V in 64-feature slices, above.  The wide one
-sums in the narrow one's order, so the test-only entry points
-:func:`flash_attention_wide` and :func:`flash_attention_quant_wide`, which
-force it at any head dim, are bitwise the narrow kernel at D <= 128.  They
-take a query offset: query row i of sequence b sits at absolute position
-q_start[b] + i (``q_start`` (B,) int32, default 0) and key positions count
-from 0, in key tiles of ``KV_TILE`` rows anchored at key 0.  A tile
-wholly above a row's diagonal is then an exact no-op for it, so a row's
-result is bitwise the same whatever chunk of its prompt it arrived in.
+The two dense kernels (body in ``csrc/flash_attention.cuh``) compute
+both products on the tensor cores (``mma.sync`` m16n8k8 in TF32, each f32
+operand split by :func:`tf32_split` into three passes; the accuracy
+standard that holds them to their plain versions is stated at the head of
+the body and in ``chip_smoke.py::_flash_tolerance``) and take head dims up
+to ``MAX_D`` = 256.  They take a query offset: query row i of sequence b
+sits at absolute position q_start[b] + i (``q_start`` (B,) int32, default
+0) and key positions count from 0, in key tiles of ``KV_TILE`` rows
+anchored at key 0.  A tile wholly above a row's diagonal is then an exact
+no-op for it, so a row's result is bitwise the same whatever chunk of its
+prompt it arrived in.  :func:`tc_probe` runs the body's split and one
+tensor-core product on chosen inputs, for the card's check of the
+standard's premises.
 
 The two paged kernels (body in ``csrc/paged_attention.cuh``) compute, for
 one query token per sequence,
@@ -42,7 +44,7 @@ cost more than the attention at long context.
 
 Bound of the paged kernels on an H100 SXM (3.35 TB/s): memory — the valid
 K/V rows (plus their scales), q and the output; of the dense kernels:
-their f32 operations.  Each wrapper takes its plain version only for
+their f32 operations, three TF32 passes of them on the tensor cores.  Each wrapper takes its plain version only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.
 ``LAUNCHES`` counts each.
 """
@@ -57,13 +59,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.rowops import scalar
 
-# "flash_attention" and "flash_attention_quant" count every launch of the
-# model's entry points, whichever instantiation the head dims pick (the
-# served Gemma-7b's D 256 prefill counts there); the "*_wide" keys count
-# only the test-only entry points that force the wide instantiation
 LAUNCHES = {"flash_attention": 0, "flash_attention_plain": 0,
             "flash_attention_quant": 0, "flash_attention_quant_plain": 0,
-            "flash_attention_wide": 0, "flash_attention_quant_wide": 0,
             "paged_flash_attention": 0, "paged_flash_attention_plain": 0,
             "paged_flash_attention_quant": 0,
             "paged_flash_attention_quant_plain": 0}
@@ -71,15 +68,39 @@ NEG_INF = -1e30
 # the key tile of the dense kernel, its plain version and the reference
 # wrapper (``bkv = min(128, Skv)``): the per-tile maxima follow it
 KV_TILE = 128
-# the largest head dims the dense kernels take (WIDE_MAX_D of
+# the largest head dims the dense kernels take (MAX_D of
 # csrc/flash_attention.cuh, which chip_smoke.py holds against the built
 # library): the "auto" attention route demotes wider heads to gather
 MAX_D = 256
+# the error of the dense kernels' three-pass TF32 product a·b against the
+# exact one, relative to |a·b| (premise 1 of csrc/flash_attention.cuh's
+# accuracy standard: 3·2⁻²²(1 + 2⁻¹⁰)), and the absolute floor per unit of
+# |a| + |b| where a residual of the split is subnormal
+TF32_SPLIT_REL = 12 * (1 + 2.0 ** -10) * 2.0 ** -24
+TF32_SPLIT_FLOOR = 2.0 ** -135
 
 
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` in plain torch: round the f32 x to the nearest
+    value with 10 explicit significand bits, ties away from zero, the 13
+    low bits cleared (finite x)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """The dense kernels' split of each f32 operand x: ``hi`` = x rounded to
+    TF32, ``lo`` = (x - hi) rounded to TF32 (x - hi is exact in f32), so
+    |x - hi - lo| <= 2⁻²²|x|.  Returns (hi, lo), both f32 tensors of TF32
+    values."""
+    x = x.to(torch.float32)
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
 
 
 def _online_softmax(q, block_table, lengths, scale, page_rows):
@@ -232,14 +253,15 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_attention":
-        for fn in (lib.flash_attention, lib.flash_attention_wide):
-            fn.argtypes = [p, i, p, p, i, p, p, i, i, i, i, i, i, i, f, i, p]
-            fn.restype = ctypes.c_int
+        lib.flash_attention.argtypes = [p, i, p, p, i, p, p, i, i, i, i, i, i, i, f, i, p]
+        lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_max_d.restype = ctypes.c_int
+        lib.flash_attention_probe.argtypes = [p, p, p, i, p, p, p, p, p]
+        lib.flash_attention_probe.restype = ctypes.c_int
     elif name == "flash_attention_quant":
-        for fn in (lib.flash_attention_quant, lib.flash_attention_quant_wide):
-            fn.argtypes = [p, i, p, p, p, p, i, i, p, p, i, i, i, i, i, i, f, i, p]
-            fn.restype = ctypes.c_int
+        lib.flash_attention_quant.argtypes = [p, i, p, p, p, p, i, i, p, p,
+                                              i, i, i, i, i, i, f, i, p]
+        lib.flash_attention_quant.restype = ctypes.c_int
         lib.flash_attention_quant_max_d.restype = ctypes.c_int
     elif name == "paged_flash_attention":
         lib.paged_flash_attention.argtypes = [p, i, p, p, i, p, p, p,
@@ -385,18 +407,6 @@ def flash_attention(q, k, v, scale: float, causal: bool = True,
     contiguous, D, Dv <= ``MAX_D`` and ``q_start`` is None or (B,) int32.
     A CPU ``q`` runs the plain version; a CUDA ``q`` launches the kernel on
     the current stream, or raises."""
-    return _flash_attention("flash_attention", q, k, v, scale, causal, q_start)
-
-
-def flash_attention_wide(q, k, v, scale: float, causal: bool = True,
-                         q_start=None) -> torch.Tensor:
-    """Kernel #7 forced onto its wide instantiation at any D, Dv <=
-    ``MAX_D``, for the check that it is bitwise the narrow one at D <= 128
-    (``chip_smoke.py`` phase 14); the model never calls it."""
-    return _flash_attention("flash_attention_wide", q, k, v, scale, causal, q_start)
-
-
-def _flash_attention(symbol, q, k, v, scale, causal, q_start):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, causal, q_start)
     if q.device.type != "cuda":
@@ -412,15 +422,15 @@ def _flash_attention(symbol, q, k, v, scale, causal, q_start):
         raise ValueError(f"head dims {d}/{dv} exceed the kernel's {MAX_D}")
     build.check_operands(q, [t for t in (q, k, v, q_start) if t is not None])
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
-    rc = getattr(_lib("flash_attention"), symbol)(
+    rc = _lib("flash_attention").flash_attention(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
         int(k.dtype == torch.bfloat16),
         None if q_start is None else q_start.data_ptr(), out.data_ptr(),
         b, sq, skv, h, kh, d, dv, float(scale), int(causal), build.stream_of(q))
     if rc != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError {rc} at "
+        raise RuntimeError(f"flash_attention launch failed: cudaError {rc} at "
                            f"(B={b}, Sq={sq}, Skv={skv}, H={h}, KH={kh}, D={d}, Dv={dv})")
-    LAUNCHES[symbol] += 1
+    LAUNCHES["flash_attention"] += 1
     return out
 
 
@@ -433,21 +443,6 @@ def flash_attention_quant(q, k_quant, k_scales, v_quant, v_scales,
     operand is contiguous, D <= ``MAX_D`` and ``q_start`` is None or (B,)
     int32.  A CPU ``q`` runs the plain version; a CUDA ``q`` launches the
     kernel on the current stream, or raises."""
-    return _flash_attention_quant("flash_attention_quant", q, k_quant, k_scales,
-                                  v_quant, v_scales, scale, kv_spec, causal, q_start)
-
-
-def flash_attention_quant_wide(q, k_quant, k_scales, v_quant, v_scales,
-                               scale: float, kv_spec, causal: bool = True,
-                               q_start=None) -> torch.Tensor:
-    """Kernel #8 forced onto its wide instantiation at any D <= ``MAX_D``,
-    as :func:`flash_attention_wide`; the model never calls it."""
-    return _flash_attention_quant("flash_attention_quant_wide", q, k_quant, k_scales,
-                                  v_quant, v_scales, scale, kv_spec, causal, q_start)
-
-
-def _flash_attention_quant(symbol, q, k_quant, k_scales, v_quant, v_scales,
-                           scale, kv_spec, causal, q_start):
     if q.device.type == "cpu":
         return flash_attention_quant_plain(q, k_quant, k_scales, v_quant,
                                            v_scales, scale, kv_spec, causal,
@@ -473,15 +468,49 @@ def _flash_attention_quant(symbol, q, k_quant, k_scales, v_quant, v_scales,
     build.check_operands(q, [t for t in (q, k_quant, k_scales, v_quant, v_scales,
                                          q_start) if t is not None])
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    rc = getattr(_lib("flash_attention_quant"), symbol)(
+    rc = _lib("flash_attention_quant").flash_attention_quant(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_quant.data_ptr(),
         k_scales.data_ptr(), v_quant.data_ptr(), v_scales.data_ptr(),
         int(kv_spec.dtype == "int4"), group,
         None if q_start is None else q_start.data_ptr(), out.data_ptr(),
         b, sq, skv, h, kh, d, float(scale), int(causal), build.stream_of(q))
     if rc != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError {rc} "
+        raise RuntimeError(f"flash_attention_quant launch failed: cudaError {rc} "
                            f"at (B={b}, Sq={sq}, Skv={skv}, H={h}, KH={kh}, D={d}, "
                            f"{kv_spec.describe()})")
-    LAUNCHES[symbol] += 1
+    LAUNCHES["flash_attention_quant"] += 1
     return out
+
+
+def tc_probe_plain(x, a, bt, c):
+    """:func:`tc_probe`'s function in plain torch: :func:`tf32_split` of x,
+    and c + a·btᵀ summed exactly (float64, then rounded to f32)."""
+    hi, lo = tf32_split(x)
+    d = c.double() + a.double() @ bt.double().T
+    return hi, lo, d.to(torch.float32)
+
+
+def tc_probe(x, a, bt, c):
+    """The dense kernels' TF32 split and one of their tensor-core products
+    on chosen inputs (``flash_attention_probe``): returns the split (hi, lo)
+    of x (n,) f32 and d (16, 8) = c (16, 8) + a (16, 8) · btᵀ (bt (8, 8))
+    from one m16n8k8 mma, a and bt holding TF32 values.  A CPU ``x`` runs
+    the plain version; a CUDA ``x`` launches the probe, or raises."""
+    if x.device.type == "cpu":
+        return tc_probe_plain(x, a, bt, c)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    for t, shape in ((a, (16, 8)), (bt, (8, 8)), (c, (16, 8))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"probe operands must be float32 {shape}; got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise ValueError(f"x must be float32 (n,); got {x.dtype} {tuple(x.shape)}")
+    build.check_operands(x, [x, a, bt, c])
+    hi, lo, d = torch.empty_like(x), torch.empty_like(x), torch.empty_like(c)
+    rc = _lib("flash_attention").flash_attention_probe(
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.numel(), a.data_ptr(),
+        bt.data_ptr(), c.data_ptr(), d.data_ptr(), build.stream_of(x))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_probe launch failed: cudaError {rc}")
+    return hi, lo, d
