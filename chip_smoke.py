@@ -6,9 +6,14 @@
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the port from ``src/repro_torch/kernels/csrc``
-     (``build.KERNELS``, nine: one ``nvcc`` per source, all at once), and
-     check the rotation's host constant against the plain version's;
-  3. each kernel against its plain PyTorch version on the card, at the
+     (``build.KERNELS``, nine: one ``nvcc`` per source, all at once), check
+     the rotation's host constant against the plain version's, and count
+     the tensor-core (HMMA) instructions of the two dense flash libraries
+     (``cuobjdump -sass``; none is a failure);
+  3. the premises of the dense flash kernels' accuracy standard probed on
+     the card (the TF32 split bitwise its plain emulation, one m16n8k8 mma
+     on chosen addends within the model of its accumulation, what the card
+     does printed); then each kernel against its plain PyTorch version on the card, at the
      shapes the serving and calibration paths give it plus ragged ones,
      with times: the fused kernel at SmolLM-135M's sites, the prologue,
      GEMM and quantizer kernels at Phi-3-mini's, the two paged attention
@@ -72,7 +77,7 @@ Phases, each fatal on failure:
      first sampled token's logits), one chunk of each route profiled;
  11. the kv_sweep pass (``repro_torch.bench.kv_sweep``) of SmolLM-135M at
      full width, 4 x 2048 eval tokens, f32, int8 and int4 pools, on both
-     routes: layer 0's kernel call within the f32 bound of its plain
+     routes: layer 0's kernel call within the bound of its plain
      version, its output within the bound of the gather route's, PPL, ACC
      and the logits' correlation;
  12. the paper's layer-latency tables (``repro_torch.bench.latency_kernels``,
@@ -99,15 +104,16 @@ Phases, each fatal on failure:
      bitwise equal across prefill chunk widths None and 100; (d) one
      Phi-3-mini layer calibrated with act_group 128 (Update-LR never raises
      a loss);
- 14. Gemma-7b, head_dim 256: (a) the dense flash kernels' wide
-     instantiation bitwise the narrow one at D 64/96/128 (ragged S, GQA,
-     MQA, a query offset, D != Dv, int8 and int4 codes) and at phase 3's
-     prefill shapes, timed beside it there; then #7 and #8 at Gemma's heads
+ 14. Gemma-7b, head_dim 256: (a) the dense flash kernels at D 64/96/128
+     (ragged S, GQA, MQA, a query offset, D != Dv, int8 and int4 codes,
+     head dims that are not multiples of 8) and at phase 3's prefill
+     shapes, each within ``_flash_tolerance`` of its plain version and #8
+     bitwise #7 on the dequantized codes; then #7 and #8 at Gemma's heads
      (B 1, S 2048, H 16, D 256; f32 and bf16 q), a 100-row chunk at 1900,
      the served shapes (a bf16 q over an f32 pool: 12 and 16 rows over one
      slot's 64 gathered rows, a 777-token prompt whole and its last 77-row
      chunk), MQA at D 256 and #7 at D 192 / Dv 128, each within the
-     f32 bound of its plain version, #8 bitwise #7 on the dequantized codes
+     same bound of its plain version, #8 bitwise #7 on the dequantized codes
      and a chunk's rows bitwise the whole prompt's, with times beside the
      bound and SDPA; (b) Gemma-7b at full width (GEMMA_LAYERS layers, RTN +
      SVD on the card, the bf16 weights freed) served as in phase 6: every
@@ -1954,7 +1960,7 @@ def _layer0_routes(cfg, stage, tokens, policy, device):
     layer 0 losses; it is printed whether it does bitwise).
 
     (a) The reference route's pre_o against the kernel on the same q, k, v:
-        within the kernel's f32 bound against ``attention``
+        within the kernel's bound against ``attention``
         (``_flash_tolerance`` with the one extra rounding of the
         reference's scale-after-product).  This bound, τ, is how far the
         route may move the walk.
@@ -2348,7 +2354,7 @@ SWEEP_BATCH, SWEEP_SEQ = 4, 2048
 
 def _route_tolerance(q, kd, vd, scale, y_kernel):
     """Bound on |kernel - gather route| of one layer's attention on the same
-    q, K/V: the kernel's f32 bound against the reference's ``attention``
+    q, K/V: the kernel's bound against the reference's ``attention``
     (``_flash_tolerance`` with one more rounding per score), plus what the
     gather route rounds to the bf16 activations: the gathered K (2⁻⁹ of
     each element) and the bf16 logits (2⁻⁹ of each) move a score by at most

@@ -27,10 +27,10 @@ int run(const void* q, const void* k, const void* v, const void* q_start, void* 
   kv::FloatRows<T> vr{static_cast<const T*>(v), dv};
   // cp.async staging: every row starts on a 16-byte boundary
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
-  const bool async = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(v) % 16 == 0 && d % VEC == 0 && dv % VEC == 0;
-  return flash::launch<Q>(q, kr, vr, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal,
-                          async, stream);
+  const bool vec = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0 && d % VEC == 0 && dv % VEC == 0;
+  return flash::launch<Q>(q, kr, vr, q_start, out, b, sq, skv, h, kh, d, dv, scale, causal, vec,
+                          stream);
 }
 
 __global__ void probe_kernel(const float* x, float* hi, float* lo, int n, const float* a,

@@ -137,10 +137,24 @@ inline size_t smem_bytes(int d) {
   return sizeof(float) * BQ * (((d + 7) & ~7) + 4) + static_cast<size_t>(STAGES) * UNIT_BYTES;
 }
 
+#ifndef FLASH_SPLIT_INT
+#define FLASH_SPLIT_INT 0
+#endif
+#ifndef FLASH_VU_LOOP
+#define FLASH_VU_LOOP 0
+#endif
+#ifndef FLASH_MIN_BLOCKS
+#define FLASH_MIN_BLOCKS 2
+#endif
+
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
+#if FLASH_SPLIT_INT
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+#else
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
+#endif
 }
 
 // x = hi + lo + (at most 2⁻²²|x|): the split of every operand
@@ -200,32 +214,82 @@ struct Staging<kv::FloatRows<T>> {
   __device__ static T value(const kv::FloatRows<T>& r, int64_t row, int i) { return *at(r, row, i); }
 };
 
+// Codes dequantize as kv_rows.cuh's readers do (one __fmul_rn an element);
+// where the rows allow it (`vec`), VEC codes of one group at a time from
+// one 32-bit load.
 template <>
 struct Staging<kv::Int8Rows> {
   using S = float;
   static constexpr bool ASYNC = false;
+  static constexpr int VEC = 4;
   __device__ static float value(const kv::Int8Rows& r, int64_t row, int i) { return r(row, i); }
+  __device__ static void vec(const kv::Int8Rows& r, int64_t row, int i, float (&out)[VEC]) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(r.data + row * r.width + i);
+    const float sc = r.scales[row * r.n_groups + i / r.group];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      out[j] = __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> (8 * j))), sc);
+  }
 };
 
 template <>
 struct Staging<kv::Int4Rows> {
   using S = float;
   static constexpr bool ASYNC = false;
+  static constexpr int VEC = 8;
   __device__ static float value(const kv::Int4Rows& r, int64_t row, int i) { return r(row, i); }
+  __device__ static void vec(const kv::Int4Rows& r, int64_t row, int i, float (&out)[VEC]) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(r.data + row * (r.width / 2) + i / 2);
+    const float sc = r.scales[row * r.n_groups + i / r.group];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      out[j] = __fmul_rn(static_cast<float>(static_cast<int>(((w >> (4 * j)) & 0xFu) ^ 8u) - 8), sc);
+  }
 };
 
 // Stage ROWS key rows (key0 + r, those at or past key_end as zeros) of
 // COLS features (f0 + c, those at or past `width` as zeros) into `buf`,
-// row stride STRIDE.  `async`: the rows are 16-byte aligned, so f32 and
-// bf16 rows go by cp.async (the caller commits the group).
+// row stride STRIDE.  `vec`: the rows are aligned for whole chunks, so f32
+// and bf16 rows go by 16-byte cp.async (the caller commits the group) and
+// codes by 32-bit loads of one group's VEC codes, all loads first.
 template <typename Rows, int ROWS, int COLS, int STRIDE>
 __device__ __forceinline__ void stage_unit(typename Staging<Rows>::S* buf, const Rows& rows,
                                            int64_t row0, int kh, int key0, int key_end, int f0,
-                                           int width, bool async) {
+                                           int width, bool vec) {
   using St = Staging<Rows>;
   using S = typename St::S;
+  if constexpr (!St::ASYNC) {
+    if (vec) {
+      constexpr int VEC = St::VEC;
+      constexpr int CPR = COLS / VEC;  // chunks a row
+      constexpr int N = ROWS * CPR / THREADS;
+      float v[N][VEC];
+#pragma unroll
+      for (int it = 0; it < N; ++it) {
+        const int i = threadIdx.x + it * THREADS;
+        const int r = i / CPR;
+        const int c = (i % CPR) * VEC;
+        if (key0 + r < key_end && f0 + c < width) {
+          St::vec(rows, row0 + static_cast<int64_t>(key0 + r) * kh, f0 + c, v[it]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) v[it][j] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int it = 0; it < N; ++it) {
+        const int i = threadIdx.x + it * THREADS;
+        float* dst = buf + (i / CPR) * STRIDE + (i % CPR) * VEC;
+#pragma unroll
+        for (int j = 0; j < VEC; j += 4)
+          *reinterpret_cast<float4*>(dst + j) = make_float4(v[it][j], v[it][j + 1], v[it][j + 2],
+                                                            v[it][j + 3]);
+      }
+      return;
+    }
+  }
   if constexpr (St::ASYNC) {
-    if (async) {
+    if (vec) {
       constexpr int VEC = 16 / static_cast<int>(sizeof(S));
       constexpr int CPR = COLS / VEC;  // 16-byte chunks a row
 #pragma unroll
@@ -253,10 +317,10 @@ __device__ __forceinline__ void stage_unit(typename Staging<Rows>::S* buf, const
 }
 
 template <typename Q, typename Rows, int DVB>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, FLASH_MIN_BLOCKS)
 flash_attention_kernel(const Q* __restrict__ q, Rows krows, Rows vrows,
                        const int* __restrict__ q_start, Q* __restrict__ out, int sq, int skv,
-                       int h, int kh, int d, int dv, float scale, int causal, int async) {
+                       int h, int kh, int d, int dv, float scale, int causal, int vec) {
   using S = typename Staging<Rows>::S;
   using L = Layout<S>;
   const int n_dvc = (dv + DVB - 1) / DVB;
@@ -297,10 +361,10 @@ flash_attention_kernel(const Q* __restrict__ q, Rows krows, Rows vrows,
     if (x < 2 * n_ks) {
       const int half = x / n_ks;
       stage_unit<Rows, KU_ROWS, KU_COLS, L::SK>(buf, krows, row0, kh, j * BKV + half * KU_ROWS,
-                                                key_end, (x - half * n_ks) * KU_COLS, d, async);
+                                                key_end, (x - half * n_ks) * KU_COLS, d, vec);
     } else {
       stage_unit<Rows, BKV, VU_COLS, L::SV>(buf, vrows, row0, kh, j * BKV, key_end,
-                                            dv0 + (x - 2 * n_ks) * VU_COLS, dv, async);
+                                            dv0 + (x - 2 * n_ks) * VU_COLS, dv, vec);
     }
   };
   stage(0);
@@ -430,9 +494,14 @@ flash_attention_kernel(const Q* __restrict__ q, Rows krows, Rows vrows,
     // acc = acc·corr + P·V, one V unit (32 output features) at a time; the
     // k-step over keys 8kk… takes them as (0, 2, 4, 6, 1, 3, 5, 7), so P's
     // A fragment is the score accumulator as it stands
+#if FLASH_VU_LOOP
+    for (int vu = 0; vu < n_vu; ++vu) {
+      {
+#else
 #pragma unroll
     for (int vu = 0; vu < DVB / VU_COLS; ++vu) {
       if (vu < n_vu) {  // the same for every thread: the barriers stay uniform
+#endif
         const S* vb = next();
         float pb[4][4], ps[4][4];
 #pragma unroll
@@ -457,12 +526,16 @@ flash_attention_kernel(const Q* __restrict__ q, Rows krows, Rows vrows,
             mma_tf32(ps[nb], al, bh0, bh1);
           }
         }
+        // o's indices must be compile-time constants to stay in registers
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
+        for (int c = 0; c < DVB / VU_COLS; ++c)
+          if (c == vu)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            o[vu * 4 + nb][e] = __fadd_rn(__fmul_rn(o[vu * 4 + nb][e], e < 2 ? c0 : c1),
-                                          __fadd_rn(pb[nb][e], ps[nb][e]));
+            for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                o[c * 4 + nb][e] = __fadd_rn(__fmul_rn(o[c * 4 + nb][e], e < 2 ? c0 : c1),
+                                             __fadd_rn(pb[nb][e], ps[nb][e]));
       }
     }
   }
@@ -485,7 +558,7 @@ flash_attention_kernel(const Q* __restrict__ q, Rows krows, Rows vrows,
 template <typename Q, typename Rows, int DVB>
 int launch_kernel(const void* q, Rows krows, Rows vrows, const void* q_start, void* out, int b,
                   int sq, int skv, int h, int kh, int d, int dv, float scale, int causal,
-                  bool async, void* stream) {
+                  bool vec, void* stream) {
   auto kernel = flash_attention_kernel<Q, Rows, DVB>;
   const size_t smem = smem_bytes(d);
   const cudaError_t e = cudaFuncSetAttribute(
@@ -494,26 +567,26 @@ int launch_kernel(const void* q, Rows krows, Rows vrows, const void* q_start, vo
   const dim3 grid(h * ((dv + DVB - 1) / DVB), b, (sq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Q*>(q), krows, vrows, static_cast<const int*>(q_start),
-      static_cast<Q*>(out), sq, skv, h, kh, d, dv, scale, causal, async ? 1 : 0);
+      static_cast<Q*>(out), sq, skv, h, kh, d, dv, scale, causal, vec ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the blocks of one call on `stream` (Dv chunks of 64 output features
-// a block for Dv <= 64, else of 128); `async`: every K and V row starts on a
-// 16-byte boundary (cp.async staging).  Returns cudaGetLastError() after the
-// launch (0 = ok).
+// a block for Dv <= 64, else of 128); `vec`: every K and V row is aligned
+// for whole chunks (16-byte cp.async of f32 / bf16 rows; 32-bit loads of
+// one group's codes).  Returns cudaGetLastError() after the launch (0 = ok).
 template <typename Q, typename Rows>
 int launch(const void* q, Rows krows, Rows vrows, const void* q_start, void* out, int b, int sq,
-           int skv, int h, int kh, int d, int dv, float scale, int causal, bool async,
+           int skv, int h, int kh, int d, int dv, float scale, int causal, bool vec,
            void* stream) {
   if (d < 1 || dv < 1 || d > MAX_D || dv > MAX_D || kh == 0 || h % kh)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || sq == 0 || h == 0) return 0;
   if (dv <= 64)
     return launch_kernel<Q, Rows, 64>(q, krows, vrows, q_start, out, b, sq, skv, h, kh, d, dv,
-                                      scale, causal, async, stream);
+                                      scale, causal, vec, stream);
   return launch_kernel<Q, Rows, 128>(q, krows, vrows, q_start, out, b, sq, skv, h, kh, d, dv,
-                                     scale, causal, async, stream);
+                                     scale, causal, vec, stream);
 }
 
 }  // namespace flash

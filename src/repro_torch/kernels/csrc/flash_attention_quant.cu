@@ -19,6 +19,8 @@
 // scales.  Head dims up to 256.  The body, its numerics, its accuracy
 // standard and its design are in flash_attention.cuh.
 
+#include <stdint.h>
+
 #include "flash_attention.cuh"
 
 namespace {
@@ -31,16 +33,21 @@ int dispatch(const void* q, const void* k, const void* k_scales, const void* v,
   const int n_groups = d / group;
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
+  // whole 32-bit words of one group's codes: 4 int8 or 8 int4 codes
+  const int per_word = packed ? 8 : 4;
+  const bool vec = reinterpret_cast<uintptr_t>(k) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 4 == 0 && d % per_word == 0 &&
+                   group % per_word == 0;
   if (packed) {
     kv::Int4Rows kr{static_cast<const uint8_t*>(k), ks, d, group, n_groups};
     kv::Int4Rows vr{static_cast<const uint8_t*>(v), vs, d, group, n_groups};
     return flash::launch<Q>(q, kr, vr, q_start, out, b, sq, skv, h, kh, d, d, scale, causal,
-                            false, stream);
+                            vec, stream);
   }
   kv::Int8Rows kr{static_cast<const int8_t*>(k), ks, d, group, n_groups};
   kv::Int8Rows vr{static_cast<const int8_t*>(v), vs, d, group, n_groups};
-  return flash::launch<Q>(q, kr, vr, q_start, out, b, sq, skv, h, kh, d, d, scale, causal,
-                          false, stream);
+  return flash::launch<Q>(q, kr, vr, q_start, out, b, sq, skv, h, kh, d, d, scale, causal, vec,
+                          stream);
 }
 
 }  // namespace
