@@ -829,11 +829,13 @@ def phase_tc_probe(device):
     """Phase 3's probe of the two premises of the dense kernels' accuracy
     standard (``csrc/flash_attention.cuh``, ``_flash_tolerance``), fatal:
 
-    * premise 1: the kernels' split of each value of TF32_PROBE_VALUES
+    * premise 1: the kernels' split (an integer add and mask) and the same
+      split by ``cvt.rna.tf32.f32`` of each value of TF32_PROBE_VALUES and
+      of 65,536 random f32 bit patterns of every normal exponent, both
       bitwise ``flash_attn.tf32_split`` (round to nearest, ties away from
       zero, 13 low bits cleared), hi and lo TF32 values, |x - hi - lo| <=
-      2⁻²²|x|; the subnormals of TF32_PROBE_SUBNORMAL within 2⁻¹³⁷ (printed
-      either way);
+      2⁻²²|x| + 2⁻¹³⁷ (a residual below 2⁻¹²⁶ is subnormal); the subnormals
+      of TF32_PROBE_SUBNORMAL within 2⁻¹³⁷ (printed either way);
     * premise 2: rows of one m16n8k8 TF32 mma on chosen addends (1 plus
       tiny products, which round-to-nearest would round up; a 3/4-ulp
       addend on each sign; cancelling sums; a wide spread; exact products;
@@ -846,25 +848,36 @@ def phase_tc_probe(device):
     from repro_torch.kernels import flash_attn
 
     f32 = torch.float32
-    x = torch.tensor(TF32_PROBE_VALUES + TF32_PROBE_SUBNORMAL, dtype=f32, device=device)
-    hi, lo, _ = flash_attn.tc_probe(x, *(torch.zeros(shape, dtype=f32, device=device)
-                                        for shape in ((16, 8), (8, 8), (16, 8))))
+    chosen = TF32_PROBE_VALUES + TF32_PROBE_SUBNORMAL
+    gen = torch.Generator().manual_seed(0)
+    sign_mant = torch.randint(0, 2 ** 23, (2, 65536), generator=gen, dtype=torch.int32)
+    expo = torch.randint(1, 254, (65536,), generator=gen, dtype=torch.int32)
+    rand = ((sign_mant[0] & 1) << 31 | expo << 23 | sign_mant[1]).view(f32)
+    x = torch.cat([torch.tensor(chosen, dtype=f32), rand]).to(device)
+    zeros = [torch.zeros(shape, dtype=f32, device=device) for shape in ((16, 8), (8, 8), (16, 8))]
+    hi, lo, hi_cvt, lo_cvt, _ = (t.cpu() for t in flash_attn.tc_probe(x, *zeros))
     want_hi, want_lo = flash_attn.tf32_split(x.cpu())
-    n = len(TF32_PROBE_VALUES)
-    hi, lo = hi.cpu(), lo.cpu()
+    normal = torch.ones(x.numel(), dtype=torch.bool)
+    normal[len(TF32_PROBE_VALUES):len(chosen)] = False
     bits = lambda t: t.view(torch.int32)  # noqa: E731
-    normal_ok = (torch.equal(bits(hi[:n]), bits(want_hi[:n]))
-                 and torch.equal(bits(lo[:n]), bits(want_lo[:n]))
-                 and not bool((bits(hi) & 0x1FFF).any()) and not bool((bits(lo) & 0x1FFF).any()))
+    same = {name: (torch.equal(bits(h[normal]), bits(want_hi[normal]))
+                   and torch.equal(bits(l[normal]), bits(want_lo[normal])))
+            for name, h, l in (("kernel", hi, lo), ("cvt.rna", hi_cvt, lo_cvt))}
     resid = (x.cpu().double() - hi.double() - lo.double()).abs()
-    normal_ok = normal_ok and bool((resid[:n] <= 2.0 ** -22 * x.cpu()[:n].double().abs()).all())
-    sub_ok = bool((resid[n:] <= 2.0 ** -137).all())
-    for i, v in enumerate(TF32_PROBE_VALUES + TF32_PROBE_SUBNORMAL):
-        print(f"    split {v!r:>24}: hi {hi[i].item()!r} lo {lo[i].item()!r} (emulation "
+    normal_ok = (all(same.values()) and not bool((bits(hi) & 0x1FFF).any())
+                 and not bool((bits(lo) & 0x1FFF).any())
+                 and bool((resid[normal] <= 2.0 ** -22 * x.cpu()[normal].double().abs()
+                           + 2.0 ** -137).all()))
+    sub_ok = bool((resid[~normal] <= 2.0 ** -137).all())
+    for i, v in enumerate(chosen):
+        print(f"    split {v!r:>24}: hi {hi[i].item()!r} lo {lo[i].item()!r} (cvt.rna "
+              f"{hi_cvt[i].item()!r} / {lo_cvt[i].item()!r}; emulation "
               f"{want_hi[i].item()!r} / {want_lo[i].item()!r}); |x - hi - lo| "
               f"{resid[i].item():.3e}", flush=True)
-    print(f"  premise 1 (cvt.rna.tf32.f32): normal values bitwise the emulation and "
-          f"within 2^-22|x|: {normal_ok}; subnormals within 2^-137: {sub_ok}", flush=True)
+    print(f"  premise 1 (round to nearest, ties away): on {int(normal.sum())} normal values "
+          f"the kernels' split bitwise the emulation: {same['kernel']}, cvt.rna.tf32.f32's: "
+          f"{same['cvt.rna']}; all within 2^-22|x| + 2^-137: {normal_ok}; subnormals within 2^-137: "
+          f"{sub_ok}", flush=True)
 
     # premise 2: each row r of A against B's column 0 (all ones) gives
     # D[r, 0] = C[r, 0] + Σ_k A[r, k]; column 1 holds 1 + 2^-10 in its first
@@ -900,7 +913,7 @@ def phase_tc_probe(device):
     bt = torch.zeros((8, 8), dtype=f32)
     bt[0] = 1.0  # B's column 0: ones
     bt[1, 0] = 1 + 2 ** -10
-    _, _, d = flash_attn.tc_probe(x, a.to(device), bt.to(device), c.to(device))
+    d = flash_attn.tc_probe(x, a.to(device), bt.to(device), c.to(device))[-1]
     d = d.cpu()
     model_ok, zero_same = True, True
     for r, label in enumerate(rows):
@@ -929,7 +942,8 @@ def phase_tc_probe(device):
     if not (normal_ok and sub_ok and model_ok):
         raise SystemExit("the card breaks a premise of the dense flash kernels' accuracy "
                          "standard (see the probe above): widen the model and restate it")
-    return {"split_bitwise": normal_ok, "subnormal_within_floor": sub_ok,
+    return {"split_bitwise": same, "split_within_premise": normal_ok,
+            "subnormal_within_floor": sub_ok,
             "mma_within_model": model_ok, "zero_products_keep_c": zero_same,
             "mma": {label: float(d[r, 0]) for r, label in enumerate(rows)}}
 

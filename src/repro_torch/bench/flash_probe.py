@@ -1,8 +1,7 @@
 """The dense flash-attention kernels #7/#8 of a previous tree (the CUDA-core
 bodies) beside the present ones, on one card.
 
-    python3 src/repro_torch/bench/flash_probe.py [--premises] [--variants]
-        [--old DIR [--profile] [--versus]]
+    python3 src/repro_torch/bench/flash_probe.py [--premises] [--old DIR [--profile] [--versus]]
 
 ``DIR`` holds the previous tree's ``src/repro_torch/kernels/csrc`` (e.g.
 ``git archive <commit> src/repro_torch/kernels/csrc | tar -x -C DIR``); its
@@ -19,13 +18,6 @@ time of a short call goes to.
 ``--premises``: the present two libraries built (``-Xptxas -v``'s lines
 printed), their tensor-core instructions counted and the premises of the
 accuracy standard probed (``chip_smoke.py``'s phase 2 and 3 checks).
-
-``--variants``: the present sources built under each set of macros of
-VARIANTS (the split by ``cvt.rna`` or by integer rounding, the V units
-unrolled or looped, the blocks asked per SM), their registers, their SASS
-opcode counts, their split bitwise the plain emulation, and their times at
-VARIANT_SHAPES in turns, each held within ``_flash_tolerance`` of the plain
-version (#8 bitwise #7 of the same build on the dequantized codes).
 
 ``--versus``: both trees' #7 and #8 at every shape of ``chip_smoke.py``'s
 FLASH_SHAPES, PREFILL_SHAPES, OFFSET_CASES and GEMMA_FLASH, in turns (old,
@@ -306,192 +298,6 @@ def versus(libs, device) -> dict:
     return out
 
 
-VARIANTS = {
-    "cvt": [],
-    "int": ["-DFLASH_SPLIT_INT=1"],
-    "cvt+loop": ["-DFLASH_VU_LOOP=1"],
-    "int+loop": ["-DFLASH_SPLIT_INT=1", "-DFLASH_VU_LOOP=1"],
-    "int+loop+3": ["-DFLASH_SPLIT_INT=1", "-DFLASH_VU_LOOP=1", "-DFLASH_MIN_BLOCKS=3"],
-}
-# (label, kernel, (B, Sq, Skv, H, KH, D, Dv, q_start, q dtype, K/V dtype or pool))
-VARIANT_SHAPES = (
-    ("smollm-calib", 7, (32, 2048, 2048, 9, 3, 64, 64, 0, "float32", "float32")),
-    ("phi3-f32", 7, (4, 2048, 2048, 32, 32, 96, 96, 0, "float32", "float32")),
-    ("gemma", 7, (1, 2048, 2048, 16, 16, 256, 256, 0, "float32", "float32")),
-    ("gemma-serve-chunk", 7, (1, 16, 64, 16, 16, 256, 256, 16, "bfloat16", "float32")),
-    ("gemma-777-chunk", 7, (1, 77, 777, 16, 16, 256, 256, 700, "bfloat16", "float32")),
-    ("s1", 7, (4, 1, 1, 32, 32, 96, 96, 0, "bfloat16", "bfloat16")),
-    ("smollm-b4-int8", 8, (4, 2048, 2048, 9, 3, 64, 64, 0, "float32", "int8")),
-    ("gemma-int8", 8, (1, 2048, 2048, 16, 16, 256, 256, 0, "float32", "int8")),
-    ("phi3-chunk-int4", 8, (1, 256, 2048, 32, 32, 96, 96, 1792, "float32", "int4-g32")),
-)
-
-
-def sass_histogram(so: Path) -> dict:
-    """Per kernel function of a built library: its SASS instruction count
-    and the count of each opcode (predicates and modifiers dropped)."""
-    from repro_torch.kernels import build
-
-    sass = subprocess.run([str(Path(build.nvcc_path()).parent / "cuobjdump"), "-sass", str(so)],
-                          capture_output=True, text=True, check=True).stdout
-    out, fn = {}, None
-    for line in sass.splitlines():
-        line = line.strip()
-        if line.startswith("Function :"):
-            fn = line.split(":", 1)[1].strip()
-            out[fn] = {}
-        elif fn and line.startswith("/*") and "*/" in line:
-            body = line.split("*/", 1)[1].strip().rstrip(";").strip()
-            if not body or body.startswith("/*"):
-                continue
-            tok = body.split()
-            op = tok[1] if tok[0].startswith("@") and len(tok) > 1 else tok[0]
-            op = op.split(".")[0]
-            out[fn][op] = out[fn].get(op, 0) + 1
-    return out
-
-
-def variants(device) -> dict:
-    import torch
-
-    import chip_smoke as cs
-    from repro_torch.bench.common import flush_buffer, time_ms
-    from repro_torch.kernels import build, flash_attn
-    from repro_torch.serve.kvquant import dequantize_kv, quantize_kv
-
-    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    base = ROOT / ".chip_check" / "variants"
-    procs = {}
-    for name, flags in VARIANTS.items():
-        d = base / name.replace("+", "_")
-        d.mkdir(parents=True, exist_ok=True)
-        for lib in ("flash_attention", "flash_attention_quant"):
-            so = d / f"lib{lib}.so"
-            procs[(name, lib)] = (subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", str(so),
-                 str(csrc / f"{lib}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), so)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs, out = {}, {"build": {}, "sass": {}, "split": {}, "times": {}}
-    for (name, lib), (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for variant {name} {lib}:\n{log}")
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        out["build"][f"{name}/{lib}"] = regs
-        print(f"  {name:<12} {lib:<22} " + " | ".join(r for r in regs if "registers" in r),
-              flush=True)
-        print(f"  {'':<12} {'':<22} spills: "
-              + " | ".join(r.split(",")[1].strip() for r in regs if "spill" in r), flush=True)
-        hist = sass_histogram(so)
-        for fn, ops in hist.items():
-            if "flash_attention_kernel" in fn and ("ILi64E" in fn or "ILi128E" in fn):
-                top = sorted(ops.items(), key=lambda kv: -kv[1])[:14]
-                out["sass"][f"{name}/{fn[:90]}"] = ops
-                print(f"    {fn[:70]}: {sum(ops.values())} instructions; "
-                      + ", ".join(f"{k} {v}" for k, v in top), flush=True)
-        cdll = ctypes.CDLL(str(so))
-        if lib == "flash_attention":
-            cdll.flash_attention.argtypes = [p, i, p, p, i, p, p, i, i, i, i, i, i, i, f, i, p]
-            cdll.flash_attention_probe.argtypes = [p, p, p, i, p, p, p, p, p]
-        else:
-            cdll.flash_attention_quant.argtypes = [p, i, p, p, p, p, i, i, p, p, i, i, i, i, i,
-                                                   i, f, i, p]
-        libs[(name, lib)] = cdll
-
-    # each build's split bitwise the plain emulation
-    x = torch.tensor(cs.TF32_PROBE_VALUES, dtype=torch.float32, device=device)
-    want_hi, want_lo = flash_attn.tf32_split(x.cpu())
-    z = [torch.zeros(sh, dtype=torch.float32, device=device) for sh in ((16, 8), (8, 8), (16, 8))]
-    for name in VARIANTS:
-        hi, lo, dd = torch.empty_like(x), torch.empty_like(x), torch.empty_like(z[2])
-        libs[(name, "flash_attention")].flash_attention_probe(
-            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.numel(), z[0].data_ptr(),
-            z[1].data_ptr(), z[2].data_ptr(), dd.data_ptr(), build.stream_of(x))
-        torch.cuda.synchronize()
-        same = (torch.equal(hi.cpu().view(torch.int32), want_hi.view(torch.int32))
-                and torch.equal(lo.cpu().view(torch.int32), want_lo.view(torch.int32)))
-        out["split"][name] = same
-        print(f"  {name}: split bitwise the emulation: {same}", flush=True)
-        if not same:
-            raise SystemExit(f"variant {name}: the split is not round-to-nearest-away")
-
-    flush = flush_buffer(device)
-    gen = torch.Generator(device=device).manual_seed(7)
-    for label, kern, (b, sq, skv, h, kh, d, dv, q0, qd, kvd) in VARIANT_SHAPES:
-        q = torch.randn((b, sq, h, d), generator=gen, device=device).to(getattr(torch, qd))
-        k = torch.randn((b, skv, kh, d), generator=gen, device=device)
-        v = torch.randn((b, skv, kh, dv), generator=gen, device=device)
-        qs = torch.full((b,), q0, dtype=torch.int32, device=device) if q0 else None
-        qsp = None if qs is None else qs.data_ptr()
-        scale = d ** -0.5
-        calls = {}
-        if kern == 7:
-            k, v = k.to(getattr(torch, kvd)), v.to(getattr(torch, kvd))
-            kd, vd = k, v
-            for name in VARIANTS:
-                def call(name=name):
-                    o = torch.empty((b, sq, h, dv), dtype=q.dtype, device=device)
-                    rc = libs[(name, "flash_attention")].flash_attention(
-                        q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
-                        v.data_ptr(), int(k.dtype == torch.bfloat16), qsp, o.data_ptr(), b, sq,
-                        skv, h, kh, d, dv, scale, 1, build.stream_of(q))
-                    assert rc == 0, rc
-                    return o
-                calls[name] = call
-            y_plain = flash_attn.flash_attention_plain(q, k, v, scale, q_start=qs)
-        else:
-            spec = cs._kv_spec(kvd)
-            (kq, ks), (vq, vs) = quantize_kv(k, spec), quantize_kv(v, spec)
-            kd, vd = dequantize_kv(kq, ks, spec, d), dequantize_kv(vq, vs, spec, d)
-            for name in VARIANTS:
-                def call(name=name):
-                    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=device)
-                    rc = libs[(name, "flash_attention_quant")].flash_attention_quant(
-                        q.data_ptr(), int(q.dtype == torch.bfloat16), kq.data_ptr(),
-                        ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), int(spec.dtype == "int4"),
-                        spec.group_for(d), qsp, o.data_ptr(), b, sq, skv, h, kh, d, scale, 1,
-                        build.stream_of(q))
-                    assert rc == 0, rc
-                    return o
-                calls[name] = call
-            y_plain = flash_attn.flash_attention_quant_plain(q, kq, ks, vq, vs, scale, spec,
-                                                             q_start=qs)
-        tol = cs._flash_tolerance(q, kd, vd, scale, y_plain, q0)
-        for name, call in calls.items():
-            y = call()
-            torch.cuda.synchronize()
-            err = (y.double() - y_plain.double()).abs()
-            ok = bool(torch.isfinite(y).all()) and bool((err <= tol).all())
-            if kern == 8:
-                o7 = torch.empty_like(y)
-                libs[(name, "flash_attention")].flash_attention(
-                    q.data_ptr(), int(q.dtype == torch.bfloat16), kd.data_ptr(), vd.data_ptr(),
-                    0, qsp, o7.data_ptr(), b, sq, skv, h, kh, d, dv, scale, 1,
-                    build.stream_of(q))
-                torch.cuda.synchronize()
-                ok = ok and torch.equal(y, o7)
-            if not ok:
-                raise SystemExit(f"variant {name} fails its gates at {label}")
-        names = list(VARIANTS)
-        times = {n: [] for n in names}
-        warm = {n: [] for n in names}
-        for order in (names, names[::-1]):
-            for n in order:
-                times[n].append(time_ms(calls[n], flush))
-                if sq * skv <= 777 * 777 // 4:
-                    warm[n].append(warm_ms(calls[n]))
-        row = {n: {"us": statistics.mean(times[n]) * 1e3,
-                   "warm_us": statistics.mean(warm[n]) * 1e3 if warm[n] else None}
-               for n in names}
-        out["times"][label] = row
-        print(f"  {label:<18} " + "  ".join(
-            f"{n} {r['us']:9.2f}" + (f" (warm {r['warm_us']:.2f})" if r["warm_us"] else "")
-            for n, r in row.items()) + " us", flush=True)
-        del q, k, v, kd, vd, y_plain, calls
-    return out
-
-
 def main() -> int:
     import torch
 
@@ -499,7 +305,6 @@ def main() -> int:
     ap.add_argument("--old", type=Path, help="the previous tree (--profile, --versus)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--premises", action="store_true")
-    ap.add_argument("--variants", action="store_true")
     ap.add_argument("--versus", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -528,9 +333,6 @@ def main() -> int:
         print(f"  HMMA instructions: {result['hmma']}", flush=True)
         print("== the premises", flush=True)
         result["premises"] = cs.phase_tc_probe("cuda")
-    if args.variants:
-        print("== the present sources under each variant's macros", flush=True)
-        result["variants"] = variants("cuda")
     if args.profile:
         print("== the previous #7 at the short served shapes", flush=True)
         result["profile"] = profile(libs, "cuda")
@@ -539,7 +341,7 @@ def main() -> int:
         result["versus"] = versus(libs, "cuda")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    modes = [m for m in ("premises", "variants", "profile", "versus") if getattr(args, m)]
+    modes = [m for m in ("premises", "profile", "versus") if getattr(args, m)]
     (out / f"flash_probe-{'-'.join(modes)}.json").write_text(json.dumps(result, indent=1))
     return 0
 

@@ -33,13 +33,17 @@ int run(const void* q, const void* k, const void* v, const void* q_start, void* 
                           stream);
 }
 
-__global__ void probe_kernel(const float* x, float* hi, float* lo, int n, const float* a,
-                             const float* bt, const float* c, float* d) {
+__global__ void probe_kernel(const float* x, float* hi, float* lo, float* hi_cvt,
+                             float* lo_cvt, int n, const float* a, const float* bt,
+                             const float* c, float* d) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     uint32_t h, l;
     flash::split(x[i], h, l);
     hi[i] = __uint_as_float(h);
     lo[i] = __uint_as_float(l);
+    h = flash::tf32_cvt_rna(x[i]);
+    hi_cvt[i] = __uint_as_float(h);
+    lo_cvt[i] = __uint_as_float(flash::tf32_cvt_rna(__fsub_rn(x[i], __uint_as_float(h))));
   }
   if (threadIdx.x < 32) {
     const int g = threadIdx.x >> 2;
@@ -79,12 +83,15 @@ int flash_attention(const void* q, int q_bf16, const void* k, const void* v, int
 }
 
 // The premises' probe, one block on `stream`: hi / lo (n,) = the body's
-// split of x (n,); d (16, 8) = c (16, 8) + a (16, 8) · btᵀ, bt (8, 8) holding
-// B's columns as rows, through one m16n8k8 TF32 mma (a and bt must be TF32
-// values already).  All f32, contiguous.  Returns cudaGetLastError().
-int flash_attention_probe(const float* x, float* hi, float* lo, int n, const float* a,
-                          const float* bt, const float* c, float* d, void* stream) {
-  probe_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, hi, lo, n, a, bt, c, d);
+// split of x (n,), hi_cvt / lo_cvt the same split by cvt.rna.tf32.f32; d
+// (16, 8) = c (16, 8) + a (16, 8) · btᵀ, bt (8, 8) holding B's columns as
+// rows, through one m16n8k8 TF32 mma (a and bt must be TF32 values
+// already).  All f32, contiguous.  Returns cudaGetLastError().
+int flash_attention_probe(const float* x, float* hi, float* lo, float* hi_cvt, float* lo_cvt,
+                          int n, const float* a, const float* bt, const float* c, float* d,
+                          void* stream) {
+  probe_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, hi, lo, hi_cvt, lo_cvt, n,
+                                                                  a, bt, c, d);
   return static_cast<int>(cudaGetLastError());
 }
 

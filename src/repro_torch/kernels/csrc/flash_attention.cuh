@@ -26,7 +26,9 @@
 //
 // The two products, q·Kᵀ and P·V, run on the tensor cores as
 // mma.sync.m16n8k8 in TF32, three passes ("3xTF32"): each f32 operand x is
-// split into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi); hi·hi is
+// split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), rna_tf32 rounding
+// as cvt.rna.tf32.f32 does (to nearest, ties away from zero, the 13 low
+// bits cleared) by an integer add and mask (see tf32_rna); hi·hi is
 // accumulated in one f32 accumulator, hi·lo + lo·hi in another, and the two
 // are added in f32 round-to-nearest when the tile's product is done (the
 // cross terms are ~2⁻¹¹ of hi·hi, so keeping them apart keeps the large
@@ -38,8 +40,8 @@
 // it, and a fatal sub-phase of its phase 3 probes both premises on the card
 // through flash_attention_probe below).
 //
-//   Premise 1.  cvt.rna.tf32.f32 rounds to nearest (ties away from zero)
-//   and clears the 13 low bits: |x - hi| <= 2⁻¹¹|x| and, x - hi being exact
+//   Premise 1.  rna_tf32 rounds to nearest (ties away from zero) and
+//   clears the 13 low bits: |x - hi| <= 2⁻¹¹|x| and, x - hi being exact
 //   in f32, |x - hi - lo| <= 2⁻¹¹|x - hi| <= 2⁻²²|x| (plus 2⁻¹³⁷ where a
 //   residual is subnormal).  With A = hi_a + lo_a, a product keeps
 //   hi_a·hi_b + hi_a·lo_b + lo_a·hi_b and drops lo_a·lo_b + A·(b - hi_b -
@@ -95,14 +97,17 @@
 // features, V in units of 128 keys × 32 features.  f32 and bf16 rows (bf16
 // kept as bf16: exact in TF32) arrive by 16-byte cp.async, two units ahead
 // of the one computed, one block barrier a unit; quantized rows are
-// dequantized by kv_rows.cuh's readers as they are staged (one __fmul_rn
-// an element).  A warp keeps its 16 × 128 scores (64 f32 a thread) and its
+// dequantized as they are staged (one __fmul_rn an element, as kv_rows.cuh's
+// readers), a 32-bit word of one group's codes at a time.  A warp keeps its 16 × 128 scores (64 f32 a thread) and its
 // 16 × Dv-chunk accumulator (up to 64 a thread) in registers; the
 // accumulator layout of m16n8k8 serves as P's A fragment once the tile's
 // 8 keys of each k-step are taken in the order (0, 2, 4, 6, 1, 3, 5, 7),
 // with V's rows read in the same order, so P never leaves the registers.  A
 // Dv above 128 takes a second block per (query tile, head), which computes
-// the same scores again (bitwise) for its half of Dv.
+// the same scores again (bitwise) for its half of Dv.  The V units run as a
+// loop, not unrolled, which keeps the body's code small; the k-steps of P·V
+// past the block's last key are skipped (zero products, which the probe
+// shows leave an accumulator bitwise as it is).
 
 #pragma once
 
@@ -137,24 +142,18 @@ inline size_t smem_bytes(int d) {
   return sizeof(float) * BQ * (((d + 7) & ~7) + 4) + static_cast<size_t>(STAGES) * UNIT_BYTES;
 }
 
-#ifndef FLASH_SPLIT_INT
-#define FLASH_SPLIT_INT 0
-#endif
-#ifndef FLASH_VU_LOOP
-#define FLASH_VU_LOOP 0
-#endif
-#ifndef FLASH_MIN_BLOCKS
-#define FLASH_MIN_BLOCKS 2
-#endif
-
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x: to nearest,
+// ties away from zero, the 13 low bits cleared; by an integer add and mask
+// (two integer operations, where the conversion unit takes a quarter of the
+// issue rate), which the probe holds bitwise against cvt.rna itself.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
-#if FLASH_SPLIT_INT
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-#else
+}
+
+__device__ __forceinline__ uint32_t tf32_cvt_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
-#endif
 }
 
 // x = hi + lo + (at most 2⁻²²|x|): the split of every operand
@@ -317,7 +316,7 @@ __device__ __forceinline__ void stage_unit(typename Staging<Rows>::S* buf, const
 }
 
 template <typename Q, typename Rows, int DVB>
-__global__ void __launch_bounds__(THREADS, FLASH_MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, 2)
 flash_attention_kernel(const Q* __restrict__ q, Rows krows, Rows vrows,
                        const int* __restrict__ q_start, Q* __restrict__ out, int sq, int skv,
                        int h, int kh, int d, int dv, float scale, int causal, int vec) {
@@ -494,49 +493,43 @@ flash_attention_kernel(const Q* __restrict__ q, Rows krows, Rows vrows,
     // acc = acc·corr + P·V, one V unit (32 output features) at a time; the
     // k-step over keys 8kk… takes them as (0, 2, 4, 6, 1, 3, 5, 7), so P's
     // A fragment is the score accumulator as it stands
-#if FLASH_VU_LOOP
+    const int kk_end = min(BKV, key_end - k0);  // the tile's keys any row may attend
     for (int vu = 0; vu < n_vu; ++vu) {
-      {
-#else
+      const S* vb = next();
+      float pb[4][4], ps[4][4];
 #pragma unroll
-    for (int vu = 0; vu < DVB / VU_COLS; ++vu) {
-      if (vu < n_vu) {  // the same for every thread: the barriers stay uniform
-#endif
-        const S* vb = next();
-        float pb[4][4], ps[4][4];
+      for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
+        for (int e = 0; e < 4; ++e) pb[nb][e] = ps[nb][e] = 0.f;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) pb[nb][e] = ps[nb][e] = 0.f;
+      for (int kk = 0; kk < BKV / 8; ++kk) {
+        if (kk * 8 >= kk_end) break;  // P is zero there: zero products leave pv as it is
+        uint32_t ah[4], al[4];
+        split(s[kk][0], ah[0], al[0]);
+        split(s[kk][2], ah[1], al[1]);
+        split(s[kk][1], ah[2], al[2]);
+        split(s[kk][3], ah[3], al[3]);
 #pragma unroll
-        for (int kk = 0; kk < BKV / 8; ++kk) {
-          uint32_t ah[4], al[4];
-          split(s[kk][0], ah[0], al[0]);
-          split(s[kk][2], ah[1], al[1]);
-          split(s[kk][1], ah[2], al[2]);
-          split(s[kk][3], ah[3], al[3]);
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb) {
-            const S* vr = vb + (kk * 8 + 2 * t) * L::SV + nb * 8 + g;
-            uint32_t bh0, bl0, bh1, bl1;
-            split(kv::to_f32(vr[0]), bh0, bl0);
-            split(kv::to_f32(vr[L::SV]), bh1, bl1);
-            mma_tf32(pb[nb], ah, bh0, bh1);
-            mma_tf32(ps[nb], ah, bl0, bl1);
-            mma_tf32(ps[nb], al, bh0, bh1);
-          }
+        for (int nb = 0; nb < 4; ++nb) {
+          const S* vr = vb + (kk * 8 + 2 * t) * L::SV + nb * 8 + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split(kv::to_f32(vr[0]), bh0, bl0);
+          split(kv::to_f32(vr[L::SV]), bh1, bl1);
+          mma_tf32(pb[nb], ah, bh0, bh1);
+          mma_tf32(ps[nb], ah, bl0, bl1);
+          mma_tf32(ps[nb], al, bh0, bh1);
         }
-        // o's indices must be compile-time constants to stay in registers
-#pragma unroll
-        for (int c = 0; c < DVB / VU_COLS; ++c)
-          if (c == vu)
-#pragma unroll
-            for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                o[c * 4 + nb][e] = __fadd_rn(__fmul_rn(o[c * 4 + nb][e], e < 2 ? c0 : c1),
-                                             __fadd_rn(pb[nb][e], ps[nb][e]));
       }
+      // o's indices must be compile-time constants to stay in registers
+#pragma unroll
+      for (int c = 0; c < DVB / VU_COLS; ++c)
+        if (c == vu)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              o[c * 4 + nb][e] = __fadd_rn(__fmul_rn(o[c * 4 + nb][e], e < 2 ? c0 : c1),
+                                           __fadd_rn(pb[nb][e], ps[nb][e]));
     }
   }
   cp_async_wait<0>();

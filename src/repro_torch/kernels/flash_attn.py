@@ -256,7 +256,7 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.flash_attention.argtypes = [p, i, p, p, i, p, p, i, i, i, i, i, i, i, f, i, p]
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_max_d.restype = ctypes.c_int
-        lib.flash_attention_probe.argtypes = [p, p, p, i, p, p, p, p, p]
+        lib.flash_attention_probe.argtypes = [p, p, p, p, p, i, p, p, p, p, p]
         lib.flash_attention_probe.restype = ctypes.c_int
     elif name == "flash_attention_quant":
         lib.flash_attention_quant.argtypes = [p, i, p, p, p, p, i, i, p, p,
@@ -483,19 +483,20 @@ def flash_attention_quant(q, k_quant, k_scales, v_quant, v_scales,
 
 
 def tc_probe_plain(x, a, bt, c):
-    """:func:`tc_probe`'s function in plain torch: :func:`tf32_split` of x,
-    and c + a·btᵀ summed exactly (float64, then rounded to f32)."""
+    """:func:`tc_probe`'s function in plain torch: :func:`tf32_split` of x
+    (twice), and c + a·btᵀ summed exactly (float64, then rounded to f32)."""
     hi, lo = tf32_split(x)
     d = c.double() + a.double() @ bt.double().T
-    return hi, lo, d.to(torch.float32)
+    return hi, lo, hi.clone(), lo.clone(), d.to(torch.float32)
 
 
 def tc_probe(x, a, bt, c):
     """The dense kernels' TF32 split and one of their tensor-core products
-    on chosen inputs (``flash_attention_probe``): returns the split (hi, lo)
-    of x (n,) f32 and d (16, 8) = c (16, 8) + a (16, 8) · btᵀ (bt (8, 8))
-    from one m16n8k8 mma, a and bt holding TF32 values.  A CPU ``x`` runs
-    the plain version; a CUDA ``x`` launches the probe, or raises."""
+    on chosen inputs (``flash_attention_probe``): returns the kernels' split
+    (hi, lo) of x (n,) f32, the same split by ``cvt.rna.tf32.f32`` (hi_cvt,
+    lo_cvt), and d (16, 8) = c (16, 8) + a (16, 8) · btᵀ (bt (8, 8)) from
+    one m16n8k8 mma, a and bt holding TF32 values.  A CPU ``x`` runs the
+    plain version; a CUDA ``x`` launches the probe, or raises."""
     if x.device.type == "cpu":
         return tc_probe_plain(x, a, bt, c)
     if x.device.type != "cuda":
@@ -507,10 +508,12 @@ def tc_probe(x, a, bt, c):
     if x.dtype != torch.float32 or x.dim() != 1:
         raise ValueError(f"x must be float32 (n,); got {x.dtype} {tuple(x.shape)}")
     build.check_operands(x, [x, a, bt, c])
-    hi, lo, d = torch.empty_like(x), torch.empty_like(x), torch.empty_like(c)
+    hi, lo, hi_cvt, lo_cvt = (torch.empty_like(x) for _ in range(4))
+    d = torch.empty_like(c)
     rc = _lib("flash_attention").flash_attention_probe(
-        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.numel(), a.data_ptr(),
-        bt.data_ptr(), c.data_ptr(), d.data_ptr(), build.stream_of(x))
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), hi_cvt.data_ptr(), lo_cvt.data_ptr(),
+        x.numel(), a.data_ptr(), bt.data_ptr(), c.data_ptr(), d.data_ptr(),
+        build.stream_of(x))
     if rc != 0:
         raise RuntimeError(f"flash_attention_probe launch failed: cudaError {rc}")
-    return hi, lo, d
+    return hi, lo, hi_cvt, lo_cvt, d

@@ -119,7 +119,8 @@ def test_probe_plain_is_the_exact_product():
     c = torch.zeros((16, 8))
     c[0] = 1.0
     x = _values([1 + 2 ** -11, 3.0])
-    hi, lo, d = flash_attn.tc_probe(x, a, bt, c)
+    hi, lo, hi_cvt, lo_cvt, d = flash_attn.tc_probe(x, a, bt, c)
     assert hi.tolist() == [1 + 2 ** -10, 3.0] and lo.tolist() == [-(2 ** -11), 0.0]
+    assert torch.equal(hi_cvt, hi) and torch.equal(lo_cvt, lo)
     assert d[0, 0].item() == np.float32(1 + 8 * 2.0 ** -24)  # 1 + 2⁻²¹, exact in f32
     assert torch.equal(d[0, 1:], c[0, 1:]) and torch.equal(d[1:], c[1:])
