@@ -789,9 +789,8 @@ def _flash_bound(shape):
     """Least time of one causal call on an H100 SXM (ms), what bounds it,
     and the CUDA-core bound beside it: q, k, v and the output moved once
     each, or the 4·B·H·D·S(S+1)/2 f32 operations of the causal products as
-    three TF32 passes at 495 TFLOP/s (the tensor-core body's arithmetic);
-    the last value counts the same operations at the non-tensor f32 rate
-    (the CUDA-core body's)."""
+    three TF32 passes at 495 TFLOP/s (the kernel's arithmetic); the last
+    value counts the same operations at the non-tensor f32 rate."""
     b, s, h, kh, d, dtype = shape
     item = 4 if dtype == "float32" else 2
     nbytes = item * b * s * d * (2 * h + 2 * kh)
@@ -2931,7 +2930,8 @@ def add_group_entries(kernels, worst, timed, smol_counts, phi3_counts, paths):
 # q_start, q dtype, K/V dtype or quantized pool): ragged S, GQA and MQA, a
 # chunk with a query offset, D != Dv, bf16 q over f32 K/V, int8 and int4
 # codes, and head dims that are not multiples of 8 (zero-padded features;
-# rows too narrow for 16-byte copies, staged element by element)
+# rows, or groups of codes, too narrow for whole-chunk loads, staged
+# element by element)
 SMALL_D_CASES = (
     (2, 300, 300, 8, 2, 64, 64, 0, "float32", "float32"),
     (1, 100, 400, 6, 6, 96, 96, 300, "bfloat16", "float32"),
@@ -2941,6 +2941,8 @@ SMALL_D_CASES = (
     (1, 100, 400, 8, 8, 128, 128, 300, "bfloat16", "int4-g32"),
     (2, 150, 150, 4, 2, 98, 60, 0, "float32", "float32"),
     (1, 70, 200, 4, 4, 100, 100, 130, "bfloat16", "bfloat16"),
+    (1, 90, 150, 4, 2, 98, 98, 40, "float32", "int8"),
+    (1, 70, 150, 4, 4, 100, 100, 60, "bfloat16", "int4"),
 )
 # kernels #7 and #8 at D 256 (and #7 at D 192 / Dv 128), each (B, Sq, Skv,
 # H, KH, D, Dv, q_start, q dtype): Gemma-7b's heads over a whole 2048-token
@@ -2995,7 +2997,7 @@ def phase_gemma_kernels(device):
         """#7 over k, v in ``kvd`` (or #8 over their codes, and #7 on the
         dequantized codes) against the plain version."""
         scale = q.shape[-1] ** -0.5
-        if kvd in QUANT_POOLS:
+        if kvd.startswith("int"):
             spec = _kv_spec(kvd)
             (kq, ks), (vq, vs) = quantize_kv(k, spec), quantize_kv(v, spec)
             kd, vd = (dequantize_kv(kq, ks, spec, q.shape[-1]),

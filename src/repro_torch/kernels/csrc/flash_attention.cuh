@@ -61,8 +61,7 @@
 //   T <= S = Σ_d |q_d·scale|·max_keys |k_d|.  The plain version's f32
 //   product errs by D·u·S (to first order), so |kernel - plain| <=
 //   (18n + 13 + D)(1 + 2⁻⁸)·u·S per score: (3.25·D + 13)(1 + 2⁻⁸)·u·S for
-//   D a multiple of 8, against 2·D·u·S for the CUDA-core body this
-//   replaces.  A tile's pv is the same product over the tile's 128 keys
+//   D a multiple of 8.  A tile's pv is the same product over the tile's 128 keys
 //   (16 mmas a pass): within (18·16 + 13)(1 + 2⁻⁸)·u of Σ|p·v| <=
 //   max|v|·Σp.  Σp stays an f32 sum on the CUDA cores (each thread's 32
 //   terms in order, then two shuffles), l and acc take two roundings a tile,
@@ -86,8 +85,8 @@
 //
 // Bound on an H100 SXM: operations.  The causal products take
 // 2·B·H·(D + Dv)·Σ_rows(qpos + 1) f32 operations, three TF32 passes of
-// them at 495 TFLOP/s (the old CUDA-core count at 67 TFLOP/s stays beside
-// it in chip_smoke.py), against the bytes of q, K, V (codes and scales) and
+// them at 495 TFLOP/s (chip_smoke.py prints the same count at the
+// non-tensor f32 rate beside it), against the bytes of q, K, V (codes and scales) and
 // the output moved once each.  Design: one block of 4 warps per (query tile
 // of BQ = 64 rows, head, Dv chunk of up to 128 features, sequence), the
 // longest query tiles launched first; each warp owns 16 query rows.  q·scale

@@ -72,12 +72,6 @@ KV_TILE = 128
 # csrc/flash_attention.cuh, which chip_smoke.py holds against the built
 # library): the "auto" attention route demotes wider heads to gather
 MAX_D = 256
-# the error of the dense kernels' three-pass TF32 product a·b against the
-# exact one, relative to |a·b| (premise 1 of csrc/flash_attention.cuh's
-# accuracy standard: 3·2⁻²²(1 + 2⁻¹⁰)), and the absolute floor per unit of
-# |a| + |b| where a residual of the split is subnormal
-TF32_SPLIT_REL = 12 * (1 + 2.0 ** -10) * 2.0 ** -24
-TF32_SPLIT_FLOOR = 2.0 ** -135
 
 
 def reset_launches() -> None:

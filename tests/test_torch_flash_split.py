@@ -10,9 +10,9 @@ standard in ``csrc/flash_attention.cuh``:
 * hi and lo are TF32 values (13 low bits clear) and |x - hi - lo| <=
   2⁻²²|x| + 2⁻¹³⁷;
 * for f32 pairs a, b the kept terms hi·hi + hi·lo + lo·hi are within
-  ``TF32_SPLIT_REL``·|a·b| (12(1 + 2⁻¹⁰)·2⁻²⁴) of a·b, plus the floor
-  ``TF32_SPLIT_FLOOR``·(|a| + |b|) where a residual is subnormal, all in
-  exact arithmetic.
+  ``SPLIT_REL``·|a·b| (12(1 + 2⁻¹⁰)·2⁻²⁴, the standard's per-product
+  term) of a·b, plus the floor ``SPLIT_FLOOR``·(|a| + |b|) where a
+  residual is subnormal, all in exact arithmetic.
 
 The f32 values are drawn by bit pattern, over exponent ranges from the
 subnormals to the largest normals."""
@@ -29,6 +29,10 @@ from hypothesis import given, settings, strategies as st
 
 from repro_torch.kernels import flash_attn
 
+# premise 1's per-product term, relative to |a·b|, and its underflow floor
+# per unit of |a| + |b|
+SPLIT_REL = Fraction(12) * (1 + Fraction(1, 2 ** 10)) / 2 ** 24
+SPLIT_FLOOR = Fraction(1, 2 ** 135)
 # biased-exponent ranges of the drawn f32 (0: subnormal)
 EXPONENTS = {"subnormal": (0, 0), "small": (1, 40), "unit": (100, 150),
              "large": (200, 253)}
@@ -104,8 +108,7 @@ def test_three_passes_within_the_per_product_term(name_a, name_b, sa, ea, ma, sb
                           for v in (a, b))
     fa, fb = Fraction(a), Fraction(b)
     err = abs(fa * fb - (ha * hb + ha * lb + la * hb))
-    limit = (Fraction(flash_attn.TF32_SPLIT_REL) * abs(fa * fb)
-             + Fraction(flash_attn.TF32_SPLIT_FLOOR) * (abs(fa) + abs(fb)))
+    limit = SPLIT_REL * abs(fa * fb) + SPLIT_FLOOR * (abs(fa) + abs(fb))
     assert err <= limit
 
 
