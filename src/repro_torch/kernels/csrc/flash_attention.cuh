@@ -26,9 +26,9 @@
 //
 // The two products, q·Kᵀ and P·V, run on the tensor cores as
 // mma.sync.m16n8k8 in TF32, three passes ("3xTF32"): each f32 operand x is
-// split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), rna_tf32 rounding
+// split into hi = tf32_rna(x) and lo = tf32_rna(x - hi), tf32_rna rounding
 // as cvt.rna.tf32.f32 does (to nearest, ties away from zero, the 13 low
-// bits cleared) by an integer add and mask (see tf32_rna); hi·hi is
+// bits cleared) by an integer add and mask; hi·hi is
 // accumulated in one f32 accumulator, hi·lo + lo·hi in another, and the two
 // are added in f32 round-to-nearest when the tile's product is done (the
 // cross terms are ~2⁻¹¹ of hi·hi, so keeping them apart keeps the large
@@ -40,7 +40,7 @@
 // it, and a fatal sub-phase of its phase 3 probes both premises on the card
 // through flash_attention_probe below).
 //
-//   Premise 1.  rna_tf32 rounds to nearest (ties away from zero) and
+//   Premise 1.  tf32_rna rounds to nearest (ties away from zero) and
 //   clears the 13 low bits: |x - hi| <= 2⁻¹¹|x| and, x - hi being exact
 //   in f32, |x - hi - lo| <= 2⁻¹¹|x - hi| <= 2⁻²²|x| (plus 2⁻¹³⁷ where a
 //   residual is subnormal).  With A = hi_a + lo_a, a product keeps

@@ -19,8 +19,8 @@ The kernels (CUDA C++ for sm_90a) replace the TPU kernels of
   with their f32 scale planes.
 
 The two dense kernels (body in ``csrc/flash_attention.cuh``) compute
-both products on the tensor cores (``mma.sync`` m16n8k8 in TF32, each f32
-operand split by :func:`tf32_split` into three passes; the accuracy
+both products on the tensor cores (``mma.sync`` m16n8k8 in TF32, three
+passes over each f32 operand split as :func:`tf32_split` does; the accuracy
 standard that holds them to their plain versions is stated at the head of
 the body and in ``chip_smoke.py::_flash_tolerance``) and take head dims up
 to ``MAX_D`` = 256.  They take a query offset: query row i of sequence b
