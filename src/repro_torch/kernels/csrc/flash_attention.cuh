@@ -84,29 +84,29 @@
 // rows, and the q·Kᵀ of a 64-key half tile that lies wholly there.
 //
 // Bound on an H100 SXM: operations.  The causal products take
-// 2·B·H·(D + Dv)·Σ_rows(qpos + 1) f32 operations, three TF32 passes of
-// them at 495 TFLOP/s (chip_smoke.py prints the same count at the
-// non-tensor f32 rate beside it), against the bytes of q, K, V (codes and scales) and
-// the output moved once each.  Design: one block of 4 warps per (query tile
-// of BQ = 64 rows, head, Dv chunk of up to 128 features, sequence), the
-// longest query tiles launched first; each warp owns 16 query rows.  q·scale
-// sits whole in shared memory as f32 (row stride D + 4 padded to 8, so the
-// A fragments load without bank conflicts); K and V stream through a ring
-// of three 18 KB units in shared memory: K in units of 64 keys × 64
-// features, V in units of 128 keys × 32 features.  f32 and bf16 rows (bf16
-// kept as bf16: exact in TF32) arrive by 16-byte cp.async, two units ahead
-// of the one computed, one block barrier a unit; quantized rows are
-// dequantized as they are staged (one __fmul_rn an element, as kv_rows.cuh's
-// readers), a 32-bit word of one group's codes at a time.  A warp keeps its 16 × 128 scores (64 f32 a thread) and its
-// 16 × Dv-chunk accumulator (up to 64 a thread) in registers; the
-// accumulator layout of m16n8k8 serves as P's A fragment once the tile's
-// 8 keys of each k-step are taken in the order (0, 2, 4, 6, 1, 3, 5, 7),
-// with V's rows read in the same order, so P never leaves the registers.  A
-// Dv above 128 takes a second block per (query tile, head), which computes
-// the same scores again (bitwise) for its half of Dv.  The V units run as a
-// loop, not unrolled, which keeps the body's code small; the k-steps of P·V
-// past the block's last key are skipped (zero products, which the probe
-// shows leave an accumulator bitwise as it is).
+// 2·B·H·(D + Dv)·Σ_rows(qpos + 1) f32 operations, three TF32 passes of them
+// at 495 TFLOP/s (chip_smoke.py prints the same count at the non-tensor f32 rate
+// beside it), against the bytes of q, K, V (codes and scales) and the output
+// moved once each.  Design: one block of 4 warps per (query tile of BQ = 64
+// rows, head, Dv chunk of up to 128 features, sequence), the longest query
+// tiles launched first; each warp owns 16 query rows.  q·scale sits whole in
+// shared memory as f32 (row stride D + 4 padded to 8, so the A fragments load
+// without bank conflicts); K and V stream through a ring of three 18 KB units
+// in shared memory: K in units of 64 keys × 64 features, V in units of 128
+// keys × 32 features.  f32 and bf16 rows (bf16 kept as bf16: exact in TF32)
+// arrive by 16-byte cp.async, two units ahead of the one computed, one block
+// barrier a unit; quantized rows are dequantized as they are staged (one
+// __fmul_rn an element, as kv_rows.cuh's readers), a 32-bit word of one
+// group's codes at a time.  A warp keeps its 16 × 128 scores (64 f32 a
+// thread) and its 16 × Dv-chunk accumulator (up to 64 a thread) in registers;
+// the accumulator layout of m16n8k8 serves as P's A fragment once the tile's
+// 8 keys of each k-step are taken in the order (0, 2, 4, 6, 1, 3, 5, 7), with
+// V's rows read in the same order, so P never leaves the registers.  A Dv
+// above 128 takes a second block per (query tile, head), which computes the
+// same scores again (bitwise) for its half of Dv.  The V units run as a loop,
+// not unrolled, which keeps the body's code small; the k-steps of P·V past
+// the block's last key are skipped (zero products, which the probe shows
+// leave an accumulator bitwise as it is).
 
 #pragma once
 
@@ -209,7 +209,9 @@ struct Staging<kv::FloatRows<T>> {
   __device__ static const T* at(const kv::FloatRows<T>& r, int64_t row, int i) {
     return r.data + row * r.width + i;
   }
-  __device__ static T value(const kv::FloatRows<T>& r, int64_t row, int i) { return *at(r, row, i); }
+  __device__ static T value(const kv::FloatRows<T>& r, int64_t row, int i) {
+    return *at(r, row, i);
+  }
 };
 
 // Codes dequantize as kv_rows.cuh's readers do (one __fmul_rn an element);
@@ -241,7 +243,8 @@ struct Staging<kv::Int4Rows> {
     const float sc = r.scales[row * r.n_groups + i / r.group];
 #pragma unroll
     for (int j = 0; j < VEC; ++j)
-      out[j] = __fmul_rn(static_cast<float>(static_cast<int>(((w >> (4 * j)) & 0xFu) ^ 8u) - 8), sc);
+      out[j] = __fmul_rn(
+          static_cast<float>(static_cast<int>(((w >> (4 * j)) & 0xFu) ^ 8u) - 8), sc);
   }
 };
 
