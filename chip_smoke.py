@@ -541,6 +541,12 @@ ATTN_SHAPES = {
 }
 ATTN_POOLS = {"paged_flash_attention": ("f32", "bf16"),
               "paged_flash_attention_quant": ("int8", "int4-g32")}
+# a head dim whose rows hold no whole 16-byte vectors (D·4 and D·2 bytes,
+# D int8 codes), so the kernels take their element-wise reader, over three
+# splits (MPB 40), on the f32 and bf16 pools and the per-head int8 pool
+ATTN_ODD = {"odd-d100": (SLOTS, 4, 2, 100, PAGE, 40, (600, 37, 13, 0))}
+ATTN_ODD_POOLS = {"paged_flash_attention": ("f32", "bf16"),
+                  "paged_flash_attention_quant": ("int8",)}
 
 
 def _kv_spec(pool):
@@ -603,34 +609,6 @@ def _attn_problem(shape, pool, device, seed):
     return args, dense, spec, lengths
 
 
-def _attn_tolerance(q, kd, vd, lengths, scale, page, y_plain):
-    """Elementwise bound on |kernel - plain| for rows of non-zero length:
-    the two take the same f32 steps and differ only in the order of three
-    sums (the D-term score dot, the P-term Σp and p·V), so a score moves by
-    at most 2·D·u·S (u = 2⁻²⁴, S the largest Σ|q·scale·k| of a valid
-    token) and each sum by 2·(N + 2·pages + 4)·u relative over N tokens;
-    twice both, times max |v|.  Both round their f32 result to bf16: one
-    bf16 ulp of the larger side (at most 2⁻⁶ of the plain value's
-    magnitude, the f32 terms being far smaller) is added."""
-    import torch
-
-    u = 2.0 ** -24
-    b, h, d = q.shape
-    kh = kd.shape[2]
-    g = h // kh
-    pos = torch.arange(kd.shape[1], device=q.device)
-    valid = pos[None, :] < lengths[:, None].long()  # (B, S)
-    qs = (q.float() * scale).abs().reshape(b, kh, g, d)
-    s_abs = torch.einsum("bkgd,bskd->bkgs", qs, kd.abs())
-    s_max = torch.where(valid[:, None, None], s_abs, 0.0).amax(-1)  # (B, KH, G)
-    v_max = torch.where(valid[:, :, None, None], vd.abs(), 0.0).amax((1, 2, 3))
-    n = lengths.double()
-    pages = torch.ceil(n / page)
-    rel = 2 * d * u * s_max.double() + (2 * (n + 2 * pages + 4) * u)[:, None, None]
-    tol = (2 * v_max.double()[:, None, None] * rel).reshape(b, h, 1)
-    return tol + 2.0 ** -6 * y_plain.double().abs()
-
-
 def _attn_bytes(shape, spec):
     """The least bytes a call moves: every valid K and V row once (with its
     scales), q, the block table and the lengths read, the output written."""
@@ -666,11 +644,69 @@ def _attn_library_ms(args, dense, flush):
         ql, kl, vl, attn_mask=mask, scale=scale), flush)
 
 
+def _attn_alone(args, row):
+    """Row ``row`` of a paged problem alone (B 1), its pages copied to the
+    end of a copy of the pool (the old places keep their contents): the
+    kernel's arguments."""
+    import torch
+
+    quant = len(args) == 9
+    ti = 5 if quant else 3
+    bt, lengths = args[ti], args[ti + 1]
+    page = args[1].shape[1]
+    need = -(-int(lengths[row]) // page)
+    old = bt[row, :need].long()
+    n_pages = args[1].shape[0]
+    table = torch.zeros_like(bt[row:row + 1])
+    table[0, :need] = n_pages + torch.arange(need, device=bt.device, dtype=bt.dtype)
+    pools = [torch.cat([t, t[old]]) for t in args[1:ti]]
+    return (args[0][row:row + 1], *pools, table, lengths[row:row + 1], *args[ti + 2:])
+
+
+def _attn_invariance(device):
+    """The split-KV body's invariance, bitwise, fatal: phi3-long's
+    4096-token row alone (B 1, its pages placed elsewhere) equals the same
+    row in the ragged batch; phi3-serve's rows in a table of MPB 4 (S 1)
+    equal them in a table of MPB 256 (S 16), for every pool of both
+    kernels."""
+    import torch
+
+    from repro_torch.kernels import flash_attn
+
+    for name, pools in ATTN_POOLS.items():
+        kern = getattr(flash_attn, name)
+        ti = 5 if name.endswith("quant") else 3
+        for pool in pools:
+            args, _, _, lengths = _attn_problem(ATTN_SHAPES["phi3-long"], pool, device, 40)
+            row = int(torch.argmax(lengths))
+            n_row = int(lengths[row])
+            y = kern(*args)[row]
+            y_alone = kern(*_attn_alone(args, row))[0]
+            args, _, _, lengths = _attn_problem(ATTN_SHAPES["phi3-serve"], pool, device, 41)
+            wide = torch.zeros((SLOTS, 256), dtype=torch.int32, device=device)
+            wide[:, :args[ti].shape[1]] = args[ti]
+            y4 = kern(*args)
+            y256 = kern(*args[:ti], wide, *args[ti + 1:])
+            torch.cuda.synchronize()
+            live = lengths > 0
+            alone = torch.equal(y, y_alone)
+            mpb = torch.equal(y4[live], y256[live])
+            print(f"  {name:<28} {pool:<9} row of {n_row} alone == in batch: "
+                  f"{alone}; MPB 4 (S {flash_attn.paged_splits(4)}) == MPB 256 (S "
+                  f"{flash_attn.paged_splits(256)}) for lengths {ATTN_SHAPES['phi3-serve'][6]}: "
+                  f"{mpb}", flush=True)
+            if not (alone and mpb):
+                raise SystemExit(f"{name} {pool}: a row's output depends on its batch, its "
+                                 f"pages' places or MPB")
+
+
 def phase_attention_kernels(device):
-    """Both paged attention kernels against their plain versions at every
-    shape of ATTN_SHAPES, each pool of ATTN_POOLS, timed (median of 30, L2
-    flushed), with their bytes bound and, for the float kernel, the
-    library call."""
+    """Both paged attention kernels against their plain versions within
+    ``flash_attn.paged_attention_bound`` at every shape of ATTN_SHAPES and
+    each pool of ATTN_POOLS, timed (median of 30, L2 flushed), with their
+    bytes bound and, for the float kernel, the library call; the odd-width
+    case of ATTN_ODD (element-wise reader, S 3); then the bitwise
+    invariance gates."""
     import torch
 
     from repro_torch.bench.common import flush_buffer, time_ms
@@ -679,42 +715,49 @@ def phase_attention_kernels(device):
     flush = flush_buffer(device)
     worst = {name: 0.0 for name in ATTN_POOLS}
     timed = {}
-    for name, pools in ATTN_POOLS.items():
+    cases = [(ATTN_SHAPES, ATTN_POOLS), (ATTN_ODD, ATTN_ODD_POOLS)]
+    for name in ATTN_POOLS:
         kern = getattr(flash_attn, name)
         plain = getattr(flash_attn, name + "_plain")
-        for si, (label, shape) in enumerate(ATTN_SHAPES.items()):
-            for pool in pools:
-                args, dense, spec, lengths = _attn_problem(shape, pool, device,
-                                                           seed=10 + si)
-                y = kern(*args)
-                torch.cuda.synchronize()
-                y_plain = plain(*args)
-                ok_rows = lengths > 0
-                tol = _attn_tolerance(args[0], *dense, lengths, shape[3] ** -0.5,
-                                      shape[4], y_plain)
-                err = (y.double() - y_plain.double()).abs()
-                ok = (bool(torch.isfinite(y[ok_rows]).all())
-                      and bool((err[ok_rows] <= tol[ok_rows]).all()))
-                e = err[ok_rows].max().item()
-                print(f"  {name:<28} {label:<13} {pool:<9} lengths {shape[6]} "
-                      f"max_abs_err={e:.3e} limit={tol[ok_rows].max().item():.3e} "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
-                if not ok:
-                    raise SystemExit(f"{name} disagrees with its plain version at "
-                                     f"{label} {pool}")
-                worst[name] = max(worst[name], e)
-                t_k = time_ms(lambda: kern(*args), flush)
-                t_p = time_ms(lambda: plain(*args), flush)
-                b_ms, by = _bound(_attn_bytes(shape, spec),
-                                  f32_ops=4 * sum(shape[6]) * shape[1] * shape[3])
-                t_l = None if spec.is_quantized else _attn_library_ms(args, dense, flush)
-                timed[(name, label, pool)] = (t_k, t_p, b_ms, by, t_l)
-                print(f"    kernel {t_k * 1e3:9.2f} us  plain {t_p * 1e3:10.2f} us  "
-                      f"bound {b_ms * 1e3:8.3f} us ({by})  library "
-                      + ("null (no PyTorch call attends over a quantized pool)"
-                         if t_l is None else f"{t_l * 1e3:.2f} us (SDPA, dense view)"),
-                      flush=True)
-                del args, dense, y, y_plain
+        si = 0
+        for shapes, pool_sets in cases:
+            for label, shape in shapes.items():
+                si += 1
+                for pool in pool_sets[name]:
+                    args, dense, spec, lengths = _attn_problem(shape, pool, device,
+                                                               seed=9 + si)
+                    y = kern(*args)
+                    torch.cuda.synchronize()
+                    y_plain = plain(*args)
+                    ok_rows = lengths > 0
+                    tol = flash_attn.paged_attention_bound(args[0], *dense, lengths,
+                                                           shape[3] ** -0.5, shape[4], y_plain)
+                    err = (y.double() - y_plain.double()).abs()
+                    ok = (bool(torch.isfinite(y[ok_rows]).all())
+                          and bool((err[ok_rows] <= tol[ok_rows]).all()))
+                    e = err[ok_rows].max().item()
+                    r = (err[ok_rows] / tol[ok_rows]).max().item()
+                    print(f"  {name:<28} {label:<13} {pool:<9} lengths {shape[6]} S "
+                          f"{flash_attn.paged_splits(shape[5])} max_abs_err={e:.3e} "
+                          f"worst err/limit={r:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        raise SystemExit(f"{name} disagrees with its plain version at "
+                                         f"{label} {pool}")
+                    worst[name] = max(worst[name], e)
+                    t_k = time_ms(lambda: kern(*args), flush)
+                    t_p = time_ms(lambda: plain(*args), flush)
+                    b_ms, by = _bound(_attn_bytes(shape, spec),
+                                      f32_ops=4 * sum(shape[6]) * shape[1] * shape[3])
+                    t_l = (None if spec.is_quantized
+                           else _attn_library_ms(args, dense, flush))
+                    timed[(name, label, pool)] = (t_k, t_p, b_ms, by, t_l)
+                    print(f"    kernel {t_k * 1e3:9.2f} us  plain {t_p * 1e3:10.2f} us  "
+                          f"bound {b_ms * 1e3:8.3f} us ({by})  library "
+                          + ("null (no PyTorch call attends over a quantized pool)"
+                             if t_l is None else f"{t_l * 1e3:.2f} us (SDPA, dense view)"),
+                          flush=True)
+                    del args, dense, y, y_plain
+    _attn_invariance(device)
     return worst, timed
 
 
@@ -1678,7 +1721,8 @@ def phase_kv_routes(cfg, qparams, device, spec):
         d = q.shape[-1]
         dense = [dequantize_kv(p[bt.long()], s[bt.long()], kv_spec, d)
                  .reshape(q.shape[0], -1, p.shape[2], d) for p, s in ((kp, ks), (vp, vs))]
-        tol = _attn_tolerance(q, *dense, lengths, scale, kp.shape[1], y_p)
+        tol = flash_attn.paged_attention_bound(q, *dense, lengths, scale, kp.shape[1],
+                                               y_p)
         err = (y.double() - y_p.double()).abs()
         site["calls"] += 1
         site["worst"] = max(site["worst"], err.max().item())
@@ -3307,6 +3351,12 @@ def main() -> int:
         got = getattr(flash_attn._lib(name), f"{name}_max_d")()
         if got != flash_attn.MAX_D:
             raise SystemExit(f"flash_attn.MAX_D {flash_attn.MAX_D} is not {name}'s {got}")
+    for name in ("paged_flash_attention", "paged_flash_attention_quant"):
+        lib = flash_attn._lib(name)
+        got = (getattr(lib, f"{name}_pages_per_split")(), getattr(lib, f"{name}_warps")())
+        if got != (flash_attn.PAGES_PER_SPLIT, flash_attn.SPLIT_WARPS):
+            raise SystemExit(f"flash_attn's split ({flash_attn.PAGES_PER_SPLIT} pages, "
+                             f"{flash_attn.SPLIT_WARPS} warps) is not {name}'s {got}")
     hmma = _tensor_core_instructions(("flash_attention", "flash_attention_quant"))
     print("  tensor-core (HMMA) instructions in the built SASS: "
           + ", ".join(f"{name} {n}" for name, n in hmma.items()), flush=True)

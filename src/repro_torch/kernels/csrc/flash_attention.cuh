@@ -216,20 +216,13 @@ struct Staging<kv::FloatRows<T>> {
 
 // Codes dequantize as kv_rows.cuh's readers do (one __fmul_rn an element);
 // where the rows allow it (`vec`), VEC codes of one group at a time from
-// one 32-bit load.
+// one 32-bit load (the readers' `vec`).
 template <>
 struct Staging<kv::Int8Rows> {
   using S = float;
   static constexpr bool ASYNC = false;
   static constexpr int VEC = 4;
   __device__ static float value(const kv::Int8Rows& r, int64_t row, int i) { return r(row, i); }
-  __device__ static void vec(const kv::Int8Rows& r, int64_t row, int i, float (&out)[VEC]) {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(r.data + row * r.width + i);
-    const float sc = r.scales[row * r.n_groups + i / r.group];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      out[j] = __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> (8 * j))), sc);
-  }
 };
 
 template <>
@@ -238,14 +231,6 @@ struct Staging<kv::Int4Rows> {
   static constexpr bool ASYNC = false;
   static constexpr int VEC = 8;
   __device__ static float value(const kv::Int4Rows& r, int64_t row, int i) { return r(row, i); }
-  __device__ static void vec(const kv::Int4Rows& r, int64_t row, int i, float (&out)[VEC]) {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(r.data + row * (r.width / 2) + i / 2);
-    const float sc = r.scales[row * r.n_groups + i / r.group];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      out[j] = __fmul_rn(
-          static_cast<float>(static_cast<int>(((w >> (4 * j)) & 0xFu) ^ 8u) - 8), sc);
-  }
 };
 
 // Stage ROWS key rows (key0 + r, those at or past key_end as zeros) of
@@ -271,7 +256,7 @@ __device__ __forceinline__ void stage_unit(typename Staging<Rows>::S* buf, const
         const int r = i / CPR;
         const int c = (i % CPR) * VEC;
         if (key0 + r < key_end && f0 + c < width) {
-          St::vec(rows, row0 + static_cast<int64_t>(key0 + r) * kh, f0 + c, v[it]);
+          rows.template vec<VEC>(row0 + static_cast<int64_t>(key0 + r) * kh, f0 + c, v[it]);
         } else {
 #pragma unroll
           for (int j = 0; j < VEC; ++j) v[it][j] = 0.f;

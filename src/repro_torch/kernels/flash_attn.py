@@ -40,19 +40,33 @@ one query token per sequence,
 with K/V read in place from one layer's page pool (NP, P, KH, ·) through
 the block table (B, MPB) int32.  The wrappers copy, transpose and cast no
 pool: the Pallas wrapper's (KH, NP, P, D) transpose of the whole pool would
-cost more than the attention at long context.
+cost more than the attention at long context.  A row's keys are split by
+a rule fixed per row, ``PAGES_PER_SPLIT`` pages a split, over a grid of
+(kv head, row, split) blocks with S = :func:`paged_splits` (MPB) splits
+from shapes alone; each block's ``SPLIT_WARPS`` warps take its tokens in
+steps, read each K/V row with 16-byte loads where the row allows it, and
+meet in warp order.  With S == 1 (every served shape) a block writes the
+output; with S > 1 the wrapper allocates an f32 workspace of (S, B, H,
+Dv + 2) partials and the same C call launches a combine that adds a
+row's splits in ascending order.  So a row's output is bitwise the same
+whatever rows share the call, wherever its pages sit and whatever MPB
+the table has.  The kernel's order of operations differs from the plain
+version's page-by-page order; :func:`paged_attention_bound` holds the two
+together (derived at the head of the body).
 
 Bound of the paged kernels on an H100 SXM (3.35 TB/s): memory — the valid
 K/V rows (plus their scales), q and the output; of the dense kernels:
-their f32 operations, three TF32 passes of them on the tensor cores.  Each wrapper takes its plain version only for
-CPU tensors; for CUDA tensors it launches the kernel or raises.
-``LAUNCHES`` counts each.
+their f32 operations, three TF32 passes of them on the tensor cores.  Each
+wrapper takes its plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises, and reads nothing back to the host.
+``LAUNCHES`` counts each wrapper call once.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -72,6 +86,12 @@ KV_TILE = 128
 # csrc/flash_attention.cuh, which chip_smoke.py holds against the built
 # library): the "auto" attention route demotes wider heads to gather
 MAX_D = 256
+# the paged kernels' split (PAGES_PER_SPLIT and WARPS of
+# csrc/paged_attention.cuh, which chip_smoke.py holds against the built
+# libraries): a row's keys in splits of this many pages, each split's
+# tokens in steps taken by this many warps in turn
+PAGES_PER_SPLIT = 16
+SPLIT_WARPS = 4
 
 
 def reset_launches() -> None:
@@ -95,6 +115,71 @@ def tf32_split(x: torch.Tensor):
     x = x.to(torch.float32)
     hi = _tf32_rna(x)
     return hi, _tf32_rna(x - hi)
+
+
+def paged_splits(mpb: int) -> int:
+    """S, the splits of a paged kernel call over a block table of ``mpb``
+    pages a row: max(1, ceil(MPB / PAGES_PER_SPLIT)), from shapes alone."""
+    return max(1, -(-mpb // PAGES_PER_SPLIT))
+
+
+def paged_attention_bound(q, kd, vd, lengths, scale: float, page: int,
+                          y_plain) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| of paged decode attention
+    (#6, #9), the accuracy standard of the split-KV body, derived at the
+    head of ``csrc/paged_attention.cuh`` from the two orders of operations
+    (stated before the body's first card run, never fitted to measured
+    errors).  u = 2⁻²⁴; per row of length n (clamped to MPB·P), pages =
+    ceil(n / P), ns = ceil(pages / PAGES_PER_SPLIT), n_w = ceil(min(n,
+    PAGES_PER_SPLIT·P) / SPLIT_WARPS) (a warp's steps at most), S = the
+    largest Σ_d |q·scale·k_d| of a valid token of the query row, v_max =
+    max |v| over the row's valid rows:
+
+    * weights: each version's are the exact softmax weights times factors
+      within e^(±E): E = D·u·S (its dot) + 5u per expf on a token's path
+      (2 ulp of the correctly rounded result, CUDA's documented maximum;
+      kernel n_w + 2 of them: p, later steps' corr, the warp's and the
+      split's factors; plain ``pages``: p and later pages' corr) + u·x̄
+      (the rounded differences of scores and maxima, x̄ <= min(n/e, 2S));
+      that moves the output by at most 2c/(1 - c)·v_max, c = e^E - 1;
+    * sums: each rounding of acc or l moves the output by at most u·v_max
+      along a token's path: kernel acc and l 2n_w + ns + 17 each (passes,
+      steps, the groups' xor tree, the warp merge, the split combine),
+      plain P + 2·pages each, and each final division once;
+    * a bf16 output adds one bf16 ulp of the larger side (2⁻⁶·|plain|).
+
+    q (B, H, D) as the kernel got it; kd, vd (B, MPB·P, KH, D|Dv) the
+    rows' K and V as the kernel attends over them (f32; a quantized pool's
+    codes dequantized); lengths (B,); y_plain the plain version's output.
+    Returns (B, H, 1) float64."""
+    u = 2.0 ** -24
+    f64 = torch.float64
+    b, h, d = q.shape
+    kh = kd.shape[2]
+    g = h // kh
+    pos = torch.arange(kd.shape[1], device=q.device)
+    n = lengths.to(q.device).long().clamp(0, kd.shape[1])
+    valid = pos[None, :] < n[:, None]  # (B, S)
+    qs = (q.float() * scalar(scale, q.float())).double().abs().reshape(b, kh, g, d)
+    s_abs = torch.einsum("bkgd,bskd->bkgs", qs, kd.double().abs())
+    s_max = torch.where(valid[:, None, None], s_abs, 0.0).amax(-1)  # (B, KH, G)
+    v_max = torch.where(valid[:, :, None, None], vd.double().abs(), 0.0).amax((1, 2, 3))
+    n = n.to(f64)
+    pages = torch.ceil(n / page)
+    ns = torch.ceil(pages / PAGES_PER_SPLIT)
+    n_w = torch.ceil(torch.minimum(n, torch.full_like(n, PAGES_PER_SPLIT * page))
+                     / SPLIT_WARPS)
+    col = (slice(None), None, None)
+    x_bar = torch.minimum((n / math.e)[col], 2 * s_max)
+    e_k = d * u * s_max + (5 * u * (n_w + 2))[col] + u * x_bar
+    e_p = d * u * s_max + (5 * u * pages)[col] + u * x_bar
+    c_k, c_p = torch.expm1(e_k), torch.expm1(e_p)
+    sums = (4 * n_w + 2 * ns + 34 + 2 * page + 4 * pages + 2) * u * (1 + 2.0 ** -8)
+    tol = v_max[col] * (2 * c_k / (1 - c_k) + 2 * c_p / (1 - c_p) + sums[col])
+    tol = tol.to(f64).reshape(b, h, 1)
+    if y_plain.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -6 * y_plain.double().abs()
+    return tol
 
 
 def _online_softmax(q, block_table, lengths, scale, page_rows):
@@ -258,13 +343,17 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.flash_attention_quant.restype = ctypes.c_int
         lib.flash_attention_quant_max_d.restype = ctypes.c_int
     elif name == "paged_flash_attention":
-        lib.paged_flash_attention.argtypes = [p, i, p, p, i, p, p, p,
+        lib.paged_flash_attention.argtypes = [p, i, p, p, i, p, p, p, p,
                                               i, i, i, i, i, i, i, f, p]
         lib.paged_flash_attention.restype = ctypes.c_int
+        lib.paged_flash_attention_pages_per_split.restype = ctypes.c_int
+        lib.paged_flash_attention_warps.restype = ctypes.c_int
     else:
-        lib.paged_flash_attention_quant.argtypes = [p, i, p, p, p, p, i, i, p, p, p,
+        lib.paged_flash_attention_quant.argtypes = [p, i, p, p, p, p, i, i, p, p, p, p,
                                                     i, i, i, i, i, i, f, p]
         lib.paged_flash_attention_quant.restype = ctypes.c_int
+        lib.paged_flash_attention_quant_pages_per_split.restype = ctypes.c_int
+        lib.paged_flash_attention_quant_warps.restype = ctypes.c_int
     return lib
 
 
@@ -290,13 +379,24 @@ def _check_common(q, k_pages, v_pages, block_table, lengths):
     return b, h, kh, block_table.shape[1]
 
 
+def _workspace(q, mpb: int, dv: int):
+    """The f32 partials (S, B, H, Dv + 2) of a call with S > 1 splits
+    (:func:`paged_splits`), else None: allocated, never read here."""
+    splits = paged_splits(mpb)
+    if splits == 1:
+        return None
+    return torch.empty((splits, q.shape[0], q.shape[1], dv + 2), dtype=torch.float32,
+                       device=q.device)
+
+
 def paged_flash_attention(q, k_pages, v_pages, block_table, lengths,
                           scale: float) -> torch.Tensor:
-    """One launch of kernel #6; returns (B, H, Dv) in q's dtype.
+    """One call of kernel #6; returns (B, H, Dv) in q's dtype.
 
     Arguments as :func:`paged_flash_attention_plain` (block_table and
     lengths int32 on the card).  A CPU ``q`` runs the plain version; a CUDA
-    ``q`` launches the kernel on the current stream, or raises."""
+    ``q`` launches the kernel on the current stream (with S > 1 splits, its
+    combine after it), or raises."""
     if q.device.type == "cpu":
         return paged_flash_attention_plain(q, k_pages, v_pages, block_table,
                                            lengths, scale)
@@ -312,10 +412,12 @@ def paged_flash_attention(q, k_pages, v_pages, block_table, lengths,
     build.check_operands(q, [q, k_pages, v_pages, block_table, lengths])
     d, dv, page = q.shape[2], v_pages.shape[3], k_pages.shape[1]
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
+    part = _workspace(q, mpb, dv)
     rc = _lib("paged_flash_attention").paged_flash_attention(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
         v_pages.data_ptr(), int(k_pages.dtype == torch.bfloat16),
         block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
         b, h, kh, d, dv, page, mpb, float(scale), build.stream_of(q))
     if rc != 0:
         raise RuntimeError(f"paged_flash_attention launch failed: cudaError {rc} "
@@ -327,11 +429,11 @@ def paged_flash_attention(q, k_pages, v_pages, block_table, lengths,
 def paged_flash_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
                                 block_table, lengths, scale: float,
                                 kv_spec) -> torch.Tensor:
-    """One launch of kernel #9; returns (B, H, D) in q's dtype.
+    """One call of kernel #9; returns (B, H, D) in q's dtype.
 
     Arguments as :func:`paged_flash_attention_quant_plain`.  A CPU ``q``
     runs the plain version; a CUDA ``q`` launches the kernel on the current
-    stream, or raises."""
+    stream (with S > 1 splits, its combine after it), or raises."""
     if q.device.type == "cpu":
         return paged_flash_attention_quant_plain(
             q, k_pages, k_scales, v_pages, v_scales, block_table, lengths,
@@ -357,12 +459,13 @@ def paged_flash_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
                              block_table, lengths])
     page = k_pages.shape[1]
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    part = _workspace(q, mpb, d)
     rc = _lib("paged_flash_attention_quant").paged_flash_attention_quant(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
         k_scales.data_ptr(), v_pages.data_ptr(), v_scales.data_ptr(),
         int(kv_spec.dtype == "int4"), group, block_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, h, kh, d, page, mpb,
-        float(scale), build.stream_of(q))
+        lengths.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+        b, h, kh, d, page, mpb, float(scale), build.stream_of(q))
     if rc != 0:
         raise RuntimeError(f"paged_flash_attention_quant launch failed: cudaError "
                            f"{rc} at (B={b}, H={h}, KH={kh}, D={d}, P={page}, "
