@@ -32,6 +32,14 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 // round to nearest even, as torch's .to(torch.bfloat16)
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
+// The integer u - bias as f32, exactly, for u < 2²³: u in the low bits of
+// 2²³, minus 2²³ + bias (a logic op and an add, where an int-to-float
+// conversion issues at a quarter of the f32 rate).  A code's value is the
+// same as static_cast<float> gives.
+__device__ __forceinline__ float small_int(uint32_t u, float bias) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | u), 8388608.f + bias);
+}
+
 // W 32-bit words read by one aligned load, and the scale of their group
 // (1 for float rows).
 template <int W>
@@ -100,8 +108,8 @@ struct Int8Rows {
   const float* scales;
   int width, group, n_groups;
   __device__ __forceinline__ float operator()(int64_t row, int i) const {
-    return __fmul_rn(static_cast<float>(data[row * width + i]),
-                     scales[row * n_groups + i / group]);
+    const uint32_t u = static_cast<uint8_t>(data[row * width + i]) ^ 0x80u;
+    return __fmul_rn(small_int(u, 128.f), scales[row * n_groups + i / group]);
   }
   template <int N>
   __device__ __forceinline__ Pack<N> packet(int64_t row, int i) const {
@@ -112,7 +120,7 @@ struct Int8Rows {
   }
   template <int N>
   __device__ __forceinline__ static float elem(const Pack<N>& p, int j) {
-    return __fmul_rn(static_cast<float>(static_cast<int8_t>(p.w[j / 4] >> (8 * (j % 4)))),
+    return __fmul_rn(small_int(((p.w[j / 4] >> (8 * (j % 4))) & 0xFFu) ^ 0x80u, 128.f),
                      p.scale);
   }
   template <int N>
@@ -134,9 +142,8 @@ struct Int4Rows {
   int width, group, n_groups;  // width = D (the packed row holds D/2 bytes)
   __device__ __forceinline__ float operator()(int64_t row, int i) const {
     const unsigned byte = data[row * (width / 2) + i / 2];
-    const int u = (i & 1) ? static_cast<int>(byte >> 4) : static_cast<int>(byte & 0xF);
-    return __fmul_rn(static_cast<float>((u ^ 8) - 8),
-                     scales[row * n_groups + i / group]);
+    const uint32_t u = (i & 1) ? byte >> 4 : byte & 0xFu;
+    return __fmul_rn(small_int(u ^ 8u, 8.f), scales[row * n_groups + i / group]);
   }
   template <int N>
   __device__ __forceinline__ Pack<N> packet(int64_t row, int i) const {
@@ -147,9 +154,7 @@ struct Int4Rows {
   }
   template <int N>
   __device__ __forceinline__ static float elem(const Pack<N>& p, int j) {
-    return __fmul_rn(
-        static_cast<float>(static_cast<int>(((p.w[j / 8] >> (4 * (j % 8))) & 0xFu) ^ 8u) - 8),
-        p.scale);
+    return __fmul_rn(small_int(((p.w[j / 8] >> (4 * (j % 8))) & 0xFu) ^ 8u, 8.f), p.scale);
   }
   template <int N>
   __device__ __forceinline__ void vec(int64_t row, int i, float (&out)[N]) const {

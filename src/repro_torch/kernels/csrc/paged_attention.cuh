@@ -11,7 +11,7 @@
 // position j·P + t of row b sits in page block_table[b, j] at slot t, and
 // its K row for kv head kh starts at element ((pid·P + t)·KH + kh)·D.  The
 // pool is never copied, transposed or cast, and no page at or past a row's
-// length is read (nor its block-table entry).
+// length is read.
 //
 // Split.  A row's keys are split by a rule fixed per row: split s holds
 // its pages s·PAGES_PER_SPLIT … (s + 1)·PAGES_PER_SPLIT - 1 (256 tokens at
@@ -28,25 +28,33 @@
 // H, Dv + 2) that the wrapper allocates, and a second launch in the same C
 // call combines each row's splits in ascending order.
 //
-// Inside a block: WARPS = 4 warps.  The split's token range is cut into
-// steps of STEP tokens, step k taken by warp k mod 4, each warp with its
-// own online-softmax state per query row.  A token's K (and V) row is
-// read by a group of `lanes` lanes (the row's 16-byte vectors rounded up
-// to a power of two, at most 32), one 16-byte load a lane: 4 f32, 8 bf16,
-// 16 int8 or 32 int4 codes, the codes with their group's scale (kv_rows.cuh
-// packets); a lane reads further vectors of a wider K row in more rounds.
-// A warp takes 32 / lanes tokens a pass and NPASS passes a step (8, or 4
-// for codes): STEP = 8 tokens for f32 at D 96, 16 for bf16, 16 for int8,
-// 32 for int4.  It issues the step's V loads and then its K loads before
-// it computes, so each step waits on about one memory latency; a lane
-// dots its K vectors with the query rows held in shared memory, the
-// group's partial dots meet by xor shuffles, and the step's max and Σp
-// over its tokens are xor shuffles across the groups.  No thread walks a
-// page alone.  Each lane keeps acc for its own V features as a partial
-// over its group's tokens; the groups' partials meet by xor shuffles once,
-// after the last step.  The warps' states meet in shared memory in warp
-// order after ONE barrier (the only other barrier follows the staging of
-// q·scale and the split's page ids).
+// Inside a block: WARPS = 4 warps.  The block stages q·scale and the
+// split's block-table entries in shared memory while its row's length is
+// on its way (one memory latency before the first K/V load).  The split's
+// token range is cut into steps of STEP tokens, step k taken by warp k mod
+// 4, each warp with its own online-softmax state per query row.  A
+// token's K (and V) row is read by a group of `lanes` lanes (the row's
+// 16-byte vectors rounded up to a power of two, at most 32), one 16-byte
+// load a lane: 4 f32, 8 bf16, 16 int8 or 32 int4 codes, the codes with
+// their group's scale (kv_rows.cuh packets, whose codes turn into f32
+// without a conversion instruction); a lane reads further vectors of a
+// wider K row in more rounds.  A warp takes 32 / lanes tokens a pass and
+// NPASS passes a step (8 for f32, 4 for bf16 and int8, 2 for int4): STEP
+// = 8 tokens at D 96 for f32 and bf16, 16 for int8 and int4.  It issues
+// the step's V loads and then its K loads, unconditionally (a token past
+// the range reads the step's first row, a lane past the row a vector that
+// exists, and their products are masked), before it computes, so each
+// step waits on about one memory latency; a lane dots its K vectors with
+// the query rows held in shared memory, the group's partial dots meet by
+// xor shuffles, and the step's max and Σp over its tokens are xor
+// shuffles across the groups.  No thread walks a page alone.  Each lane
+// keeps acc for its own V features as a partial over its group's tokens;
+// the groups' partials meet by xor shuffles once, after the last step.
+// The warps' states meet in shared memory in warp order after ONE barrier
+// (the only other barrier follows the staging).  Where G = 1 a thread
+// keeps to 128 registers, so four blocks (16 warps) share an SM.  The
+// combine (S > 1) takes one thread an output element and loads 16
+// splits' partials at once before it adds them in order.
 //
 // Rows whose width breaks the 16-byte vectors (D·itemsize % 16, codes
 // whose group is not a multiple of a packet, an unaligned pool) take the
@@ -142,6 +150,7 @@ constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int PAGES_PER_SPLIT = 16;
 constexpr int COMBINE_THREADS = 256;
+constexpr int COMBINE_CHUNK = 16;
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -152,7 +161,7 @@ using kv::to_f32;
 template <typename Rows, int E_>
 struct Packets {
   static constexpr int E = E_;
-  static constexpr int NPASS = E >= 16 ? 4 : 8;
+  static constexpr int NPASS = E == 4 ? 8 : E == 32 ? 2 : 4;
   using Raw = typename Rows::template Pack<E>;
   Rows rows;
   __device__ __forceinline__ Raw load(int64_t row, int c) const {
@@ -176,9 +185,10 @@ struct Elements {
   __device__ __forceinline__ Raw load(int64_t row, int c) const {
     Raw r;
 #pragma unroll
-    for (int j = 0; j < E; ++j) {
+    for (int j = 0; j < E; ++j) {  // every load unconditional, past the width from its end
       const int i = c * E + j;
-      r.v[j] = i < rows.width ? rows(row, i) : 0.f;
+      const float x = rows(row, min(i, rows.width - 1));
+      r.v[j] = i < rows.width ? x : 0.f;
     }
     return r;
   }
@@ -208,10 +218,11 @@ inline size_t smem_bytes(int gt, int dq, int ch) {
 }
 
 template <typename Q, typename A, int GT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, GT == 1 ? 4 : 1)
 split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ block_table,
              const int* __restrict__ lengths, Q* __restrict__ out, float* __restrict__ part,
-             int h, int kh, int d, int dv, int page, int mpb, float scale, int lanes) {
+             int h, int kh, int d, int dv, int page, int page_shift, int mpb, float scale,
+             int lanes) {
   constexpr int E = A::E;
   constexpr int NPASS = A::NPASS;
   using Raw = typename A::Raw;
@@ -232,26 +243,16 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
   const int head0 = kvh * g + g0;  // the block's first query head
   const int f0 = dc * ch;
   const int fn = min(ch, dv - f0);
-  const int n = max(0, min(lengths[b], mpb * page));
-  const int n_pages = (n + page - 1) / page;
-  const int ns = (n_pages + PAGES_PER_SPLIT - 1) / PAGES_PER_SPLIT;
-  const bool direct = gridDim.z == 1;
   const int tid = threadIdx.x;
-  if (s >= ns) {  // past the row's last page (with S == 1: a row of length 0)
-    if (direct)
-      for (int i = tid; i < gn * fn; i += THREADS) {
-        const int gi = i / fn;
-        store(out + (static_cast<int64_t>(b) * h + head0 + gi) * dv + f0 + (i - gi * fn), 0.f);
-      }
-    return;
-  }
+  const int length = lengths[b];
 
+  // q·scale and the split's block-table entries are staged while the
+  // length is on its way (no K/V row is read before it is known)
   const int dq = nvk * E;  // q rows padded with zeros to whole vectors
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                                                // (GT, dq) q · scale
   int* pid_s = reinterpret_cast<int*>(q_s + GT * dq);               // the split's page ids
   float* mrg = reinterpret_cast<float*>(pid_s + PAGES_PER_SPLIT);   // (WARPS, GT, ch + 2)
-
   const Q* qb = q + (static_cast<int64_t>(b) * h + head0) * d;
   for (int i = tid; i < GT * dq; i += THREADS) {
     const int gi = i / dq;
@@ -260,7 +261,20 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
   }
   const int j0 = s * PAGES_PER_SPLIT;
   const int* bt = block_table + static_cast<int64_t>(b) * mpb;
-  for (int j = tid; j < PAGES_PER_SPLIT; j += THREADS) pid_s[j] = j0 + j < n_pages ? bt[j0 + j] : 0;
+  for (int j = tid; j < PAGES_PER_SPLIT; j += THREADS) pid_s[j] = j0 + j < mpb ? bt[j0 + j] : 0;
+
+  const int n = max(0, min(length, mpb * page));
+  const int n_pages = (n + page - 1) / page;
+  const int ns = (n_pages + PAGES_PER_SPLIT - 1) / PAGES_PER_SPLIT;
+  const bool direct = gridDim.z == 1;
+  if (s >= ns) {  // past the row's last page (with S == 1: a row of length 0)
+    if (direct)
+      for (int i = tid; i < gn * fn; i += THREADS) {
+        const int gi = i / fn;
+        store(out + (static_cast<int64_t>(b) * h + head0 + gi) * dv + f0 + (i - gi * fn), 0.f);
+      }
+    return;
+  }
   __syncthreads();
 
   const int lane = tid & 31;
@@ -287,23 +301,23 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
 
   for (int k = warp; k < n_steps; k += WARPS) {
     const int base = t0 + k * step;
-    int64_t row[NPASS];
+    int row[NPASS];  // pool rows (the wrapper keeps NP·P·KH below 2³¹)
     bool ok[NPASS];
 #pragma unroll
     for (int i = 0; i < NPASS; ++i) {
       const int pos = base + i * tp + grp;
       ok[i] = pos < t1;
       const int r = (ok[i] ? pos : base) - t0;
-      const int jp = r / page;
-      row[i] = (static_cast<int64_t>(pid_s[jp]) * page + (r - jp * page)) * kh + kvh;
+      const int jp = page_shift >= 0 ? r >> page_shift : r / page;
+      row[i] = (pid_s[jp] * page + (r - jp * page)) * kh + kvh;
     }
-    // the step's V rows, then its K rows, all in flight before the dot
+    // the step's V rows, then its K rows, all in flight before the dot:
+    // every load unconditional, from a row and vector that exist (a token
+    // past the range reads the step's first row, its p is 0; a lane past
+    // the V row reads vector 0 into features that are never written out)
     Raw vr[NPASS];
 #pragma unroll
-    for (int i = 0; i < NPASS; ++i) {
-      vr[i] = Raw{};
-      if (ok[i] && v_ok) vr[i] = vacc.load(row[i], cv);
-    }
+    for (int i = 0; i < NPASS; ++i) vr[i] = vacc.load(row[i], v_ok ? cv : 0);
     float sc[GT][NPASS];
 #pragma unroll
     for (int gi = 0; gi < GT; ++gi)
@@ -314,16 +328,13 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
       const bool c_ok = c < nvk;
       Raw kr[NPASS];
 #pragma unroll
-      for (int i = 0; i < NPASS; ++i) {
-        kr[i] = Raw{};
-        if (ok[i] && c_ok) kr[i] = kacc.load(row[i], c);
-      }
-      const float* qc = q_s + (c_ok ? c : 0) * E;
+      for (int i = 0; i < NPASS; ++i) kr[i] = kacc.load(row[i], c_ok ? c : 0);
+      const float* qc = q_s + (c_ok ? c : 0) * E;  // a lane past the K row adds 0·k
 #pragma unroll
       for (int j = 0; j < E; ++j) {
         float qj[GT];
 #pragma unroll
-        for (int gi = 0; gi < GT; ++gi) qj[gi] = qc[gi * dq + j];
+        for (int gi = 0; gi < GT; ++gi) qj[gi] = c_ok ? qc[gi * dq + j] : 0.f;
 #pragma unroll
         for (int i = 0; i < NPASS; ++i) {
           const float kj = A::get(kr[i], j);
@@ -431,7 +442,8 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
 }
 
 // A row's splits 0 … ns - 1 in ascending order, one thread an output
-// element.
+// element; each chunk of COMBINE_CHUNK splits' values is loaded at once
+// (past ns: the last split again, unused) before it is added.
 template <typename Q>
 __global__ void __launch_bounds__(COMBINE_THREADS)
 combine_kernel(const float* __restrict__ part, const int* __restrict__ lengths,
@@ -449,16 +461,33 @@ combine_kernel(const float* __restrict__ part, const int* __restrict__ lengths,
   }
   const int64_t stride = static_cast<int64_t>(b_n) * h * (dv + 2);  // between splits
   const float* r = part + bh * (dv + 2);
-  float mx = r[0];
-  for (int s = 1; s < ns; ++s) mx = fmaxf(mx, r[s * stride]);
+  float mx = NEG_INF;
+  for (int s0 = 0; s0 < ns; s0 += COMBINE_CHUNK) {
+    float mv[COMBINE_CHUNK];
+#pragma unroll
+    for (int k = 0; k < COMBINE_CHUNK; ++k) mv[k] = r[min(s0 + k, ns - 1) * stride];
+#pragma unroll
+    for (int k = 0; k < COMBINE_CHUNK; ++k) mx = fmaxf(mx, mv[k]);
+  }
   float a = 0.f, sum = 0.f;
-  for (int s = 0; s < ns; ++s) {
-    const float* rs = r + s * stride;
-    const float e = rs[0] == mx ? 1.f : expf(rs[0] - mx);
-    const float as = __fmul_rn(rs[2 + f], e);
-    const float ls = __fmul_rn(rs[1], e);
-    a = s == 0 ? as : __fadd_rn(a, as);
-    sum = s == 0 ? ls : __fadd_rn(sum, ls);
+  for (int s0 = 0; s0 < ns; s0 += COMBINE_CHUNK) {
+    float mv[COMBINE_CHUNK], lv[COMBINE_CHUNK], av[COMBINE_CHUNK];
+#pragma unroll
+    for (int k = 0; k < COMBINE_CHUNK; ++k) {
+      const float* rs = r + min(s0 + k, ns - 1) * stride;
+      mv[k] = rs[0];
+      lv[k] = rs[1];
+      av[k] = rs[2 + f];
+    }
+#pragma unroll
+    for (int k = 0; k < COMBINE_CHUNK; ++k) {
+      if (s0 + k >= ns) break;
+      const float e = mv[k] == mx ? 1.f : expf(mv[k] - mx);
+      const float as = __fmul_rn(av[k], e);
+      const float ls = __fmul_rn(lv[k], e);
+      a = s0 + k == 0 ? as : __fadd_rn(a, as);
+      sum = s0 + k == 0 ? ls : __fadd_rn(sum, ls);
+    }
   }
   store(out + i, a / fmaxf(sum, 1e-30f));
 }
@@ -474,6 +503,9 @@ int launch_gt(const void* q, A kacc, A vacc, const void* block_table, const void
   const int n_dvc = (nvv + lanes - 1) / lanes;
   const int n_gt = (h / kh + GT - 1) / GT;
   const int splits = splits_for(mpb);
+  int page_shift = 0;  // log2(P), or -1 where P is no power of two
+  while ((1 << page_shift) < page) ++page_shift;
+  if ((1 << page_shift) != page) page_shift = -1;
   const size_t smem = smem_bytes(GT, nvk * E, lanes * E);
   auto kernel = split_kernel<Q, A, GT>;
   if (smem > 48 * 1024) {
@@ -485,7 +517,7 @@ int launch_gt(const void* q, A kacc, A vacc, const void* block_table, const void
   kernel<<<dim3(kh * n_gt * n_dvc, b, splits), THREADS, smem, st>>>(
       static_cast<const Q*>(q), kacc, vacc, static_cast<const int*>(block_table),
       static_cast<const int*>(lengths), static_cast<Q*>(out), static_cast<float*>(part), h, kh,
-      d, dv, page, mpb, scale, lanes);
+      d, dv, page, page_shift, mpb, scale, lanes);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const int64_t total = static_cast<int64_t>(b) * h * dv;

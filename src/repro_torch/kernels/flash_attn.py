@@ -369,6 +369,9 @@ def _check_common(q, k_pages, v_pages, block_table, lengths):
     kh = k_pages.shape[2]
     if kh == 0 or h % kh:
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
+    if k_pages.shape[0] * k_pages.shape[1] * kh >= 2 ** 31:
+        raise ValueError(f"a pool of {k_pages.shape[0]} pages of {k_pages.shape[1]} "
+                         f"tokens x {kh} kv heads holds 2^31 rows or more")
     if block_table.dtype != torch.int32 or block_table.dim() != 2 \
             or block_table.shape[0] != b:
         raise ValueError(f"block_table must be int32 ({b}, MPB); got "

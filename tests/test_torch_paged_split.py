@@ -40,7 +40,7 @@ H, KH, D = 4, 2, 96
 PPS = flash_attn.PAGES_PER_SPLIT
 WARPS = flash_attn.SPLIT_WARPS
 # the body's readers: elements a 16-byte vector and passes a step
-READERS = {"f32": (4, 8), "bf16": (8, 8), "int8": (16, 4), "int4": (32, 4)}
+READERS = {"f32": (4, 8), "bf16": (8, 4), "int8": (16, 4), "int4": (32, 2)}
 
 
 def geometry(pool: str, d: int, dv: int):
