@@ -33,9 +33,6 @@ sys.path.insert(0, str(ROOT))
 HEADERS = ("paged_attention.cuh", "kv_rows.cuh")
 VARIANTS = {
     "base": [],
-    # lanes a token rounded up to a power of two (25 % of a warp idle at D 96)
-    "pow2": [("  return nv < 32 ? nv : 32;",
-              "  int lanes = 1;\n  while (lanes < nv && lanes < 32) lanes <<= 1;\n  return lanes;")],
     # codes converted by int-to-float instructions (quarter rate), not
     # kv_rows.cuh's small_int
     "cvt": [("return __fsub_rn(__uint_as_float(0x4B000000u | u), 8388608.f + bias);",
@@ -48,12 +45,6 @@ VARIANTS = {
                     "static constexpr int NPASS = E == 4 ? 4 : E == 32 ? 1 : 2;")],
     # splits of 32 pages: half the blocks and partials, twice the steps a warp
     "pps32": [("constexpr int PAGES_PER_SPLIT = 16;", "constexpr int PAGES_PER_SPLIT = 32;")],
-}
-# shapes beside chip_smoke.py's: phi3-long's rows over 1 and 8 kv heads
-# (one block a split and kv head: 33 and 264 blocks, a fraction of a wave)
-PROBE_SHAPES = {
-    "phi3-long-kh1": (4, 1, 1, 96, 16, 256, (4096, 3000, 1024, 17)),
-    "phi3-long-kh8": (4, 8, 8, 96, 16, 256, (4096, 3000, 1024, 17)),
 }
 LIBS = ("paged_flash_attention", "paged_flash_attention_quant")
 
@@ -172,7 +163,7 @@ def main(argv=None) -> int:
         order = names + names[:1]
         for label in a.shapes.split(","):
             odd = label in cs.ATTN_ODD
-            shape = {**cs.ATTN_SHAPES, **cs.ATTN_ODD, **PROBE_SHAPES}[label]
+            shape = (cs.ATTN_ODD if odd else cs.ATTN_SHAPES)[label]
             pool_sets = cs.ATTN_ODD_POOLS if odd else cs.ATTN_POOLS
             for lib, pools in zip(LIBS, pool_sets.values()):
                 quant = lib.endswith("quant")

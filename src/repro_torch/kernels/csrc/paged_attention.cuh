@@ -33,26 +33,24 @@
 // on its way (one memory latency before the first K/V load).  The split's
 // token range is cut into steps of STEP tokens, step k taken by warp k mod
 // 4, each warp with its own online-softmax state per query row.  A
-// token's K (and V) row is read by a group of `lanes` lanes (as many as
-// the wider row has 16-byte vectors, at most 32), one 16-byte load a lane:
-// 4 f32, 8 bf16, 16 int8 or 32 int4 codes, the codes with their group's
-// scale (kv_rows.cuh packets, whose codes turn into f32 without a
-// conversion instruction); a lane reads further vectors of a wider K row
-// in more rounds.  A warp takes tp = 32 / lanes tokens a pass (the 32 mod
-// lanes lanes left over sit idle) and NPASS passes a step (8 for f32, 4
-// for bf16 and int8, 2 for int4): STEP = 8 tokens at D 96 for f32 (24
-// lanes a token) and bf16 (12), 20 for int8 (6) and int4 (3).  It issues
+// token's K (and V) row is read by a group of `lanes` lanes (the row's
+// 16-byte vectors rounded up to a power of two, at most 32), one 16-byte
+// load a lane: 4 f32, 8 bf16, 16 int8 or 32 int4 codes, the codes with
+// their group's scale (kv_rows.cuh packets, whose codes turn into f32
+// without a conversion instruction); a lane reads further vectors of a
+// wider K row in more rounds.  A warp takes 32 / lanes tokens a pass and
+// NPASS passes a step (8 for f32, 4 for bf16 and int8, 2 for int4): STEP
+// = 8 tokens at D 96 for f32 and bf16, 16 for int8 and int4.  It issues
 // the step's V loads and then its K loads, unconditionally (a token past
 // the range reads the step's first row, a lane past the row a vector that
 // exists, and their products are masked), before it computes, so each
 // step waits on about one memory latency; a lane dots its K vectors with
-// the query rows held in shared memory, and the group's partial dots, the
-// step's max and its Σp across the groups meet by pairwise shuffle trees
-// in a fixed order (tree_sum; the dot and the max then go back to every
-// lane).  No thread walks a page alone.  Each lane keeps acc for its own
-// V features as a partial over its group's tokens; the groups' partials
-// meet by the same tree once, after the last step.  The warps' states
-// meet in shared memory in warp order after ONE barrier
+// the query rows held in shared memory, the group's partial dots meet by
+// xor shuffles, and the step's max and Σp over its tokens are xor
+// shuffles across the groups.  No thread walks a page alone.  Each lane
+// keeps acc for its own V features as a partial over its group's tokens;
+// the groups' partials meet by xor shuffles once, after the last step.
+// The warps' states meet in shared memory in warp order after ONE barrier
 // (the only other barrier follows the staging).  Where G = 1 a thread
 // keeps to 128 registers, so four blocks (16 warps) share an SM.  The
 // combine (S > 1) takes one thread an output element and loads 16
@@ -197,23 +195,13 @@ struct Elements {
   __device__ __forceinline__ static float get(const Raw& r, int j) { return r.v[j]; }
 };
 
-// Lanes a token: the wider row's vectors, at most 32.
+// Lanes a token: the wider row's vectors rounded up to a power of two, at
+// most 32.
 inline int lanes_for(int nvk, int nvv) {
   const int nv = nvk > nvv ? nvk : nvv;
-  return nv < 32 ? nv : 32;
-}
-
-// v summed over the n lane groups of a warp (group g: lanes g·stride +
-// 0 … stride - 1, this lane's index in its group g) by a pairwise tree onto
-// group 0, in a fixed order: level `off` adds group g + off into group g
-// for g a multiple of 2·off.  Every lane takes part; only group 0's result
-// is the sum.
-__device__ __forceinline__ float tree_sum(float v, int g, int n, int stride, int lane) {
-  for (int off = 1; off < n; off <<= 1) {
-    const float o = __shfl_sync(FULL, v, min(lane + off * stride, 31));
-    if ((g & (2 * off - 1)) == 0 && g + off < n) v = __fadd_rn(v, o);
-  }
-  return v;
+  int lanes = 1;
+  while (lanes < nv && lanes < 32) lanes <<= 1;
+  return lanes;
 }
 
 // Splits of a call: from MPB alone.
@@ -292,9 +280,8 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int tp = 32 / lanes;          // tokens a pass
-  const int grp = lane / lanes;       // this lane's token of a pass (tp: none)
+  const int grp = lane / lanes;       // this lane's token of a pass
   const int li = lane - grp * lanes;  // and its vector
-  const int first = min(grp * lanes, 31);  // its group's first lane
   const int step = tp * NPASS;
   const int t0 = j0 * page;
   const int t1 = min(n, t0 + PAGES_PER_SPLIT * page);
@@ -319,7 +306,7 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
 #pragma unroll
     for (int i = 0; i < NPASS; ++i) {
       const int pos = base + i * tp + grp;
-      ok[i] = grp < tp && pos < t1;
+      ok[i] = pos < t1;
       const int r = (ok[i] ? pos : base) - t0;
       const int jp = page_shift >= 0 ? r >> page_shift : r / page;
       row[i] = (pid_s[jp] * page + (r - jp * page)) * kh + kvh;
@@ -356,12 +343,12 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
         }
       }
     }
-    // the group's partial dots onto its first lane, then to all its lanes
+    for (int off = 1; off < lanes; off <<= 1)  // the group's partial dots
 #pragma unroll
-    for (int gi = 0; gi < GT; ++gi)
+      for (int gi = 0; gi < GT; ++gi)
 #pragma unroll
-      for (int i = 0; i < NPASS; ++i)
-        sc[gi][i] = __shfl_sync(FULL, tree_sum(sc[gi][i], li, lanes, 1, lane), first);
+        for (int i = 0; i < NPASS; ++i)
+          sc[gi][i] = __fadd_rn(sc[gi][i], __shfl_xor_sync(FULL, sc[gi][i], off));
 
     // the online-softmax step of the warp, every lane alike
     float corr[GT], p[GT][NPASS];
@@ -373,11 +360,7 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
         if (!ok[i]) sc[gi][i] = NEG_INF;
         mx = fmaxf(mx, sc[gi][i]);
       }
-      for (int off = 1; off < tp; off <<= 1) {  // onto group 0, then to every lane
-        const float o = __shfl_sync(FULL, mx, min(lane + off * lanes, 31));
-        if ((grp & (2 * off - 1)) == 0 && grp + off < tp) mx = fmaxf(mx, o);
-      }
-      mx = __shfl_sync(FULL, mx, li);
+      for (int off = lanes; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
       const float m_new = fmaxf(m[gi], mx);
       corr[gi] = expf(m[gi] - m_new);
       float sum = 0.f;
@@ -386,7 +369,8 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
         p[gi][i] = expf(sc[gi][i] - m_new);
         sum = __fadd_rn(sum, p[gi][i]);
       }
-      sum = tree_sum(sum, grp, tp, lanes, lane);  // right in group 0, which keeps l
+      for (int off = lanes; off < 32; off <<= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(FULL, sum, off));
       l[gi] = __fadd_rn(__fmul_rn(l[gi], corr[gi]), sum);
       m[gi] = m_new;
     }
@@ -405,11 +389,13 @@ split_kernel(const Q* __restrict__ q, A kacc, A vacc, const int* __restrict__ bl
       }
     }
   }
-  // the groups' partials of acc, onto group 0
+  // the groups' partials of acc
+  for (int off = lanes; off < 32; off <<= 1)
 #pragma unroll
-  for (int gi = 0; gi < GT; ++gi)
+    for (int gi = 0; gi < GT; ++gi)
 #pragma unroll
-    for (int j = 0; j < E; ++j) acc[gi][j] = tree_sum(acc[gi][j], grp, tp, lanes, lane);
+      for (int j = 0; j < E; ++j)
+        acc[gi][j] = __fadd_rn(acc[gi][j], __shfl_xor_sync(FULL, acc[gi][j], off));
 
   const int rec = ch + 2;
   float* mw = mrg + warp * GT * rec;

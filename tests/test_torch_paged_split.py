@@ -8,9 +8,9 @@ splits of ``PAGES_PER_SPLIT`` pages, each split's tokens in steps of
 (tokens a pass) × (passes a step) taken by ``SPLIT_WARPS`` warps in turn,
 each warp with its own running max, l and acc; per step the scores (an
 f32 product), the step's max, corr and p, Σp summed over a lane's passes
-and then over the lane groups by a pairwise tree, acc's p·v as an fma
-chain over a lane's passes (each fma emulated in f64, then rounded once)
-and acc·corr + pv; the groups' acc by the same tree after the last step; the
+and then over the lane groups by an xor tree, acc's p·v as an fma chain
+over a lane's passes (each fma emulated in f64, then rounded once) and
+acc·corr + pv; the groups' acc by the xor tree after the last step; the
 warps, then the splits, combined in ascending order with e_i = 1 where
 m_i is the maximum; A / max(L, 1e-30) in q's dtype.  Only the order of
 each score's D-term dot differs from the kernel's (the standard allows
@@ -45,21 +45,22 @@ READERS = {"f32": (4, 8), "bf16": (8, 4), "int8": (16, 4), "int4": (32, 2)}
 
 def geometry(pool: str, d: int, dv: int):
     """(tokens a pass, passes a step) of the body for rows of whole 16-byte
-    vectors: as many lanes as the wider row has vectors (at most 32) read
-    one token."""
+    vectors: the wider row's vectors rounded up to a power of two lanes (at
+    most 32) read one token."""
     e, passes = READERS[pool]
-    lanes = min(32, max(-(-d // e), -(-dv // e)))
+    nv = max(-(-d // e), -(-dv // e))
+    lanes = 1
+    while lanes < nv and lanes < 32:
+        lanes *= 2
     return 32 // lanes, passes
 
 
 def _tree(x):
-    """The pairwise tree over dim 0 onto slot 0: level off = 1, 2, … adds
-    slot g + off into slot g for g a multiple of 2·off; returns slot 0."""
-    x = list(x)
+    """The xor tree over dim 0 (a power of two long): x_i + x_(i ^ off) for
+    off = 1, 2, …, every slot ending alike; returns slot 0."""
     off = 1
-    while off < len(x):
-        for g in range(0, len(x) - off, 2 * off):
-            x[g] = x[g] + x[g + off]
+    while off < x.shape[0]:
+        x = x + x[torch.arange(x.shape[0]) ^ off]
         off *= 2
     return x[0]
 
