@@ -10,13 +10,13 @@
 // rowops.dequant_rows_grouped and serve/kvquant.dequantize_kv.
 //
 // Besides the element reader, each reader loads a packet: N elements of
-// one row from element i by ONE aligned load of 4, 8 or 16 bytes (f32: 1
+// one row from element i by ONE aligned load of 4 or 16 bytes (f32: 1
 // element a 32-bit word, bf16: 2, int8: 4, int4: 8), with the scale of
 // their group for codes (the N codes lie in one group).  `packet` issues
-// the load, `elem` converts element j of a packet (j a constant), and
-// `vec` does both; each element comes out bitwise as operator() gives it.
-// The dense quantized kernel stages codes by `vec` a 32-bit word at a
-// time; the paged kernels read whole 16-byte packets.
+// the load and `elem` converts element j of a packet (j a constant); the
+// codes' `vec` does both.  Each element comes out bitwise as operator()
+// gives it.  The dense quantized kernel stages codes by `vec` a 32-bit
+// word at a time; the paged kernels read whole 16-byte packets.
 
 #pragma once
 
@@ -52,12 +52,8 @@ template <int W>
 __device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[W]) {
   if constexpr (W == 1) {
     w[0] = *static_cast<const uint32_t*>(p);
-  } else if constexpr (W == 2) {
-    const uint2 v = *static_cast<const uint2*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
   } else {
-    static_assert(W == 4, "a packet is one load of 4, 8 or 16 bytes");
+    static_assert(W == 4, "a packet is one load of 4 or 16 bytes");
     const uint4 v = *static_cast<const uint4*>(p);
     w[0] = v.x;
     w[1] = v.y;
@@ -90,12 +86,6 @@ struct FloatRows {
   __device__ __forceinline__ static float elem(const Pack<N>& p, int j) {
     if constexpr (PER_WORD == 1) return __uint_as_float(p.w[j]);
     return __uint_as_float((j & 1) ? p.w[j >> 1] & 0xFFFF0000u : p.w[j >> 1] << 16);
-  }
-  template <int N>
-  __device__ __forceinline__ void vec(int64_t row, int i, float (&out)[N]) const {
-    const Pack<N> p = packet<N>(row, i);
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = elem<N>(p, j);
   }
 };
 

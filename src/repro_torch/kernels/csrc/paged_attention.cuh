@@ -135,10 +135,12 @@
 // output; 4·G·D f32 operations a token and kv head are far below the
 // card's rate.  No tensor cores: at G <= 3 decode does about 1.5 f32
 // operations per byte read, and an mma tile of 16 query rows would be
-// mostly padding.  No cp.async prefetch of the next step: a block's
-// registers and 4 warps a block, several blocks an SM, keep enough loads
-// in flight to cover the memory latency, and a row's splits spread a long
-// row over the SMs.
+// mostly padding.  No cp.async prefetch of the next step: four blocks of
+// 4 warps an SM, each warp with a step's K and V rows in flight, and a
+// long row's splits spread over the SMs; on the card the f32 split kernel
+// reads a 4096-token batch at ~80 % of the bytes bound, while bf16 and
+// the codes stay well above theirs (PERF.md §5: a 16-code packet takes
+// about four operations an element to dequantize, on K and V alike).
 
 #pragma once
 

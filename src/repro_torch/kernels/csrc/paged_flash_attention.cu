@@ -53,13 +53,12 @@ int paged_flash_attention(const void* q, int q_bf16, const void* k_pages,
                           void* out, void* part, int b, int h, int kh, int d, int dv,
                           int page, int mpb, float scale, void* stream) {
   using bf16 = __nv_bfloat16;
-  if (q_bf16)
-    return kv_bf16
-        ? run<bf16, bf16>(q, k_pages, v_pages, block_table, lengths, out, part, b, h, kh, d, dv, page, mpb, scale, stream)
-        : run<bf16, float>(q, k_pages, v_pages, block_table, lengths, out, part, b, h, kh, d, dv, page, mpb, scale, stream);
-  return kv_bf16
-      ? run<float, bf16>(q, k_pages, v_pages, block_table, lengths, out, part, b, h, kh, d, dv, page, mpb, scale, stream)
-      : run<float, float>(q, k_pages, v_pages, block_table, lengths, out, part, b, h, kh, d, dv, page, mpb, scale, stream);
+  auto go = [&](auto run_qt) {
+    return run_qt(q, k_pages, v_pages, block_table, lengths, out, part, b, h, kh, d, dv, page,
+                  mpb, scale, stream);
+  };
+  if (q_bf16) return kv_bf16 ? go(run<bf16, bf16>) : go(run<bf16, float>);
+  return kv_bf16 ? go(run<float, bf16>) : go(run<float, float>);
 }
 
 }  // extern "C"
