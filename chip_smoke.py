@@ -18,10 +18,13 @@ Phases, each fatal on failure:
      with times: the fused kernel at SmolLM-135M's sites, the prologue,
      GEMM and quantizer kernels at Phi-3-mini's, the two paged attention
      kernels at both models' decode shapes, one long ragged Phi-3 batch and
-     Gemma-7b's head_dim 256 (f32 and bf16 pools, int8 and int4 pools), with an inactive row and
-     garbage in the pages no row owns, the dense causal flash-attention
-     kernel at SmolLM's calibration shape, Phi-3's heads (f32, bf16), a
-     ragged S and S = 1, and the prefill kernels: the quantized flash
+     Gemma-7b's head_dim 256 (f32 and bf16 pools, int8 and int4 pools),
+     with an inactive row and garbage in the pages no row owns, each within
+     ``flash_attn.paged_attention_bound``, and at D 100 (the element-wise
+     reader, three splits); their split-KV body's rows bitwise the same
+     alone (pages moved) and in the batch, and at MPB 4 and 256; the dense
+     causal flash-attention kernel at SmolLM's calibration shape, Phi-3's
+     heads (f32, bf16), a ragged S and S = 1, and the prefill kernels: the quantized flash
      kernel (#8, int8 and int4 group 32) at the kv_sweep shape, a whole
      Phi-3 prompt and a 256-row chunk of it at position 1792, each with an
      f32 and a bf16 q, and a ragged S with a bf16 q, each bitwise #7 on the

@@ -139,8 +139,7 @@
 // 4 warps an SM, each warp with a step's K and V rows in flight, and a
 // long row's splits spread over the SMs; on the card the f32 split kernel
 // reads a 4096-token batch at ~80 % of the bytes bound, while bf16 and
-// the codes stay well above theirs (PERF.md §5: a 16-code packet takes
-// about four operations an element to dequantize, on K and V alike).
+// the codes stay well above theirs (PERF.md §5).
 
 #pragma once
 
