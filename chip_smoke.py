@@ -376,7 +376,51 @@ def phase_chain_kernels(device):
     print("  library_ms is null for all three: no single PyTorch call computes "
           "the int4 GEMM with its rescale and LR epilogue, the quantizer, or "
           "the quantizer with x·V", flush=True)
+    _gemm_rows_gate(device)
     return worst, timed
+
+
+# M of the calls whose rows must be bitwise the 2048-row call's
+GEMM_ROW_MS = (1, SLOTS, CHUNK, 100)
+
+
+def _gemm_rows_gate(device):
+    """The GEMM kernel's rows do not depend on M, fatal: at Phi-3-mini's
+    three site shapes, R 307 (bf16 U), per-token and at g 128, each row of
+    calls at M = GEMM_ROW_MS is bitwise the same row of the 2048-row call on
+    the same operands (the first rows of its codes, scales and x·V).  The
+    calls span both tile regimes (M <= 16 streams W with K split across
+    blocks and the LR term in blocks of its own; larger M takes 128 x 128
+    tiles over all of K)."""
+    import torch
+
+    from repro_torch.bench.common import w4a4_problem
+    from repro_torch.kernels import prologue, w4a4
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mmax = 2048
+    for (k, n, r) in sorted(set(PHI3_SITES.values())):
+        for g in (None, PHI3_GROUP):
+            x, v, wp, sw, u = w4a4_problem(gen, mmax, k, n, r, bf16, bf16, device, g)
+            xq, sx, xv = prologue.fused_prologue_plain(x, v, 4, 0.9, False, g)
+            whole = w4a4.w4a4_lowrank_matmul(xq, sx, wp, sw, xv, u, g)
+            plans = []
+            for m in GEMM_ROW_MS:
+                y = w4a4.w4a4_lowrank_matmul(xq[:m].contiguous(), sx[:m].contiguous(), wp,
+                                             sw, xv[:m].contiguous(), u, g)
+                torch.cuda.synchronize()
+                if not torch.equal(y, whole[:m]):
+                    raise SystemExit(f"GEMM rows at M={m} K={k} N={n} R={r} g={g} are not "
+                                     f"bitwise the same rows of the M={mmax} call")
+                p = w4a4.gemm_plan(m, k, n, g, sms)
+                plans.append(f"M {m}: {'decode' if p.decode else 'large'}, "
+                             f"{p.splits} split{'s' if p.splits > 1 else ''}")
+            print(f"  GEMM rows K={k:<5} N={n:<5} R={r} g={g}: M {GEMM_ROW_MS} bitwise the "
+                  f"M={mmax} call's rows ({'; '.join(plans)}; M {mmax}: large, 1 split)",
+                  flush=True)
+            del x, v, wp, sw, u, xq, sx, xv, whole
 
 
 # kernel #5 (M, D): Phi-3-mini's mlp/wd at decode, phase 12's K at M 256 and
@@ -844,9 +888,10 @@ def _flash_bound(shape):
     return (*_bound(nbytes, tf32_ops=3 * ops), _bound(nbytes, f32_ops=ops)[0])
 
 
-def _tensor_core_instructions(names):
-    """The count of HMMA (tensor-core) instructions in each built library's
-    SASS (``cuobjdump -sass``)."""
+def _tensor_core_instructions(names, opcode="HMMA"):
+    """The count of tensor-core instructions (``opcode``: HMMA for floating
+    point, IMMA for integer operands) in each built library's SASS
+    (``cuobjdump -sass``)."""
     from repro_torch.kernels import build
 
     cuobjdump = str(Path(build.nvcc_path()).parent / "cuobjdump")
@@ -854,8 +899,23 @@ def _tensor_core_instructions(names):
     for name in names:
         sass = subprocess.run([cuobjdump, "-sass", str(build.target(name))],
                               capture_output=True, text=True, check=True).stdout
-        out[name] = sum("HMMA" in line for line in sass.splitlines())
+        out[name] = sum(opcode in line for line in sass.splitlines())
     return out
+
+
+def _gemm_plan_cases():
+    """(M, K, N, group) of the GEMM kernel's plan gate: Phi-3-mini's and
+    Gemma-7b's sites at the served and prefill M, per-token and at g 128,
+    phase 12's sizes, and ragged shapes."""
+    from repro_torch.bench.latency_kernels import PHI3_WD, SIZES
+
+    gemma = [(3072, 4096), (4096, 3072), (3072, 24576), (24576, 3072)]
+    sites = sorted(set((k, n) for (k, n, _) in PHI3_SITES.values())) + gemma
+    cases = [(m, k, n, g) for (k, n) in sites + list(SIZES) + [PHI3_WD]
+             for m in (1, SLOTS, CHUNK, 17, 100, 256, 2048) for g in (None, 128)]
+    return cases + [(17, 200, 97, None), (3, 90, 33, None), (1, 3072, 3073, None),
+                    (33, 8194, 1, None), (5, 16384, 130, None), (4, 200, 33, 8),
+                    (4, 200, 33, 10), (100, 90, 33, 45), (4, 3072, 3073, 3072)]
 
 
 # the premises' probe: values whose TF32 rounding is known (ties at the 11th
@@ -1439,15 +1499,17 @@ def _device_profile(prof, wall, steps, what, top):
         raise SystemExit("profile: torch.profiler recorded no device time")
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    ops = sum(r[2] for r in rows) / steps
     print(f"  profile: {steps} {what} in {wall * 1e3:.2f} ms wall, device "
-          f"busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}",
-          flush=True)
+          f"busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}, "
+          f"{ops:.0f} device operations a step", flush=True)
     for dev_us, key, count in rows[:top]:
         print(f"    {dev_us / steps / 1e3:8.3f} ms/step  x{count // steps:<5} {key[:90]}",
               flush=True)
     return {"profiled_step_ms": wall / steps * 1e3,
             "device_busy_ms_per_step": busy / steps * 1e3,
             "device_idle_share": 1 - busy / wall,
+            "device_ops_per_step": ops,
             "top": [{"key": key, "ms_per_step": dev_us / steps / 1e3,
                      "count_per_step": count // steps} for dev_us, key, count in rows[:top]]}
 
@@ -2593,8 +2655,77 @@ def phase_latency(device):
     if counts != want:
         raise SystemExit("latency: the measured calls' kernel launches are not one "
                          "fwht per rotated unfused call and the path's kernels")
+    alone = _gemm_alone(device)
     return {"smoke": smoke, "measured": measured, "launches": counts,
-            "seconds": time.perf_counter() - t0}
+            "gemm_alone": alone, "seconds": time.perf_counter() - t0}
+
+
+# phase 12's GEMM kernel timed alone: M and ranks
+ALONE_MS = (256, 2048)
+ALONE_RANKS = (0, 128)
+
+
+def _gemm_alone(device):
+    """The GEMM kernel (#2) alone at phase 12's sizes and Phi-3-mini's wd,
+    M = ALONE_MS, ranks ALONE_RANKS (bf16 x and U, codes from the prologue
+    kernel), beside its bounds (the int8 operations, the LR term's f32
+    ones, the bytes) and, as context only, ``torch._int_mm`` on the
+    pre-unpacked int8 codes (the integer product alone: no unpacking, no
+    rescale, no LR term) and a bf16 ``torch.matmul``.  µs, median of
+    latency_kernels' REPS (REPS_PREFILL at M 2048), L2 flushed."""
+    import torch
+
+    from repro_torch.bench import latency_kernels as lk
+    from repro_torch.bench.common import flush_buffer, time_ms, w4a4_problem
+    from repro_torch.kernels import prologue, w4a4
+    from repro_torch.kernels.rowops import unpack_int4_rows
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(12)
+    flush = flush_buffer(device)
+    rows = []
+    print("  the GEMM kernel alone (µs; bounds: int8 ops over 1,979 TOPS, the LR "
+          "term's f32 ops over 67 TFLOP/s, bytes over 3.35 TB/s; _int_mm and the bf16 "
+          "matmul are context only):", flush=True)
+    for k, n in list(lk.SIZES) + [lk.PHI3_WD]:
+        rmax = max(ALONE_RANKS)
+        x_all, v, wp, sw, u = w4a4_problem(gen, max(ALONE_MS), k, n, rmax, bf16, bf16, device)
+        w8 = unpack_int4_rows(wp).contiguous()
+        w_bf16 = torch.randn((k, n), generator=gen, device=device).to(bf16)
+        for m in ALONE_MS:
+            reps = lk.REPS_PREFILL if m >= 2048 else lk.REPS
+            xq, sx, xv = prologue.fused_prologue(x_all[:m], v, 4, 0.9)
+            t_mm = time_ms(lambda: torch.matmul(x_all[:m], w_bf16), flush, reps, lk.WARMUP)
+            try:
+                t_int = time_ms(lambda: torch._int_mm(xq, w8), flush, reps, lk.WARMUP)
+                why = ""
+            except RuntimeError as e:
+                t_int, why = None, str(e).splitlines()[0]
+            for r in ALONE_RANKS:
+                ur, xr = (u[:, :r].contiguous(), xv[:, :r].contiguous()) if r else (None, None)
+                t = time_ms(lambda: w4a4.w4a4_lowrank_matmul(xq, sx, wp, sw, xr, ur), flush,
+                            reps, lk.WARMUP)
+                int8_ms = 2 * m * k * n / INT8_OPS_PER_S * 1e3
+                f32_ms = (2 * m * n * r + 2 * m * n) / F32_OPS_PER_S * 1e3
+                bytes_ms = (m * k + 4 * m + k * n // 2 + 4 * n + 4 * m * r + 2 * n * r
+                            + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+                row = {"k": k, "n": n, "m": m, "r": r, "us": t * 1e3,
+                       "int8_bound_us": int8_ms * 1e3, "f32_bound_us": f32_ms * 1e3,
+                       "bytes_bound_us": bytes_ms * 1e3,
+                       "int_mm_us": None if t_int is None else t_int * 1e3,
+                       "bf16_matmul_us": t_mm * 1e3}
+                rows.append(row)
+                int_mm = (f"{t_int * 1e3:.1f}" if t_int is not None
+                          else f"refused ({why})")
+                print(f"    N×K {n}x{k} M={m:<4} R={r:<3} #2 {t * 1e3:9.1f}  int8 bound "
+                      f"{int8_ms * 1e3:7.1f}  f32 bound {f32_ms * 1e3:7.1f}  bytes bound "
+                      f"{bytes_ms * 1e3:6.1f}  ({t / max(int8_ms, f32_ms, bytes_ms):.2f}x "
+                      f"the bound)  _int_mm {int_mm}  bf16 matmul {t_mm * 1e3:.1f}",
+                      flush=True)
+            del xq, sx, xv
+        del x_all, v, wp, sw, u, w8, w_bf16
+        torch.cuda.empty_cache()
+    return rows
 
 
 def add_rotation_entries(kernels, rot_worst, rot_timed, lat):
@@ -3365,6 +3496,24 @@ def main() -> int:
           + ", ".join(f"{name} {n}" for name, n in hmma.items()), flush=True)
     if not all(hmma.values()):
         raise SystemExit("a dense flash-attention library holds no tensor-core instruction")
+    imma = _tensor_core_instructions(("w4a4_lowrank_matmul",), "IMMA")
+    print(f"  integer tensor-core (IMMA) instructions in the built SASS: "
+          f"w4a4_lowrank_matmul {imma['w4a4_lowrank_matmul']}", flush=True)
+    if not imma["w4a4_lowrank_matmul"]:
+        raise SystemExit("the W4A4 GEMM library holds no integer tensor-core instruction")
+    from repro_torch.kernels import w4a4
+
+    # w4a4.gemm_plan mirrors the source's plan, from shapes and the SM count
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan_cases = _gemm_plan_cases()
+    for m, k, n, g in plan_cases:
+        want = w4a4.source_plan(m, k, n, g, sms)
+        if w4a4.gemm_plan(m, k, n, g, sms) != want:
+            raise SystemExit(f"w4a4.gemm_plan({m}, {k}, {n}, {g}, {sms}) is not the "
+                             f"source's {want}")
+    print(f"  w4a4.gemm_plan == the source's plan at {len(plan_cases)} shapes ({sms} SMs); "
+          f"Phi-3 wd at M {SLOTS}: {w4a4.gemm_plan(SLOTS, 8192, 3072, None, sms)}",
+          flush=True)
 
     phase("3. kernels against their plain versions")
     probe = phase_tc_probe(device)
@@ -3477,6 +3626,12 @@ def main() -> int:
               "and phase 12"),
     ]
 
+    # the GEMM's per-site times at both served M, and alone at phase 12's sizes
+    site_keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    kernels[2]["sites"] = {f"M{m}_{site}": dict(zip(site_keys, chain_timed[
+        ("w4a4_lowrank_matmul", m, *PHI3_SITES[site])])) for m in (SLOTS, CHUNK)
+        for site in PHI3_SITES}
+    kernels[2]["alone"] = latency["gemm_alone"]
     add_rotation_entries(kernels, rot_worst, rot_timed, lat)
     add_group_entries(kernels, group_worst, group_timed, group_smol, group_phi3,
                       groups["phi3_paths"])

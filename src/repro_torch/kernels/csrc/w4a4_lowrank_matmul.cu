@@ -2,10 +2,11 @@
 //
 //     out = (xq · unpack(W)) · sx · sw  +  xv · Uᵀ                 (M, N) f32
 //
-// from precomputed xq (M, K) int8, sx (M, 1) f32, W (K/2, N) uint8, sw (N,)
-// f32, xv (M, R) f32 and U (N, R) bf16 or f32 (R may be 0).  With `group`
-// g > 0 (g divides K), sx is the (M, K/g) scale plane of group-wise
-// activation scales, and the GEMM dequantizes in the K loop:
+// from precomputed xq (M, K) int8, sx (M, 1) f32, W (K/2, N) uint8 (the even
+// K row in the low nibble), sw (N,) f32, xv (M, R) f32 and U (N, R) bf16 or
+// f32 (R may be 0).  With `group` g > 0 (g divides K), sx is the (M, K/g)
+// scale plane of group-wise activation scales, and the GEMM dequantizes in
+// the K loop:
 //
 //     out = (Σ_g fl(p_g · sx[:, g])) · sw  +  xv · Uᵀ
 //
@@ -14,49 +15,67 @@
 // `group` branch: the GEMM of the chained (after fused_prologue.cu) and
 // unfused (after act_quant.cu) paths.
 //
-// Numerics are those of fused_w4a4_lrc.cu: the int32 accumulation is exact
-// in any order; the epilogue is ((float)acc * sx) * sw without FMA
-// contraction, plus the LR term as one f32 FMA chain over R in ascending
-// order.  Only that LR sum is ordered differently from the plain version.
-// Group-wise, the f32 sum over groups is the canonical order of
-// rowops.gemm_grouped: ascending g from 0.f, __fmul_rn then __fadd_rn, so
-// the result is bitwise the plain version's whatever the grid, the K-split,
-// the row tile or M (with g = K, bitwise the per-token result).
+// Numerics: the int32 accumulation is exact in any order; per-token the
+// epilogue is __fmul_rn(__fmul_rn((float)acc, sx), sw); group-wise the f32
+// sum over groups is the canonical order of rowops.gemm_grouped (ascending g
+// from 0.f, __fmul_rn then __fadd_rn), then __fmul_rn(·, sw); then o =
+// __fadd_rn(o, lr) with lr ONE fmaf chain per output over r ascending from
+// 0.f.  So no tile, k-order, K-split, grid or M changes a bit of the result
+// (with g = K it is bitwise the per-token result), and only the LR sum is
+// ordered differently from the plain version (bench.common.gemm_tolerance).
 //
-// Bound on an H100 SXM: at decode, memory.  The bytes are K·N/2 (packed W)
-// + 4N (sw) + R·N·2 (bf16 U) + the activations (M·K + 4M + 4·M·R in, 4·M·N
-// out), at 3.35 TB/s: 12.6 MB and 3.8 us for Phi-3-mini's K=8192, N=3072
-// site.  The int8 and f32 operations are far below the peak rates.
+// Bound on an H100 SXM: at decode, memory: K·N/2 (packed W) + 4N (sw) +
+// 2·R·N (bf16 U) + the activations, 12.6 MB and 3.8 us at Phi-3-mini's K
+// 8192, N 3072, R 307.  At M 2048: the int8 operations 2·M·K·N over 1,979
+// TOPS (93 us at 11008 x 4096) and the LR term's 2·M·N·R f32 operations
+// over 67 TFLOP/s (689 us at R 1024).
 //
-// Design: the shared-memory footprint does not depend on K (or R), so any
-// K works.  Grid (N-tile, M-tile, K-split), BN = 32 columns and ROWS = 4 or
-// 16 rows (a template parameter: the per-row loops are straight-line code)
-// per block, 256 threads.  K streams through shared memory in chunks of
-// KC = 512 values: the W chunk's nibbles unpacked into the four-code words
-// __dp4a takes, and the rows' codes as words.  The next chunk's loads are
-// issued into registers before the current chunk is multiplied.  Thread
-// (kg, n) owns column n over an eighth of each chunk; the eight int32 sums
-// are added at the end.  At decode the (N, M) tiles alone are too few to
-// keep enough loads in flight, so K is split across blocks (whole chunks,
-// about two waves of blocks over the SMs); each split writes its int32
-// partials to scratch and the tile's last block to finish (an atomic
-// ticket) adds them and runs the epilogue.  Integer sums are exact in any
-// order, so neither the split nor the finishing order changes a bit of the
-// result.  The LR epilogue streams U and xv through shared memory in chunks
-// of 128 ranks.  No tensor cores, TMA or cp.async yet.
+// Design.  The integer product runs on the tensor cores, mma.sync m16n8k32
+// s32.s8.s8 with both operands 4-bit codes held as int8 in [-8, 7] (Hopper
+// lists no int4 tensor-core rate).  Packed W tiles and xq tiles stream
+// through a ring of shared-memory stages of BK = 64 codes by 16-byte
+// cp.async.  W stays packed there, half a byte a code; each thread expands
+// its B fragments in registers: the 32-bit words of packed rows 4t..4t+3 at
+// columns c..c+3 (one load each) are interleaved by byte permutes into, per
+// column, the codes k = 8t..8t+7, and a borrow-free byte-wise (nib ^ 8) - 8
+// sign-extends them.  The mma's k positions 4t..4t+3 and 16+4t..16+4t+3 then
+// hold the codes 8t..8t+3 and 8t+4..8t+7: one permutation of k inside a
+// k-step, the same for A, where it is one 8-byte load of a row (exact int32
+// sums do not care).  Thread (g, t)'s four n8 tiles hold columns c + j with
+// c = the warp's first + 4g, so its outputs are the eight consecutive
+// columns the warp's first + 8t .. + 8t + 7.  Both stages are XOR-swizzled
+// in 16-byte units so that those reads meet no bank conflict.
 //
-// The group branch (a template parameter) stages the same chunks, but
-// thread (r, n) owns whole outputs, column n of rows r and r + 8, over every
-// quad of the chunk, so each group's int32 partial is exact in one register
-// and no in-block reduction is needed.  Unsplit, the thread adds
-// fl(p_g · s_g) to its f32 sum as each group ends; split, each block adds its
-// groups' int32 partials into a zeroed (tile, group, row, column) plane with
-// integer atomics (a group may straddle two splits), and the tile's last
-// block runs the f32 sum over the plane in ascending g.  The plane is
-// M·N·(K/g)·4 bytes, at the few-tile decode shapes only (3.1 MB at
-// Phi-3-mini's wd, M 4, g 128).  A quad that a group boundary cuts (g not a
-// multiple of 4) is split with byte masks.  At decode a 4-row tile leaves
-// half the threads without a row in the products.
+// Two tile regimes, chosen from shapes alone (w4a4.gemm_plan mirrors the
+// plan):
+// * M <= 16 (decode, the served 16-row chunk): a weight stream.  One 16-row
+//   mma tile with the rows past M zero: the same fragment code as the large
+//   tile, and at decode the tensor cores are far from the bound, where W in
+//   the 16-row operand slot would need a second fragment layout.  4 warps
+//   over 128 columns, 6 stages.  K is split across blocks (whole stages,
+//   about WAVES blocks an SM over the N tiles); each split writes its exact
+//   int32 partial tile, or group-wise adds its groups' int32 partials into a
+//   (tile, group, row, column) plane with integer atomics (a group may
+//   straddle two splits).  The LR term runs at the same time in blocks of
+//   its own (32 columns each, U and xv staged once per rank chunk by 16-byte
+//   loads) and writes its chains' results.  The tile's last block to take
+//   the ticket, whichever it is, adds the partials (the f32 group sum over
+//   the plane in ascending g), runs the epilogue, adds the LR term, and
+//   resets the ticket and the plane entries it read: no memset precedes a
+//   launch, one launch is the call's one device operation.
+// * M > 16: 128 x 128 tiles, 8 warps of 64 x 32 (four 16-row mma tiles by
+//   four n8 tiles), 4 stages, no K-split; the epilogue and then the LR term
+//   in the same block: U and xv staged 64 ranks at a time, transposed, each
+//   thread's 64 chains (its fragment's rows and columns) fed from registers,
+//   eight values of U and eight of xv a rank.
+// Group-wise, a group's partial is the accumulator fragment after g/32
+// k-steps, flushed and zeroed at the group's end; a k-step that a group
+// boundary cuts (32 does not divide g) runs once per piece, with the A
+// fragment's bytes outside the piece masked to zero.
+//
+// Later work: wgmma with TMA loads (64-row warpgroup tiles read from shared
+// memory, the way to the card's full int8 rate), and a tensor-core LR term,
+// which needs an accuracy standard of its own.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -65,399 +84,662 @@
 
 namespace {
 
-constexpr int BN = 32;              // output columns per block
-constexpr int KG = 8;               // K-splits of a chunk within a block
-constexpr int THREADS = BN * KG;    // 256
-constexpr int KC = 512;             // K values per chunk
-constexpr int QC = KC / 4;          // K quads per chunk
-constexpr int QPER = QC / KG;       // quads per thread per chunk (16)
-constexpr int RC = 128;             // ranks per LR chunk
-constexpr int MAX_ROWS = 16;
-constexpr int WITEMS = QC * (BN / 4) / THREADS;  // word-path W loads per thread (4)
+constexpr int BK = 64;                   // K codes per stage
+constexpr int BKP = BK / 2;              // packed W rows per stage
+constexpr int BN = 128;                  // output columns per tile
+constexpr int DECODE_M = 16;             // M up to this takes the weight stream
+constexpr int LR_COLS = 32;              // columns of one decode LR block
+constexpr int LR_BLOCKS = BN / LR_COLS;  // decode LR blocks per tile
+constexpr int LR_RANKS_D = 320;          // ranks per decode LR chunk (bf16 U; half for f32)
+constexpr int LR_RANKS_L = 64;           // ranks per LR chunk of a large tile
+constexpr int WAVES = 3;                 // decode GEMM blocks per SM the K-split aims at
 
-// signed int4 code of nibble u (0..15), as a byte
-__device__ __forceinline__ unsigned nibble_byte(unsigned u) {
-  return (unsigned)((int)((u ^ 8u) & 0xFu) - 8) & 0xFFu;
-}
-
-// the four codes of one K quad of one column, from its two packed bytes
-__device__ __forceinline__ int quad_codes(unsigned b0, unsigned b1) {
-  return (int)(nibble_byte(b0 & 0xFu) | (nibble_byte(b0 >> 4) << 8)
-               | (nibble_byte(b1 & 0xFu) << 16) | (nibble_byte(b1 >> 4) << 24));
-}
-
-template <int ROWS>
-struct Smem {
-  static constexpr int GEMM = 4 * (QC * BN + ROWS * QC);     // ws + xs
-  static constexpr int RED = 4 * KG * ROWS * BN;              // int32 partials
-  static constexpr int LR = 4 * (BN * (RC + 1) + ROWS * RC);  // us + xvs
-  static constexpr int BYTES = GEMM > LR ? (GEMM > RED ? GEMM : RED)
-                                         : (LR > RED ? LR : RED);
+template <bool DECODE>
+struct Tile {
+  static constexpr int WM = DECODE ? 1 : 4;  // 16-row mma tiles per warp
+  static constexpr int WARPS_M = DECODE ? 1 : 2;
+  static constexpr int WARPS_N = 4;          // 32 columns each
+  static constexpr int STAGES = DECODE ? 6 : 4;
+  static constexpr int BM = 16 * WM * WARPS_M;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int W_BYTES = BKP * BN;   // a stage of packed W
+  static constexpr int X_BYTES = BM * BK;    // a stage of xq
+  static constexpr int RING = STAGES * (W_BYTES + X_BYTES);
+  // LR staging: decode U [LR_COLS][LR_RANKS_D + 2] bf16 (or [.][LR_RANKS_D/2
+  // + 1] f32) and xv [16][LR_RANKS_D] f32; large U and xv [LR_RANKS_L][128] f32
+  static constexpr int LR = DECODE ? LR_COLS * (LR_RANKS_D + 2) * 2 + DECODE_M * LR_RANKS_D * 4
+                                   : LR_RANKS_L * (BN + BM) * 4;
+  static constexpr int SMEM = RING > LR ? RING : LR;
+  static constexpr int NMAX = DECODE ? 11 : 4;  // 16-byte LR loads in flight per thread
 };
 
-// The W chunk's loads into registers (word path: N % 4 == 0, four columns a
-// load, the even and the odd packed row of each quad).
-__device__ __forceinline__ void fetch_w(uint32_t (&lo)[WITEMS], uint32_t (&hi)[WITEMS],
-                                        const uint8_t* __restrict__ w, int q0,
-                                        int nq, int kh, int N, int n0, int tid) {
-#pragma unroll
-  for (int j = 0; j < WITEMS; ++j) {
-    const int i = j * THREADS + tid, ql = i / (BN / 4), c4 = (i % (BN / 4)) * 4;
-    const int q = q0 + ql;
-    const bool in = q < nq && n0 + c4 < N;
-    const uint32_t* src =
-        reinterpret_cast<const uint32_t*>(w + (size_t)(2 * q) * N + n0 + c4);
-    lo[j] = (in && 2 * q < kh) ? __ldg(src) : 0u;
-    hi[j] = (in && 2 * q + 1 < kh) ? __ldg(src + N / 4) : 0u;
-  }
-}
-
-// rows' codes per chunk, 16 a load (K % 16 == 0): loads per thread
-template <int ROWS>
-struct XItems {
-  static constexpr int N = (ROWS * KC / 16 + THREADS - 1) / THREADS;
+struct Args {
+  const int8_t* xq;
+  const float* sx;
+  const uint8_t* w;
+  const float* sw;
+  const float* xv;
+  const void* u;
+  float* out;
+  int* tickets;  // zeroed scratch: [tiles] tickets, then the group plane
+  int* plane;
+  int* part;     // scratch: [tiles][ks][M][BN] int32 partials, then lr
+  float* lr;     // [M][tiles · BN] f32 LR terms
+  int M, K, N, R, group, G, u_bf16;
+  int tiles_n, nst, sps, ks, lr_blocks, ticket_total;
+  int vec_w, vec_x, vec_out;
 };
 
-// The rows' codes of chunk c into registers (zero past M and past K).
-template <int ROWS>
-__device__ __forceinline__ void fetch_x(uint4 (&pre)[XItems<ROWS>::N],
-                                        const int8_t* __restrict__ xq, int c,
-                                        int mv, int m0, int K, int tid) {
+// d += a · b on the tensor cores (m16n8k32, s8 in, s32 accumulate); the
+// fragments in the PTX ISA's layout: with g = lane / 4 and t = lane % 4,
+// a = A(g, 4t..4t+3), A(g + 8, 4t..), A(g, 16+4t..), A(g + 8, 16+4t..);
+// b = B(4t..4t+3, g), B(16+4t..16+4t+3, g); d = D(g, 2t), D(g, 2t + 1),
+// D(g + 8, 2t), D(g + 8, 2t + 1).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The signed int4 codes of the low nibbles of z's four bytes, one int8 a
+// byte: (nib ^ 8) - 8 byte-wise, with bit 7 set first so that no byte
+// borrows from the next, and flipped back after.
+__device__ __forceinline__ uint32_t low_nibble_codes(uint32_t z) {
+  return (((z & 0x0F0F0F0Fu) ^ 0x88888888u) - 0x08080808u) ^ 0x80808080u;
+}
+
+// B fragments of one k-step for four n8 tiles from w[i], the packed word of
+// row 4t + i at columns c..c+3: b[j][0] holds the codes k = 8t..8t+3 of
+// column c + j (rows 4t, 4t+1: low, high, low, high nibble), b[j][1] the
+// codes 8t+4..8t+7 (rows 4t+2, 4t+3).
+__device__ __forceinline__ void b_fragments(const uint32_t (&w)[4], uint32_t (&b)[4][2]) {
 #pragma unroll
-  for (int j = 0; j < XItems<ROWS>::N; ++j) {
-    const int i = j * THREADS + tid, m = i / (KC / 16);
-    const int k = c * KC + (i % (KC / 16)) * 16;
-    pre[j] = (i < ROWS * KC / 16 && m < mv && k < K)
-                 ? __ldg(reinterpret_cast<const uint4*>(xq + (size_t)(m0 + m) * K + k))
-                 : make_uint4(0u, 0u, 0u, 0u);
+  for (int h = 0; h < 2; ++h) {
+    // bytes (row 2h, row 2h+1) of columns c, c+1, then of c+2, c+3
+    const uint32_t lo = __byte_perm(w[2 * h], w[2 * h + 1], 0x5140);
+    const uint32_t hi = __byte_perm(w[2 * h], w[2 * h + 1], 0x7362);
+    // each byte beside its own high nibble, shifted into a low one
+    b[0][h] = low_nibble_codes(__byte_perm(lo, lo >> 4, 0x5140));
+    b[1][h] = low_nibble_codes(__byte_perm(lo, lo >> 4, 0x7362));
+    b[2][h] = low_nibble_codes(__byte_perm(hi, hi >> 4, 0x5140));
+    b[3][h] = low_nibble_codes(__byte_perm(hi, hi >> 4, 0x7362));
   }
 }
 
-// bytes [b, e) of a word of four codes (0 <= b < e <= 4)
-__device__ __forceinline__ int byte_mask(int b, int e) {
-  const unsigned hi = e >= 4 ? 0xFFFFFFFFu : (1u << (8 * e)) - 1u;
-  return (int)(hi & ~((1u << (8 * b)) - 1u));
+// bytes [b, e) of a word of four codes, b and e clamped to [0, 4]
+__device__ __forceinline__ uint32_t byte_mask(int b, int e) {
+  b = max(b, 0);
+  e = min(e, 4);
+  if (b >= e) return 0u;
+  const uint32_t hi = e >= 4 ? 0xFFFFFFFFu : (1u << (8 * e)) - 1u;
+  return hi & ~((1u << (8 * b)) - 1u);
 }
 
-template <int ROWS, bool GROUPED>
-__global__ void __launch_bounds__(THREADS)
-w4a4_lowrank_matmul_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-                           const uint8_t* __restrict__ w, const float* __restrict__ sw,
-                           const float* __restrict__ xv, const void* __restrict__ u,
-                           int u_bf16, float* __restrict__ out,
-                           int* __restrict__ part, int* __restrict__ tickets,
-                           int M, int K, int N, int R, int group, int cps,
-                           int vec_w, int vec_x) {
-  __shared__ __align__(16) unsigned char smem[Smem<ROWS>::BYTES];
-  __shared__ int last;
-  int* ws = reinterpret_cast<int*>(smem);  // [QC][BN] W codes, four per word
-  int* xs = ws + QC * BN;                  // [ROWS][QC] row codes, four per word
+// Byte offsets of 16-byte units in a stage: an xq row is 4 units (the unit
+// index XOR 2 on rows 2, 3 mod 4), a packed W row 8 units (XOR 2·((p / 4)
+// mod 4)), so that a warp's fragment reads fall on distinct banks.
+__device__ __forceinline__ int x_off(int row, int unit) {
+  return row * BK + ((unit ^ (((row >> 1) & 1) << 1)) << 4);
+}
 
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * ROWS, n0 = blockIdx.x * BN;
-  const int mv = min(ROWS, M - m0), nv = min(BN, N - n0);
-  const int kh = K >> 1;              // packed rows of W
-  const int nq = (K + 3) >> 2;        // K quads (the last may be half)
-  const int nc = (K + KC - 1) / KC;   // chunks
-  const int cb = blockIdx.z * cps, ce = min(nc, cb + cps);  // this block's chunks
-  const int nl = tid % BN, kg = tid / BN;
+__device__ __forceinline__ int w_off(int prow, int unit) {
+  return prow * BN + ((unit ^ (((prow >> 2) & 3) << 1)) << 4);
+}
 
-  int acc[ROWS];
-#pragma unroll
-  for (int m = 0; m < ROWS; ++m) acc[m] = 0;
-
-  // group branch: thread (mr, nl) owns rows mr + KG·j (j < RPT) of column nl
-  constexpr int RPT = (ROWS + KG - 1) / KG;
-  const int mr = tid / BN;
-  const int G = GROUPED ? K / group : 1;
-  const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  int* plane = part + tile * G * ROWS * BN;  // split: [G][ROWS][BN] int32
-  const int kend = min(K, ce * KC);          // this block's K range ends here
-  int gcur = GROUPED ? (cb * KC) / group : 0, gend = (gcur + 1) * group;
-  int gacc[RPT];
-  float gsum[RPT];
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    gacc[j] = 0;
-    gsum[j] = 0.f;
-  }
-  // the current group ends: its exact partial into the f32 sum (unsplit)
-  // or into the plane (split)
-  auto flush = [&]() {
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int m = mr + KG * j;
-      if (m < mv) {
-        if (gridDim.z > 1) {
-          if (gacc[j]) atomicAdd(plane + ((size_t)gcur * ROWS + m) * BN + nl, gacc[j]);
-        } else {
-          gsum[j] = __fadd_rn(gsum[j], __fmul_rn((float)gacc[j],
-                                                 __ldg(sx + (size_t)(m0 + m) * G + gcur)));
-        }
-      }
-      gacc[j] = 0;
-    }
-    ++gcur;
-    gend += group;
-  };
-
-  uint32_t lo[WITEMS], hi[WITEMS];
-  uint4 xpre[XItems<ROWS>::N];
-  if (vec_w) fetch_w(lo, hi, w, cb * QC, nq, kh, N, n0, tid);
-  if (vec_x) fetch_x<ROWS>(xpre, xq, cb, mv, m0, K, tid);
-
-  for (int c = cb; c < ce; ++c) {
-    const int q0 = c * QC;
-    __syncthreads();  // everyone is done with the previous chunk
-    // stage the chunk: W codes and row codes (zero past K, N and M)
-    if (vec_w) {
-#pragma unroll
-      for (int j = 0; j < WITEMS; ++j) {
-        const int i = j * THREADS + tid, ql = i / (BN / 4), c4 = (i % (BN / 4)) * 4;
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          ws[ql * BN + c4 + b] = quad_codes((lo[j] >> (8 * b)) & 0xFFu,
-                                            (hi[j] >> (8 * b)) & 0xFFu);
-      }
-    } else {
-      for (int i = tid; i < QC * BN; i += THREADS) {
-        const int ql = i / BN, cc = i % BN, q = q0 + ql;
-        const bool in = cc < nv && q < nq;
-        const unsigned b0 = (in && 2 * q < kh) ? w[(size_t)(2 * q) * N + n0 + cc] : 0u;
-        const unsigned b1 = (in && 2 * q + 1 < kh) ? w[(size_t)(2 * q + 1) * N + n0 + cc] : 0u;
-        ws[i] = quad_codes(b0, b1);
-      }
-    }
-    if (vec_x) {
-#pragma unroll
-      for (int j = 0; j < XItems<ROWS>::N; ++j) {
-        const int i = j * THREADS + tid;
-        if (i < ROWS * KC / 16) reinterpret_cast<uint4*>(xs)[i] = xpre[j];
-      }
-    } else {
-      for (int i = tid; i < ROWS * QC; i += THREADS) {
-        const int m = i / QC, k = (q0 + i % QC) * 4;
-        unsigned word = 0u;
-        if (m < mv) {
-          const int8_t* row = xq + (size_t)(m0 + m) * K;
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            if (k + b < K) word |= ((unsigned)(uint8_t)row[k + b]) << (8 * b);
-        }
-        xs[i] = (int)word;
-      }
-    }
-    __syncthreads();
-    if (c + 1 < ce) {  // in flight during the products
-      if (vec_w) fetch_w(lo, hi, w, q0 + QC, nq, kh, N, n0, tid);
-      if (vec_x) fetch_x<ROWS>(xpre, xq, c + 1, mv, m0, K, tid);
-    }
-    if constexpr (GROUPED) {
-      // every quad of the chunk for this thread's rows, in ascending K; a
-      // group's partial is flushed where the group ends
-      if (mr < ROWS) {
-        for (int q = 0; q < QC; q += 4) {
-          const int kq = (q0 + q) * 4;
-          if (kq >= kend) break;
-          if (kq + 16 <= gend) {  // four whole quads of the current group
-            const int w0 = ws[q * BN + nl], w1 = ws[(q + 1) * BN + nl];
-            const int w2 = ws[(q + 2) * BN + nl], w3 = ws[(q + 3) * BN + nl];
-#pragma unroll
-            for (int j = 0; j < RPT; ++j) {
-              const int4 a = *reinterpret_cast<const int4*>(xs + (mr + KG * j) * QC + q);
-              gacc[j] = __dp4a(a.x, w0, gacc[j]);
-              gacc[j] = __dp4a(a.y, w1, gacc[j]);
-              gacc[j] = __dp4a(a.z, w2, gacc[j]);
-              gacc[j] = __dp4a(a.w, w3, gacc[j]);
-            }
-            if (kq + 16 == gend) flush();
-            continue;
-          }
-          for (int qq = q; qq < q + 4; ++qq) {  // a group ends inside
-            const int k4 = (q0 + qq) * 4;
-            if (k4 >= kend) break;
-            const int wq = ws[qq * BN + nl];
-            for (int b = 0; b < 4 && k4 + b < kend;) {
-              const int e = min(4, gend - k4);  // bytes [b, e) are in group gcur
-              const int mask = byte_mask(b, e);
-#pragma unroll
-              for (int j = 0; j < RPT; ++j)
-                gacc[j] = __dp4a(xs[(mr + KG * j) * QC + qq] & mask, wq, gacc[j]);
-              if (k4 + e == gend) flush();
-              b = e;
-            }
-          }
-        }
-      }
-    } else {
-      // this thread's QPER quads of the chunk, every row
-      const int qb = kg * QPER;
-#pragma unroll
-      for (int q = qb; q < qb + QPER; q += 4) {
-        const int w0 = ws[q * BN + nl], w1 = ws[(q + 1) * BN + nl];
-        const int w2 = ws[(q + 2) * BN + nl], w3 = ws[(q + 3) * BN + nl];
-#pragma unroll
-        for (int m = 0; m < ROWS; ++m) {
-          const int4 a = *reinterpret_cast<const int4*>(xs + m * QC + q);
-          acc[m] = __dp4a(a.x, w0, acc[m]);
-          acc[m] = __dp4a(a.y, w1, acc[m]);
-          acc[m] = __dp4a(a.z, w2, acc[m]);
-          acc[m] = __dp4a(a.w, w3, acc[m]);
-        }
-      }
-    }
-  }
-
-  constexpr int OUTS = (ROWS * BN + THREADS - 1) / THREADS;
-  float o[OUTS];
-  if constexpr (GROUPED) {
-    // output j of this thread is (mr + KG·j, nl): the rows it summed
-    static_assert(OUTS == RPT, "group outputs follow the epilogue's layout");
-    if (gridDim.z > 1) {  // K is split: the tile's last block sums the plane
-      if (mr < ROWS && gcur < G) flush();  // a group that runs on into the next split
-      __threadfence();  // the partials are visible before the ticket is taken
-      __syncthreads();
-      if (tid == 0) last = (atomicAdd(&tickets[tile], 1) == (int)gridDim.z - 1);
-      __syncthreads();
-      if (!last) return;
-      __threadfence();
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int m = mr + KG * j;
-        gsum[j] = 0.f;
-        if (m < mv) {
-          const float* srow = sx + (size_t)(m0 + m) * G;
-          for (int g = 0; g < G; ++g)
-            gsum[j] = __fadd_rn(gsum[j], __fmul_rn(
-                (float)__ldcg(plane + ((size_t)g * ROWS + m) * BN + nl), __ldg(srow + g)));
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < OUTS; ++j) {
-      const int m = mr + KG * j;
-      o[j] = (m < mv && nl < nv) ? __fmul_rn(gsum[j], sw[n0 + nl]) : 0.f;
+// Issue the copies of stage `st` (packed W rows st·BKP.., xq codes st·BK..)
+// into one ring slot; zero past M, K and N.  cp.async where rows allow
+// 16-byte units, byte loads otherwise (odd N, K % 16 != 0).
+template <bool DECODE>
+__device__ __forceinline__ void load_stage(unsigned char* ws, unsigned char* xs, const Args& a,
+                                           int st, int m0, int n0, int tid) {
+  using T = Tile<DECODE>;
+  const int kh = a.K >> 1, p0 = st * BKP, k0 = st * BK;
+  if (a.vec_w) {
+    for (int i = tid; i < BKP * (BN / 16); i += T::THREADS) {
+      const int p = i / (BN / 16), c = i % (BN / 16), kp = p0 + p, n = n0 + 16 * c;
+      const bool in = kp < kh && n < a.N;
+      cp_async16(ws + w_off(p, c), in ? a.w + (size_t)kp * a.N + n : a.w, in);
     }
   } else {
-    __syncthreads();  // the chunk buffers become the partial-sum buffer
-
-    int* red = reinterpret_cast<int*>(smem);  // [KG][ROWS][BN]
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m) red[(kg * ROWS + m) * BN + nl] = acc[m];
-    __syncthreads();
-
-    // this block's int32 sums, one per output it owns
-    int a[OUTS];
-#pragma unroll
-    for (int j = 0; j < OUTS; ++j) {
-      const int i = j * THREADS + tid, m = i / BN, cc = i % BN;
-      a[j] = 0;
-      if (i < ROWS * BN) {
-#pragma unroll
-        for (int g = 0; g < KG; ++g) a[j] += red[(g * ROWS + m) * BN + cc];
-      }
+    for (int i = tid; i < BKP * BN; i += T::THREADS) {
+      const int p = i / BN, c = i % BN, kp = p0 + p, n = n0 + c;
+      ws[w_off(p, c >> 4) + (c & 15)] = (kp < kh && n < a.N) ? a.w[(size_t)kp * a.N + n] : 0;
     }
-
-    if (gridDim.z > 1) {  // K is split: the tile's last block adds the partials
-      int* mine = part + tile * gridDim.z * ROWS * BN;
-#pragma unroll
-      for (int j = 0; j < OUTS; ++j) {
-        const int i = j * THREADS + tid;
-        if (i < ROWS * BN) mine[(size_t)blockIdx.z * ROWS * BN + i] = a[j];
-      }
-      __threadfence();  // the partial is visible before the ticket is taken
-      __syncthreads();
-      if (tid == 0) last = (atomicAdd(&tickets[tile], 1) == (int)gridDim.z - 1);
-      __syncthreads();
-      if (!last) return;
-      __threadfence();
-#pragma unroll
-      for (int j = 0; j < OUTS; ++j) {
-        const int i = j * THREADS + tid;
-        a[j] = 0;
-        if (i < ROWS * BN) {
-          for (int z = 0; z < (int)gridDim.z; ++z)  // integer sums: exact in any order
-            a[j] += __ldcg(mine + (size_t)z * ROWS * BN + i);
-        }
-      }
-    }
-
-    // epilogue: ((float)acc * sx) * sw per output, kept in registers
-#pragma unroll
-    for (int j = 0; j < OUTS; ++j) {
-      const int i = j * THREADS + tid, m = i / BN, cc = i % BN;
-      o[j] = (i < ROWS * BN && m < mv && cc < nv)
-                 ? __fmul_rn(__fmul_rn((float)a[j], sx[m0 + m]), sw[n0 + cc]) : 0.f;
-    }
-  }  // per-token
-
-  if (R > 0) {  // + xv·Uᵀ, U and xv staged RC ranks at a time
-    __syncthreads();  // done with the partials
-    float* us = reinterpret_cast<float*>(smem);  // [BN][RC + 1] (padded: no bank conflicts)
-    float* xvs = us + BN * (RC + 1);             // [ROWS][RC]
-    constexpr int XV_ITEMS = (ROWS * RC + THREADS - 1) / THREADS;
-    float lr[OUTS];
-#pragma unroll
-    for (int j = 0; j < OUTS; ++j) lr[j] = 0.f;
-    for (int r0 = 0; r0 < R; r0 += RC) {
-      const int rn = min(RC, R - r0);
-      __syncthreads();  // done with the previous rank chunk
-      // every load of the chunk is issued before the first store
-      float ut[BN * RC / THREADS], xt[XV_ITEMS];
-#pragma unroll
-      for (int j = 0; j < BN * RC / THREADS; ++j) {
-        const int i = j * THREADS + tid, cc = i / RC, rr = i % RC;
-        const size_t g = (size_t)(n0 + cc) * R + r0 + rr;
-        ut[j] = (cc < nv && rr < rn)
-                    ? (u_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(u)[g])
-                              : static_cast<const float*>(u)[g])
-                    : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < XV_ITEMS; ++j) {
-        const int i = j * THREADS + tid, m = i / RC, rr = i % RC;
-        xt[j] = (i < ROWS * RC && m < mv && rr < rn)
-                    ? xv[(size_t)(m0 + m) * R + r0 + rr] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < BN * RC / THREADS; ++j) {
-        const int i = j * THREADS + tid;
-        us[(i / RC) * (RC + 1) + i % RC] = ut[j];
-      }
-#pragma unroll
-      for (int j = 0; j < XV_ITEMS; ++j) {
-        const int i = j * THREADS + tid;
-        if (i < ROWS * RC) xvs[i] = xt[j];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < OUTS; ++j) {
-        const int i = j * THREADS + tid, m = i / BN, cc = i % BN;
-        if (i < ROWS * BN) {
-          for (int rr = 0; rr < rn; ++rr)
-            lr[j] = fmaf(xvs[m * RC + rr], us[cc * (RC + 1) + rr], lr[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < OUTS; ++j) o[j] = __fadd_rn(o[j], lr[j]);
   }
-
-#pragma unroll
-  for (int j = 0; j < OUTS; ++j) {
-    const int i = j * THREADS + tid, m = i / BN, cc = i % BN;
-    if (i < ROWS * BN && m < mv && cc < nv) out[(size_t)(m0 + m) * N + n0 + cc] = o[j];
+  if (a.vec_x) {
+    for (int i = tid; i < T::BM * (BK / 16); i += T::THREADS) {
+      const int r = i / (BK / 16), c = i % (BK / 16), m = m0 + r, k = k0 + 16 * c;
+      const bool in = m < a.M && k < a.K;
+      cp_async16(xs + x_off(r, c), in ? a.xq + (size_t)m * a.K + k : a.xq, in);
+    }
+  } else {
+    for (int i = tid; i < T::BM * BK; i += T::THREADS) {
+      const int r = i / BK, c = i % BK, m = m0 + r, k = k0 + c;
+      xs[x_off(r, c >> 4) + (c & 15)] =
+          (m < a.M && k < a.K) ? static_cast<unsigned char>(a.xq[(size_t)m * a.K + k]) : 0;
+    }
   }
 }
 
-// How K is split across blocks: enough blocks for two waves of the SMs,
-// each split a whole number of chunks.  Integer partial sums are exact, so
-// the split never changes the result.
-struct Split {
-  int rows, tiles, cps, ks;
-};
+// Rows [row0, row0 + nrows) x elements [r0, r0 + rn) of a row-major (., R)
+// array of ES-byte elements (bf16 or f32), one segment a row, read as the
+// 16-byte words aligned in memory that the segment touches: a word inside
+// the segment by one vector load, the words at its ends element by element
+// (nothing outside the segments is read).  put(i, r, bits) receives row i's
+// element r0 + r as its bits; rows from rows_valid on read nothing and put
+// zeros.  NMAX words a thread are in flight at once.
+template <int THREADS, int NMAX, int ES, typename Put>
+__device__ __forceinline__ void stage_segments(const void* src, size_t R, int row0, int nrows,
+                                               int rows_valid, int r0, int rn, int tid,
+                                               Put put) {
+  constexpr int EPW = 16 / ES;
+  const unsigned char* base = static_cast<const unsigned char*>(src);
+  const long long sh = (long long)((reinterpret_cast<uintptr_t>(src) & 15) / ES);
+  const int nw = (rn + EPW - 1) / EPW + 1;  // words a segment touches at most
+  const int items = nrows * nw;
+  for (int b0 = 0; b0 < items; b0 += THREADS * NMAX) {
+    uint32_t v[NMAX][4];
+#pragma unroll
+    for (int p = 0; p < NMAX; ++p) {
+      const int it = b0 + p * THREADS + tid;
+      v[p][0] = v[p][1] = v[p][2] = v[p][3] = 0u;
+      const int i = it / nw, j = it % nw;
+      if (it < items && i < rows_valid) {
+        const long long e0 = (long long)(row0 + i) * (long long)R + r0, e1 = e0 + rn;
+        const long long first = ((e0 + sh) / EPW + j) * EPW - sh;
+        if (first >= e0 && first + EPW <= e1) {
+          const uint4 q = __ldg(reinterpret_cast<const uint4*>(base + first * ES));
+          v[p][0] = q.x, v[p][1] = q.y, v[p][2] = q.z, v[p][3] = q.w;
+        } else {
+#pragma unroll
+          for (int q = 0; q < EPW; ++q) {
+            const long long e = first + q;
+            if (e >= e0 && e < e1) {
+              const uint32_t bits = ES == 2
+                  ? (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(base + e * ES))
+                  : __ldg(reinterpret_cast<const unsigned int*>(base + e * ES));
+              v[p][q * ES / 4] |= bits << (8 * ((q * ES) & 3));
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < NMAX; ++p) {
+      const int it = b0 + p * THREADS + tid;
+      if (it >= items) continue;
+      const int i = it / nw, j = it % nw;
+      const long long e0 = (long long)(row0 + i) * (long long)R + r0;
+      const long long first = ((e0 + sh) / EPW + j) * EPW - sh;
+#pragma unroll
+      for (int q = 0; q < EPW; ++q) {
+        const long long e = first + q;
+        if (e >= e0 && e < e0 + rn) {
+          const uint32_t bits = ES == 2 ? (v[p][q >> 1] >> (16 * (q & 1))) & 0xFFFFu : v[p][q];
+          put(i, (int)(e - e0), bits);
+        }
+      }
+    }
+  }
+}
 
-inline Split split_of(int M, int K, int N) {
+__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// All of a tile's blocks have taken a ticket before its last one returns
+// true; that one resets the ticket for the next launch.  Called by every
+// thread of the block.
+__device__ __forceinline__ bool take_ticket(int* ticket, int total, int* last) {
+  __threadfence();  // this block's partials are visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool l = atomicAdd(ticket, 1) == total - 1;
+    if (l) *ticket = 0;
+    *last = l;
+  }
+  __syncthreads();
+  const bool l = *last;
+  if (l) __threadfence();
+  return l;
+}
+
+// The decode tile's last block: the int32 partials added (group-wise the f32
+// sum over the plane in ascending g, the plane reset to zero as it is read),
+// the epilogue, the LR term added, the tile written.  With one split the
+// GEMM block has already written its epilogue to `out`.
+template <bool GROUPED>
+__device__ void finish_decode(const Args& a, int tile_n, int tid) {
+  constexpr int TH = Tile<true>::THREADS;
+  const int n0 = tile_n * BN, npad = a.tiles_n * BN, outs = a.M * BN;
+  if (GROUPED && a.ks > 1) {
+    int* plane = a.plane + (size_t)tile_n * a.G * outs;
+    constexpr int OUTS = 4, GC = 8;  // outputs a thread at once, groups a load round
+    for (int i0 = 0; i0 < outs; i0 += TH * OUTS) {
+      float gs[OUTS];
+#pragma unroll
+      for (int j = 0; j < OUTS; ++j) gs[j] = 0.f;
+      for (int g0 = 0; g0 < a.G; g0 += GC) {
+        int p[OUTS][GC];
+#pragma unroll
+        for (int j = 0; j < OUTS; ++j) {
+          const int i = i0 + j * TH + tid;
+#pragma unroll
+          for (int q = 0; q < GC; ++q)
+            p[j][q] = (i < outs && g0 + q < a.G) ? __ldcg(plane + (size_t)(g0 + q) * outs + i) : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < OUTS; ++j) {
+          const int i = i0 + j * TH + tid;
+          if (i >= outs) continue;
+          const float* srow = a.sx + (size_t)(i / BN) * a.G;
+#pragma unroll
+          for (int q = 0; q < GC; ++q) {
+            if (g0 + q < a.G) {
+              gs[j] = __fadd_rn(gs[j], __fmul_rn((float)p[j][q], __ldg(srow + g0 + q)));
+              plane[(size_t)(g0 + q) * outs + i] = 0;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < OUTS; ++j) {
+        const int i = i0 + j * TH + tid, row = i / BN, n = n0 + i % BN;
+        if (i >= outs || n >= a.N) continue;
+        float o = __fmul_rn(gs[j], __ldg(a.sw + n));
+        if (a.R > 0) o = __fadd_rn(o, __ldcg(a.lr + (size_t)row * npad + n));
+        a.out[(size_t)row * a.N + n] = o;
+      }
+    }
+    return;
+  }
+  for (int i = tid; i < outs; i += TH) {
+    const int row = i / BN, n = n0 + i % BN;
+    if (n >= a.N) continue;
+    float o;
+    if (a.ks > 1) {  // per-token: integer sums, exact in any order
+      const int* part = a.part + (size_t)tile_n * a.ks * outs + i;
+      int s = 0;
+      for (int z = 0; z < a.ks; ++z) s += __ldcg(part + (size_t)z * outs);
+      o = __fmul_rn(__fmul_rn((float)s, __ldg(a.sx + row)), __ldg(a.sw + n));
+    } else {
+      o = __ldcg(a.out + (size_t)row * a.N + n);
+    }
+    if (a.R > 0) o = __fadd_rn(o, __ldcg(a.lr + (size_t)row * npad + n));
+    a.out[(size_t)row * a.N + n] = o;
+  }
+}
+
+// A decode LR block: columns n0..n0+31 of tile `tile_n`, every row, the
+// chains lr = fmaf(xv[m][r], U[n][r], lr) over r ascending from 0.f.
+// Thread (rg, c) owns column n0 + c and rows rg, rg + 4, rg + 8, rg + 12.
+template <int ES>
+__device__ void lr_decode(const Args& a, int n0, unsigned char* smem, int tid) {
+  constexpr int TH = Tile<true>::THREADS, NMAX = Tile<true>::NMAX;
+  constexpr int RCH = ES == 2 ? LR_RANKS_D : LR_RANKS_D / 2;  // ranks per chunk
+  constexpr int USTR = RCH + (ES == 2 ? 2 : 1);  // padded row stride: no bank conflicts
+  const int cv = min(LR_COLS, a.N - n0);
+  if (cv <= 0) return;
+  float* xs = reinterpret_cast<float*>(smem + LR_COLS * (LR_RANKS_D + 2) * 2);  // [16][RCH]
+  const int c = tid % LR_COLS, rg = tid / LR_COLS;
+  float lr[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int r0 = 0; r0 < a.R; r0 += RCH) {
+    const int rn = min(RCH, a.R - r0);
+    __syncthreads();  // the previous chunk is consumed
+    stage_segments<TH, NMAX, ES>(a.u, a.R, n0, LR_COLS, cv, r0, rn, tid,
+                                 [&](int i, int r, uint32_t bits) {
+                                   if (ES == 2)
+                                     reinterpret_cast<unsigned short*>(smem)[i * USTR + r] =
+                                         (unsigned short)bits;
+                                   else
+                                     reinterpret_cast<uint32_t*>(smem)[i * USTR + r] = bits;
+                                 });
+    stage_segments<TH, NMAX, 4>(a.xv, a.R, 0, a.M, a.M, r0, rn, tid,
+                                [&](int i, int r, uint32_t bits) {
+                                  xs[i * RCH + r] = __uint_as_float(bits);
+                                });
+    __syncthreads();
+    if (c < cv) {
+#pragma unroll 4
+      for (int rr = 0; rr < rn; ++rr) {
+        const float uv = ES == 2
+            ? bf16_bits_to_float(reinterpret_cast<const unsigned short*>(smem)[c * USTR + rr])
+            : reinterpret_cast<const float*>(smem)[c * USTR + rr];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = rg + 4 * i;
+          if (m < a.M) lr[i] = fmaf(xs[m * RCH + rr], uv, lr[i]);
+        }
+      }
+    }
+  }
+  if (c < cv) {
+    const size_t npad = (size_t)a.tiles_n * BN;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = rg + 4 * i;
+      if (m < a.M) a.lr[m * npad + n0 + c] = lr[i];
+    }
+  }
+}
+
+// The large tile's LR term added to its outputs o (the fragment layout of
+// the accumulators): U and xv staged LR_RANKS_L ranks at a time as f32,
+// transposed ([rank][column], [rank][row]).
+template <int ES>
+__device__ __forceinline__ void lr_large(const Args& a, float (&o)[4][4][4], int m0, int n0,
+                                         int mv, int nv, int warp_m0, int warp_n0, int g,
+                                         int t, unsigned char* smem, int tid) {
+  using T = Tile<false>;
+  float* us = reinterpret_cast<float*>(smem);  // [LR_RANKS_L][BN]
+  float* xs = us + LR_RANKS_L * BN;           // [LR_RANKS_L][BM]
+  float lr[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) lr[mi][j][e] = 0.f;
+  for (int r0 = 0; r0 < a.R; r0 += LR_RANKS_L) {
+    const int rn = min(LR_RANKS_L, a.R - r0);
+    __syncthreads();  // the ring, then the previous chunk, are consumed
+    stage_segments<T::THREADS, T::NMAX, ES>(
+        a.u, a.R, n0, BN, nv, r0, rn, tid, [&](int i, int r, uint32_t bits) {
+          us[r * BN + i] = ES == 2 ? bf16_bits_to_float(bits) : __uint_as_float(bits);
+        });
+    stage_segments<T::THREADS, T::NMAX, 4>(
+        a.xv, a.R, m0, T::BM, mv, r0, rn, tid,
+        [&](int i, int r, uint32_t bits) { xs[r * T::BM + i] = __uint_as_float(bits); });
+    __syncthreads();
+    for (int rr = 0; rr < rn; ++rr) {
+      const float4 ua = *reinterpret_cast<const float4*>(us + rr * BN + warp_n0 + 8 * t);
+      const float4 ub = *reinterpret_cast<const float4*>(us + rr * BN + warp_n0 + 8 * t + 4);
+      const float uu[2][4] = {{ua.x, ua.y, ua.z, ua.w}, {ub.x, ub.y, ub.z, ub.w}};
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const float x0 = xs[rr * T::BM + warp_m0 + 16 * mi + g];
+        const float x1 = xs[rr * T::BM + warp_m0 + 16 * mi + g + 8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          lr[mi][j][0] = fmaf(x0, uu[0][j], lr[mi][j][0]);
+          lr[mi][j][1] = fmaf(x0, uu[1][j], lr[mi][j][1]);
+          lr[mi][j][2] = fmaf(x1, uu[0][j], lr[mi][j][2]);
+          lr[mi][j][3] = fmaf(x1, uu[1][j], lr[mi][j][3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mi][j][e] = __fadd_rn(o[mi][j][e], lr[mi][j][e]);
+}
+
+template <bool DECODE, bool GROUPED>
+__global__ void __launch_bounds__(Tile<DECODE>::THREADS, DECODE ? 4 : 1)
+w4a4_lowrank_matmul_kernel(const Args a) {
+  using T = Tile<DECODE>;
+  constexpr int WM = T::WM;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int tid = threadIdx.x;
+
+  int tile_n, tile_m = 0, z = 0;
+  if constexpr (DECODE) {
+    int b = blockIdx.x;
+    if (b < a.lr_blocks) {  // an LR block
+      tile_n = b / LR_BLOCKS;
+      const int n0 = tile_n * BN + (b % LR_BLOCKS) * LR_COLS;
+      if (a.u_bf16) lr_decode<2>(a, n0, smem, tid);
+      else lr_decode<4>(a, n0, smem, tid);
+      if (take_ticket(a.tickets + tile_n, a.ticket_total, &last))
+        finish_decode<GROUPED>(a, tile_n, tid);
+      return;
+    }
+    b -= a.lr_blocks;
+    tile_n = b / a.ks;
+    z = b % a.ks;
+  } else {
+    tile_n = blockIdx.x;
+    tile_m = blockIdx.y;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp_m0 = (warp / T::WARPS_N) * 16 * WM, warp_n0 = (warp % T::WARPS_N) * 32;
+  const int m0 = tile_m * T::BM, n0 = tile_n * BN;
+  const int mv = min(T::BM, a.M - m0), nv = min(BN, a.N - n0);
+  const int sb = z * a.sps, se = min(a.nst, sb + a.sps), ns = se - sb;
+  const int kb = sb * BK, ke = min(a.K, se * BK);
+  auto wst = [&](int s) { return smem + s * (T::W_BYTES + T::X_BYTES); };
+
+  int acc[WM][4][4];
+  float gsum[WM][4][4];
+#pragma unroll
+  for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[mi][j][e] = 0;
+        gsum[mi][j][e] = 0.f;
+      }
+  // acc[mi][j][e] is output (row(mi, e >> 1), col(e & 1, j))
+  auto row_of = [&](int mi, int h) { return warp_m0 + 16 * mi + g + 8 * h; };
+  auto col_of = [&](int h, int j) { return warp_n0 + 8 * t + 4 * h + j; };
+
+  int gcur = GROUPED ? kb / a.group : 0, gend = (gcur + 1) * a.group;
+  // the current group ends: its exact partial into the f32 sum (one split)
+  // or into the plane (decode, K split)
+  auto flush = [&]() {
+#pragma unroll
+    for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row_of(mi, h);
+        if (DECODE && a.ks > 1) {
+          if (row < mv) {
+            int* dst = a.plane + ((size_t)(tile_n * a.G + gcur) * a.M + row) * BN;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e1 = 0; e1 < 2; ++e1)
+                if (acc[mi][j][2 * h + e1]) atomicAdd(dst + col_of(e1, j), acc[mi][j][2 * h + e1]);
+          }
+        } else {
+          const float s = row < mv ? __ldg(a.sx + (size_t)(m0 + row) * a.G + gcur) : 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1)
+              gsum[mi][j][2 * h + e1] = __fadd_rn(gsum[mi][j][2 * h + e1],
+                                                  __fmul_rn((float)acc[mi][j][2 * h + e1], s));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) acc[mi][j][2 * h + e1] = 0;
+      }
+    ++gcur;
+    gend += a.group;
+  };
+
+  // the ring: STAGES - 1 stages in flight ahead of the one multiplied
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < ns) load_stage<DECODE>(wst(s), wst(s) + T::W_BYTES, a, sb + s, m0, n0, tid);
+    cp_async_commit();
+  }
+  for (int it = 0; it < ns; ++it) {
+    cp_async_wait<T::STAGES - 2>();
+    __syncthreads();  // stage `it` has landed; stage it - 1's slot is free
+    const int nx = it + T::STAGES - 1;
+    if (nx < ns) {
+      unsigned char* slot = wst(nx % T::STAGES);
+      load_stage<DECODE>(slot, slot + T::W_BYTES, a, sb + nx, m0, n0, tid);
+    }
+    cp_async_commit();
+    const unsigned char* ws = wst(it % T::STAGES);
+    const unsigned char* xs = ws + T::W_BYTES;
+    const int k0 = (sb + it) * BK;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int kk = k0 + 32 * s;
+      if (kk >= ke) break;
+      uint32_t af[WM][4];
+#pragma unroll
+      for (int mi = 0; mi < WM; ++mi) {
+        const int r = warp_m0 + 16 * mi + g, unit = 2 * s + (t >> 1), off = 8 * (t & 1);
+        const uint2 lo = *reinterpret_cast<const uint2*>(xs + x_off(r, unit) + off);
+        const uint2 hi = *reinterpret_cast<const uint2*>(xs + x_off(r + 8, unit) + off);
+        af[mi][0] = lo.x;
+        af[mi][1] = hi.x;
+        af[mi][2] = lo.y;
+        af[mi][3] = hi.y;
+      }
+      uint32_t wr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wr[i] = *reinterpret_cast<const uint32_t*>(
+            ws + w_off(16 * s + 4 * t + i, (warp_n0 >> 4) + (g >> 2)) + 4 * (g & 3));
+      uint32_t bf[4][2];
+      b_fragments(wr, bf);
+      if constexpr (!GROUPED) {
+#pragma unroll
+        for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_s8(acc[mi][j], af[mi], bf[j][0], bf[j][1]);
+      } else {
+        // the k-step's pieces, one per group it meets, in ascending k
+        const int kstop = min(kk + 32, ke);
+        for (int kp = kk; kp < kstop;) {
+          const int e = min(gend, kk + 32);
+          uint32_t lo_m = 0xFFFFFFFFu, hi_m = 0xFFFFFFFFu;
+          if (kp != kk || e != kk + 32) {  // bytes of thread t's codes 8t..8t+7 in [kp, e)
+            const int base = kk + 8 * t;
+            lo_m = byte_mask(kp - base, e - base);
+            hi_m = byte_mask(kp - base - 4, e - base - 4);
+          }
+#pragma unroll
+          for (int mi = 0; mi < WM; ++mi) {
+            const uint32_t am[4] = {af[mi][0] & lo_m, af[mi][1] & lo_m, af[mi][2] & hi_m,
+                                    af[mi][3] & hi_m};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_s8(acc[mi][j], am, bf[j][0], bf[j][1]);
+          }
+          if (e == gend) flush();
+          kp = e;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the epilogue into o (this thread's fragment of the tile)
+  auto epilogue = [&](float (&o)[WM][4][4]) {
+    float swv[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        swv[h][j] = col_of(h, j) < nv ? __ldg(a.sw + n0 + col_of(h, j)) : 0.f;
+#pragma unroll
+    for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row_of(mi, h);
+        const float sxv = (!GROUPED && row < mv) ? __ldg(a.sx + m0 + row) : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int e = 2 * h + e1;
+            o[mi][j][e] = GROUPED ? __fmul_rn(gsum[mi][j][e], swv[e1][j])
+                                  : __fmul_rn(__fmul_rn((float)acc[mi][j][e], sxv), swv[e1][j]);
+          }
+      }
+  };
+  auto store = [&](const float (&o)[WM][4][4]) {
+#pragma unroll
+    for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row_of(mi, h);
+        if (row >= mv) continue;
+        float* orow = a.out + (size_t)(m0 + row) * a.N + n0;
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int c = col_of(e1, 0);
+          if (a.vec_out && c + 4 <= nv) {
+            *reinterpret_cast<float4*>(orow + c) = make_float4(
+                o[mi][0][2 * h + e1], o[mi][1][2 * h + e1], o[mi][2][2 * h + e1],
+                o[mi][3][2 * h + e1]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (c + j < nv) orow[c + j] = o[mi][j][2 * h + e1];
+          }
+        }
+      }
+  };
+
+  if constexpr (DECODE) {
+    if (a.ks > 1) {
+      if constexpr (GROUPED) {
+        if (gcur < a.G) flush();  // a group that runs on into the next split
+      } else {  // this split's exact int32 partial tile
+        int* part = a.part + (size_t)(tile_n * a.ks + z) * a.M * BN;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row_of(0, h);
+          if (row >= mv) continue;
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1)
+            *reinterpret_cast<int4*>(part + (size_t)row * BN + col_of(e1, 0)) =
+                make_int4(acc[0][0][2 * h + e1], acc[0][1][2 * h + e1],
+                          acc[0][2][2 * h + e1], acc[0][3][2 * h + e1]);
+        }
+      }
+    } else {
+      float o[WM][4][4];
+      epilogue(o);
+      store(o);
+    }
+    if (a.ks > 1 || a.R > 0) {
+      if (take_ticket(a.tickets + tile_n, a.ticket_total, &last))
+        finish_decode<GROUPED>(a, tile_n, tid);
+    }
+  } else {
+    float o[WM][4][4];
+    epilogue(o);
+    if (a.R > 0) {
+      if (a.u_bf16) lr_large<2>(a, o, m0, n0, mv, nv, warp_m0, warp_n0, g, t, smem, tid);
+      else lr_large<4>(a, o, m0, n0, mv, nv, warp_m0, warp_n0, g, t, smem, tid);
+    }
+    store(o);
+  }
+}
+
+inline int device_sms() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -465,53 +747,57 @@ inline Split split_of(int M, int K, int N) {
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       sms = 132;
   }
-  Split s;
-  s.rows = M <= 4 ? 4 : MAX_ROWS;
-  s.tiles = ((N + BN - 1) / BN) * ((M + s.rows - 1) / s.rows);
-  const int nc = (K + KC - 1) / KC;
-  const int want = (2 * sms + s.tiles - 1) / s.tiles;
-  s.cps = (nc + want - 1) / want;
-  if (s.cps < 1) s.cps = 1;
-  s.ks = (nc + s.cps - 1) / s.cps;
-  if (s.ks < 1) s.ks = 1;
-  return s;
+  return sms;
 }
 
-// int32 partials per tile: [ks][ROWS][BN] per-token, the [K/g][ROWS][BN]
-// group plane group-wise
-size_t partial_ints(const Split& s, int K, int group) {
-  return (size_t)s.tiles * (group > 0 ? K / group : s.ks) * s.rows * BN;
-}
+// The launch plan of (M, K, N, group) on `sms` SMs, from shapes alone.
+struct Plan {
+  int decode, bm, tiles_n, tiles_m, nst, sps, ks, threads, smem;
+  size_t zeroed, scratch;  // bytes of the two scratch buffers
+};
 
-size_t scratch_bytes(const Split& s, int K, int group) {
-  if (s.ks <= 1) return 0;
-  return sizeof(int) * (partial_ints(s, K, group) + s.tiles);
-}
-
-template <int ROWS>
-int launch(const void* xq, const void* sx, const void* w, const void* sw,
-           const void* xv, const void* u, int u_bf16, void* out, void* scratch,
-           const Split& sp, int M, int K, int N, int R, int group,
-           cudaStream_t stream) {
-  // word loads of W need N % 4 == 0, vector loads of the codes K % 16 == 0
-  const int vec_w = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(w) % 4 == 0);
-  const int vec_x = (K % 16 == 0) && (reinterpret_cast<uintptr_t>(xq) % 16 == 0);
-  int* part = static_cast<int*>(scratch);
-  int* tickets = sp.ks > 1 ? part + partial_ints(sp, K, group) : nullptr;
-  if (sp.ks > 1) {  // group-wise the plane is summed into, so it is zeroed too
-    cudaError_t e = group > 0
-        ? cudaMemsetAsync(part, 0, scratch_bytes(sp, K, group), stream)
-        : cudaMemsetAsync(tickets, 0, sizeof(int) * sp.tiles, stream);
-    if (e != cudaSuccess) return (int)e;
+Plan plan_of(int M, int K, int N, int group, int sms) {
+  Plan p;
+  p.decode = M <= DECODE_M;
+  p.bm = p.decode ? Tile<true>::BM : Tile<false>::BM;
+  p.tiles_n = (N + BN - 1) / BN;
+  p.tiles_m = (M + p.bm - 1) / p.bm;
+  p.nst = (K + BK - 1) / BK;
+  p.sps = p.nst;
+  if (p.decode) {  // about WAVES GEMM blocks an SM, each split whole stages
+    const int want = (WAVES * sms + p.tiles_n - 1) / p.tiles_n;
+    p.sps = (p.nst + want - 1) / want;
   }
-  dim3 grid((N + BN - 1) / BN, (M + ROWS - 1) / ROWS, sp.ks);
-  auto kern = group > 0 ? w4a4_lowrank_matmul_kernel<ROWS, true>
-                        : w4a4_lowrank_matmul_kernel<ROWS, false>;
-  kern<<<grid, THREADS, 0, stream>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
-      static_cast<const uint8_t*>(w), static_cast<const float*>(sw),
-      static_cast<const float*>(xv), u, u_bf16, static_cast<float*>(out),
-      part, tickets, M, K, N, R, group, sp.cps, vec_w, vec_x);
+  if (p.sps < 1) p.sps = 1;
+  p.ks = (p.nst + p.sps - 1) / p.sps;
+  p.threads = p.decode ? Tile<true>::THREADS : Tile<false>::THREADS;
+  p.smem = p.decode ? Tile<true>::SMEM : Tile<false>::SMEM;
+  p.zeroed = p.scratch = 0;
+  if (p.decode) {
+    // zeroed: tickets (a multiple of four), the group plane [tiles][G][M][BN]
+    // where K is split; scratch: the partials [tiles][ks][M][BN] where K is
+    // split, then the LR terms [M][tiles · BN]
+    const size_t tiles = p.tiles_n, tick = (tiles + 3) / 4 * 4;
+    const size_t plane = group > 0 && p.ks > 1 ? tiles * (K / group) * M * BN : 0;
+    const size_t part = group == 0 && p.ks > 1 ? tiles * p.ks * M * BN : 0;
+    p.zeroed = 4 * (tick + plane);
+    p.scratch = 4 * (part + (size_t)M * tiles * BN);
+  }
+  return p;
+}
+
+template <bool DECODE, bool GROUPED>
+int launch(const Args& a, const Plan& p, cudaStream_t stream) {
+  auto kern = w4a4_lowrank_matmul_kernel<DECODE, GROUPED>;
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<DECODE>::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const dim3 grid = DECODE ? dim3(a.lr_blocks + p.tiles_n * p.ks) : dim3(p.tiles_n, p.tiles_m);
+  kern<<<grid, Tile<DECODE>::THREADS, Tile<DECODE>::SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -519,29 +805,57 @@ int launch(const void* xq, const void* sx, const void* w, const void* sw,
 
 extern "C" {
 
-// Bytes of device scratch one launch at (M, K, N, group) needs (0 when K is
-// not split).
-size_t w4a4_lowrank_matmul_scratch_bytes(int M, int K, int N, int group) {
-  return scratch_bytes(split_of(M, K, N), K, group);
+// The plan of a launch at (M, K, N, group) on a card of `sms` SMs (0: the
+// current device's), as out[0..10] = decode, bm, tiles_n, tiles_m, stages,
+// stages per split, K-splits, threads, dynamic shared bytes, zeroed
+// scratch bytes, scratch bytes; out[11] = LR blocks per tile at decode.
+void w4a4_lowrank_matmul_plan(int M, int K, int N, int group, int sms, long long* out) {
+  const Plan p = plan_of(M, K, N, group, sms > 0 ? sms : device_sms());
+  const long long v[12] = {p.decode, p.bm, p.tiles_n, p.tiles_m, p.nst, p.sps, p.ks,
+                           p.threads, p.smem, (long long)p.zeroed, (long long)p.scratch,
+                           LR_BLOCKS};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
 }
 
 // Launch on `stream`; returns the first CUDA error of the launch (0 = ok).
 // With R = 0, xv and u may be null; u_bf16 selects bf16 (1) or f32 (0) U;
 // group 0 takes per-token sx (M, 1), group g > 0 (dividing K) the (M, K/g)
-// plane; scratch holds w4a4_lowrank_matmul_scratch_bytes(M, K, N, group)
-// bytes.
-int w4a4_lowrank_matmul(const void* xq, const void* sx, const void* w,
-                        const void* sw, const void* xv, const void* u,
-                        int u_bf16, void* out, void* scratch, int M, int K,
-                        int N, int R, int group, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// plane.  `zeroed` holds the plan's zeroed bytes, all zero (every launch
+// leaves them so), `scratch` its scratch bytes; either may be null where
+// the plan asks for none.
+int w4a4_lowrank_matmul(const void* xq, const void* sx, const void* w, const void* sw,
+                        const void* xv, const void* u, int u_bf16, void* out, void* zeroed,
+                        void* scratch, int M, int K, int N, int R, int group, void* stream) {
   if (group < 0 || (group > 0 && K % group)) return (int)cudaErrorInvalidValue;
-  const Split sp = split_of(M, K, N);
-  // decode batches of up to 4 rows take the 4-row tile, larger M the 16-row one
-  if (M <= 4)
-    return launch<4>(xq, sx, w, sw, xv, u, u_bf16, out, scratch, sp, M, K, N, R, group, s);
-  return launch<MAX_ROWS>(xq, sx, w, sw, xv, u, u_bf16, out, scratch, sp, M, K, N, R,
-                          group, s);
+  const Plan p = plan_of(M, K, N, group, device_sms());
+  if (p.decode && ((p.zeroed && !zeroed) || (p.scratch && !scratch)))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.xq = static_cast<const int8_t*>(xq);
+  a.sx = static_cast<const float*>(sx);
+  a.w = static_cast<const uint8_t*>(w);
+  a.sw = static_cast<const float*>(sw);
+  a.xv = static_cast<const float*>(xv);
+  a.u = u;
+  a.out = static_cast<float*>(out);
+  a.tickets = static_cast<int*>(zeroed);
+  a.plane = a.tickets ? a.tickets + ((size_t)p.tiles_n + 3) / 4 * 4 : nullptr;
+  a.part = static_cast<int*>(scratch);
+  const size_t part = group == 0 && p.ks > 1 ? (size_t)p.tiles_n * p.ks * M * BN : 0;
+  a.lr = a.part ? reinterpret_cast<float*>(a.part + part) : nullptr;
+  a.M = M, a.K = K, a.N = N, a.R = R, a.group = group, a.G = group > 0 ? K / group : 1;
+  a.u_bf16 = u_bf16;
+  a.tiles_n = p.tiles_n, a.nst = p.nst, a.sps = p.sps, a.ks = p.ks;
+  a.lr_blocks = p.decode && R > 0 ? p.tiles_n * LR_BLOCKS : 0;
+  a.ticket_total = p.ks + (R > 0 ? LR_BLOCKS : 0);
+  // 16-byte copies need rows of whole 16-byte units
+  a.vec_w = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  a.vec_x = K % 16 == 0 && reinterpret_cast<uintptr_t>(xq) % 16 == 0;
+  a.vec_out = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.decode)
+    return group > 0 ? launch<true, true>(a, p, s) : launch<true, false>(a, p, s);
+  return group > 0 ? launch<false, true>(a, p, s) : launch<false, false>(a, p, s);
 }
 
 }  // extern "C"

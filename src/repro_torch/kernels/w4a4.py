@@ -1,5 +1,5 @@
-"""W4A4 GEMM with the low-rank epilogue on Hopper, its plain version and
-its launch counters.
+"""W4A4 GEMM with the low-rank epilogue on Hopper, its plain version, its
+launch plan and its launch counters.
 
 The kernel (``csrc/w4a4_lowrank_matmul.cu``, CUDA C++ for sm_90a) replaces
 the TPU kernel ``repro/kernels/w4a4.py::w4a4_lowrank_matmul_kernel``:
@@ -12,13 +12,15 @@ K loop in ``rowops.gemm_grouped``'s canonical order, bitwise at any launch
 geometry.  It is the GEMM of the chained and unfused paths
 (``kernels/ops.py``).
 
-Bound on an H100 SXM (3.35 TB/s): at decode the call is memory-bound; its
-bytes are K·N/2 (packed W) + 4·N (sw) + 2·R·N (bf16 U) plus the
-activations, e.g. 12.6 MB (3.8 us) at Phi-3-mini's K=8192, N=3072, R=307.
-The design streams K through shared memory in fixed chunks, so its
-footprint does not grow with K, and splits K across blocks at decode (exact
-int32 partials, added by the last block); the source's head comment says
-what it does and what later work should change.
+Bound on an H100 SXM (3.35 TB/s, 1,979 int8 TOPS, 67 f32 TFLOP/s): at
+decode the call is memory-bound; its bytes are K·N/2 (packed W) + 4·N (sw)
++ 2·R·N (bf16 U) plus the activations, e.g. 12.6 MB (3.8 us) at Phi-3-mini's
+K=8192, N=3072, R=307.  At M 2048 its int8 operations and the LR term's
+f32 ones bound it.  The integer product runs on the int8 tensor cores
+(``mma.sync`` m16n8k32) from packed W tiles staged by ``cp.async``; M <= 16
+streams W with K split across blocks and the LR term in blocks of its own,
+larger M takes 128 x 128 tiles (:func:`gemm_plan`; the source's head
+comment says what it does and what later work should change).
 
 :func:`w4a4_lowrank_matmul` is the wrapper: a CPU tensor runs
 :func:`w4a4_lowrank_matmul_plain`; a CUDA tensor launches the kernel or
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +45,66 @@ LAUNCHES = {"w4a4_lowrank_matmul": 0, "w4a4_lowrank_matmul_plain": 0}
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+# the source's plan constants: K codes a stage, columns a tile, the largest
+# M of the weight stream, decode LR blocks a tile, decode GEMM blocks an SM
+BK, BN, DECODE_M, LR_BLOCKS, WAVES = 64, 128, 16, 4, 3
+# (threads, dynamic shared bytes) of a block: decode (16 x 128 tile, 6
+# stages; the LR blocks' U and xv chunks), large (128 x 128, 4 stages; the
+# LR chunks of 64 ranks)
+DECODE_BLOCK = (128, max(6 * (BK // 2 * BN + 16 * BK), 32 * 322 * 2 + 16 * 320 * 4))
+LARGE_BLOCK = (256, max(4 * (BK // 2 * BN + 128 * BK), 64 * (BN + 128) * 4))
+# SMs of an H100 SXM; the kernel reads the card's own count
+H100_SMS = 132
+
+
+class GemmPlan(NamedTuple):
+    """A launch of the kernel at (M, K, N, group), as the source plans it
+    (``w4a4_lowrank_matmul_plan``; the fields in its order)."""
+
+    decode: int           # 1: M <= 16, the weight stream; 0: 128 x 128 tiles
+    bm: int               # rows of a tile
+    tiles_n: int
+    tiles_m: int
+    stages: int           # K stages of BK codes
+    stages_per_split: int
+    splits: int           # K-splits (decode only; 1 for large M)
+    threads: int
+    smem_bytes: int
+    zeroed_bytes: int     # tickets (+ the group plane): zero between launches
+    scratch_bytes: int    # int32 partials (+ the LR terms)
+    lr_blocks_per_tile: int
+
+
+def gemm_plan(m: int, k: int, n: int, group: int = None, sms: int = H100_SMS) -> GemmPlan:
+    """The kernel's launch plan, from (M, K, N, group) and the SM count
+    alone: M <= 16 streams W over about ``WAVES`` GEMM blocks an SM, K split
+    in whole stages, with ``LR_BLOCKS`` LR blocks per 128-column tile; larger
+    M takes 128 x 128 tiles over all of K.  Scratch at decode: ``zeroed``
+    holds a ticket per tile and, group-wise where K is split, the int32
+    group plane [tiles][K/g][M][BN]; ``scratch`` the per-token int32
+    partials [tiles][splits][M][BN] where K is split, then the LR terms
+    [M][tiles · BN] f32."""
+    decode = int(m <= DECODE_M)
+    bm = 16 if decode else 128
+    tiles_n, tiles_m = -(-n // BN), -(-m // bm)
+    stages = -(-k // BK)
+    per = stages
+    if decode:
+        want = -(-(WAVES * sms) // tiles_n)
+        per = -(-stages // want)
+    per = max(per, 1)
+    splits = -(-stages // per)
+    threads, smem = DECODE_BLOCK if decode else LARGE_BLOCK
+    zeroed = scratch = 0
+    if decode:
+        plane = tiles_n * (k // group) * m * BN if group and splits > 1 else 0
+        part = tiles_n * splits * m * BN if not group and splits > 1 else 0
+        zeroed = 4 * (-(-tiles_n // 4) * 4 + plane)
+        scratch = 4 * (part + m * tiles_n * BN)
+    return GemmPlan(decode, bm, tiles_n, tiles_m, stages, per, splits, threads, smem,
+                    zeroed, scratch, LR_BLOCKS)
 
 
 def w4a4_lowrank_matmul_plain(xq, sx, wpacked, sw, xv=None, u=None,
@@ -61,11 +124,38 @@ def _lib(name: str) -> ctypes.CDLL:
     """The built library with its C signature declared (once per name)."""
     lib = build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.w4a4_lowrank_matmul.argtypes = [p, p, p, p, p, p, i, p, p, i, i, i, i, i, p]
+    lib.w4a4_lowrank_matmul.argtypes = [p, p, p, p, p, p, i, p, p, p, i, i, i, i, i, p]
     lib.w4a4_lowrank_matmul.restype = ctypes.c_int
-    lib.w4a4_lowrank_matmul_scratch_bytes.argtypes = [i, i, i, i]
-    lib.w4a4_lowrank_matmul_scratch_bytes.restype = ctypes.c_size_t
+    lib.w4a4_lowrank_matmul_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.w4a4_lowrank_matmul_plan.restype = None
     return lib
+
+
+@functools.lru_cache(maxsize=1024)
+def source_plan(m: int, k: int, n: int, group: int = None, sms: int = 0) -> GemmPlan:
+    """The built kernel's own plan (``sms`` 0: the SM count of the card the
+    process first launched on, which the source reads once);
+    :func:`gemm_plan` mirrors it."""
+    out = (ctypes.c_longlong * len(GemmPlan._fields))()
+    _lib(KERNEL).w4a4_lowrank_matmul_plan(m, k, n, group or 0, sms, out)
+    return GemmPlan(*out)
+
+
+# per (device index, stream): [zeroed, scratch] byte buffers, grown on
+# demand.  Every launch leaves ``zeroed`` all zero (the tile's last block
+# resets its ticket and the plane entries it read), so one buffer serves
+# every shape; launches on one stream never overlap.
+_SCRATCH = {}
+
+
+def _scratch(device, stream: int, zeroed: int, scratch: int):
+    bufs = _SCRATCH.setdefault((device.index, stream), [None, None])
+    if zeroed and (bufs[0] is None or bufs[0].numel() < zeroed):
+        bufs[0] = torch.zeros(zeroed, dtype=torch.uint8, device=device)
+    if scratch and (bufs[1] is None or bufs[1].numel() < scratch):
+        bufs[1] = torch.empty(scratch, dtype=torch.uint8, device=device)
+    return (bufs[0].data_ptr() if zeroed else None,
+            bufs[1].data_ptr() if scratch else None)
 
 
 def _check(xq, sx, wpacked, sw, xv, u, group=None):
@@ -120,15 +210,15 @@ def w4a4_lowrank_matmul(xq, sx, wpacked, sw, xv=None, u=None,
     if m == 0 or n == 0:
         return out
     lib = _lib(KERNEL)
-    scratch = torch.empty(lib.w4a4_lowrank_matmul_scratch_bytes(m, k, n, group or 0),
-                          dtype=torch.uint8, device=xq.device)
+    plan = source_plan(m, k, n, group)
+    stream = build.stream_of(xq)
+    zeroed, scratch = _scratch(xq.device, stream, plan.zeroed_bytes, plan.scratch_bytes)
     rc = lib.w4a4_lowrank_matmul(
         xq.data_ptr(), sx.data_ptr(), wpacked.data_ptr(), sw.data_ptr(),
         None if xv is None else xv.data_ptr(),
         None if u is None else u.data_ptr(),
         int(u is not None and u.dtype == torch.bfloat16), out.data_ptr(),
-        scratch.data_ptr() if scratch.numel() else None, m, k, n, r, group or 0,
-        build.stream_of(xq))
+        zeroed, scratch, m, k, n, r, group or 0, stream)
     if rc != 0:
         raise RuntimeError(f"w4a4_lowrank_matmul launch failed: cudaError {rc} "
                            f"at (M={m}, K={k}, N={n}, R={r}, group={group})")
