@@ -7,16 +7,20 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the port from ``src/repro_torch/kernels/csrc``
      (``build.KERNELS``, nine: one ``nvcc`` per source, all at once), check
-     the rotation's host constant against the plain version's, and count
-     the tensor-core (HMMA) instructions of the two dense flash libraries
-     (``cuobjdump -sass``; none is a failure);
+     the rotation's host constant against the plain version's, count the
+     tensor-core instructions (``cuobjdump -sass``; none is a failure):
+     HMMA in the two dense flash libraries, IMMA in the W4A4 GEMM's, and
+     hold ``w4a4.gemm_plan`` equal to the GEMM source's own plan at the
+     served, prefill, phase-12 and ragged shapes;
   3. the premises of the dense flash kernels' accuracy standard probed on
      the card (the TF32 split bitwise its plain emulation, one m16n8k8 mma
      on chosen addends within the model of its accumulation, what the card
      does printed); then each kernel against its plain PyTorch version on the card, at the
      shapes the serving and calibration paths give it plus ragged ones,
      with times: the fused kernel at SmolLM-135M's sites, the prologue,
-     GEMM and quantizer kernels at Phi-3-mini's, the two paged attention
+     GEMM and quantizer kernels at Phi-3-mini's (the GEMM's rows at M 1, 4,
+     16 and 100 bitwise the same rows of a 2048-row call, per-token and at
+     g 128, R 307, across its two tile regimes), the two paged attention
      kernels at both models' decode shapes, one long ragged Phi-3 batch and
      Gemma-7b's head_dim 256 (f32 and bf16 pools, int8 and int4 pools),
      with an inactive row and garbage in the pages no row owns, each within
@@ -89,7 +93,10 @@ Phases, each fatal on failure:
      and at Phi-3-mini's mlp/wd site, beside a bf16 matmul, each output held
      against its plain version; every rotated unfused call launches the
      transform kernel once, and nothing else launches it; the reference's
-     grouped smoke row (g = 128) and a chained g = 128 column;
+     grouped smoke row (g = 128) and a chained g = 128 column; then the GEMM
+     kernel alone at those sizes, M 256 and 2048, ranks 0 and 128, beside
+     its int8, f32 and bytes bounds, ``torch._int_mm`` on the unpacked codes
+     and a bf16 matmul (context only);
  13. grouped activation scales (paper Table 2): (a) the group branches of
      #1 (SmolLM's sites at g 64, a rotated K 512 at g 128, groups that end
      inside a four-code word) and #2-#4 (Phi-3's sites and its rotated wd

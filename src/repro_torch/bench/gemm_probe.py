@@ -69,6 +69,214 @@ def build_old():
     return lib
 
 
+NEW_SRC = build.CSRC / "w4a4_lowrank_matmul.cu"
+
+
+def build_variants(variants):
+    """Libraries of the new source with text substitutions, one nvcc each,
+    in parallel: {name: [(old, new), ...]} -> {name: CDLL}."""
+    procs = {}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    base = NEW_SRC.read_text()
+    for name, subs in variants.items():
+        text = base
+        for a, b in subs:
+            if a not in text:
+                raise RuntimeError(f"variant {name}: {a!r} not in the source")
+            text = text.replace(a, b)
+        src = build.BUILD_DIR / f"variant_{name}.cu"
+        src.write_text(text)
+        out = build.BUILD_DIR / f"libvariant_{name}.so"
+        procs[name] = (subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
+                                         str(src)], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), out)
+    libs = {}
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"variant {name}: " + " | ".join(regs), flush=True)
+        lib = ctypes.CDLL(str(out))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.w4a4_lowrank_matmul.argtypes = [p, p, p, p, p, p, i, p, p, p, i, i, i, i, i, p]
+        lib.w4a4_lowrank_matmul.restype = ctypes.c_int
+        lib.w4a4_lowrank_matmul_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+        libs[name] = lib
+    return libs
+
+
+_ZEROED = {}
+
+
+def run_variant(lib, xq, sx, wp, sw, xv=None, u=None, group=None):
+    m, k = xq.shape
+    n, r = wp.shape[1], 0 if xv is None else xv.shape[1]
+    plan = (ctypes.c_longlong * 12)()
+    lib.w4a4_lowrank_matmul_plan(m, k, n, group or 0, 0, plan)
+    zb, sb = plan[9], plan[10]
+    z = _ZEROED.get(id(lib))
+    if zb and (z is None or z.numel() < zb):
+        z = _ZEROED[id(lib)] = torch.zeros(zb, dtype=torch.uint8, device=xq.device)
+    scratch = torch.empty(sb, dtype=torch.uint8, device=xq.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    rc = lib.w4a4_lowrank_matmul(
+        xq.data_ptr(), sx.data_ptr(), wp.data_ptr(), sw.data_ptr(),
+        None if xv is None else xv.data_ptr(), None if u is None else u.data_ptr(),
+        int(u is not None and u.dtype == torch.bfloat16), out.data_ptr(),
+        z.data_ptr() if zb else None, scratch.data_ptr() if sb else None, m, k, n, r,
+        group or 0, build.stream_of(xq))
+    if rc:
+        raise RuntimeError(f"variant launch failed: {rc}")
+    return out
+
+
+ZMAJOR = [("    tile_n = b / a.ks;\n    z = b % a.ks;", "    tile_n = b % a.tiles_n;\n    z = b / a.tiles_n;")]
+VARIANTS = {
+    "base": [],
+    "st3": [("static constexpr int STAGES = DECODE ? 6 : 4;", "static constexpr int STAGES = DECODE ? 3 : 4;")],
+    "st2": [("static constexpr int STAGES = DECODE ? 6 : 4;", "static constexpr int STAGES = DECODE ? 2 : 4;")],
+    "parts1": [("constexpr int LR_PARTS = 4;", "constexpr int LR_PARTS = 1;")],
+    "lrlast": [("    int b = blockIdx.x;\n    if (b < a.lr_blocks) {",
+                "    int b = blockIdx.x;\n    { const int gb = a.tiles_n * a.ks; b = b >= gb ? b - gb : b + a.lr_blocks; }\n    if (b < a.lr_blocks) {")],
+}
+
+TIMELINE = [
+    ("namespace {\n\nconstexpr int BK",
+     "__device__ unsigned long long probe_tl[16384][8];\n"
+     "__device__ __forceinline__ unsigned long long probe_now() { unsigned long long t; "
+     "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); return t; }\n"
+     "__device__ __forceinline__ unsigned probe_smid() { unsigned s; "
+     "asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(s)); return s; }\n"
+     "extern \"C\" int probe_timeline(void* dst, int n) { return (int)cudaMemcpyFromSymbol(dst, probe_tl, (size_t)n * 64); }\n"
+     "namespace {\n\nconstexpr int BK"),
+    ("  const int tid = threadIdx.x;\n\n  int tile_n,",
+     "  const int tid = threadIdx.x;\n  const unsigned long long probe_t0 = probe_now();\n\n  int tile_n,"),
+    ("      take_tickets(a.tickets, b, 1, a.ticket_total, last);\n      if (last[0]) finish_decode(a, tile_n, 1 << (b % LR_BLOCKS), tid);\n      return;",
+     "      const unsigned long long probe_t1 = probe_now();\n"
+     "      take_tickets(a.tickets, b, 1, a.ticket_total, last);\n"
+     "      const bool probe_last = last[0];\n"
+     "      if (probe_last) finish_decode(a, tile_n, 1 << (b % LR_BLOCKS), tid);\n"
+     "      if (tid == 0) { unsigned long long* e = probe_tl[blockIdx.x]; e[0] = probe_t0; e[1] = probe_t1; e[2] = probe_now(); e[3] = (probe_last ? 10 : 0) + 1 + 100 * probe_smid(); }\n"
+     "      return;"),
+    ("    if (a.ks > 1 || a.R > 0) {\n      take_tickets(",
+     "    const unsigned long long probe_t1 = probe_now();\n    if (a.ks > 1 || a.R > 0) {\n      take_tickets("),
+    ("      if (subs) finish_decode(a, tile_n, subs, tid);\n    }\n",
+     "      if (subs) finish_decode(a, tile_n, subs, tid);\n    }\n"
+     "    if (tid == 0) { unsigned long long* e = probe_tl[blockIdx.x]; e[0] = probe_t0; e[1] = probe_t1; e[2] = probe_now(); e[3] = 2 + 100 * probe_smid(); }\n"),
+    ("      __syncthreads();  // every thread's copies of parts 0..p have landed\n",
+     "      __syncthreads();  // every thread's copies of parts 0..p have landed\n"
+     "      if (tid == 0 && r0 == 0 && p == LR_PARTS - 1) probe_tl[blockIdx.x][4] = probe_now();\n"
+     "      if (tid == 0 && r0 == 0 && p == 0) probe_tl[blockIdx.x][5] = probe_now();\n"),
+]
+
+
+def timeline_main(flush):
+    """Per-block timelines (globaltimer) of decode calls: when each LR and
+    GEMM block starts, ends its work, takes its ticket (and finishes)."""
+    libs = build_variants({"timeline": TIMELINE})
+    cuobjdump = str(Path(build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.BUILD_DIR / "libvariant_timeline.so")],
+                          capture_output=True, text=True).stdout
+    os.makedirs("chiprun_out", exist_ok=True)
+    Path("chiprun_out/sass_timeline.txt").write_text(sass)
+    out = []
+    for lname, lib in libs.items():
+        print(f"== {lname}", flush=True)
+        out += timeline_of(lib, flush)
+    return out
+
+
+def timeline_of(lib, flush):
+    lib.probe_timeline.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = []
+    for (m, k, n, r) in [(4, 3072, 3072, 307), (4, 3072, 8192, 307), (16, 8192, 3072, 307)]:
+        ops = operands(gen, m, k, n, r, "bf16", None, "cuda")
+        for warm in range(3):
+            run_variant(lib, *ops)
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        run_variant(lib, *ops)
+        torch.cuda.synchronize()
+        plan = (ctypes.c_longlong * 12)()
+        lib.w4a4_lowrank_matmul_plan(m, k, n, 0, 0, plan)
+        nb = (plan[2] * 4 if r else 0) + plan[2] * plan[6]
+        buf = (ctypes.c_ulonglong * (nb * 8))()
+        assert lib.probe_timeline(ctypes.addressof(buf), nb) == 0
+        rows = [tuple(buf[8 * i:8 * i + 8]) for i in range(nb)]
+        t0 = min(x[0] for x in rows)
+        def stats(vals):
+            vals = sorted(vals)
+            return (f"{vals[0] / 1e3:.2f}/{vals[len(vals) // 2] / 1e3:.2f}/{vals[-1] / 1e3:.2f}"
+                    if vals else "-")
+        summary = {}
+        for role, name in ((1, "LR"), (2, "GEMM")):
+            rr = [x for x in rows if x[3] % 10 == role]
+            fin = [x for x in rows if x[3] % 10 == role and (x[3] // 10) % 10 == 1]
+            summary[name] = {
+                "n": len(rr), "start": stats([x[0] - t0 for x in rr]),
+                "work_end": stats([x[1] - t0 for x in rr]),
+                "end": stats([x[2] - t0 for x in rr]),
+                "finishers": len(fin), "finish_end": stats([x[2] - t0 for x in fin]),
+                "dur": stats([x[1] - x[0] for x in rr]),
+                "copied": stats([x[4] - t0 for x in rr if x[4]]),
+                "part0": stats([x[5] - t0 for x in rr if x[5]]),
+                "sms": len(set(x[3] // 100 for x in rr)),
+            }
+        span = max(x[2] for x in rows) - t0
+        print(f"M={m} K={k} N={n} R={r} blocks {nb}, span {span / 1e3:.2f} us (µs min/median/max):",
+              flush=True)
+        for name, v in summary.items():
+            print(f"   {name}: {v}", flush=True)
+        out.append({"m": m, "k": k, "n": n, "r": r, "span_us": span / 1e3, **summary})
+    return out
+
+
+def device_us(fn, n=20):
+    """µs of device time a call (kernels, memsets), warm, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.self_device_time_total > 0) / n
+
+
+def variants_main(flush):
+    """Time source variants at the decode sites (per-token and g 128) and two
+    large shapes."""
+    libs = build_variants(VARIANTS)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    old = build_old()
+    rows = []
+    shapes = [(4, 3072, 3072, None), (4, 3072, 8192, None), (4, 8192, 3072, None),
+              (16, 8192, 3072, None), (16, 3072, 8192, None), (4, 8192, 3072, 128),
+              (16, 8192, 3072, 128), (16, 3072, 8192, 128)]
+    for (m, k, n, g) in shapes:
+        for r in ((0, 307) if g is None else (307,)):
+            ops = operands(gen, m, k, n, r, "bf16", g, "cuda")
+            ref = w4a4.w4a4_lowrank_matmul(*ops, g)
+            reps = 5 if m >= 2048 else 30
+            t = {"old": time_ms(lambda: run_old(old, *ops, g), flush, reps) * 1e3}
+            for name, lib in libs.items():
+                y = run_variant(lib, *ops, g)
+                torch.cuda.synchronize()
+                same = torch.equal(y, ref)
+                t[name] = time_ms(lambda: run_variant(lib, *ops, g), flush, reps) * 1e3
+                if not same:
+                    t[name + "_DIFF"] = 1
+            t["old2"] = time_ms(lambda: run_old(old, *ops, g), flush, reps) * 1e3
+            rows.append({"m": m, "k": k, "n": n, "r": r, "g": g, **t})
+            print(f"M={m} K={k} N={n} R={r} g={g}: "
+                  + "  ".join(f"{a} {b:.1f}" for a, b in t.items()), flush=True)
+    return rows
+
+
 def run_old(lib, xq, sx, wp, sw, xv=None, u=None, group=None):
     m, k = xq.shape
     n, r = wp.shape[1], 0 if xv is None else xv.shape[1]
@@ -122,6 +330,7 @@ def timed(lib, ops, group, flush, reps):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out/gemm_probe.json")
+    ap.add_argument("--variants", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_probe: no CUDA device", file=sys.stderr)
@@ -131,6 +340,12 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip())
+    if args.variants:
+        rows = variants_main(flush_buffer(device))
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": card.strip(), "variants": rows}, f)
+        return 0
     lib = build_old()
     gen = torch.Generator(device=device).manual_seed(24)
     flush = flush_buffer(device)

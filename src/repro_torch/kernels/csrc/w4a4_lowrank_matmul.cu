@@ -90,9 +90,15 @@ constexpr int BN = 128;                  // output columns per tile
 constexpr int DECODE_M = 16;             // M up to this takes the weight stream
 constexpr int LR_COLS = 32;              // columns of one decode LR block
 constexpr int LR_BLOCKS = BN / LR_COLS;  // decode LR blocks per tile
-constexpr int LR_RANKS_D = 320;          // ranks per decode LR chunk (bf16 U; half for f32)
-constexpr int LR_RANKS_L = 64;           // ranks per LR chunk of a large tile
+constexpr int LR_BYTES_D = 640;          // bytes of a U row per decode LR chunk (320 bf16 ranks)
+constexpr int LR_RANKS_L = 32;           // ranks per LR chunk of a large tile
 constexpr int WAVES = 3;                 // decode GEMM blocks per SM the K-split aims at
+constexpr int LR_PARTS = 4;              // copy groups of a decode LR chunk
+
+// shared bytes of a row segment of n elements of es bytes, copied as the
+// 16-byte words aligned in memory that it touches
+__host__ __device__ constexpr int seg_words(int n, int es) { return (n * es + 15) / 16 + 1; }
+__host__ __device__ constexpr int seg_bytes(int n, int es) { return 16 * seg_words(n, es); }
 
 template <bool DECODE>
 struct Tile {
@@ -105,12 +111,14 @@ struct Tile {
   static constexpr int W_BYTES = BKP * BN;   // a stage of packed W
   static constexpr int X_BYTES = BM * BK;    // a stage of xq
   static constexpr int RING = STAGES * (W_BYTES + X_BYTES);
-  // LR staging: decode U [LR_COLS][LR_RANKS_D + 2] bf16 (or [.][LR_RANKS_D/2
-  // + 1] f32) and xv [16][LR_RANKS_D] f32; large U and xv [LR_RANKS_L][128] f32
-  static constexpr int LR = DECODE ? LR_COLS * (LR_RANKS_D + 2) * 2 + DECODE_M * LR_RANKS_D * 4
-                                   : LR_RANKS_L * (BN + BM) * 4;
+  // LR staging, the row segments of a rank chunk as they lie in memory:
+  // decode U [LR_COLS] rows and xv [16] rows of LR_BYTES_D / 2 bf16 (or
+  // / 4 f32) ranks; large U [BN] and xv [BM] rows of LR_RANKS_L ranks, then
+  // both transposed to f32 [LR_RANKS_L][128]
+  static constexpr int LR = DECODE
+      ? LR_COLS * seg_bytes(LR_BYTES_D, 1) + DECODE_M * seg_bytes(LR_BYTES_D / 2, 4)
+      : (BN + BM) * seg_bytes(LR_RANKS_L, 4) + LR_RANKS_L * (BN + BM) * 4;
   static constexpr int SMEM = RING > LR ? RING : LR;
-  static constexpr int NMAX = DECODE ? 11 : 4;  // 16-byte LR loads in flight per thread
 };
 
 struct Args {
@@ -121,10 +129,10 @@ struct Args {
   const float* xv;
   const void* u;
   float* out;
-  int* tickets;  // zeroed scratch: [tiles] tickets, then the group plane
-  int* plane;
-  int* part;     // scratch: [tiles][ks][M][BN] int32 partials, then lr
-  float* lr;     // [M][tiles · BN] f32 LR terms
+  int* tickets;  // zeroed scratch: [tiles][LR_BLOCKS] tickets, then the group plane
+  int* plane;    // [tiles][G][M][BN] int32 group partials of the splits
+  int* part;     // scratch: [tiles][ks][M][BN] int32 per-token split partials
+  float* lr;     // then [M][tiles · BN] f32 LR terms
   int M, K, N, R, group, G, u_bf16;
   int tiles_n, nst, sps, ks, lr_blocks, ticket_total;
   int vec_w, vec_x, vec_out;
@@ -147,6 +155,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// the first n bytes (1..16) of the aligned 16-byte word at gmem, the rest zero
+__device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem), "r"(n)
                : "memory");
 }
 
@@ -239,196 +254,262 @@ __device__ __forceinline__ void load_stage(unsigned char* ws, unsigned char* xs,
   }
 }
 
-// Rows [row0, row0 + nrows) x elements [r0, r0 + rn) of a row-major (., R)
-// array of ES-byte elements (bf16 or f32), one segment a row, read as the
-// 16-byte words aligned in memory that the segment touches: a word inside
-// the segment by one vector load, the words at its ends element by element
-// (nothing outside the segments is read).  put(i, r, bits) receives row i's
-// element r0 + r as its bits; rows from rows_valid on read nothing and put
-// zeros.  NMAX words a thread are in flight at once.
-template <int THREADS, int NMAX, int ES, typename Put>
-__device__ __forceinline__ void stage_segments(const void* src, size_t R, int row0, int nrows,
-                                               int rows_valid, int r0, int rn, int tid,
-                                               Put put) {
-  constexpr int EPW = 16 / ES;
-  const unsigned char* base = static_cast<const unsigned char*>(src);
-  const long long sh = (long long)((reinterpret_cast<uintptr_t>(src) & 15) / ES);
-  const int nw = (rn + EPW - 1) / EPW + 1;  // words a segment touches at most
-  const int items = nrows * nw;
-  for (int b0 = 0; b0 < items; b0 += THREADS * NMAX) {
-    uint32_t v[NMAX][4];
-#pragma unroll
-    for (int p = 0; p < NMAX; ++p) {
-      const int it = b0 + p * THREADS + tid;
-      v[p][0] = v[p][1] = v[p][2] = v[p][3] = 0u;
-      const int i = it / nw, j = it % nw;
-      if (it < items && i < rows_valid) {
-        const long long e0 = (long long)(row0 + i) * (long long)R + r0, e1 = e0 + rn;
-        const long long first = ((e0 + sh) / EPW + j) * EPW - sh;
-        if (first >= e0 && first + EPW <= e1) {
-          const uint4 q = __ldg(reinterpret_cast<const uint4*>(base + first * ES));
-          v[p][0] = q.x, v[p][1] = q.y, v[p][2] = q.z, v[p][3] = q.w;
-        } else {
-#pragma unroll
-          for (int q = 0; q < EPW; ++q) {
-            const long long e = first + q;
-            if (e >= e0 && e < e1) {
-              const uint32_t bits = ES == 2
-                  ? (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(base + e * ES))
-                  : __ldg(reinterpret_cast<const unsigned int*>(base + e * ES));
-              v[p][q * ES / 4] |= bits << (8 * ((q * ES) & 3));
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < NMAX; ++p) {
-      const int it = b0 + p * THREADS + tid;
-      if (it >= items) continue;
-      const int i = it / nw, j = it % nw;
-      const long long e0 = (long long)(row0 + i) * (long long)R + r0;
-      const long long first = ((e0 + sh) / EPW + j) * EPW - sh;
-#pragma unroll
-      for (int q = 0; q < EPW; ++q) {
-        const long long e = first + q;
-        if (e >= e0 && e < e0 + rn) {
-          const uint32_t bits = ES == 2 ? (v[p][q >> 1] >> (16 * (q & 1))) & 0xFFFFu : v[p][q];
-          put(i, (int)(e - e0), bits);
-        }
-      }
-    }
+// Copy rows [row0, row0 + nrows) x elements [r0, r0 + rn) of a row-major
+// (., R) array of ES-byte elements (bf16 or f32) into shared memory as they
+// lie in device memory, by cp.async: row i's segment as the 16-byte words
+// aligned in memory that it touches, at dst + i · stride (stride >=
+// seg_bytes(rn, ES)), so that its element r sits at seg_elem(...) below.
+// Bytes past a segment's end are not read; its first word may begin up to
+// 15 bytes before it, inside the same aligned word of the allocation.
+template <int THREADS, int ES>
+__device__ __forceinline__ void copy_segments(unsigned char* dst, int stride, const void* src,
+                                              size_t R, int row0, int nrows, int r0, int rn,
+                                              int tid, int j0 = 0, int j1 = 1 << 30) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(src);
+  j1 = min(j1, seg_words(rn, ES));  // words [j0, j1) of each segment
+  const int nw = j1 - j0;
+  for (int it = tid; it < nrows * nw; it += THREADS) {
+    const int i = it / nw, j = j0 + it % nw;
+    const uintptr_t a0 = base + ((size_t)(row0 + i) * R + r0) * ES, a1 = a0 + (size_t)rn * ES;
+    const uintptr_t w = (a0 & ~(uintptr_t)15) + 16 * (uintptr_t)j;
+    if (w < a1)
+      cp_async16_n(dst + (size_t)i * stride + 16 * j, reinterpret_cast<const void*>(w),
+                   a1 - w < 16 ? (int)(a1 - w) : 16);
   }
+}
+
+// where element r0 of row `row` of such an array sits in its copied segment
+// (the byte offset of the segment's first element in its first word)
+template <int ES>
+__device__ __forceinline__ int seg_offset(const void* src, size_t R, int row, int r0) {
+  return (int)((reinterpret_cast<uintptr_t>(src) + ((size_t)row * R + r0) * ES) & 15);
 }
 
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
   return __uint_as_float(bits << 16);
 }
 
-// All of a tile's blocks have taken a ticket before its last one returns
-// true; that one resets the ticket for the next launch.  Called by every
-// thread of the block.
-__device__ __forceinline__ bool take_ticket(int* ticket, int total, int* last) {
-  __threadfence();  // this block's partials are visible before its ticket
+// Each 32-column sub-tile of a decode tile has a ticket; a block takes
+// those of sub-tiles [q0, q0 + nq) at once, and last[q] tells whether it
+// was the sub-tile's last (every other block that writes into it has
+// taken its ticket), that block resetting the ticket for the next launch.
+// Called by every thread of the block.
+__device__ __forceinline__ void take_tickets(int* tickets, int q0, int nq, int total,
+                                             int* last) {
+  __threadfence();  // this block's partials are visible before its tickets
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < nq) {
+    int* ticket = tickets + q0 + threadIdx.x;
     const bool l = atomicAdd(ticket, 1) == total - 1;
     if (l) *ticket = 0;
-    *last = l;
+    last[threadIdx.x] = l;
   }
   __syncthreads();
-  const bool l = *last;
-  if (l) __threadfence();
-  return l;
+  __threadfence();
 }
 
-// The decode tile's last block: the int32 partials added (group-wise the f32
-// sum over the plane in ascending g, the plane reset to zero as it is read),
-// the epilogue, the LR term added, the tile written.  With one split the
-// GEMM block has already written its epilogue to `out`.
-template <bool GROUPED>
-__device__ void finish_decode(const Args& a, int tile_n, int tid) {
+// The last block of decode sub-tiles (32 columns each, every row; bit q of
+// `subs` for columns 32q.. of the tile), in one pass: the epilogue from the
+// splits' exact int32 partials (per-token their sum; group-wise the f32 sum
+// over the group plane in ascending g, the plane reset to zero as it is
+// read), the LR term added, the outputs written.  With one split the GEMM
+// block has already written its epilogue to `out`.
+__device__ void finish_decode(const Args& a, int tile_n, int subs, int tid) {
   constexpr int TH = Tile<true>::THREADS;
-  const int n0 = tile_n * BN, npad = a.tiles_n * BN, outs = a.M * BN;
-  if (GROUPED && a.ks > 1) {
-    int* plane = a.plane + (size_t)tile_n * a.G * outs;
-    constexpr int OUTS = 4, GC = 8;  // outputs a thread at once, groups a load round
-    for (int i0 = 0; i0 < outs; i0 += TH * OUTS) {
-      float gs[OUTS];
+  constexpr int QUADS = LR_COLS / 4;  // four consecutive columns a thread, one int4 load
+  const int npad = a.tiles_n * BN, outs = a.M * BN, sub = a.M * QUADS;
+  const int total = __popc(subs) * sub;
+  // quad i of the pass: its row and first column in the tile
+  auto pos = [&](int i, int& row, int& col) {
+    int q = 0;
+    for (int k = i / sub; ; ++q)
+      if ((subs >> q) & 1 && k-- == 0) break;
+    row = (i % sub) / QUADS;
+    col = q * LR_COLS + 4 * (i % QUADS);
+  };
+  // the four outputs from their f32 epilogue values: the LR term added
+  auto put = [&](int row, int col, const float (&o)[4]) {
+    const size_t at = (size_t)row * a.N + tile_n * BN + col;
 #pragma unroll
-      for (int j = 0; j < OUTS; ++j) gs[j] = 0.f;
-      for (int g0 = 0; g0 < a.G; g0 += GC) {
-        int p[OUTS][GC];
+    for (int j = 0; j < 4; ++j) {
+      const int n = tile_n * BN + col + j;
+      if (n < a.N)
+        a.out[at + j] = a.R > 0 ? __fadd_rn(o[j], __ldcg(a.lr + (size_t)row * npad + n)) : o[j];
+    }
+  };
+  if (a.ks == 1) {  // the GEMM block wrote its epilogue
+    for (int i = tid; i < total; i += TH) {
+      int row, col;
+      pos(i, row, col);
+      float o[4];
 #pragma unroll
-        for (int j = 0; j < OUTS; ++j) {
-          const int i = i0 + j * TH + tid;
-#pragma unroll
-          for (int q = 0; q < GC; ++q)
-            p[j][q] = (i < outs && g0 + q < a.G) ? __ldcg(plane + (size_t)(g0 + q) * outs + i) : 0;
-        }
-#pragma unroll
-        for (int j = 0; j < OUTS; ++j) {
-          const int i = i0 + j * TH + tid;
-          if (i >= outs) continue;
-          const float* srow = a.sx + (size_t)(i / BN) * a.G;
-#pragma unroll
-          for (int q = 0; q < GC; ++q) {
-            if (g0 + q < a.G) {
-              gs[j] = __fadd_rn(gs[j], __fmul_rn((float)p[j][q], __ldg(srow + g0 + q)));
-              plane[(size_t)(g0 + q) * outs + i] = 0;
-            }
-          }
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int n = tile_n * BN + col + j;
+        o[j] = n < a.N ? __ldcg(a.out + (size_t)row * a.N + n) : 0.f;
       }
-#pragma unroll
-      for (int j = 0; j < OUTS; ++j) {
-        const int i = i0 + j * TH + tid, row = i / BN, n = n0 + i % BN;
-        if (i >= outs || n >= a.N) continue;
-        float o = __fmul_rn(gs[j], __ldg(a.sw + n));
-        if (a.R > 0) o = __fadd_rn(o, __ldcg(a.lr + (size_t)row * npad + n));
-        a.out[(size_t)row * a.N + n] = o;
-      }
+      put(row, col, o);
     }
     return;
   }
-  for (int i = tid; i < outs; i += TH) {
-    const int row = i / BN, n = n0 + i % BN;
-    if (n >= a.N) continue;
-    float o;
-    if (a.ks > 1) {  // per-token: integer sums, exact in any order
-      const int* part = a.part + (size_t)tile_n * a.ks * outs + i;
-      int s = 0;
-      for (int z = 0; z < a.ks; ++z) s += __ldcg(part + (size_t)z * outs);
-      o = __fmul_rn(__fmul_rn((float)s, __ldg(a.sx + row)), __ldg(a.sw + n));
-    } else {
-      o = __ldcg(a.out + (size_t)row * a.N + n);
+  if (a.group == 0) {  // per-token: integer sums of the splits, exact in any order
+    const int* part = a.part + (size_t)tile_n * a.ks * outs;
+    for (int i = tid; i < total; i += TH) {
+      int row, col;
+      pos(i, row, col);
+      int4 s = make_int4(0, 0, 0, 0);
+#pragma unroll 8
+      for (int z = 0; z < a.ks; ++z) {
+        const int4 v = __ldcg(reinterpret_cast<const int4*>(part + (size_t)z * outs + row * BN + col));
+        s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+      }
+      const int sv[4] = {s.x, s.y, s.z, s.w};
+      const float sxr = __ldg(a.sx + row);
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = tile_n * BN + col + j;
+        o[j] = n < a.N ? __fmul_rn(__fmul_rn((float)sv[j], sxr), __ldg(a.sw + n)) : 0.f;
+      }
+      put(row, col, o);
     }
-    if (a.R > 0) o = __fadd_rn(o, __ldcg(a.lr + (size_t)row * npad + n));
-    a.out[(size_t)row * a.N + n] = o;
+    return;
+  }
+  int* plane = a.plane + (size_t)tile_n * a.G * outs;
+  constexpr int QS = 2, GC = 8;  // quads a thread at once, groups a load round
+  for (int i0 = 0; i0 < total; i0 += TH * QS) {
+    float gs[QS][4];
+    int at[QS];  // plane offsets of the quads
+#pragma unroll
+    for (int j = 0; j < QS; ++j) {
+      const int i = i0 + j * TH + tid;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gs[j][e] = 0.f;
+      at[j] = -1;
+      if (i < total) {
+        int row, col;
+        pos(i, row, col);
+        at[j] = row * BN + col;
+      }
+    }
+    for (int g0 = 0; g0 < a.G; g0 += GC) {
+      int4 p[QS][GC];
+#pragma unroll
+      for (int j = 0; j < QS; ++j)
+#pragma unroll
+        for (int q = 0; q < GC; ++q)
+          p[j][q] = (at[j] >= 0 && g0 + q < a.G)
+              ? __ldcg(reinterpret_cast<const int4*>(plane + (size_t)(g0 + q) * outs + at[j]))
+              : make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int j = 0; j < QS; ++j) {
+        if (at[j] < 0) continue;
+        const float* srow = a.sx + (size_t)(at[j] / BN) * a.G;
+#pragma unroll
+        for (int q = 0; q < GC; ++q) {
+          if (g0 + q < a.G) {
+            const float sg = __ldg(srow + g0 + q);
+            const int pv[4] = {p[j][q].x, p[j][q].y, p[j][q].z, p[j][q].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) gs[j][e] = __fadd_rn(gs[j][e], __fmul_rn((float)pv[e], sg));
+            *reinterpret_cast<int4*>(plane + (size_t)(g0 + q) * outs + at[j]) = make_int4(0, 0, 0, 0);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < QS; ++j) {
+      if (at[j] < 0) continue;
+      const int row = at[j] / BN, col = at[j] % BN;
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = tile_n * BN + col + e;
+        o[e] = n < a.N ? __fmul_rn(gs[j][e], __ldg(a.sw + n)) : 0.f;
+      }
+      put(row, col, o);
+    }
+  }
+}
+
+// NACT chains of one column, ranks [rb, re): lr[i] = fmaf(x_i[r], u[r],
+// lr[i]) in ascending r, eight ranks' operands loaded ahead of their FMAs.
+template <int NACT, int ES>
+__device__ __forceinline__ void lr_chain(const unsigned char* ur, const float* const (&xr)[4],
+                                         int rb, int re, float (&lr)[4]) {
+  auto u_at = [&](int r) {
+    return ES == 2 ? bf16_bits_to_float(reinterpret_cast<const unsigned short*>(ur)[r])
+                   : reinterpret_cast<const float*>(ur)[r];
+  };
+  int r = rb;
+  for (; r + 8 <= re; r += 8) {
+    float uv[8], xv[NACT][8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      uv[q] = u_at(r + q);
+#pragma unroll
+      for (int i = 0; i < NACT; ++i) xv[i][q] = xr[i][r + q];
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int i = 0; i < NACT; ++i) lr[i] = fmaf(xv[i][q], uv[q], lr[i]);
+  }
+  for (; r < re; ++r) {
+    const float uv = u_at(r);
+#pragma unroll
+    for (int i = 0; i < NACT; ++i) lr[i] = fmaf(xr[i][r], uv, lr[i]);
   }
 }
 
 // A decode LR block: columns n0..n0+31 of tile `tile_n`, every row, the
-// chains lr = fmaf(xv[m][r], U[n][r], lr) over r ascending from 0.f.
-// Thread (rg, c) owns column n0 + c and rows rg, rg + 4, rg + 8, rg + 12.
+// chains lr = fmaf(xv[m][r], U[n][r], lr) over r ascending from 0.f.  Thread
+// (rg, c) owns column n0 + c and rows rg, rg + 4, rg + 8, rg + 12 below M.
+// A rank chunk of U and xv is copied in LR_PARTS commit groups of ascending
+// ranks, and the chains run on each as soon as it has landed.
 template <int ES>
-__device__ void lr_decode(const Args& a, int n0, unsigned char* smem, int tid) {
-  constexpr int TH = Tile<true>::THREADS, NMAX = Tile<true>::NMAX;
-  constexpr int RCH = ES == 2 ? LR_RANKS_D : LR_RANKS_D / 2;  // ranks per chunk
-  constexpr int USTR = RCH + (ES == 2 ? 2 : 1);  // padded row stride: no bank conflicts
+__device__ __forceinline__ void lr_decode(const Args& a, int n0, unsigned char* smem, int tid) {
+  constexpr int TH = Tile<true>::THREADS;
+  constexpr int RCH = LR_BYTES_D / ES;  // ranks per chunk
+  constexpr int SU = seg_bytes(RCH, ES), SX = seg_bytes(RCH, 4);
   const int cv = min(LR_COLS, a.N - n0);
   if (cv <= 0) return;
-  float* xs = reinterpret_cast<float*>(smem + LR_COLS * (LR_RANKS_D + 2) * 2);  // [16][RCH]
+  unsigned char* us = smem;                 // [LR_COLS][SU]
+  unsigned char* xs = smem + LR_COLS * SU;  // [16][SX]
   const int c = tid % LR_COLS, rg = tid / LR_COLS;
+  const int nact = c < cv && rg < a.M ? (a.M - rg + 3) / 4 : 0;  // warp-uniform but past cv
   float lr[4] = {0.f, 0.f, 0.f, 0.f};
   for (int r0 = 0; r0 < a.R; r0 += RCH) {
     const int rn = min(RCH, a.R - r0);
     __syncthreads();  // the previous chunk is consumed
-    stage_segments<TH, NMAX, ES>(a.u, a.R, n0, LR_COLS, cv, r0, rn, tid,
-                                 [&](int i, int r, uint32_t bits) {
-                                   if (ES == 2)
-                                     reinterpret_cast<unsigned short*>(smem)[i * USTR + r] =
-                                         (unsigned short)bits;
-                                   else
-                                     reinterpret_cast<uint32_t*>(smem)[i * USTR + r] = bits;
-                                 });
-    stage_segments<TH, NMAX, 4>(a.xv, a.R, 0, a.M, a.M, r0, rn, tid,
-                                [&](int i, int r, uint32_t bits) {
-                                  xs[i * RCH + r] = __uint_as_float(bits);
-                                });
-    __syncthreads();
-    if (c < cv) {
-#pragma unroll 4
-      for (int rr = 0; rr < rn; ++rr) {
-        const float uv = ES == 2
-            ? bf16_bits_to_float(reinterpret_cast<const unsigned short*>(smem)[c * USTR + rr])
-            : reinterpret_cast<const float*>(smem)[c * USTR + rr];
+    for (int p = 0, ju = 0, jx = 0; p < LR_PARTS; ++p) {
+      // words enough for ranks below rn·(p + 1)/LR_PARTS of every row
+      const int re = rn * (p + 1) / LR_PARTS;
+      const int ju1 = seg_words(re, ES), jx1 = seg_words(re, 4);
+      copy_segments<TH, ES>(us, SU, a.u, a.R, n0, cv, r0, rn, tid, ju, ju1);
+      copy_segments<TH, 4>(xs, SX, a.xv, a.R, 0, a.M, r0, rn, tid, jx, jx1);
+      cp_async_commit();
+      ju = ju1;
+      jx = jx1;
+    }
+    const unsigned char* ur = us + c * SU + (c < cv ? seg_offset<ES>(a.u, a.R, n0 + c, r0) : 0);
+    const float* xr[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int m = rg + 4 * i;
-          if (m < a.M) lr[i] = fmaf(xs[m * RCH + rr], uv, lr[i]);
-        }
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int m = min(rg + 4 * i, a.M - 1);
+      xr[i] = reinterpret_cast<const float*>(xs + m * SX + seg_offset<4>(a.xv, a.R, m, r0));
+    }
+    for (int p = 0, rb = 0; p < LR_PARTS; ++p) {
+      if (p == 0) cp_async_wait<LR_PARTS - 1>();
+      else if (p == 1) cp_async_wait<LR_PARTS - 2>();
+      else if (p == 2) cp_async_wait<LR_PARTS - 3>();
+      else cp_async_wait<0>();
+      __syncthreads();  // every thread's copies of parts 0..p have landed
+      const int re = rn * (p + 1) / LR_PARTS;
+      if (nact == 1) lr_chain<1, ES>(ur, xr, rb, re, lr);
+      else if (nact == 2) lr_chain<2, ES>(ur, xr, rb, re, lr);
+      else if (nact == 3) lr_chain<3, ES>(ur, xr, rb, re, lr);
+      else if (nact == 4) lr_chain<4, ES>(ur, xr, rb, re, lr);
+      rb = re;
     }
   }
   if (c < cv) {
@@ -441,16 +522,21 @@ __device__ void lr_decode(const Args& a, int n0, unsigned char* smem, int tid) {
   }
 }
 
-// The large tile's LR term added to its outputs o (the fragment layout of
-// the accumulators): U and xv staged LR_RANKS_L ranks at a time as f32,
-// transposed ([rank][column], [rank][row]).
+// The large tile's LR term added to its outputs, which this thread has
+// already written to `out` (so that they are not live here): U and xv
+// copied LR_RANKS_L ranks at a time as they lie in memory, then transposed
+// to f32 ([rank][column], [rank][row]); the next chunk's copies overlap the
+// FMAs.  Thread (g, t) runs the 64 chains of its fragment's outputs.
 template <int ES>
-__device__ __forceinline__ void lr_large(const Args& a, float (&o)[4][4][4], int m0, int n0,
-                                         int mv, int nv, int warp_m0, int warp_n0, int g,
-                                         int t, unsigned char* smem, int tid) {
+__device__ __forceinline__ void lr_large(const Args& a, int m0, int n0, int mv, int nv,
+                                         int warp_m0, int warp_n0, int g, int t,
+                                         unsigned char* smem, int tid) {
   using T = Tile<false>;
-  float* us = reinterpret_cast<float*>(smem);  // [LR_RANKS_L][BN]
-  float* xs = us + LR_RANKS_L * BN;           // [LR_RANKS_L][BM]
+  constexpr int RCH = LR_RANKS_L, SU = seg_bytes(RCH, 4), SX = seg_bytes(RCH, 4);
+  unsigned char* ru = smem;                                        // [BN][SU]
+  unsigned char* rx = ru + BN * SU;                                // [BM][SX]
+  float* ut = reinterpret_cast<float*>(rx + T::BM * SX);           // [RCH][BN]
+  float* xt = ut + RCH * BN;                                       // [RCH][BM]
   float lr[4][4][4];
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
@@ -458,25 +544,40 @@ __device__ __forceinline__ void lr_large(const Args& a, float (&o)[4][4][4], int
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) lr[mi][j][e] = 0.f;
-  for (int r0 = 0; r0 < a.R; r0 += LR_RANKS_L) {
-    const int rn = min(LR_RANKS_L, a.R - r0);
-    __syncthreads();  // the ring, then the previous chunk, are consumed
-    stage_segments<T::THREADS, T::NMAX, ES>(
-        a.u, a.R, n0, BN, nv, r0, rn, tid, [&](int i, int r, uint32_t bits) {
-          us[r * BN + i] = ES == 2 ? bf16_bits_to_float(bits) : __uint_as_float(bits);
-        });
-    stage_segments<T::THREADS, T::NMAX, 4>(
-        a.xv, a.R, m0, T::BM, mv, r0, rn, tid,
-        [&](int i, int r, uint32_t bits) { xs[r * T::BM + i] = __uint_as_float(bits); });
-    __syncthreads();
+  auto copy = [&](int r0) {
+    const int rn = min(RCH, a.R - r0);
+    copy_segments<T::THREADS, ES>(ru, SU, a.u, a.R, n0, nv, r0, rn, tid);
+    copy_segments<T::THREADS, 4>(rx, SX, a.xv, a.R, m0, mv, r0, rn, tid);
+    cp_async_commit();
+  };
+  __syncthreads();  // every warp is done with the ring
+  copy(0);
+  // this thread's column and row of the transposes (BN = BM = 128, 256 threads)
+  const int tc = tid % BN, tr0 = tid / BN;
+  for (int r0 = 0; r0 < a.R; r0 += RCH) {
+    const int rn = min(RCH, a.R - r0);
+    cp_async_wait<0>();
+    __syncthreads();  // the chunk has landed; the previous one's FMAs are done
+    {
+      const unsigned char* uc = ru + tc * SU + (tc < nv ? seg_offset<ES>(a.u, a.R, n0 + tc, r0) : 0);
+      const unsigned char* xc = rx + tc * SX + (tc < mv ? seg_offset<4>(a.xv, a.R, m0 + tc, r0) : 0);
+      for (int r = tr0; r < rn; r += T::THREADS / BN) {
+        ut[r * BN + tc] = tc >= nv ? 0.f
+            : ES == 2 ? bf16_bits_to_float(reinterpret_cast<const unsigned short*>(uc)[r])
+                      : reinterpret_cast<const float*>(uc)[r];
+        xt[r * T::BM + tc] = tc < mv ? reinterpret_cast<const float*>(xc)[r] : 0.f;
+      }
+    }
+    __syncthreads();  // the copies are free again
+    if (r0 + RCH < a.R) copy(r0 + RCH);
     for (int rr = 0; rr < rn; ++rr) {
-      const float4 ua = *reinterpret_cast<const float4*>(us + rr * BN + warp_n0 + 8 * t);
-      const float4 ub = *reinterpret_cast<const float4*>(us + rr * BN + warp_n0 + 8 * t + 4);
+      const float4 ua = *reinterpret_cast<const float4*>(ut + rr * BN + warp_n0 + 8 * t);
+      const float4 ub = *reinterpret_cast<const float4*>(ut + rr * BN + warp_n0 + 8 * t + 4);
       const float uu[2][4] = {{ua.x, ua.y, ua.z, ua.w}, {ub.x, ub.y, ub.z, ub.w}};
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi) {
-        const float x0 = xs[rr * T::BM + warp_m0 + 16 * mi + g];
-        const float x1 = xs[rr * T::BM + warp_m0 + 16 * mi + g + 8];
+        const float x0 = xt[rr * T::BM + warp_m0 + 16 * mi + g];
+        const float x1 = xt[rr * T::BM + warp_m0 + 16 * mi + g + 8];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           lr[mi][j][0] = fmaf(x0, uu[0][j], lr[mi][j][0]);
@@ -487,21 +588,40 @@ __device__ __forceinline__ void lr_large(const Args& a, float (&o)[4][4][4], int
       }
     }
   }
+  // out = __fadd_rn(o, lr), o read back from this thread's own stores
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int h = 0; h < 2; ++h) {
+      const int row = warp_m0 + 16 * mi + g + 8 * h;
+      if (row >= mv) continue;
+      float* orow = a.out + (size_t)(m0 + row) * a.N + n0;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[mi][j][e] = __fadd_rn(o[mi][j][e], lr[mi][j][e]);
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int c = warp_n0 + 8 * t + 4 * e1;
+        if (a.vec_out && c + 4 <= nv) {
+          float4 v = *reinterpret_cast<const float4*>(orow + c);
+          v.x = __fadd_rn(v.x, lr[mi][0][2 * h + e1]);
+          v.y = __fadd_rn(v.y, lr[mi][1][2 * h + e1]);
+          v.z = __fadd_rn(v.z, lr[mi][2][2 * h + e1]);
+          v.w = __fadd_rn(v.w, lr[mi][3][2 * h + e1]);
+          *reinterpret_cast<float4*>(orow + c) = v;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (c + j < nv) orow[c + j] = __fadd_rn(orow[c + j], lr[mi][j][2 * h + e1]);
+        }
+      }
+    }
 }
 
 template <bool DECODE, bool GROUPED>
-__global__ void __launch_bounds__(Tile<DECODE>::THREADS, DECODE ? 4 : 1)
+__global__ void __launch_bounds__(Tile<DECODE>::THREADS, DECODE ? 4 : (GROUPED ? 1 : 2))
 w4a4_lowrank_matmul_kernel(const Args a) {
   using T = Tile<DECODE>;
   constexpr int WM = T::WM;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int last;
+  __shared__ int last[LR_BLOCKS];
   const int tid = threadIdx.x;
 
   int tile_n, tile_m = 0, z = 0;
@@ -512,8 +632,8 @@ w4a4_lowrank_matmul_kernel(const Args a) {
       const int n0 = tile_n * BN + (b % LR_BLOCKS) * LR_COLS;
       if (a.u_bf16) lr_decode<2>(a, n0, smem, tid);
       else lr_decode<4>(a, n0, smem, tid);
-      if (take_ticket(a.tickets + tile_n, a.ticket_total, &last))
-        finish_decode<GROUPED>(a, tile_n, tid);
+      take_tickets(a.tickets, b, 1, a.ticket_total, last);
+      if (last[0]) finish_decode(a, tile_n, 1 << (b % LR_BLOCKS), tid);
       return;
     }
     b -= a.lr_blocks;
@@ -547,6 +667,17 @@ w4a4_lowrank_matmul_kernel(const Args a) {
   auto row_of = [&](int mi, int h) { return warp_m0 + 16 * mi + g + 8 * h; };
   auto col_of = [&](int h, int j) { return warp_n0 + 8 * t + 4 * h + j; };
 
+  // a split's exact int32 partials of group g added into the tile's group
+  // plane (decode, K split): integer sums, any order
+  auto add_to_plane = [&](const int (&am)[4][4], int h, int g) {
+    int* dst = a.plane + ((size_t)(tile_n * a.G + g) * a.M + row_of(0, h)) * BN;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1)
+        if (am[j][2 * h + e1]) atomicAdd(dst + col_of(e1, j), am[j][2 * h + e1]);
+  };
+
   int gcur = GROUPED ? kb / a.group : 0, gend = (gcur + 1) * a.group;
   // the current group ends: its exact partial into the f32 sum (one split)
   // or into the plane (decode, K split)
@@ -557,14 +688,7 @@ w4a4_lowrank_matmul_kernel(const Args a) {
       for (int h = 0; h < 2; ++h) {
         const int row = row_of(mi, h);
         if (DECODE && a.ks > 1) {
-          if (row < mv) {
-            int* dst = a.plane + ((size_t)(tile_n * a.G + gcur) * a.M + row) * BN;
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int e1 = 0; e1 < 2; ++e1)
-                if (acc[mi][j][2 * h + e1]) atomicAdd(dst + col_of(e1, j), acc[mi][j][2 * h + e1]);
-          }
+          if (row < mv) add_to_plane(acc[mi], h, gcur);
         } else {
           const float s = row < mv ? __ldg(a.sx + (size_t)(m0 + row) * a.G + gcur) : 0.f;
 #pragma unroll
@@ -725,17 +849,21 @@ w4a4_lowrank_matmul_kernel(const Args a) {
       store(o);
     }
     if (a.ks > 1 || a.R > 0) {
-      if (take_ticket(a.tickets + tile_n, a.ticket_total, &last))
-        finish_decode<GROUPED>(a, tile_n, tid);
+      take_tickets(a.tickets, tile_n * LR_BLOCKS, LR_BLOCKS, a.ticket_total, last);
+      int subs = 0;
+      for (int q = 0; q < LR_BLOCKS; ++q) subs |= last[q] << q;
+      if (subs) finish_decode(a, tile_n, subs, tid);
     }
   } else {
-    float o[WM][4][4];
-    epilogue(o);
-    if (a.R > 0) {
-      if (a.u_bf16) lr_large<2>(a, o, m0, n0, mv, nv, warp_m0, warp_n0, g, t, smem, tid);
-      else lr_large<4>(a, o, m0, n0, mv, nv, warp_m0, warp_n0, g, t, smem, tid);
+    {
+      float o[WM][4][4];
+      epilogue(o);
+      store(o);
     }
-    store(o);
+    if (a.R > 0) {
+      if (a.u_bf16) lr_large<2>(a, m0, n0, mv, nv, warp_m0, warp_n0, g, t, smem, tid);
+      else lr_large<4>(a, m0, n0, mv, nv, warp_m0, warp_n0, g, t, smem, tid);
+    }
   }
 }
 
@@ -774,10 +902,11 @@ Plan plan_of(int M, int K, int N, int group, int sms) {
   p.smem = p.decode ? Tile<true>::SMEM : Tile<false>::SMEM;
   p.zeroed = p.scratch = 0;
   if (p.decode) {
-    // zeroed: tickets (a multiple of four), the group plane [tiles][G][M][BN]
-    // where K is split; scratch: the partials [tiles][ks][M][BN] where K is
-    // split, then the LR terms [M][tiles · BN]
-    const size_t tiles = p.tiles_n, tick = (tiles + 3) / 4 * 4;
+    // zeroed: a ticket per 32-column sub-tile, then group-wise where K is
+    // split the group plane [tiles][K/g][M][BN]; scratch: the per-token
+    // partials [tiles][ks][M][BN] where K is split, then the LR terms
+    // [M][tiles · BN]
+    const size_t tiles = p.tiles_n, tick = tiles * LR_BLOCKS;
     const size_t plane = group > 0 && p.ks > 1 ? tiles * (K / group) * M * BN : 0;
     const size_t part = group == 0 && p.ks > 1 ? tiles * p.ks * M * BN : 0;
     p.zeroed = 4 * (tick + plane);
@@ -839,7 +968,7 @@ int w4a4_lowrank_matmul(const void* xq, const void* sx, const void* w, const voi
   a.u = u;
   a.out = static_cast<float*>(out);
   a.tickets = static_cast<int*>(zeroed);
-  a.plane = a.tickets ? a.tickets + ((size_t)p.tiles_n + 3) / 4 * 4 : nullptr;
+  a.plane = a.tickets ? a.tickets + (size_t)p.tiles_n * LR_BLOCKS : nullptr;
   a.part = static_cast<int*>(scratch);
   const size_t part = group == 0 && p.ks > 1 ? (size_t)p.tiles_n * p.ks * M * BN : 0;
   a.lr = a.part ? reinterpret_cast<float*>(a.part + part) : nullptr;
@@ -847,7 +976,7 @@ int w4a4_lowrank_matmul(const void* xq, const void* sx, const void* w, const voi
   a.u_bf16 = u_bf16;
   a.tiles_n = p.tiles_n, a.nst = p.nst, a.sps = p.sps, a.ks = p.ks;
   a.lr_blocks = p.decode && R > 0 ? p.tiles_n * LR_BLOCKS : 0;
-  a.ticket_total = p.ks + (R > 0 ? LR_BLOCKS : 0);
+  a.ticket_total = p.ks + (R > 0 ? 1 : 0);  // the splits, and the sub-tile's LR block
   // 16-byte copies need rows of whole 16-byte units
   a.vec_w = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   a.vec_x = K % 16 == 0 && reinterpret_cast<uintptr_t>(xq) % 16 == 0;

@@ -50,11 +50,21 @@ def reset_launches() -> None:
 # the source's plan constants: K codes a stage, columns a tile, the largest
 # M of the weight stream, decode LR blocks a tile, decode GEMM blocks an SM
 BK, BN, DECODE_M, LR_BLOCKS, WAVES = 64, 128, 16, 4, 3
+
+
+def _seg_bytes(n: int, es: int) -> int:
+    """Shared bytes of a copied row segment of n elements of es bytes."""
+    return 16 * ((n * es + 15) // 16 + 1)
+
+
 # (threads, dynamic shared bytes) of a block: decode (16 x 128 tile, 6
-# stages; the LR blocks' U and xv chunks), large (128 x 128, 4 stages; the
-# LR chunks of 64 ranks)
-DECODE_BLOCK = (128, max(6 * (BK // 2 * BN + 16 * BK), 32 * 322 * 2 + 16 * 320 * 4))
-LARGE_BLOCK = (256, max(4 * (BK // 2 * BN + 128 * BK), 64 * (BN + 128) * 4))
+# stages; the LR blocks' copies of 32 U rows and 16 xv rows, 640 bytes of U
+# a row), large (128 x 128, 4 stages; the copies of 128 U and xv rows of 32
+# ranks, then their f32 transposes)
+DECODE_BLOCK = (128, max(6 * (BK // 2 * BN + 16 * BK),
+                         32 * _seg_bytes(640, 1) + 16 * _seg_bytes(320, 4)))
+LARGE_BLOCK = (256, max(4 * (BK // 2 * BN + 128 * BK),
+                        (BN + 128) * _seg_bytes(32, 4) + 32 * (BN + 128) * 4))
 # SMs of an H100 SXM; the kernel reads the card's own count
 H100_SMS = 132
 
@@ -73,7 +83,7 @@ class GemmPlan(NamedTuple):
     threads: int
     smem_bytes: int
     zeroed_bytes: int     # tickets (+ the group plane): zero between launches
-    scratch_bytes: int    # int32 partials (+ the LR terms)
+    scratch_bytes: int    # per-token split partials (+ the LR terms)
     lr_blocks_per_tile: int
 
 
@@ -82,10 +92,11 @@ def gemm_plan(m: int, k: int, n: int, group: int = None, sms: int = H100_SMS) ->
     alone: M <= 16 streams W over about ``WAVES`` GEMM blocks an SM, K split
     in whole stages, with ``LR_BLOCKS`` LR blocks per 128-column tile; larger
     M takes 128 x 128 tiles over all of K.  Scratch at decode: ``zeroed``
-    holds a ticket per tile and, group-wise where K is split, the int32
-    group plane [tiles][K/g][M][BN]; ``scratch`` the per-token int32
-    partials [tiles][splits][M][BN] where K is split, then the LR terms
-    [M][tiles · BN] f32."""
+    holds a ticket per 32-column sub-tile and, group-wise where K is split,
+    the int32 group plane [tiles][K/g][M][BN], which the splits add into and
+    each sub-tile's last block reads and zeroes; ``scratch`` the per-token
+    int32 partials [tiles][splits][M][BN] where K is split, then the LR
+    terms [M][tiles · BN] f32."""
     decode = int(m <= DECODE_M)
     bm = 16 if decode else 128
     tiles_n, tiles_m = -(-n // BN), -(-m // bm)
@@ -101,7 +112,7 @@ def gemm_plan(m: int, k: int, n: int, group: int = None, sms: int = H100_SMS) ->
     if decode:
         plane = tiles_n * (k // group) * m * BN if group and splits > 1 else 0
         part = tiles_n * splits * m * BN if not group and splits > 1 else 0
-        zeroed = 4 * (-(-tiles_n // 4) * 4 + plane)
+        zeroed = 4 * (tiles_n * LR_BLOCKS + plane)
         scratch = 4 * (part + m * tiles_n * BN)
     return GemmPlan(decode, bm, tiles_n, tiles_m, stages, per, splits, threads, smem,
                     zeroed, scratch, LR_BLOCKS)
