@@ -134,11 +134,7 @@ def run_variant(lib, xq, sx, wp, sw, xv=None, u=None, group=None):
 ZMAJOR = [("    tile_n = b / a.ks;\n    z = b % a.ks;", "    tile_n = b % a.tiles_n;\n    z = b / a.tiles_n;")]
 VARIANTS = {
     "base": [],
-    "st3": [("static constexpr int STAGES = DECODE ? 6 : 4;", "static constexpr int STAGES = DECODE ? 3 : 4;")],
-    "st2": [("static constexpr int STAGES = DECODE ? 6 : 4;", "static constexpr int STAGES = DECODE ? 2 : 4;")],
-    "parts1": [("constexpr int LR_PARTS = 4;", "constexpr int LR_PARTS = 1;")],
-    "lrlast": [("    int b = blockIdx.x;\n    if (b < a.lr_blocks) {",
-                "    int b = blockIdx.x;\n    { const int gb = a.tiles_n * a.ks; b = b >= gb ? b - gb : b + a.lr_blocks; }\n    if (b < a.lr_blocks) {")],
+    "bk128": [("constexpr int BK = 64;", "constexpr int BK = 128;")],
 }
 
 TIMELINE = [
@@ -256,7 +252,8 @@ def variants_main(flush):
     rows = []
     shapes = [(4, 3072, 3072, None), (4, 3072, 8192, None), (4, 8192, 3072, None),
               (16, 8192, 3072, None), (16, 3072, 8192, None), (4, 8192, 3072, 128),
-              (16, 8192, 3072, 128), (16, 3072, 8192, 128)]
+              (16, 8192, 3072, 128), (2048, 4096, 11008, None), (256, 4096, 11008, None),
+              (2048, 8192, 28672, None)]
     for (m, k, n, g) in shapes:
         for r in ((0, 307) if g is None else (307,)):
             ops = operands(gen, m, k, n, r, "bf16", g, "cuda")

@@ -33,8 +33,8 @@
 // Design.  The integer product runs on the tensor cores, mma.sync m16n8k32
 // s32.s8.s8 with both operands 4-bit codes held as int8 in [-8, 7] (Hopper
 // lists no int4 tensor-core rate).  Packed W tiles and xq tiles stream
-// through a ring of shared-memory stages of BK = 64 codes by 16-byte
-// cp.async.  W stays packed there, half a byte a code; each thread expands
+// through a ring of shared-memory stages (64 codes of K at decode, 128 for
+// the large tile) by 16-byte cp.async.  W stays packed there, half a byte a code; each thread expands
 // its B fragments in registers: the 32-bit words of packed rows 4t..4t+3 at
 // columns c..c+3 (one load each) are interleaved by byte permutes into, per
 // column, the codes k = 8t..8t+7, and a borrow-free byte-wise (nib ^ 8) - 8
@@ -52,22 +52,27 @@
 //   mma tile with the rows past M zero: the same fragment code as the large
 //   tile, and at decode the tensor cores are far from the bound, where W in
 //   the 16-row operand slot would need a second fragment layout.  4 warps
-//   over 128 columns, 6 stages.  K is split across blocks (whole stages,
-//   about WAVES blocks an SM over the N tiles); each split writes its exact
-//   int32 partial tile, or group-wise adds its groups' int32 partials into a
-//   (tile, group, row, column) plane with integer atomics (a group may
-//   straddle two splits).  The LR term runs at the same time in blocks of
-//   its own (32 columns each, U and xv staged once per rank chunk by 16-byte
-//   loads) and writes its chains' results.  The tile's last block to take
-//   the ticket, whichever it is, adds the partials (the f32 group sum over
-//   the plane in ascending g), runs the epilogue, adds the LR term, and
-//   resets the ticket and the plane entries it read: no memset precedes a
-//   launch, one launch is the call's one device operation.
+//   over 128 columns, 3 stages of 64 codes.  K is split across blocks
+//   (whole stages, about WAVES blocks an SM over the N tiles); each split
+//   writes its exact int32 partial tile, or group-wise adds its groups'
+//   int32 partials into a (tile, group, row, column) plane with integer
+//   atomics (a group may straddle two splits).  The LR term runs at the
+//   same time in blocks of its own, one per 32 columns: each copies the
+//   16-byte words of its U rows' segments by cp.async in LR_PARTS groups of
+//   ascending ranks and runs its chains on each group as it lands (xv the
+//   same way), then writes the chains' results.  Each 32-column sub-tile
+//   has a ticket that its K-splits and its LR block take; the last of them,
+//   whichever it is, finishes every sub-tile it was last for in one pass
+//   (int4 loads of the partials, the f32 group sum over the plane in
+//   ascending g, the epilogue, the LR term added) and resets the tickets
+//   and the plane entries it read: no memset precedes a launch, one launch
+//   is the call's one device operation.
 // * M > 16: 128 x 128 tiles, 8 warps of 64 x 32 (four 16-row mma tiles by
-//   four n8 tiles), 4 stages, no K-split; the epilogue and then the LR term
-//   in the same block: U and xv staged 64 ranks at a time, transposed, each
-//   thread's 64 chains (its fragment's rows and columns) fed from registers,
-//   eight values of U and eight of xv a rank.
+//   four n8 tiles), 4 stages of 128 codes, no K-split; the epilogue is
+//   written out, then the LR term added in the same block: U and xv copied
+//   32 ranks at a time by cp.async (the next chunk's copies overlap the
+//   FMAs), transposed to f32, each thread's 64 chains (its fragment's rows
+//   and columns) fed eight values of U and eight of xv a rank.
 // Group-wise, a group's partial is the accumulator fragment after g/32
 // k-steps, flushed and zeroed at the group's end; a k-step that a group
 // boundary cuts (32 does not divide g) runs once per piece, with the A
@@ -84,8 +89,6 @@
 
 namespace {
 
-constexpr int BK = 64;                   // K codes per stage
-constexpr int BKP = BK / 2;              // packed W rows per stage
 constexpr int BN = 128;                  // output columns per tile
 constexpr int DECODE_M = 16;             // M up to this takes the weight stream
 constexpr int LR_COLS = 32;              // columns of one decode LR block
@@ -105,7 +108,9 @@ struct Tile {
   static constexpr int WM = DECODE ? 1 : 4;  // 16-row mma tiles per warp
   static constexpr int WARPS_M = DECODE ? 1 : 2;
   static constexpr int WARPS_N = 4;          // 32 columns each
-  static constexpr int STAGES = DECODE ? 6 : 4;
+  static constexpr int STAGES = DECODE ? 3 : 4;
+  static constexpr int BK = DECODE ? 64 : 128;  // K codes per stage
+  static constexpr int BKP = BK / 2;             // packed W rows per stage
   static constexpr int BM = 16 * WM * WARPS_M;
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   static constexpr int W_BYTES = BKP * BN;   // a stage of packed W
@@ -151,15 +156,9 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// the first n bytes (1..16) of the aligned 16-byte word at gmem, the rest zero
-__device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem, int n) {
+// the first n bytes (0..16) of the aligned 16-byte word at gmem into smem,
+// the rest of the 16 zero
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int n) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem), "r"(n)
                : "memory");
@@ -211,6 +210,7 @@ __device__ __forceinline__ uint32_t byte_mask(int b, int e) {
 // Byte offsets of 16-byte units in a stage: an xq row is 4 units (the unit
 // index XOR 2 on rows 2, 3 mod 4), a packed W row 8 units (XOR 2·((p / 4)
 // mod 4)), so that a warp's fragment reads fall on distinct banks.
+template <int BK>
 __device__ __forceinline__ int x_off(int row, int unit) {
   return row * BK + ((unit ^ (((row >> 1) & 1) << 1)) << 4);
 }
@@ -226,12 +226,13 @@ template <bool DECODE>
 __device__ __forceinline__ void load_stage(unsigned char* ws, unsigned char* xs, const Args& a,
                                            int st, int m0, int n0, int tid) {
   using T = Tile<DECODE>;
+  constexpr int BK = T::BK, BKP = T::BKP;
   const int kh = a.K >> 1, p0 = st * BKP, k0 = st * BK;
   if (a.vec_w) {
     for (int i = tid; i < BKP * (BN / 16); i += T::THREADS) {
       const int p = i / (BN / 16), c = i % (BN / 16), kp = p0 + p, n = n0 + 16 * c;
       const bool in = kp < kh && n < a.N;
-      cp_async16(ws + w_off(p, c), in ? a.w + (size_t)kp * a.N + n : a.w, in);
+      cp_async16(ws + w_off(p, c), in ? a.w + (size_t)kp * a.N + n : a.w, in ? 16 : 0);
     }
   } else {
     for (int i = tid; i < BKP * BN; i += T::THREADS) {
@@ -243,12 +244,12 @@ __device__ __forceinline__ void load_stage(unsigned char* ws, unsigned char* xs,
     for (int i = tid; i < T::BM * (BK / 16); i += T::THREADS) {
       const int r = i / (BK / 16), c = i % (BK / 16), m = m0 + r, k = k0 + 16 * c;
       const bool in = m < a.M && k < a.K;
-      cp_async16(xs + x_off(r, c), in ? a.xq + (size_t)m * a.K + k : a.xq, in);
+      cp_async16(xs + x_off<BK>(r, c), in ? a.xq + (size_t)m * a.K + k : a.xq, in ? 16 : 0);
     }
   } else {
     for (int i = tid; i < T::BM * BK; i += T::THREADS) {
       const int r = i / BK, c = i % BK, m = m0 + r, k = k0 + c;
-      xs[x_off(r, c >> 4) + (c & 15)] =
+      xs[x_off<BK>(r, c >> 4) + (c & 15)] =
           (m < a.M && k < a.K) ? static_cast<unsigned char>(a.xq[(size_t)m * a.K + k]) : 0;
     }
   }
@@ -273,8 +274,8 @@ __device__ __forceinline__ void copy_segments(unsigned char* dst, int stride, co
     const uintptr_t a0 = base + ((size_t)(row0 + i) * R + r0) * ES, a1 = a0 + (size_t)rn * ES;
     const uintptr_t w = (a0 & ~(uintptr_t)15) + 16 * (uintptr_t)j;
     if (w < a1)
-      cp_async16_n(dst + (size_t)i * stride + 16 * j, reinterpret_cast<const void*>(w),
-                   a1 - w < 16 ? (int)(a1 - w) : 16);
+      cp_async16(dst + (size_t)i * stride + 16 * j, reinterpret_cast<const void*>(w),
+                 a1 - w < 16 ? (int)(a1 - w) : 16);
   }
 }
 
@@ -619,7 +620,7 @@ template <bool DECODE, bool GROUPED>
 __global__ void __launch_bounds__(Tile<DECODE>::THREADS, DECODE ? 4 : (GROUPED ? 1 : 2))
 w4a4_lowrank_matmul_kernel(const Args a) {
   using T = Tile<DECODE>;
-  constexpr int WM = T::WM;
+  constexpr int WM = T::WM, BK = T::BK;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last[LR_BLOCKS];
   const int tid = threadIdx.x;
@@ -726,15 +727,15 @@ w4a4_lowrank_matmul_kernel(const Args a) {
     const unsigned char* xs = ws + T::W_BYTES;
     const int k0 = (sb + it) * BK;
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < BK / 32; ++s) {
       const int kk = k0 + 32 * s;
       if (kk >= ke) break;
       uint32_t af[WM][4];
 #pragma unroll
       for (int mi = 0; mi < WM; ++mi) {
         const int r = warp_m0 + 16 * mi + g, unit = 2 * s + (t >> 1), off = 8 * (t & 1);
-        const uint2 lo = *reinterpret_cast<const uint2*>(xs + x_off(r, unit) + off);
-        const uint2 hi = *reinterpret_cast<const uint2*>(xs + x_off(r + 8, unit) + off);
+        const uint2 lo = *reinterpret_cast<const uint2*>(xs + x_off<BK>(r, unit) + off);
+        const uint2 hi = *reinterpret_cast<const uint2*>(xs + x_off<BK>(r + 8, unit) + off);
         af[mi][0] = lo.x;
         af[mi][1] = hi.x;
         af[mi][2] = lo.y;
@@ -890,7 +891,8 @@ Plan plan_of(int M, int K, int N, int group, int sms) {
   p.bm = p.decode ? Tile<true>::BM : Tile<false>::BM;
   p.tiles_n = (N + BN - 1) / BN;
   p.tiles_m = (M + p.bm - 1) / p.bm;
-  p.nst = (K + BK - 1) / BK;
+  const int bk = p.decode ? Tile<true>::BK : Tile<false>::BK;
+  p.nst = (K + bk - 1) / bk;
   p.sps = p.nst;
   if (p.decode) {  // about WAVES GEMM blocks an SM, each split whole stages
     const int want = (WAVES * sms + p.tiles_n - 1) / p.tiles_n;

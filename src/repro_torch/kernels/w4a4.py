@@ -47,9 +47,10 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-# the source's plan constants: K codes a stage, columns a tile, the largest
-# M of the weight stream, decode LR blocks a tile, decode GEMM blocks an SM
-BK, BN, DECODE_M, LR_BLOCKS, WAVES = 64, 128, 16, 4, 3
+# the source's plan constants: K codes a stage (decode, large tile), columns
+# a tile, the largest M of the weight stream, decode LR blocks a tile,
+# decode GEMM blocks an SM
+DECODE_BK, LARGE_BK, BN, DECODE_M, LR_BLOCKS, WAVES = 64, 128, 128, 16, 4, 3
 
 
 def _seg_bytes(n: int, es: int) -> int:
@@ -57,13 +58,13 @@ def _seg_bytes(n: int, es: int) -> int:
     return 16 * ((n * es + 15) // 16 + 1)
 
 
-# (threads, dynamic shared bytes) of a block: decode (16 x 128 tile, 6
+# (threads, dynamic shared bytes) of a block: decode (16 x 128 tile, 3
 # stages; the LR blocks' copies of 32 U rows and 16 xv rows, 640 bytes of U
-# a row), large (128 x 128, 4 stages; the copies of 128 U and xv rows of 32
-# ranks, then their f32 transposes)
-DECODE_BLOCK = (128, max(6 * (BK // 2 * BN + 16 * BK),
+# a row), large (128 x 128, 4 stages; after them, in the same memory, the
+# copies of 128 U and xv rows of 32 ranks and their f32 transposes)
+DECODE_BLOCK = (128, max(3 * (DECODE_BK // 2 * BN + 16 * DECODE_BK),
                          32 * _seg_bytes(640, 1) + 16 * _seg_bytes(320, 4)))
-LARGE_BLOCK = (256, max(4 * (BK // 2 * BN + 128 * BK),
+LARGE_BLOCK = (256, max(4 * (LARGE_BK // 2 * BN + 128 * LARGE_BK),
                         (BN + 128) * _seg_bytes(32, 4) + 32 * (BN + 128) * 4))
 # SMs of an H100 SXM; the kernel reads the card's own count
 H100_SMS = 132
@@ -77,7 +78,7 @@ class GemmPlan(NamedTuple):
     bm: int               # rows of a tile
     tiles_n: int
     tiles_m: int
-    stages: int           # K stages of BK codes
+    stages: int           # K stages of DECODE_BK or LARGE_BK codes
     stages_per_split: int
     splits: int           # K-splits (decode only; 1 for large M)
     threads: int
@@ -100,7 +101,7 @@ def gemm_plan(m: int, k: int, n: int, group: int = None, sms: int = H100_SMS) ->
     decode = int(m <= DECODE_M)
     bm = 16 if decode else 128
     tiles_n, tiles_m = -(-n // BN), -(-m // bm)
-    stages = -(-k // BK)
+    stages = -(-k // (DECODE_BK if decode else LARGE_BK))
     per = stages
     if decode:
         want = -(-(WAVES * sms) // tiles_n)

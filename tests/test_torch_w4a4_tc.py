@@ -245,7 +245,7 @@ def test_gemm_plan_covers_its_splits(m):
             assert p.decode == (m <= w4a4.DECODE_M)
             assert p.tiles_n * w4a4.BN >= n > (p.tiles_n - 1) * w4a4.BN
             assert p.tiles_m * p.bm >= m > (p.tiles_m - 1) * p.bm
-            assert p.stages == -(-k // w4a4.BK)
+            assert p.stages == -(-k // (w4a4.DECODE_BK if p.decode else w4a4.LARGE_BK))
             assert (p.splits - 1) * p.stages_per_split < p.stages <= p.splits * p.stages_per_split
             if not p.decode:
                 assert p.splits == 1 and p.zeroed_bytes == p.scratch_bytes == 0
