@@ -668,17 +668,6 @@ w4a4_lowrank_matmul_kernel(const Args a) {
   auto row_of = [&](int mi, int h) { return warp_m0 + 16 * mi + g + 8 * h; };
   auto col_of = [&](int h, int j) { return warp_n0 + 8 * t + 4 * h + j; };
 
-  // a split's exact int32 partials of group g added into the tile's group
-  // plane (decode, K split): integer sums, any order
-  auto add_to_plane = [&](const int (&am)[4][4], int h, int g) {
-    int* dst = a.plane + ((size_t)(tile_n * a.G + g) * a.M + row_of(0, h)) * BN;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e1 = 0; e1 < 2; ++e1)
-        if (am[j][2 * h + e1]) atomicAdd(dst + col_of(e1, j), am[j][2 * h + e1]);
-  };
-
   int gcur = GROUPED ? kb / a.group : 0, gend = (gcur + 1) * a.group;
   // the current group ends: its exact partial into the f32 sum (one split)
   // or into the plane (decode, K split)
@@ -688,8 +677,15 @@ w4a4_lowrank_matmul_kernel(const Args a) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row_of(mi, h);
-        if (DECODE && a.ks > 1) {
-          if (row < mv) add_to_plane(acc[mi], h, gcur);
+        if (DECODE && a.ks > 1) {  // integer sums into the plane, any order
+          if (row < mv) {
+            int* dst = a.plane + ((size_t)(tile_n * a.G + gcur) * a.M + row) * BN;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e1 = 0; e1 < 2; ++e1)
+                if (acc[mi][j][2 * h + e1]) atomicAdd(dst + col_of(e1, j), acc[mi][j][2 * h + e1]);
+          }
         } else {
           const float s = row < mv ? __ldg(a.sx + (size_t)(m0 + row) * a.G + gcur) : 0.f;
 #pragma unroll
