@@ -34,17 +34,18 @@
 // s32.s8.s8 with both operands 4-bit codes held as int8 in [-8, 7] (Hopper
 // lists no int4 tensor-core rate).  Packed W tiles and xq tiles stream
 // through a ring of shared-memory stages (64 codes of K at decode, 128 for
-// the large tile) by 16-byte cp.async.  W stays packed there, half a byte a code; each thread expands
-// its B fragments in registers: the 32-bit words of packed rows 4t..4t+3 at
-// columns c..c+3 (one load each) are interleaved by byte permutes into, per
-// column, the codes k = 8t..8t+7, and a borrow-free byte-wise (nib ^ 8) - 8
-// sign-extends them.  The mma's k positions 4t..4t+3 and 16+4t..16+4t+3 then
-// hold the codes 8t..8t+3 and 8t+4..8t+7: one permutation of k inside a
-// k-step, the same for A, where it is one 8-byte load of a row (exact int32
-// sums do not care).  Thread (g, t)'s four n8 tiles hold columns c + j with
-// c = the warp's first + 4g, so its outputs are the eight consecutive
-// columns the warp's first + 8t .. + 8t + 7.  Both stages are XOR-swizzled
-// in 16-byte units so that those reads meet no bank conflict.
+// the large tile) by 16-byte cp.async.  W stays packed there, half a byte
+// a code; each thread expands its B fragments in registers: the 32-bit
+// words of packed rows 4t..4t+3 at columns c..c+3 (one load each) are
+// interleaved by byte permutes into, per column, the codes k = 8t..8t+7,
+// and a borrow-free byte-wise (nib ^ 8) - 8 sign-extends them.  The mma's
+// k positions 4t..4t+3 and 16+4t..16+4t+3 then hold the codes 8t..8t+3
+// and 8t+4..8t+7: one permutation of k inside a k-step, the same for A,
+// where it is one 8-byte load of a row (exact int32 sums do not care).
+// Thread (g, t)'s four n8 tiles hold columns c + j with c = the warp's
+// first + 4g, so its outputs are the eight consecutive columns the warp's
+// first + 8t .. + 8t + 7.  Both stages are XOR-swizzled in 16-byte units
+// so that those reads meet no bank conflict.
 //
 // Two tile regimes, chosen from shapes alone (w4a4.gemm_plan mirrors the
 // plan):
@@ -207,9 +208,10 @@ __device__ __forceinline__ uint32_t byte_mask(int b, int e) {
   return hi & ~((1u << (8 * b)) - 1u);
 }
 
-// Byte offsets of 16-byte units in a stage: an xq row is 4 units (the unit
-// index XOR 2 on rows 2, 3 mod 4), a packed W row 8 units (XOR 2·((p / 4)
-// mod 4)), so that a warp's fragment reads fall on distinct banks.
+// Byte offsets of 16-byte units in a stage: an xq row is BK / 16 units (the
+// unit index XOR 2 on rows 2, 3 mod 4), a packed W row 8 units (XOR
+// 2·((p / 4) mod 4)), so that a warp's fragment reads fall on distinct
+// banks.
 template <int BK>
 __device__ __forceinline__ int x_off(int row, int unit) {
   return row * BK + ((unit ^ (((row >> 1) & 1) << 1)) << 4);
@@ -259,7 +261,7 @@ __device__ __forceinline__ void load_stage(unsigned char* ws, unsigned char* xs,
 // (., R) array of ES-byte elements (bf16 or f32) into shared memory as they
 // lie in device memory, by cp.async: row i's segment as the 16-byte words
 // aligned in memory that it touches, at dst + i · stride (stride >=
-// seg_bytes(rn, ES)), so that its element r sits at seg_elem(...) below.
+// seg_bytes(rn, ES)), its element r then seg_offset(...) + r·ES bytes in.
 // Bytes past a segment's end are not read; its first word may begin up to
 // 15 bytes before it, inside the same aligned word of the allocation.
 template <int THREADS, int ES>
@@ -360,7 +362,8 @@ __device__ void finish_decode(const Args& a, int tile_n, int subs, int tid) {
       int4 s = make_int4(0, 0, 0, 0);
 #pragma unroll 8
       for (int z = 0; z < a.ks; ++z) {
-        const int4 v = __ldcg(reinterpret_cast<const int4*>(part + (size_t)z * outs + row * BN + col));
+        const int4 v =
+            __ldcg(reinterpret_cast<const int4*>(part + (size_t)z * outs + row * BN + col));
         s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
       }
       const int sv[4] = {s.x, s.y, s.z, s.w};
@@ -412,7 +415,8 @@ __device__ void finish_decode(const Args& a, int tile_n, int subs, int tid) {
             const int pv[4] = {p[j][q].x, p[j][q].y, p[j][q].z, p[j][q].w};
 #pragma unroll
             for (int e = 0; e < 4; ++e) gs[j][e] = __fadd_rn(gs[j][e], __fmul_rn((float)pv[e], sg));
-            *reinterpret_cast<int4*>(plane + (size_t)(g0 + q) * outs + at[j]) = make_int4(0, 0, 0, 0);
+            *reinterpret_cast<int4*>(plane + (size_t)(g0 + q) * outs + at[j]) =
+                make_int4(0, 0, 0, 0);
           }
         }
       }
@@ -560,8 +564,10 @@ __device__ __forceinline__ void lr_large(const Args& a, int m0, int n0, int mv, 
     cp_async_wait<0>();
     __syncthreads();  // the chunk has landed; the previous one's FMAs are done
     {
-      const unsigned char* uc = ru + tc * SU + (tc < nv ? seg_offset<ES>(a.u, a.R, n0 + tc, r0) : 0);
-      const unsigned char* xc = rx + tc * SX + (tc < mv ? seg_offset<4>(a.xv, a.R, m0 + tc, r0) : 0);
+      const unsigned char* uc =
+          ru + tc * SU + (tc < nv ? seg_offset<ES>(a.u, a.R, n0 + tc, r0) : 0);
+      const unsigned char* xc =
+          rx + tc * SX + (tc < mv ? seg_offset<4>(a.xv, a.R, m0 + tc, r0) : 0);
       for (int r = tr0; r < rn; r += T::THREADS / BN) {
         ut[r * BN + tc] = tc >= nv ? 0.f
             : ES == 2 ? bf16_bits_to_float(reinterpret_cast<const unsigned short*>(uc)[r])

@@ -181,7 +181,8 @@ def warp_group_partials(xq, wp, group):
             for g in range(8):
                 for t in range(4):
                     base = kk + 8 * t
-                    lo_m, hi_m = byte_mask(kp - base, e - base), byte_mask(kp - base - 4, e - base - 4)
+                    lo_m = byte_mask(kp - base, e - base)
+                    hi_m = byte_mask(kp - base - 4, e - base - 4)
                     a[g][t] = (int(words[g, 2 * t]) & lo_m, int(words[g + 8, 2 * t]) & lo_m,
                                int(words[g, 2 * t + 1]) & hi_m, int(words[g + 8, 2 * t + 1]) & hi_m)
             for j in range(4):
