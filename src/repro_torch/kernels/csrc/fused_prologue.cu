@@ -1,4 +1,4 @@
-// Fused activation prologue for Hopper (sm_90a): one launch computes
+// Fused activation prologue for Hopper (sm_90a): per call
 //
 //     xq (M, K) int8, sx (M, 1) f32  =  Q_a(x)        (per-token)
 //     xv (M, R) f32                  =  x · V
@@ -13,54 +13,57 @@
 //
 // Numerics.  The quantizer is quant_rows.cuh, shared with act_quant.cu: the
 // codes and scales are bitwise those of rowops.scale_round_quantize.  x·V
-// follows the order of rowops.project_rows_tiled as far as a parallel
-// design allows: K is cut into chunks of bk = min(512, the largest power of
-// two <= max(K, 8)) values, exactly the reference's default projection
-// tile, each chunk's dot is a partial, and the partials are added in
-// ascending-K order.  Only the order inside a chunk's dot differs (eight
-// warps each run an FMA chain over bk/8 values, then the eight sums are
-// added in warp order), and a tolerance covers it.
+// has ONE order, the same at every launch geometry, M and co-tenant rows:
+// K is cut into chunks of bk = min(512, the largest power of two <=
+// max(K, 8)) values (rowops.project_rows_tiled's default tile); each chunk
+// into eight sub-chunks of bk/8 consecutive k, each one fmaf chain in
+// ascending k from 0.f; the eight chains added in sub-chunk order
+// (__fadd_rn), the chunk sums added in ascending K.  k past K adds nothing
+// (fmaf(0, 0, acc) is acc), so a chain of a ragged last chunk may run over
+// zero padding.  Only that order differs from the plain version's sums
+// (bench.common.xv_tolerance covers it).
 //
-// Bound on an H100 SXM: memory.  The bytes are x (M·K·2 or 4), V (K·R·2),
-// and xq, sx, xv out; at decode V dominates (K=8192, R=307: 5 MB, 1.5 us
-// at 3.35 TB/s).  The x·V flops are far below the f32 rate.
+// Bound on an H100 SXM: at decode, memory: V (2·K·R bytes in bf16) dominates,
+// 5 MB and 1.5 us at K 8192, R 307.  At large M, the f32 operations
+// 2·M·K·R over 67 TFLOP/s (466 us at M 2048, K 8192, R 922).
 //
-// Design.  A grid over rows alone would be one block at decode (M = 4) for
-// 132 SMs, so the grid is (K-chunk x R-tile + quantizer blocks, M-tile):
-//   * projection block (kc, rt): stages its rows' chunk of x in shared
-//     memory as f32 and computes the chunk's partial x·V for RT = 32
-//     columns; thread (warp w, lane c) owns column c over an eighth of the
-//     chunk, so a warp reads 32 neighbouring V values of one row per step
-//     (V rows are R values long and need no alignment: every load is one
-//     element).  The partial goes to a scratch buffer; the last block of
-//     each (M-tile, R-tile) to finish (an atomic ticket, the classic
-//     threadfence reduction) adds the nk partials in ascending order and
-//     writes xv.  The sums are floats but their order is fixed, so the
-//     result is deterministic: no float atomics.
-//   * quantizer block: one per row of the tile, the act_quant body (grouped:
-//     quant_rows.cuh's group body, one warp per group in turn).
-// Every row's result is computed by the same operations whatever M is and
-// whichever rows share its tile, so a request's outputs do not depend on
-// its co-tenants.  No tensor cores, TMA or cp.async yet.
+// Design.  Two regimes, chosen from shapes alone (prologue.prologue_plan
+// mirrors the plan, fused_prologue_plan exports it):
+// * stream (M <= 16, or K < 256): a block is one chunk of K by 32 columns of
+//   R by a tile of 4 or 16 rows; warp w runs sub-chunk w, lane c column c,
+//   every row of the tile at once.  Each warp copies its V rows by 16-byte
+//   cp.async (the aligned words that cover each row's 32-column segment: V
+//   rows are R values long and need no alignment) in four groups, stages
+//   its x sub-chunk in shared memory as f32, and runs its chains as the
+//   groups land, four k a step (one float4 of x a row, four V values).
+//   The warps' chains are added in warp order into the chunk's partial; the
+//   last block of each (row tile, column tile) to take its ticket adds the
+//   nk partials in ascending K, writes xv and resets the ticket, so no
+//   memset precedes a launch.  The tiles' quantizer blocks (one a row) run
+//   in the same grid: an unrotated call is one device operation.
+// * tiled (M > 16 and K >= 256): a block owns a 64 x 32 output tile and a
+//   range of whole chunks; x and V stages of 32 k stream through a ring of
+//   four by cp.async and are converted to f32 compute layouts; each thread
+//   keeps a 4 x 4 micro-tile (16 FMAs for two float4 loads a k) with its
+//   chains, chunk sums and totals in registers, folded at every sub-chunk
+//   and chunk end.  K is split over blocks only where the output tiles
+//   leave the card under-filled (about WAVES blocks an SM); then each block
+//   writes its chunk sums and the tile's last block adds them in ascending
+//   K, as in the stream regime.
+// * rotate: the rotation mixes all of K, so a first launch rotates each row
+//   once (fwht_rows.cuh, bitwise rowops.fwht_rows, a block a row), quantizes
+//   it and writes the f32 rotated row to scratch; the projection launch
+//   reads those rows.  Two device operations with V, one without.
+// Scratch (the partials, the rotated rows) and the tickets live in buffers
+// the wrapper caches; every launch leaves the tickets zero.
 //
-// The rotation.  It mixes all of K, so a projection block cannot rotate
-// its own chunk alone, and a 16-row tile of a K = 8192 row in f32 (512 KB)
-// does not fit a block's shared memory.  So with `rotate` every block
-// stages ONE row at a time whole (4·K bytes, 32 KB at K = 8192), rotates it
-// with fwht_rows.cuh (the body of fwht.cu and of the fused kernel: bitwise
-// rowops.fwht_rows) and keeps what it needs of it: a quantizer block the
-// codes and scale of its row (quant_rows.cuh on the rotated row), a
-// projection block its bk-chunk of every row of the tile.  The rotation is
-// recomputed by every projection block of an M-tile, so those blocks take
-// G R-tiles each instead of one: G is chosen from the shapes so that a
-// launch has about two blocks per SM where the M-tiles allow it (G = 1..nr),
-// which bounds the recomputation at nk·ceil(nr / G) rotations of each row
-// (16 at M = 2048, K = 8192, R = 922: ~3.5e9 f32 adds).  The partial of a
-// (chunk, R-tile) is computed by the same operations whatever G is, so xv
-// does not depend on M here either.
+// Later work: a tensor-core x·V (an accuracy standard of its own), and the
+// quantizer's row read in 16-byte vectors.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "fwht_rows.cuh"
 #include "quant_rows.cuh"
@@ -69,13 +72,21 @@ namespace {
 
 using quant_rows::to_f32;
 
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
-constexpr int RT = 32;          // R columns per projection block
-constexpr int MAX_ROWS = 16;    // rows per M-tile at most
-constexpr int MAX_BK = 512;     // the reference's largest projection chunk
-constexpr int TARGET_BLOCKS = 2 * 132;  // two blocks per SM of an H100 SXM
-constexpr int MAX_ROTATE_K = 32768;     // rotated: 4·K + 48 KB of shared memory
+constexpr int MAX_BK = 512;       // the reference's largest projection chunk
+constexpr int SUBS = 8;           // sub-chunk chains a chunk
+constexpr int STREAM_M = 16;      // M up to this takes the stream regime,
+constexpr int TILED_MIN_K = 256;  // and every M below this K (sub-chunks under T_BK)
+// stream regime: a block = a chunk x S_COLS columns x a row tile; warp w = sub-chunk w
+constexpr int S_THREADS = 32 * SUBS;
+constexpr int S_COLS = 32;
+constexpr int S_PARTS = 4;        // cp.async groups of a warp's V rows
+// tiled regime: T_BM x T_BN outputs, T_TM x T_TN a thread, stages of T_BK k
+constexpr int T_BM = 64, T_BN = 32, T_BK = 32, T_STAGES = 4, T_TM = 4, T_TN = 4;
+constexpr int T_THREADS = (T_BM / T_TM) * (T_BN / T_TN);
+constexpr int WAVES = 3;          // tiled blocks an SM the K-split aims at
+// rotation launch: a block a row
+constexpr int Q_THREADS = 256;
+constexpr int MAX_ROTATE_K = 32768;  // a whole f32 row in shared memory
 
 __host__ __device__ inline int chunk_k(int K) {
   int p = 8;
@@ -85,223 +96,554 @@ __host__ __device__ inline int chunk_k(int K) {
 
 __host__ __device__ inline int tiles(int a, int b) { return (a + b - 1) / b; }
 
-// scratch: [mtiles][nr][nk][ROWS][RT] f32 partials, then [mtiles][nr] ticket ints
-__host__ inline size_t partial_floats(int rows, int M, int K, int R) {
-  return (size_t)tiles(M, rows) * tiles(R, RT) * tiles(K, chunk_k(K)) * rows * RT;
+__host__ __device__ inline int log2_of(int d) {
+  int l = 0;
+  while ((1 << l) < d) ++l;
+  return l;
 }
 
-// R-tiles per projection block: 1 unrotated; rotated, the fewest blocks
-// that still give about TARGET_BLOCKS in all
-__host__ inline int rtiles_per_block(int rows, int M, int K, int R, int rotate) {
-  const int nr = tiles(R, RT);
-  if (!rotate || nr == 0) return 1;
-  const int per_tile = tiles(K, chunk_k(K)) * tiles(M, rows);
-  const int groups = min(nr, max(1, tiles(TARGET_BLOCKS, per_tile)));
-  return tiles(nr, groups);
+// shared bytes of a row segment of n elements of es bytes, copied as the
+// 16-byte words aligned in memory that it touches
+__host__ __device__ constexpr int seg_words(int n, int es) { return (n * es + 15) / 16 + 1; }
+__host__ __device__ constexpr int seg_bytes(int n, int es) { return 16 * seg_words(n, es); }
+
+// the first n bytes (0..16) of the aligned 16-byte word at gmem into smem,
+// the rest of the 16 zero
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem), "r"(n)
+               : "memory");
 }
 
-// dynamic shared memory of one block, in floats: unrotated the chunk of the
-// rows [ROWS][bk] (reused for the warp partials); rotated a whole row [K],
-// then the chunks and the warp partials [NWARPS][ROWS][RT] apart
-__host__ inline size_t smem_floats(int rows, int K, int rotate) {
-  const size_t xs = (size_t)rows * chunk_k(K), wp = (size_t)NWARPS * rows * RT;
-  if (rotate) return (size_t)K + xs + wp;
-  return xs > wp ? xs : wp;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Word j of the copy of the segment of n elements of es bytes at device
+// address s0 (n > 0) into shared memory at dst, the segment copied as the
+// aligned 16-byte words it touches (seg_words(n, es) at most) by cp.async.
+// Bytes past the segment are not read; its first word may begin up to 15
+// bytes before it, inside the same aligned word of the allocation.  The
+// segment's first element then sits (s0 & 15) bytes into dst.
+__device__ __forceinline__ void copy_word(unsigned char* dst, uintptr_t s0, int n, int es,
+                                          int j) {
+  const uintptr_t s1 = s0 + (uintptr_t)n * es;
+  const uintptr_t w = (s0 & ~(uintptr_t)15) + 16 * (uintptr_t)j;
+  if (w < s1)
+    cp_async16(dst + 16 * j, reinterpret_cast<const void*>(w), s1 - w < 16 ? (int)(s1 - w) : 16);
+}
+
+// an element of a copied segment, as f32
+template <typename T>
+__device__ __forceinline__ float load_elem(const unsigned char* p);
+
+template <>
+__device__ __forceinline__ float load_elem<float>(const unsigned char* p) {
+  return *reinterpret_cast<const float*>(p);
+}
+
+template <>
+__device__ __forceinline__ float load_elem<__nv_bfloat16>(const unsigned char* p) {
+  return __uint_as_float((uint32_t)*reinterpret_cast<const unsigned short*>(p) << 16);
+}
+
+struct Args {
+  const void* x;   // (M, K): the rows projected (with rotate the f32 rotated rows)
+  const void* v;   // (K, R)
+  int8_t* xq;
+  float* sx;
+  float* xv;
+  int* tickets;    // zeroed scratch: a ticket per output tile where K is split
+  float* part;     // scratch: [tiles][nk][rows][cols] chunk partials where K is split
+  int M, K, R, group, qmax;
+  float clip_ratio;
+  int quant;       // quantizer blocks in this launch (unrotated calls)
+  int bk, nk, sub, tiles_m, tiles_r, cps, splits;
+};
+
+// The quantizer's work for one row of x with the whole block.
+template <int NT, typename TX>
+__device__ __forceinline__ void quantize(const Args& a, const TX* x, int row, float* red) {
+  const size_t r = (size_t)row;
+  float* srow = a.sx + r * (a.group > 0 ? a.K / a.group : 1);
+  if (a.group > 0)
+    quant_rows::quantize_row_grouped<NT>(x + r * a.K, a.K, a.group, a.xq + r * a.K, srow,
+                                         a.qmax, a.clip_ratio);
+  else
+    quant_rows::quantize_row<NT>(x + r * a.K, a.K, a.xq + r * a.K, srow, a.qmax,
+                                 a.clip_ratio, red);
+}
+
+// Take the ticket of output tile `tile` once `total` blocks write into it:
+// true for the last of them, which resets the ticket for the next launch.
+// Called by every thread of the block.
+__device__ __forceinline__ bool take_ticket(int* tickets, int tile, int total, int* last) {
+  __threadfence();  // this block's partials are visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool l = atomicAdd(tickets + tile, 1) == total - 1;
+    if (l) tickets[tile] = 0;
+    *last = l;
+  }
+  __syncthreads();
+  const bool l = *last;
+  if (l) __threadfence();
+  return l;
+}
+
+// ---------------------------------------------------------------------------
+// stream regime: grid (nk · tiles_r + quantizer blocks, tiles_m)
+// ---------------------------------------------------------------------------
+
+// dynamic shared memory: [SUBS][sub] V row slots (reused for the warps'
+// chains [SUBS][MR][S_COLS]), then x as f32 [MR][bk]
+__host__ __device__ inline int stream_region(int MR, int bk, int ve) {
+  const int vrows = bk * seg_bytes(S_COLS, ve), chains = 4 * SUBS * MR * S_COLS;
+  return vrows > chains ? vrows : chains;
+}
+
+template <int MR, typename TX, typename TF>
+__global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  constexpr int VE = sizeof(TF);
+  constexpr int SB = seg_bytes(S_COLS, VE);  // a V row's slot
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * MR, mv = min(MR, a.M - m0);
+  const int nproj = a.nk * a.tiles_r;
+  const TX* x = static_cast<const TX*>(a.x);
+
+  if ((int)blockIdx.x >= nproj) {  // quantizer block: row m0 + m
+    const int m = (int)blockIdx.x - nproj;
+    if (m < mv) quantize<S_THREADS>(a, x, m0 + m, reinterpret_cast<float*>(smem));
+    return;
+  }
+  const int kc = (int)blockIdx.x % a.nk, rt = (int)blockIdx.x / a.nk;
+  const int bk = a.bk, sub = a.sub, lsub = log2_of(sub);
+  const int kb = kc * bk + warp * sub;             // the warp's sub-chunk
+  const int n = max(0, min(sub, a.K - kb));        // its k inside K
+  const int r0 = rt * S_COLS, rv = min(S_COLS, a.R - r0);
+  unsigned char* vs = smem + (size_t)warp * sub * SB;
+  float* xs = reinterpret_cast<float*>(smem + stream_region(MR, bk, VE));
+  const uintptr_t vbase = reinterpret_cast<uintptr_t>(a.v);
+
+  // 1. the warp's V rows, columns r0.., in S_PARTS groups of rows
+  const int parts = sub >= 4 * S_PARTS ? S_PARTS : 1;
+  const int rows_part = sub / parts;  // a multiple of 4 with S_PARTS groups
+  const int nw = seg_words(rv, VE);
+  for (int p = 0; p < parts; ++p) {
+    const int j0 = p * rows_part, nj = min(j0 + rows_part, n) - j0;
+    for (int it = lane; it < nj * nw; it += 32) {
+      const int j = j0 + it / nw;
+      copy_word(vs + j * SB, vbase + ((size_t)(kb + j) * a.R + r0) * VE, rv, VE, it % nw);
+    }
+    cp_async_commit();
+  }
+
+  // 2. the warp's sub-chunk of x as f32 into xs[m][warp · sub ..], zero past M and K
+  for (int i0 = 0; i0 < MR * sub; i0 += 32 * 8) {
+    float t[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int i = i0 + 32 * q + lane, m = i >> lsub, j = i & (sub - 1);
+      t[q] = (i < MR * sub && m < mv && j < n) ? to_f32(x[(size_t)(m0 + m) * a.K + kb + j])
+                                               : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int i = i0 + 32 * q + lane;
+      if (i < MR * sub) xs[(i >> lsub) * bk + warp * sub + (i & (sub - 1))] = t[q];
+    }
+  }
+  __syncwarp();
+
+  // 3. the chains: column r0 + lane, every row of the tile, k ascending
+  float acc[MR];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) acc[m] = 0.f;
+  const int rb = (int)(((size_t)a.R * VE) & 15);  // row j's segment starts (off + j·rb) & 15 in
+  const int off = (int)((vbase + ((size_t)kb * a.R + r0) * VE) & 15);
+  const float* xw = xs + warp * sub;
+  const unsigned char* vl = vs + lane * VE;
+  for (int p = 0; p < parts; ++p) {
+    if (parts == 1 || p == S_PARTS - 1) cp_async_wait<0>();
+    else if (p == 0) cp_async_wait<S_PARTS - 1>();
+    else if (p == 1) cp_async_wait<S_PARTS - 2>();
+    else cp_async_wait<S_PARTS - 3>();
+    __syncwarp();
+    int j = p * rows_part;
+    const int j1 = min(j + rows_part, n);
+    for (; j + 4 <= j1; j += 4) {
+      float vk[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        vk[q] = load_elem<TF>(vl + (j + q) * SB + ((off + (j + q) * rb) & 15));
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+        const float4 xx = *reinterpret_cast<const float4*>(xw + m * bk + j);
+        acc[m] = fmaf(xx.x, vk[0], acc[m]);
+        acc[m] = fmaf(xx.y, vk[1], acc[m]);
+        acc[m] = fmaf(xx.z, vk[2], acc[m]);
+        acc[m] = fmaf(xx.w, vk[3], acc[m]);
+      }
+    }
+    for (; j < j1; ++j) {
+      const float vk = load_elem<TF>(vl + j * SB + ((off + j * rb) & 15));
+#pragma unroll
+      for (int m = 0; m < MR; ++m) acc[m] = fmaf(xw[m * bk + j], vk, acc[m]);
+    }
+  }
+
+  // 4. the chunk's partial: the warps' chains added in warp order
+  __syncthreads();  // every warp is done with its V rows; its chains take their place
+  float* chains = reinterpret_cast<float*>(smem);  // [SUBS][MR][S_COLS]
+#pragma unroll
+  for (int m = 0; m < MR; ++m) chains[(warp * MR + m) * S_COLS + lane] = acc[m];
+  __syncthreads();
+  const int tile = (int)blockIdx.y * a.tiles_r + rt;
+  float* mine = a.part + (size_t)tile * a.nk * MR * S_COLS;
+  for (int i = tid; i < MR * S_COLS; i += S_THREADS) {
+    float s = chains[i];
+#pragma unroll
+    for (int w = 1; w < SUBS; ++w) s = __fadd_rn(s, chains[w * MR * S_COLS + i]);
+    const int m = i / S_COLS, c = i % S_COLS;
+    if (a.nk == 1) {
+      if (m < mv && c < rv) a.xv[(size_t)(m0 + m) * a.R + r0 + c] = s;
+    } else {
+      mine[(size_t)kc * MR * S_COLS + i] = s;
+    }
+  }
+  if (a.nk == 1) return;
+
+  // 5. the tile's last block adds the nk partials in ascending K
+  if (!take_ticket(a.tickets, tile, a.nk, &last)) return;
+  for (int i = tid; i < MR * S_COLS; i += S_THREADS) {
+    const int m = i / S_COLS, c = i % S_COLS;
+    if (m >= mv || c >= rv) continue;
+    float s = __ldcg(mine + i);
+    for (int k2 = 1; k2 < a.nk; ++k2) s = __fadd_rn(s, __ldcg(mine + (size_t)k2 * MR * S_COLS + i));
+    a.xv[(size_t)(m0 + m) * a.R + r0 + c] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tiled regime: grid (tiles · splits + quantizer blocks)
+// ---------------------------------------------------------------------------
+
+// dynamic shared memory: T_STAGES raw stages [T_BM x-row segments][T_BK
+// V-row segments], then the f32 compute layouts xs [T_BK][T_BM], vs [T_BK][T_BN]
+__host__ __device__ constexpr int tiled_stage(int xe, int ve) {
+  return T_BM * seg_bytes(T_BK, xe) + T_BK * seg_bytes(T_BN, ve);
+}
+__host__ __device__ constexpr int tiled_smem(int xe, int ve) {
+  return T_STAGES * tiled_stage(xe, ve) + 4 * T_BK * (T_BM + T_BN);
+}
+
+template <typename TX, typename TF>
+__global__ void __launch_bounds__(T_THREADS) tiled_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  constexpr int XE = sizeof(TX), VE = sizeof(TF);
+  constexpr int XSB = seg_bytes(T_BK, XE), VSB = seg_bytes(T_BN, VE);
+  constexpr int XRAW = T_BM * XSB, STAGE = tiled_stage(XE, VE);
+  float* xs = reinterpret_cast<float*>(smem + T_STAGES * STAGE);  // [T_BK][T_BM]
+  float* vs = xs + T_BK * T_BM;                                    // [T_BK][T_BN]
+  const int tid = threadIdx.x;
+  const int ntiles = a.tiles_m * a.tiles_r, nproj = ntiles * a.splits;
+
+  if ((int)blockIdx.x >= nproj) {  // quantizer block: one row
+    quantize<T_THREADS>(a, static_cast<const TX*>(a.x), (int)blockIdx.x - nproj,
+                        reinterpret_cast<float*>(smem));
+    return;
+  }
+  const int split = (int)blockIdx.x / ntiles, tile = (int)blockIdx.x % ntiles;
+  const int m0 = tile / a.tiles_r * T_BM, r0 = tile % a.tiles_r * T_BN;
+  const int c0 = split * a.cps, c1 = min(c0 + a.cps, a.nk);
+  const int kbeg = c0 * a.bk, nst = (c1 - c0) * a.bk / T_BK;
+  const uintptr_t xbase = reinterpret_cast<uintptr_t>(a.x);
+  const uintptr_t vbase = reinterpret_cast<uintptr_t>(a.v);
+  const int nv = min(T_BN, a.R - r0);
+
+  // copies of stage s into its ring slot: T_BM x-row segments of the stage's
+  // k, T_BK V-row segments of the tile's columns (nothing past M or K)
+  auto issue = [&](int s) {
+    unsigned char* st = smem + (s % T_STAGES) * STAGE;
+    const int ks = kbeg + s * T_BK, kn = min(T_BK, a.K - ks);
+    if (kn <= 0) return;
+    const int nwx = seg_words(kn, XE), nwv = seg_words(nv, VE);
+    for (int it = tid; it < T_BM * nwx; it += T_THREADS) {
+      const int i = it / nwx;
+      if (m0 + i < a.M)
+        copy_word(st + i * XSB, xbase + ((size_t)(m0 + i) * a.K + ks) * XE, kn, XE, it % nwx);
+    }
+    for (int it = tid; it < kn * nwv; it += T_THREADS) {
+      const int j = it / nwv;
+      copy_word(st + XRAW + j * VSB, vbase + ((size_t)(ks + j) * a.R + r0) * VE, nv, VE,
+                it % nwv);
+    }
+  };
+
+  // conversion of a landed stage to f32, zero past M, K and R: thread
+  // (ci, ch) x-row ci, k 16·ch.. (a row's segment offset is the same at
+  // every stage: a stage is 32 k, a chunk a multiple of 256); thread
+  // (vj, vc) V-row vj, columns vc..vc+7
+  const int ci = tid % T_BM, ch = tid / T_BM;
+  const int vj = tid / 4, vc = 8 * (tid % 4);
+  const bool xrow = m0 + ci < a.M;
+  const int xoff = (int)((xbase + (size_t)(m0 + ci) * a.K * XE) & 15);
+  const int voff = (int)((vbase + ((size_t)(kbeg + vj) * a.R + r0) * VE) & 15);
+  auto convert = [&](int s) {
+    const unsigned char* st = smem + (s % T_STAGES) * STAGE;
+    const int ks = kbeg + s * T_BK;
+    const unsigned char* xsrc = st + ci * XSB + xoff;
+#pragma unroll
+    for (int q = 0; q < T_BK / 2; ++q) {
+      const int k = T_BK / 2 * ch + q;
+      xs[k * T_BM + ci] = (xrow && ks + k < a.K) ? load_elem<TX>(xsrc + k * XE) : 0.f;
+    }
+    const unsigned char* vsrc = st + XRAW + vj * VSB + voff;
+    const bool vrow = ks + vj < a.K;
+    float t[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) t[q] = (vrow && vc + q < nv) ? load_elem<TF>(vsrc + (vc + q) * VE) : 0.f;
+    *reinterpret_cast<float4*>(vs + vj * T_BN + vc) = make_float4(t[0], t[1], t[2], t[3]);
+    *reinterpret_cast<float4*>(vs + vj * T_BN + vc + 4) = make_float4(t[4], t[5], t[6], t[7]);
+  };
+
+  // thread (ty, tx): rows 4ty.., columns 4tx..
+  const int ty = tid / (T_BN / T_TN), tx = tid % (T_BN / T_TN);
+  float acc[T_TM][T_TN], chunk[T_TM][T_TN], total[T_TM][T_TN];
+#pragma unroll
+  for (int i = 0; i < T_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T_TN; ++j) acc[i][j] = chunk[i][j] = total[i][j] = 0.f;
+  const int per_sub = a.sub / T_BK;  // stages a sub-chunk
+  float* mine = a.part + (size_t)tile * a.nk * T_BM * T_BN;
+  int w = 0, c = c0;
+
+#pragma unroll
+  for (int s = 0; s < T_STAGES - 1; ++s) {
+    if (s < nst) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<T_STAGES - 2>();
+    __syncthreads();  // stage s landed; every thread is done with the last f32 stage
+    convert(s);
+    if (s + T_STAGES - 1 < nst) issue(s + T_STAGES - 1);  // into stage s - 1's slot
+    cp_async_commit();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < T_BK; ++kk) {
+      const float4 xa = *reinterpret_cast<const float4*>(xs + kk * T_BM + T_TM * ty);
+      const float4 vb = *reinterpret_cast<const float4*>(vs + kk * T_BN + T_TN * tx);
+      const float xr[4] = {xa.x, xa.y, xa.z, xa.w}, vr[4] = {vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+      for (int i = 0; i < T_TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T_TN; ++j) acc[i][j] = fmaf(xr[i], vr[j], acc[i][j]);
+    }
+    if ((s + 1) % per_sub) continue;
+    // a sub-chunk ends: its chains into the chunk sums
+#pragma unroll
+    for (int i = 0; i < T_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < T_TN; ++j) {
+        chunk[i][j] = w == 0 ? acc[i][j] : __fadd_rn(chunk[i][j], acc[i][j]);
+        acc[i][j] = 0.f;
+      }
+    if (++w < SUBS) continue;
+    // a chunk ends: its sums into the totals, or to scratch where K is split
+    w = 0;
+    if (a.splits == 1) {
+#pragma unroll
+      for (int i = 0; i < T_TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T_TN; ++j)
+          total[i][j] = c == 0 ? chunk[i][j] : __fadd_rn(total[i][j], chunk[i][j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < T_TM; ++i)
+        *reinterpret_cast<float4*>(mine + ((size_t)c * T_BM + T_TM * ty + i) * T_BN + T_TN * tx) =
+            make_float4(chunk[i][0], chunk[i][1], chunk[i][2], chunk[i][3]);
+    }
+    ++c;
+  }
+  cp_async_wait<0>();
+
+  if (a.splits > 1) {  // the tile's last block adds the chunk sums in ascending K
+    if (!take_ticket(a.tickets, tile, a.splits, &last)) return;
+#pragma unroll
+    for (int i = 0; i < T_TM; ++i) {
+      const float* p = mine + (size_t)(T_TM * ty + i) * T_BN + T_TN * tx;
+      float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+      for (int k2 = 1; k2 < a.nk; ++k2) {
+        const float4 u = __ldcg(reinterpret_cast<const float4*>(p + (size_t)k2 * T_BM * T_BN));
+        t = make_float4(__fadd_rn(t.x, u.x), __fadd_rn(t.y, u.y), __fadd_rn(t.z, u.z),
+                        __fadd_rn(t.w, u.w));
+      }
+      total[i][0] = t.x, total[i][1] = t.y, total[i][2] = t.z, total[i][3] = t.w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < T_TM; ++i) {
+    const int m = m0 + T_TM * ty + i;
+    if (m >= a.M) continue;
+#pragma unroll
+    for (int j = 0; j < T_TN; ++j) {
+      const int r = r0 + T_TN * tx + j;
+      if (r < a.R) a.xv[(size_t)m * a.R + r] = total[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// rotation launch: grid (M); the rotated row quantized and, with V, written
+// ---------------------------------------------------------------------------
 
 // stages row `row` of x (K values) into buf as f32; all loads before stores
 template <typename TX>
-__device__ __forceinline__ void stage_row(const TX* __restrict__ row, int K,
-                                          float* buf) {
+__device__ __forceinline__ void stage_row(const TX* __restrict__ row, int K, float* buf) {
   const int tid = threadIdx.x;
-  for (int i0 = 0; i0 < K; i0 += 16 * THREADS) {
+  for (int i0 = 0; i0 < K; i0 += 16 * Q_THREADS) {
     float t[16];
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const int i = i0 + j * THREADS + tid;
+      const int i = i0 + j * Q_THREADS + tid;
       t[j] = i < K ? to_f32(row[i]) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const int i = i0 + j * THREADS + tid;
+      const int i = i0 + j * Q_THREADS + tid;
       if (i < K) buf[i] = t[j];
     }
   }
 }
 
-template <int ROWS, typename TX, typename TF>
-__global__ void __launch_bounds__(THREADS)
-fused_prologue_kernel(const TX* __restrict__ x, const TF* __restrict__ v,
-                      int8_t* __restrict__ xq, float* __restrict__ sx,
-                      float* __restrict__ xv, float* __restrict__ part,
-                      int* __restrict__ tickets, int M, int K, int R, int group,
-                      int qmax, float clip_ratio, int rotate, int G, float nrm) {
-  extern __shared__ __align__(16) float buf[];
-  __shared__ int last;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bk = chunk_k(K), nk = tiles(K, bk), nr = tiles(R, RT);
-  const int nproj = nk * tiles(nr, G);  // projection blocks per M-tile
-  const int mt = blockIdx.y, m0 = mt * ROWS;
-  const int mv = min(ROWS, M - m0);  // valid rows of this tile
-
-  if ((int)blockIdx.x >= nproj) {  // quantizer block: one row
-    const int m = (int)blockIdx.x - nproj;
-    if (m >= mv) return;
-    const size_t row = (size_t)(m0 + m);
-    float* srow = sx + row * (group > 0 ? K / group : 1);
-    if (!rotate) {
-      if (group > 0)
-        quant_rows::quantize_row_grouped<THREADS>(x + row * K, K, group, xq + row * K,
-                                                  srow, qmax, clip_ratio);
-      else
-        quant_rows::quantize_row<THREADS>(x + row * K, K, xq + row * K, srow,
-                                          qmax, clip_ratio, buf);
-      return;
-    }
-    stage_row(x + row * K, K, buf);  // buf: [K] the row, then the reduction
-    __syncthreads();
-    fwht_rows::rotate<THREADS>(buf, K, K, nrm);  // ends with a barrier
-    if (group > 0)
-      quant_rows::quantize_row_grouped<THREADS>(buf, K, group, xq + row * K, srow,
-                                                qmax, clip_ratio);
-    else
-      quant_rows::quantize_row<THREADS>(buf, K, xq + row * K, srow, qmax,
-                                        clip_ratio, buf + K);
-    return;
-  }
-
-  const int kc = (int)blockIdx.x % nk, rg = (int)blockIdx.x / nk;
-  const int k0 = kc * bk, kv = min(bk, K - k0);  // valid K of this chunk
-
-  // 1. the rows' chunk of x (rotated: of x·H) in f32, zero past M and past K
-  float* rowbuf = buf;                     // [K], rotated only
-  float* xs = rotate ? buf + K : buf;      // [ROWS][bk]
-  float* wp = rotate ? xs + ROWS * bk : buf;  // [NWARPS][ROWS][RT] partials
-  if (rotate) {
-    for (int m = 0; m < ROWS; ++m) {
-      if (m < mv) {
-        stage_row(x + (size_t)(m0 + m) * K, K, rowbuf);
-        __syncthreads();
-        fwht_rows::rotate<THREADS>(rowbuf, K, K, nrm);
-        for (int k = tid; k < bk; k += THREADS)
-          xs[m * bk + k] = k < kv ? rowbuf[k0 + k] : 0.f;
-        __syncthreads();  // rowbuf takes the next row
-      } else {
-        for (int k = tid; k < bk; k += THREADS) xs[m * bk + k] = 0.f;
-      }
-    }
-  } else {
-    for (int i0 = 0; i0 < ROWS * bk; i0 += 16 * THREADS) {
-      float t[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int i = i0 + j * THREADS + tid, m = i / bk, k = i % bk;
-        t[j] = (i < ROWS * bk && m < mv && k < kv)
-                   ? to_f32(x[(size_t)(m0 + m) * K + k0 + k]) : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int i = i0 + j * THREADS + tid;
-        if (i < ROWS * bk) xs[i] = t[j];
-      }
-    }
-    __syncthreads();
-  }
-
-  // the block's R-tiles: one unrotated, up to G rotated
-  const int sub = bk / NWARPS;
-  const int kb = warp * sub, ke = min(kb + sub, kv);
-  for (int rt = rg * G; rt < min(nr, (rg + 1) * G); ++rt) {
-    const int r0 = rt * RT;
-
-    // 2. this warp's eighth of the chunk, column r0 + lane, every row
-    const int r = r0 + lane;
-    float acc[ROWS];
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m) acc[m] = 0.f;
-    if (r < R) {
-      const TF* vp = v + (size_t)k0 * R + r;
-#pragma unroll 16
-      for (int k = kb; k < ke; ++k) {
-        const float vk = to_f32(vp[(size_t)k * R]);
-#pragma unroll
-        for (int m = 0; m < ROWS; ++m) acc[m] = fmaf(xs[m * bk + k], vk, acc[m]);
-      }
-    }
-    __syncthreads();  // unrotated, xs becomes the warp-partial buffer
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m) wp[(warp * ROWS + m) * RT + lane] = acc[m];
-    __syncthreads();
-
-    // 3. the chunk's partial (warps added in order) to scratch
-    float* mine = part + (((size_t)mt * nr + rt) * nk) * ROWS * RT;
-    for (int i = tid; i < ROWS * RT; i += THREADS) {
-      float s = wp[i];
-#pragma unroll
-      for (int w = 1; w < NWARPS; ++w) s = __fadd_rn(s, wp[w * ROWS * RT + i]);
-      mine[(size_t)kc * ROWS * RT + i] = s;
-    }
-    __threadfence();  // the partial is visible before the ticket is taken
-    __syncthreads();
-    if (tid == 0) last = (atomicAdd(&tickets[mt * nr + rt], 1) == nk - 1);
-    __syncthreads();
-    if (!last) continue;
-    __threadfence();
-
-    // 4. the last block adds the nk partials in ascending-K order
-    for (int i = tid; i < ROWS * RT; i += THREADS) {
-      const int m = i / RT, c = i % RT;
-      if (m >= mv || r0 + c >= R) continue;
-      float s = __ldcg(mine + i);
-      for (int c2 = 1; c2 < nk; ++c2)
-        s = __fadd_rn(s, __ldcg(mine + (size_t)c2 * ROWS * RT + i));
-      xv[(size_t)(m0 + m) * R + r0 + c] = s;
-    }
-  }
+template <typename TX>
+__global__ void __launch_bounds__(Q_THREADS) rotate_kernel(Args a, const TX* __restrict__ x,
+                                                           float* __restrict__ xr, float nrm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* buf = reinterpret_cast<float*>(smem);  // [K] the row, then the reduction
+  const size_t row = blockIdx.x;
+  stage_row(x + row * a.K, a.K, buf);
+  __syncthreads();
+  fwht_rows::rotate<Q_THREADS>(buf, a.K, a.K, nrm);  // ends with a barrier
+  if (xr)
+    for (int i = threadIdx.x; i < a.K; i += Q_THREADS) xr[row * a.K + i] = buf[i];
+  float* srow = a.sx + row * (a.group > 0 ? a.K / a.group : 1);
+  if (a.group > 0)
+    quant_rows::quantize_row_grouped<Q_THREADS>(buf, a.K, a.group, a.xq + row * a.K, srow,
+                                                a.qmax, a.clip_ratio);
+  else
+    quant_rows::quantize_row<Q_THREADS>(buf, a.K, a.xq + row * a.K, srow, a.qmax,
+                                        a.clip_ratio, buf + a.K);
 }
 
-template <int ROWS, typename TX, typename TF>
-int launch(const void* x, const void* v, void* xq, void* sx, void* xv,
-           void* scratch, int M, int K, int R, int group, int qmax, float clip_ratio,
-           int rotate, cudaStream_t stream) {
-  auto kern = fused_prologue_kernel<ROWS, TX, TF>;
-  const int bk = chunk_k(K);
-  const int nk = R > 0 ? tiles(K, bk) : 0, nr = R > 0 ? tiles(R, RT) : 0;
-  const int mtiles = tiles(M, ROWS);
-  const int G = rtiles_per_block(ROWS, M, K, R, rotate);
-  float* part = static_cast<float*>(scratch);
-  int* tickets = reinterpret_cast<int*>(part + partial_floats(ROWS, M, K, R));
-  if (R > 0) {
-    cudaError_t e = cudaMemsetAsync(tickets, 0, sizeof(int) * mtiles * nr, stream);
-    if (e != cudaSuccess) return (int)e;
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+inline int device_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
   }
-  const size_t smem = sizeof(float) * smem_floats(ROWS, K, rotate);
-  static size_t configured = 48 * 1024;  // per instantiation
-  if (smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = smem;
+  return sms;
+}
+
+// The launch plan of (M, K, R) from shapes, the operand widths and the SM count.
+struct Plan {
+  int tiled, rows, cols, tiles_m, tiles_r, bk, chunks, cps, splits, threads, smem,
+      launches;
+  size_t zeroed, scratch, part;  // bytes: tickets; partials + rotated rows; partials
+};
+
+Plan plan_of(int M, int K, int R, int rotate, int xe, int ve, int sms) {
+  Plan p;
+  if (rotate) xe = 4;  // the projection reads the f32 rotated rows
+  p.tiled = M > STREAM_M && K >= TILED_MIN_K;
+  p.bk = chunk_k(K);
+  p.chunks = tiles(K, p.bk);
+  if (p.tiled) {
+    p.rows = T_BM, p.cols = T_BN, p.threads = T_THREADS;
+    p.smem = tiled_smem(xe, ve);
+  } else {
+    p.rows = M <= 4 ? 4 : STREAM_M, p.cols = S_COLS, p.threads = S_THREADS;
+    p.smem = stream_region(p.rows, p.bk, ve) + 4 * p.rows * p.bk;
   }
-  dim3 grid(nk * (nr > 0 ? tiles(nr, G) : 0) + ROWS, mtiles);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TF*>(v),
-      static_cast<int8_t*>(xq), static_cast<float*>(sx),
-      static_cast<float*>(xv), part, tickets, M, K, R, group, qmax, clip_ratio,
-      rotate, G, fwht_rows::norm(K));
-  return (int)cudaGetLastError();
+  p.tiles_m = tiles(M, p.rows);
+  p.tiles_r = tiles(R, p.cols);
+  p.cps = 1, p.splits = p.chunks;  // stream: a block a chunk
+  const int ntiles = p.tiles_m * p.tiles_r;
+  if (p.tiled && ntiles < sms) {  // under one tile an SM: whole chunks a split, ~WAVES blocks an SM
+    p.cps = tiles(p.chunks, tiles(WAVES * sms, ntiles > 0 ? ntiles : 1));
+    p.splits = tiles(p.chunks, p.cps);
+  } else if (p.tiled) {
+    p.cps = p.chunks, p.splits = 1;
+  }
+  p.launches = rotate && R > 0 ? 2 : 1;
+  const bool split = R > 0 && p.splits > 1;
+  p.zeroed = split ? 4 * (size_t)ntiles : 0;
+  p.part = split ? 4 * (size_t)ntiles * p.chunks * p.rows * p.cols : 0;
+  p.scratch = p.part + (rotate && R > 0 ? 4 * (size_t)M * K : 0);
+  return p;
+}
+
+template <typename F>
+int allow_smem(F kern, int smem, int& configured) {
+  if (smem <= configured) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  configured = smem;
+  return 0;
 }
 
 template <typename TX, typename TF>
-int launch_rows(const void* x, const void* v, void* xq, void* sx, void* xv,
-                void* scratch, int M, int K, int R, int group, int qmax,
-                float clip_ratio, int rotate, cudaStream_t stream) {
-  // decode batches of up to 4 rows take the 4-row tile, larger M the 16-row one
-  if (M <= 4)
-    return launch<4, TX, TF>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax,
-                             clip_ratio, rotate, stream);
-  return launch<MAX_ROWS, TX, TF>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax,
-                                  clip_ratio, rotate, stream);
+int project(const Args& a, const Plan& p, cudaStream_t s) {
+  if (p.tiled) {
+    auto kern = tiled_kernel<TX, TF>;
+    static int configured = 48 * 1024;  // per instantiation
+    if (const int e = allow_smem(kern, p.smem, configured)) return e;
+    const int grid = p.tiles_m * p.tiles_r * p.splits + (a.quant ? a.M : 0);
+    kern<<<grid, T_THREADS, p.smem, s>>>(a);
+  } else if (p.rows == 4) {
+    auto kern = stream_kernel<4, TX, TF>;
+    static int configured = 48 * 1024;
+    if (const int e = allow_smem(kern, p.smem, configured)) return e;
+    kern<<<dim3(p.chunks * p.tiles_r + (a.quant ? 4 : 0), p.tiles_m), S_THREADS, p.smem, s>>>(a);
+  } else {
+    auto kern = stream_kernel<STREAM_M, TX, TF>;
+    static int configured = 48 * 1024;
+    if (const int e = allow_smem(kern, p.smem, configured)) return e;
+    kern<<<dim3(p.chunks * p.tiles_r + (a.quant ? STREAM_M : 0), p.tiles_m), S_THREADS, p.smem,
+           s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename TF>
+int project_v(int x_bf16, const Args& a, const Plan& p, cudaStream_t s) {
+  return x_bf16 ? project<__nv_bfloat16, TF>(a, p, s) : project<float, TF>(a, p, s);
+}
+
+template <typename TX>
+int rotate_rows(const Args& a, float* xr, cudaStream_t s) {
+  auto kern = rotate_kernel<TX>;
+  static int configured = 48 * 1024;
+  const int smem = 4 * a.K + 4 * (Q_THREADS / 32);
+  if (const int e = allow_smem(kern, smem, configured)) return e;
+  kern<<<a.M, Q_THREADS, smem, s>>>(a, static_cast<const TX*>(a.x), xr, fwht_rows::norm(a.K));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -311,34 +653,55 @@ extern "C" {
 // The widest K the rotated launch takes (a whole row in shared memory).
 int fused_prologue_max_rotate_k() { return MAX_ROTATE_K; }
 
-// Bytes of device scratch one launch at (M, K, R) needs (0 when R = 0).
-size_t fused_prologue_scratch_bytes(int M, int K, int R) {
-  if (R <= 0) return 0;
-  const int rows = M <= 4 ? 4 : MAX_ROWS;
-  return sizeof(float) * partial_floats(rows, M, K, R)
-       + sizeof(int) * (size_t)tiles(M, rows) * tiles(R, RT);
+// The plan of a call at (M, K, R) on a card of `sms` SMs (0: the current
+// device's), x and V bf16 (1) or f32 (0), as out[0..13] = tiled, rows and
+// columns of an output tile, row tiles, column tiles, chunk size, chunks,
+// chunks a split, splits, threads and dynamic shared bytes of the
+// projection launch, device launches, zeroed scratch bytes, scratch bytes.
+void fused_prologue_plan(int M, int K, int R, int rotate, int x_bf16, int v_bf16, int sms,
+                         long long* out) {
+  const Plan p = plan_of(M, K, R, rotate, x_bf16 ? 2 : 4, v_bf16 ? 2 : 4,
+                         sms > 0 ? sms : device_sms());
+  const long long v[14] = {p.tiled, p.rows, p.cols, p.tiles_m, p.tiles_r, p.bk, p.chunks,
+                           p.cps, p.splits, p.threads, p.smem, p.launches,
+                           (long long)p.zeroed, (long long)p.scratch};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
 }
 
-// Launch on `stream`; returns the first CUDA error of the launch (0 = ok).
-// x_bf16 / f_bf16 select bf16 (1) or f32 (0) for x and for V; with R = 0,
-// v, xv and scratch may be null and only xq and sx are written.  group 0
-// writes per-token scales sx (M, 1), group g > 0 (dividing K) the (M, K/g)
-// plane.  rotate (1) quantizes and projects x·H_K, K a power of two within
-// fused_prologue_max_rotate_k() (the wrapper checks).
-int fused_prologue(const void* x, int x_bf16, const void* v, int f_bf16,
-                   void* xq, void* sx, void* xv, void* scratch, int M, int K,
-                   int R, int group, int qmax, float clip_ratio, int rotate,
-                   void* stream) {
+// Launch on `stream`; returns the first CUDA error of the launches (0 =
+// ok).  x_bf16 / f_bf16 select bf16 (1) or f32 (0) for x and for V; with R
+// = 0, v and xv may be null and only xq and sx are written.  group 0 writes
+// per-token scales sx (M, 1), group g > 0 (dividing K) the (M, K/g) plane.
+// rotate (1) quantizes and projects x·H_K, K a power of two within
+// fused_prologue_max_rotate_k().  `zeroed` holds the plan's zeroed bytes,
+// all zero (every launch leaves them so), `scratch` its scratch bytes;
+// either may be null where the plan asks for none.
+int fused_prologue(const void* x, int x_bf16, const void* v, int f_bf16, void* xq, void* sx,
+                   void* xv, void* zeroed, void* scratch, int M, int K, int R, int group,
+                   int qmax, float clip_ratio, int rotate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rotate && ((K & (K - 1)) || K > MAX_ROTATE_K)) return (int)cudaErrorInvalidValue;
   if (group < 0 || (group > 0 && K % group)) return (int)cudaErrorInvalidValue;
-  if (x_bf16 && f_bf16)
-    return launch_rows<__nv_bfloat16, __nv_bfloat16>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax, clip_ratio, rotate, s);
-  if (x_bf16)
-    return launch_rows<__nv_bfloat16, float>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax, clip_ratio, rotate, s);
-  if (f_bf16)
-    return launch_rows<float, __nv_bfloat16>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax, clip_ratio, rotate, s);
-  return launch_rows<float, float>(x, v, xq, sx, xv, scratch, M, K, R, group, qmax, clip_ratio, rotate, s);
+  if (M <= 0) return 0;
+  const Plan p = plan_of(M, K, R, rotate, x_bf16 ? 2 : 4, f_bf16 ? 2 : 4, device_sms());
+  if ((p.zeroed && !zeroed) || (p.scratch && !scratch)) return (int)cudaErrorInvalidValue;
+  Args a;
+  a.x = x, a.v = v;
+  a.xq = static_cast<int8_t*>(xq), a.sx = static_cast<float*>(sx);
+  a.xv = static_cast<float*>(xv);
+  a.tickets = static_cast<int*>(zeroed), a.part = static_cast<float*>(scratch);
+  a.M = M, a.K = K, a.R = R, a.group = group, a.qmax = qmax, a.clip_ratio = clip_ratio;
+  a.quant = !rotate;
+  a.bk = p.bk, a.nk = p.chunks, a.sub = p.bk / SUBS;
+  a.tiles_m = p.tiles_m, a.tiles_r = p.tiles_r, a.cps = p.cps, a.splits = p.splits;
+  if (rotate) {
+    float* xr = R > 0 ? reinterpret_cast<float*>(static_cast<char*>(scratch) + p.part) : nullptr;
+    const int e = x_bf16 ? rotate_rows<__nv_bfloat16>(a, xr, s) : rotate_rows<float>(a, xr, s);
+    if (e || R == 0) return e;
+    a.x = xr;
+    return f_bf16 ? project<float, __nv_bfloat16>(a, p, s) : project<float, float>(a, p, s);
+  }
+  return f_bf16 ? project_v<__nv_bfloat16>(x_bf16, a, p, s) : project_v<float>(x_bf16, a, p, s);
 }
 
 }  // extern "C"
