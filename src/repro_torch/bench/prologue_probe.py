@@ -40,7 +40,8 @@ def build_old():
     """The old body's library (same flags), built beside the port's."""
     out = build.BUILD_DIR / "libprologue_probe_old.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out), str(OLD_SRC)],
+    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+                             str(out), str(OLD_SRC)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     build.build(["fused_prologue"])
     log, _ = proc.communicate()
@@ -147,7 +148,8 @@ TIMED = [(4, 3072, 307, False), (4, 8192, 307, False), (16, 3072, 307, False),
          (16, 8192, 307, False), (4, 8192, 922, False), (4, 8192, 922, True),
          (100, 8192, 922, False), (100, 8192, 922, True), (2048, 8192, 922, False),
          (2048, 8192, 922, True), (4, 8192, 0, False), (4, 8192, 0, True),
-         (100, 3072, 307, False), (100, 8192, 307, False)]
+         (100, 3072, 307, False), (100, 8192, 307, False), (2048, 8192, 0, False),
+         (2048, 8192, 0, True), (256, 8192, 1024, False), (2048, 4096, 128, False)]
 
 
 def timings(old, flush):
@@ -168,10 +170,131 @@ def timings(old, flush):
     return out
 
 
+NEW_SRC = build.CSRC / "fused_prologue.cu"
+
+# per-block timelines of the stream regime (%globaltimer, ns): start, the
+# first V group landed (warp 0), chains done, partials written, ticket
+# taken, end; kind 1 projection, 2 last of its tile, 3 quantizer
+TIMELINE = [
+    ("namespace {\n\nusing quant_rows::to_f32;",
+     "__device__ unsigned long long probe_tl[8192][8];\n"
+     "__device__ __forceinline__ unsigned long long probe_now() { unsigned long long t; "
+     "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); return t; }\n"
+     "__device__ __forceinline__ unsigned probe_smid() { unsigned s; "
+     "asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(s)); return s; }\n"
+     "__device__ __forceinline__ void probe_stamp(unsigned long long a, unsigned long long b, "
+     "unsigned long long c, unsigned long long d, unsigned long long e, int kind) {\n"
+     "  if (threadIdx.x) return;\n"
+     "  unsigned long long* p = probe_tl[blockIdx.x + gridDim.x * blockIdx.y];\n"
+     "  p[0] = a; p[1] = b; p[2] = c; p[3] = d; p[4] = e; p[5] = probe_now(); p[6] = kind; "
+     "p[7] = probe_smid(); }\n"
+     "extern \"C\" int probe_timeline(void* dst, int n) { return (int)cudaMemcpyFromSymbol("
+     "dst, probe_tl, (size_t)n * 64); }\n"
+     "namespace {\n\nusing quant_rows::to_f32;"),
+    ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+     "  const int m0 = blockIdx.y * MR, mv = min(MR, a.M - m0);",
+     "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+     "  const unsigned long long t0 = probe_now();\n  unsigned long long tv0 = 0;\n"
+     "  const int m0 = blockIdx.y * MR, mv = min(MR, a.M - m0);"),
+    ("                                    reinterpret_cast<float*>(smem));\n    return;",
+     "                                    reinterpret_cast<float*>(smem));\n"
+     "    probe_stamp(t0, t0, t0, t0, t0, 3);\n    return;"),
+    ("    __syncwarp();\n    int j = p * rows_part;",
+     "    __syncwarp();\n    if (p == 0) tv0 = probe_now();\n    int j = p * rows_part;"),
+    ("  // 3. the chunk's partial: the warps' chains added in warp order\n  __syncthreads();",
+     "  // 3. the chunk's partial: the warps' chains added in warp order\n  __syncthreads();\n"
+     "  const unsigned long long t1 = probe_now();"),
+    ("  if (a.nk == 1) return;\n\n  // 4. the tile's last block adds the nk partials in ascending K\n"
+     "  if (!take_ticket(a.tickets, tile, a.nk, &last)) return;",
+     "  if (a.nk == 1) return;\n  const unsigned long long t2 = probe_now();\n"
+     "  const bool probe_last = take_ticket(a.tickets, tile, a.nk, &last);\n"
+     "  const unsigned long long t3 = probe_now();\n"
+     "  if (!probe_last) { probe_stamp(t0, tv0, t1, t2, t3, 1); return; }"),
+    ("      a.xv[(size_t)(m0 + m) * a.R + r0 + c] = fold_chunks(mine + i, a.nk, (size_t)MR * S_COLS);\n  }\n}",
+     "      a.xv[(size_t)(m0 + m) * a.R + r0 + c] = fold_chunks(mine + i, a.nk, (size_t)MR * S_COLS);\n  }\n"
+     "  __syncthreads();\n  probe_stamp(t0, tv0, t1, t2, t3, 2);\n}"),
+]
+
+
+def build_variant(name, subs):
+    """A library of the new source with text substitutions."""
+    text = NEW_SRC.read_text()
+    for a, b in subs:
+        if a not in text:
+            raise RuntimeError(f"variant {name}: {a!r} not in the source")
+        text = text.replace(a, b, 1)
+    src = build.BUILD_DIR / f"variant_{name}.cu"
+    src.write_text(text)
+    out = build.BUILD_DIR / f"libvariant_{name}.so"
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+                           str(out), str(src)], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for variant {name}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_prologue.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+    lib.fused_prologue.restype = ctypes.c_int
+    lib.fused_prologue_plan.argtypes = [i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.probe_timeline.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def run_variant(lib, x, v, zeroed, scratch):
+    m, k = x.shape
+    r = v.shape[1]
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m, 1), dtype=F32, device=x.device)
+    xv = torch.empty((m, r), dtype=F32, device=x.device)
+    rc = lib.fused_prologue(x.data_ptr(), 1, v.data_ptr(), 1, xq.data_ptr(), sx.data_ptr(),
+                            xv.data_ptr(), zeroed.data_ptr(), scratch.data_ptr(), m, k, r, 0, 7,
+                            0.9, 0, build.stream_of(x))
+    if rc:
+        raise RuntimeError(f"variant launch failed: {rc}")
+    return xv
+
+
+def timeline(flush):
+    """Per-block timelines of cold decode calls (L2 flushed), summarized."""
+    lib = build_variant("timeline", TIMELINE)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    zeroed = torch.zeros(1 << 16, dtype=torch.uint8, device="cuda")
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out = []
+    for (m, k, r) in [(4, 3072, 307), (4, 8192, 307), (16, 3072, 307), (16, 8192, 307)]:
+        x, v = problem(gen, m, k, r, BF, BF)
+        for _ in range(3):
+            run_variant(lib, x, v, zeroed, scratch)
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        run_variant(lib, x, v, zeroed, scratch)
+        torch.cuda.synchronize()
+        plan = prologue.prologue_plan(m, k, r)
+        nb = (plan.chunks * plan.tiles_r + plan.rows) * plan.tiles_m
+        buf = (ctypes.c_ulonglong * (nb * 8))()
+        lib.probe_timeline(buf, nb)
+        rows = [list(buf[8 * b:8 * b + 8]) for b in range(nb)]
+        t00 = min(rw[0] for rw in rows)
+        rel = [[(t - t00) / 1e3 if i < 6 else t for i, t in enumerate(rw)] for rw in rows]
+
+        def stat(kind, i):
+            vals = [rw[i] for rw in rel if rw[6] in kind]
+            return (f"{min(vals):.2f}/{statistics.median(vals):.2f}/{max(vals):.2f}"
+                    if vals else "-")
+        proj = (1, 2)
+        print(f"  M={m} K={k} R={r}: {nb} blocks; us from the first start, min/median/max: "
+              f"start {stat(proj, 0)}, V group 0 {stat(proj, 1)}, chains {stat(proj, 2)}, "
+              f"partials {stat(proj, 3)}, ticket {stat(proj, 4)}, end {stat(proj, 5)}; "
+              f"finishers end {stat((2,), 5)}; quantizers start {stat((3,), 0)} end "
+              f"{stat((3,), 5)}; SMs {len(set(rw[7] for rw in rows))}", flush=True)
+        out.append({"m": m, "k": k, "r": r, "blocks": rel})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--no-times", action="store_true")
+    ap.add_argument("--timeline", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prologue_probe: no CUDA device", file=sys.stderr)
@@ -186,10 +309,11 @@ def main(argv=None) -> int:
     print(f"timing floor {floor * 1e3:.2f} us", flush=True)
     rows, bad = compare(old)
     times = [] if args.no_times else timings(old, flush)
+    tl = timeline(flush) if args.timeline else []
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": card.strip(), "floor_us": floor * 1e3,
-                                              "cases": rows, "times": times}, indent=1))
+                                              "cases": rows, "times": times, "timeline": tl}))
     return 1 if bad else 0
 
 

@@ -29,7 +29,8 @@
 //
 // Design.  Two regimes, chosen from shapes alone (prologue.prologue_plan
 // mirrors the plan, fused_prologue_plan exports it):
-// * stream (M <= 16, or K < 256): a block is one chunk of K by 32 columns of
+// * stream (M <= 16, K < 256, or fewer (128 x 64 tile, chunk) pairs than
+//   SMs, the tiled regime's units of work): a block is one chunk of K by 32 columns of
 //   R by a tile of 4 or 16 rows; warp w runs sub-chunk w, lane c column c,
 //   every row of the tile at once.  Each warp copies its V rows by 16-byte
 //   cp.async (the aligned words that cover each row's 32-column segment: V
@@ -41,15 +42,16 @@
 //   nk partials in ascending K, writes xv and resets the ticket, so no
 //   memset precedes a launch.  The tiles' quantizer blocks (one a row) run
 //   in the same grid: an unrotated call is one device operation.
-// * tiled (M > 16 and K >= 256): a block owns a 64 x 32 output tile and a
+// * tiled (the other shapes): a block owns a 128 x 64 output tile and a
 //   range of whole chunks; x and V stages of 32 k stream through a ring of
-//   four by cp.async and are converted to f32 compute layouts; each thread
-//   keeps a 4 x 4 micro-tile (16 FMAs for two float4 loads a k) with its
-//   chains, chunk sums and totals in registers, folded at every sub-chunk
-//   and chunk end.  K is split over blocks only where the output tiles
-//   leave the card under-filled (about WAVES blocks an SM); then each block
-//   writes its chunk sums and the tile's last block adds them in ascending
-//   K, as in the stream regime.
+//   three by cp.async and are converted to f32 compute layouts (x
+//   transposed, V as it is); each thread keeps an 8 x 8 micro-tile (64 FMAs for
+//   four float4 loads a k, the shared-memory loads and the FMAs balanced)
+//   with its chains and chunk sums in registers, folded at every sub-chunk
+//   end; at every chunk end the sums go into xv (the running total) or,
+//   where K is split over blocks (only where the output tiles are fewer
+//   than the SMs: about WAVES blocks an SM), to scratch, and the tile's
+//   last block adds them in ascending K, as in the stream regime.
 // * rotate: the rotation mixes all of K, so a first launch rotates each row
 //   once (fwht_rows.cuh, bitwise rowops.fwht_rows, a block a row), quantizes
 //   it and writes the f32 rotated row to scratch; the projection launch
@@ -74,16 +76,16 @@ using quant_rows::to_f32;
 
 constexpr int MAX_BK = 512;       // the reference's largest projection chunk
 constexpr int SUBS = 8;           // sub-chunk chains a chunk
-constexpr int STREAM_M = 16;      // M up to this takes the stream regime,
-constexpr int TILED_MIN_K = 256;  // and every M below this K (sub-chunks under T_BK)
+constexpr int STREAM_M = 16;      // M up to this takes the stream regime, and so does
+constexpr int TILED_MIN_K = 256;  // every M below this K (sub-chunks under T_BK)
 // stream regime: a block = a chunk x S_COLS columns x a row tile; warp w = sub-chunk w
 constexpr int S_THREADS = 32 * SUBS;
 constexpr int S_COLS = 32;
 constexpr int S_PARTS = 4;        // cp.async groups of a warp's V rows
 // tiled regime: T_BM x T_BN outputs, T_TM x T_TN a thread, stages of T_BK k
-constexpr int T_BM = 64, T_BN = 32, T_BK = 32, T_STAGES = 4, T_TM = 4, T_TN = 4;
+constexpr int T_BM = 128, T_BN = 64, T_BK = 32, T_STAGES = 3, T_TM = 8, T_TN = 8;
 constexpr int T_THREADS = (T_BM / T_TM) * (T_BN / T_TN);
-constexpr int WAVES = 3;          // tiled blocks an SM the K-split aims at
+constexpr int WAVES = 2;          // tiled blocks an SM the K-split aims at
 // rotation launch: a block a row
 constexpr int Q_THREADS = 256;
 constexpr int MAX_ROTATE_K = 32768;  // a whole f32 row in shared memory
@@ -95,12 +97,6 @@ __host__ __device__ inline int chunk_k(int K) {
 }
 
 __host__ __device__ inline int tiles(int a, int b) { return (a + b - 1) / b; }
-
-__host__ __device__ inline int log2_of(int d) {
-  int l = 0;
-  while ((1 << l) < d) ++l;
-  return l;
-}
 
 // shared bytes of a row segment of n elements of es bytes, copied as the
 // 16-byte words aligned in memory that it touches
@@ -196,80 +192,124 @@ __device__ __forceinline__ bool take_ticket(int* tickets, int tile, int total, i
   return l;
 }
 
+// The sum of n partials p[0], p[stride], ... added in ascending order from
+// the first, their loads issued eight at a time ahead of the adds.
+template <typename T>
+__device__ __forceinline__ T fold_chunks(const T* p, int n, size_t stride);
+
+__device__ __forceinline__ float add4(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+template <typename T>
+__device__ __forceinline__ T fold_chunks(const T* p, int n, size_t stride) {
+  T s = __ldcg(p);
+  for (int c = 1; c < n; c += 8) {
+    T t[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (c + q < n) t[q] = __ldcg(p + (size_t)(c + q) * stride);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (c + q < n) s = add4(s, t[q]);
+  }
+  return s;
+}
+
 // ---------------------------------------------------------------------------
 // stream regime: grid (nk · tiles_r + quantizer blocks, tiles_m)
 // ---------------------------------------------------------------------------
 
 // dynamic shared memory: [SUBS][sub] V row slots (reused for the warps'
-// chains [SUBS][MR][S_COLS]), then x as f32 [MR][bk]
+// chains [SUBS][MR][S_COLS]), then [SUBS][MR] x row slots of a sub-chunk
 __host__ __device__ inline int stream_region(int MR, int bk, int ve) {
   const int vrows = bk * seg_bytes(S_COLS, ve), chains = 4 * SUBS * MR * S_COLS;
   return vrows > chains ? vrows : chains;
+}
+__host__ __device__ inline int stream_smem(int MR, int bk, int xe, int ve) {
+  return stream_region(MR, bk, ve) + SUBS * MR * seg_bytes(bk / SUBS, xe);
+}
+
+// 16 bytes of a copied segment (16-byte aligned) as f32: 8 bf16 or 4 f32
+template <typename T>
+__device__ __forceinline__ void load16(const unsigned char* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  if (sizeof(T) == 4) {
+    out[0] = __uint_as_float(u.x), out[1] = __uint_as_float(u.y);
+    out[2] = __uint_as_float(u.z), out[3] = __uint_as_float(u.w);
+  } else {
+    const uint32_t q[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      out[2 * e] = __uint_as_float(q[e] << 16);
+      out[2 * e + 1] = __uint_as_float(q[e] & 0xFFFF0000u);
+    }
+  }
 }
 
 template <int MR, typename TX, typename TF>
 __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last;
-  constexpr int VE = sizeof(TF);
-  constexpr int SB = seg_bytes(S_COLS, VE);  // a V row's slot
+  constexpr int XE = sizeof(TX), VE = sizeof(TF);
+  constexpr int SB = seg_bytes(S_COLS, VE), NWV = seg_words(S_COLS, VE);  // a V row's slot
+  constexpr int XV = 16 / XE;  // x values a 16-byte load
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * MR, mv = min(MR, a.M - m0);
   const int nproj = a.nk * a.tiles_r;
-  const TX* x = static_cast<const TX*>(a.x);
 
   if ((int)blockIdx.x >= nproj) {  // quantizer block: row m0 + m
     const int m = (int)blockIdx.x - nproj;
-    if (m < mv) quantize<S_THREADS>(a, x, m0 + m, reinterpret_cast<float*>(smem));
+    if (m < mv) quantize<S_THREADS>(a, static_cast<const TX*>(a.x), m0 + m,
+                                    reinterpret_cast<float*>(smem));
     return;
   }
   const int kc = (int)blockIdx.x % a.nk, rt = (int)blockIdx.x / a.nk;
-  const int bk = a.bk, sub = a.sub, lsub = log2_of(sub);
+  const int bk = a.bk, sub = a.sub;
   const int kb = kc * bk + warp * sub;             // the warp's sub-chunk
   const int n = max(0, min(sub, a.K - kb));        // its k inside K
   const int r0 = rt * S_COLS, rv = min(S_COLS, a.R - r0);
+  const int xsb = seg_bytes(sub, XE);              // an x row's slot
   unsigned char* vs = smem + (size_t)warp * sub * SB;
-  float* xs = reinterpret_cast<float*>(smem + stream_region(MR, bk, VE));
-  const uintptr_t vbase = reinterpret_cast<uintptr_t>(a.v);
+  unsigned char* xw = smem + stream_region(MR, bk, VE) + (size_t)warp * MR * xsb;
+  const uintptr_t xbase = reinterpret_cast<uintptr_t>(a.x), vbase = reinterpret_cast<uintptr_t>(a.v);
 
-  // 1. the warp's V rows, columns r0.., in S_PARTS groups of rows
+  // 1. by cp.async: the warp's x rows (with the first group) and its V
+  //    rows, columns r0.., in S_PARTS groups of rows; nothing past M or K
   const int parts = sub >= 4 * S_PARTS ? S_PARTS : 1;
-  const int rows_part = sub / parts;  // a multiple of 4 with S_PARTS groups
-  const int nw = seg_words(rv, VE);
+  const int rows_part = sub / parts;
+  if (n > 0) {
+    const int nwx = seg_words(n, XE);
+    for (int it = lane; it < mv * nwx; it += 32) {
+      const int m = it / nwx;
+      copy_word(xw + m * xsb, xbase + ((size_t)(m0 + m) * a.K + kb) * XE, n, XE, it % nwx);
+    }
+  }
   for (int p = 0; p < parts; ++p) {
     const int j0 = p * rows_part, nj = min(j0 + rows_part, n) - j0;
-    for (int it = lane; it < nj * nw; it += 32) {
-      const int j = j0 + it / nw;
-      copy_word(vs + j * SB, vbase + ((size_t)(kb + j) * a.R + r0) * VE, rv, VE, it % nw);
+    for (int it = lane; it < nj * NWV; it += 32) {
+      const int j = j0 + it / NWV;
+      copy_word(vs + j * SB, vbase + ((size_t)(kb + j) * a.R + r0) * VE, rv, VE, it % NWV);
     }
     cp_async_commit();
   }
 
-  // 2. the warp's sub-chunk of x as f32 into xs[m][warp · sub ..], zero past M and K
-  for (int i0 = 0; i0 < MR * sub; i0 += 32 * 8) {
-    float t[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int i = i0 + 32 * q + lane, m = i >> lsub, j = i & (sub - 1);
-      t[q] = (i < MR * sub && m < mv && j < n) ? to_f32(x[(size_t)(m0 + m) * a.K + kb + j])
-                                               : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int i = i0 + 32 * q + lane;
-      if (i < MR * sub) xs[(i >> lsub) * bk + warp * sub + (i & (sub - 1))] = t[q];
-    }
-  }
-  __syncwarp();
-
-  // 3. the chains: column r0 + lane, every row of the tile, k ascending
+  // 2. the chains: column r0 + lane, every row of the tile, k ascending.
+  //    Row j of V starts (off + j·rb) & 15 bytes into its slot, which
+  //    repeats every 8 rows; x rows are read 16 bytes at a time where they
+  //    start on a 16-byte word (the rows past M hold no data and are not
+  //    written out).
   float acc[MR];
 #pragma unroll
   for (int m = 0; m < MR; ++m) acc[m] = 0.f;
-  const int rb = (int)(((size_t)a.R * VE) & 15);  // row j's segment starts (off + j·rb) & 15 in
+  const int rb = (int)(((size_t)a.R * VE) & 15);
   const int off = (int)((vbase + ((size_t)kb * a.R + r0) * VE) & 15);
-  const float* xw = xs + warp * sub;
-  const unsigned char* vl = vs + lane * VE;
+  int vo[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) vo[q] = ((off + q * rb) & 15) + lane * VE;
+  const bool xvec = ((xbase | (size_t)a.K * XE | (size_t)kb * XE) & 15) == 0 && !(rows_part & 7);
   for (int p = 0; p < parts; ++p) {
     if (parts == 1 || p == S_PARTS - 1) cp_async_wait<0>();
     else if (p == 0) cp_async_wait<S_PARTS - 1>();
@@ -278,28 +318,31 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
     __syncwarp();
     int j = p * rows_part;
     const int j1 = min(j + rows_part, n);
-    for (; j + 4 <= j1; j += 4) {
-      float vk[4];
+    if (xvec)
+      for (; j + 8 <= j1; j += 8) {
+        float vk[8];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        vk[q] = load_elem<TF>(vl + (j + q) * SB + ((off + (j + q) * rb) & 15));
+        for (int q = 0; q < 8; ++q) vk[q] = load_elem<TF>(vs + (j + q) * SB + vo[q]);
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          float xk[8];
+#pragma unroll
+          for (int h = 0; h < 8 / XV; ++h) load16<TX>(xw + m * xsb + (j + h * XV) * XE, xk + h * XV);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[m] = fmaf(xk[q], vk[q], acc[m]);
+        }
+      }
+    for (; j < j1; ++j) {
+      const float vk = load_elem<TF>(vs + j * SB + ((off + j * rb) & 15) + lane * VE);
 #pragma unroll
       for (int m = 0; m < MR; ++m) {
-        const float4 xx = *reinterpret_cast<const float4*>(xw + m * bk + j);
-        acc[m] = fmaf(xx.x, vk[0], acc[m]);
-        acc[m] = fmaf(xx.y, vk[1], acc[m]);
-        acc[m] = fmaf(xx.z, vk[2], acc[m]);
-        acc[m] = fmaf(xx.w, vk[3], acc[m]);
+        const int xo = (int)((xbase + ((size_t)(m0 + m) * a.K + kb) * XE) & 15);
+        acc[m] = fmaf(load_elem<TX>(xw + m * xsb + xo + j * XE), vk, acc[m]);
       }
-    }
-    for (; j < j1; ++j) {
-      const float vk = load_elem<TF>(vl + j * SB + ((off + j * rb) & 15));
-#pragma unroll
-      for (int m = 0; m < MR; ++m) acc[m] = fmaf(xw[m * bk + j], vk, acc[m]);
     }
   }
 
-  // 4. the chunk's partial: the warps' chains added in warp order
+  // 3. the chunk's partial: the warps' chains added in warp order
   __syncthreads();  // every warp is done with its V rows; its chains take their place
   float* chains = reinterpret_cast<float*>(smem);  // [SUBS][MR][S_COLS]
 #pragma unroll
@@ -320,14 +363,12 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   }
   if (a.nk == 1) return;
 
-  // 5. the tile's last block adds the nk partials in ascending K
+  // 4. the tile's last block adds the nk partials in ascending K
   if (!take_ticket(a.tickets, tile, a.nk, &last)) return;
   for (int i = tid; i < MR * S_COLS; i += S_THREADS) {
     const int m = i / S_COLS, c = i % S_COLS;
-    if (m >= mv || c >= rv) continue;
-    float s = __ldcg(mine + i);
-    for (int k2 = 1; k2 < a.nk; ++k2) s = __fadd_rn(s, __ldcg(mine + (size_t)k2 * MR * S_COLS + i));
-    a.xv[(size_t)(m0 + m) * a.R + r0 + c] = s;
+    if (m < mv && c < rv)
+      a.xv[(size_t)(m0 + m) * a.R + r0 + c] = fold_chunks(mine + i, a.nk, (size_t)MR * S_COLS);
   }
 }
 
@@ -336,7 +377,8 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
 // ---------------------------------------------------------------------------
 
 // dynamic shared memory: T_STAGES raw stages [T_BM x-row segments][T_BK
-// V-row segments], then the f32 compute layouts xs [T_BK][T_BM], vs [T_BK][T_BN]
+// V-row segments], then the f32 compute layouts xs [T_BK][T_BM] and vs
+// [T_BK][T_BN]
 __host__ __device__ constexpr int tiled_stage(int xe, int ve) {
   return T_BM * seg_bytes(T_BK, xe) + T_BK * seg_bytes(T_BN, ve);
 }
@@ -344,13 +386,36 @@ __host__ __device__ constexpr int tiled_smem(int xe, int ve) {
   return T_STAGES * tiled_stage(xe, ve) + 4 * T_BK * (T_BM + T_BN);
 }
 
+// n (<= 16) consecutive elements of a copied segment, as f32, from byte p
+// on: 16-byte loads where p is 16-byte aligned (n a multiple of 16 / es)
+template <typename T, int N>
+__device__ __forceinline__ void load_run(const unsigned char* p, bool aligned, float (&out)[N]) {
+  constexpr int ES = sizeof(T), PER = 16 / ES;
+  if (aligned) {
+#pragma unroll
+    for (int w = 0; w < N / PER; ++w) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p + 16 * w);
+      const uint32_t q[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        if (ES == 4) out[PER * w + e] = __uint_as_float(q[e]);
+        else out[PER * w + e] = __uint_as_float((e & 1 ? q[e / 2] >> 16 : q[e / 2] & 0xFFFFu) << 16);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = load_elem<T>(p + e * ES);
+  }
+}
+
 template <typename TX, typename TF>
-__global__ void __launch_bounds__(T_THREADS) tiled_kernel(Args a) {
+__global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last;
   constexpr int XE = sizeof(TX), VE = sizeof(TF);
   constexpr int XSB = seg_bytes(T_BK, XE), VSB = seg_bytes(T_BN, VE);
   constexpr int XRAW = T_BM * XSB, STAGE = tiled_stage(XE, VE);
+  constexpr int VPARTS = T_THREADS / T_BK, VRUN = T_BN / VPARTS;  // V columns a thread converts
   float* xs = reinterpret_cast<float*>(smem + T_STAGES * STAGE);  // [T_BK][T_BM]
   float* vs = xs + T_BK * T_BM;                                    // [T_BK][T_BN]
   const int tid = threadIdx.x;
@@ -365,63 +430,66 @@ __global__ void __launch_bounds__(T_THREADS) tiled_kernel(Args a) {
   const int m0 = tile / a.tiles_r * T_BM, r0 = tile % a.tiles_r * T_BN;
   const int c0 = split * a.cps, c1 = min(c0 + a.cps, a.nk);
   const int kbeg = c0 * a.bk, nst = (c1 - c0) * a.bk / T_BK;
-  const uintptr_t xbase = reinterpret_cast<uintptr_t>(a.x);
-  const uintptr_t vbase = reinterpret_cast<uintptr_t>(a.v);
   const int nv = min(T_BN, a.R - r0);
 
-  // copies of stage s into its ring slot: T_BM x-row segments of the stage's
-  // k, T_BK V-row segments of the tile's columns (nothing past M or K)
+  // thread tid copies and converts x-row tid; thread (vj, vp) V-row vj,
+  // columns vp·VRUN..  A row's segment starts at the same offset in its
+  // first word at every stage (a stage is T_BK k, a split starts at a
+  // multiple of 256).
+  const bool xrow = m0 + tid < a.M;
+  const uintptr_t xsrc = reinterpret_cast<uintptr_t>(a.x) + ((size_t)(m0 + tid) * a.K + kbeg) * XE;
+  const int xoff = (int)(xsrc & 15);
+  const int vj = tid / VPARTS, vp = tid % VPARTS;
+  const uintptr_t vsrc = reinterpret_cast<uintptr_t>(a.v) + ((size_t)(kbeg + vj) * a.R + r0) * VE;
+  const int voff = (int)(vsrc & 15);
+
+  // copies of stage s into its ring slot (nothing past M or K)
   auto issue = [&](int s) {
     unsigned char* st = smem + (s % T_STAGES) * STAGE;
-    const int ks = kbeg + s * T_BK, kn = min(T_BK, a.K - ks);
+    const int kn = min(T_BK, a.K - (kbeg + s * T_BK));
     if (kn <= 0) return;
-    const int nwx = seg_words(kn, XE), nwv = seg_words(nv, VE);
-    for (int it = tid; it < T_BM * nwx; it += T_THREADS) {
-      const int i = it / nwx;
-      if (m0 + i < a.M)
-        copy_word(st + i * XSB, xbase + ((size_t)(m0 + i) * a.K + ks) * XE, kn, XE, it % nwx);
-    }
-    for (int it = tid; it < kn * nwv; it += T_THREADS) {
-      const int j = it / nwv;
-      copy_word(st + XRAW + j * VSB, vbase + ((size_t)(ks + j) * a.R + r0) * VE, nv, VE,
-                it % nwv);
-    }
+    if (xrow)
+      for (int j = 0; j < seg_words(kn, XE); ++j)
+        copy_word(st + tid * XSB, xsrc + (size_t)s * T_BK * XE, kn, XE, j);
+    if (vj < kn)
+      for (int j = vp; j < seg_words(nv, VE); j += VPARTS)
+        copy_word(st + XRAW + vj * VSB, vsrc + (size_t)s * T_BK * a.R * VE, nv, VE, j);
   };
 
-  // conversion of a landed stage to f32, zero past M, K and R: thread
-  // (ci, ch) x-row ci, k 16·ch.. (a row's segment offset is the same at
-  // every stage: a stage is 32 k, a chunk a multiple of 256); thread
-  // (vj, vc) V-row vj, columns vc..vc+7
-  const int ci = tid % T_BM, ch = tid / T_BM;
-  const int vj = tid / 4, vc = 8 * (tid % 4);
-  const bool xrow = m0 + ci < a.M;
-  const int xoff = (int)((xbase + (size_t)(m0 + ci) * a.K * XE) & 15);
-  const int voff = (int)((vbase + ((size_t)(kbeg + vj) * a.R + r0) * VE) & 15);
+  // conversion of a landed stage to f32, zero past M, K and R
   auto convert = [&](int s) {
     const unsigned char* st = smem + (s % T_STAGES) * STAGE;
-    const int ks = kbeg + s * T_BK;
-    const unsigned char* xsrc = st + ci * XSB + xoff;
+    const int kn = a.K - (kbeg + s * T_BK);
 #pragma unroll
-    for (int q = 0; q < T_BK / 2; ++q) {
-      const int k = T_BK / 2 * ch + q;
-      xs[k * T_BM + ci] = (xrow && ks + k < a.K) ? load_elem<TX>(xsrc + k * XE) : 0.f;
+    for (int h = 0; h < T_BK / 16; ++h) {
+      float t[16];
+      load_run<TX, 16>(st + tid * XSB + xoff + 16 * h * XE, xoff == 0, t);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) xs[(16 * h + q) * T_BM + tid] = xrow && 16 * h + q < kn ? t[q] : 0.f;
     }
-    const unsigned char* vsrc = st + XRAW + vj * VSB + voff;
-    const bool vrow = ks + vj < a.K;
-    float t[8];
+    float t[VRUN];
+    load_run<TF, VRUN>(st + XRAW + vj * VSB + voff + vp * VRUN * VE, false, t);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) t[q] = (vrow && vc + q < nv) ? load_elem<TF>(vsrc + (vc + q) * VE) : 0.f;
-    *reinterpret_cast<float4*>(vs + vj * T_BN + vc) = make_float4(t[0], t[1], t[2], t[3]);
-    *reinterpret_cast<float4*>(vs + vj * T_BN + vc + 4) = make_float4(t[4], t[5], t[6], t[7]);
+    for (int q = 0; q < VRUN / 4; ++q) {
+      float4 f;
+      const int c = vp * VRUN + 4 * q;
+      f.x = vj < kn && c < nv ? t[4 * q] : 0.f;
+      f.y = vj < kn && c + 1 < nv ? t[4 * q + 1] : 0.f;
+      f.z = vj < kn && c + 2 < nv ? t[4 * q + 2] : 0.f;
+      f.w = vj < kn && c + 3 < nv ? t[4 * q + 3] : 0.f;
+      *reinterpret_cast<float4*>(vs + vj * T_BN + c) = f;
+    }
   };
 
-  // thread (ty, tx): rows 4ty.., columns 4tx..
-  const int ty = tid / (T_BN / T_TN), tx = tid % (T_BN / T_TN);
-  float acc[T_TM][T_TN], chunk[T_TM][T_TN], total[T_TM][T_TN];
+  // thread (ty, tx): rows 4ty + i and T_BM/2 + 4ty + i, columns 4tx + j and
+  // T_BN/2 + 4tx + j (i, j < 4)
+  const int ty = tid / 8, tx = tid % 8;
+  auto row_of = [&](int i) { return (i < 4 ? 4 * ty : T_BM / 2 + 4 * ty - 4) + i; };
+  float acc[T_TM][T_TN], chunk[T_TM][T_TN];
 #pragma unroll
   for (int i = 0; i < T_TM; ++i)
 #pragma unroll
-    for (int j = 0; j < T_TN; ++j) acc[i][j] = chunk[i][j] = total[i][j] = 0.f;
+    for (int j = 0; j < T_TN; ++j) acc[i][j] = chunk[i][j] = 0.f;
   const int per_sub = a.sub / T_BK;  // stages a sub-chunk
   float* mine = a.part + (size_t)tile * a.nk * T_BM * T_BN;
   int w = 0, c = c0;
@@ -440,9 +508,12 @@ __global__ void __launch_bounds__(T_THREADS) tiled_kernel(Args a) {
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < T_BK; ++kk) {
-      const float4 xa = *reinterpret_cast<const float4*>(xs + kk * T_BM + T_TM * ty);
-      const float4 vb = *reinterpret_cast<const float4*>(vs + kk * T_BN + T_TN * tx);
-      const float xr[4] = {xa.x, xa.y, xa.z, xa.w}, vr[4] = {vb.x, vb.y, vb.z, vb.w};
+      const float4 a0 = *reinterpret_cast<const float4*>(xs + kk * T_BM + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(xs + kk * T_BM + T_BM / 2 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(vs + kk * T_BN + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(vs + kk * T_BN + T_BN / 2 + 4 * tx);
+      const float xr[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float vr[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < T_TM; ++i)
 #pragma unroll
@@ -458,46 +529,50 @@ __global__ void __launch_bounds__(T_THREADS) tiled_kernel(Args a) {
         acc[i][j] = 0.f;
       }
     if (++w < SUBS) continue;
-    // a chunk ends: its sums into the totals, or to scratch where K is split
+    // a chunk ends: its sums into the totals (held in xv), or to scratch
+    // where K is split
     w = 0;
     if (a.splits == 1) {
 #pragma unroll
-      for (int i = 0; i < T_TM; ++i)
+      for (int i = 0; i < T_TM; ++i) {
+        const int m = m0 + row_of(i);
+        if (m >= a.M) continue;
+        float* out = a.xv + (size_t)m * a.R + r0;
 #pragma unroll
-        for (int j = 0; j < T_TN; ++j)
-          total[i][j] = c == 0 ? chunk[i][j] : __fadd_rn(total[i][j], chunk[i][j]);
+        for (int j = 0; j < T_TN; ++j) {
+          const int col = (j < 4 ? 4 * tx : T_BN / 2 + 4 * tx - 4) + j;
+          if (col < nv) out[col] = c == 0 ? chunk[i][j] : __fadd_rn(out[col], chunk[i][j]);
+        }
+      }
     } else {
 #pragma unroll
-      for (int i = 0; i < T_TM; ++i)
-        *reinterpret_cast<float4*>(mine + ((size_t)c * T_BM + T_TM * ty + i) * T_BN + T_TN * tx) =
-            make_float4(chunk[i][0], chunk[i][1], chunk[i][2], chunk[i][3]);
+      for (int i = 0; i < T_TM; ++i) {
+        float* p = mine + ((size_t)c * T_BM + row_of(i)) * T_BN + 4 * tx;
+        *reinterpret_cast<float4*>(p) = make_float4(chunk[i][0], chunk[i][1], chunk[i][2], chunk[i][3]);
+        *reinterpret_cast<float4*>(p + T_BN / 2) =
+            make_float4(chunk[i][4], chunk[i][5], chunk[i][6], chunk[i][7]);
+      }
     }
     ++c;
   }
   cp_async_wait<0>();
+  if (a.splits == 1) return;
 
-  if (a.splits > 1) {  // the tile's last block adds the chunk sums in ascending K
-    if (!take_ticket(a.tickets, tile, a.splits, &last)) return;
-#pragma unroll
-    for (int i = 0; i < T_TM; ++i) {
-      const float* p = mine + (size_t)(T_TM * ty + i) * T_BN + T_TN * tx;
-      float4 t = __ldcg(reinterpret_cast<const float4*>(p));
-      for (int k2 = 1; k2 < a.nk; ++k2) {
-        const float4 u = __ldcg(reinterpret_cast<const float4*>(p + (size_t)k2 * T_BM * T_BN));
-        t = make_float4(__fadd_rn(t.x, u.x), __fadd_rn(t.y, u.y), __fadd_rn(t.z, u.z),
-                        __fadd_rn(t.w, u.w));
-      }
-      total[i][0] = t.x, total[i][1] = t.y, total[i][2] = t.z, total[i][3] = t.w;
-    }
-  }
-#pragma unroll
+  // K split: the tile's last block adds the chunk sums in ascending K
+  if (!take_ticket(a.tickets, tile, a.splits, &last)) return;
+#pragma unroll 1
   for (int i = 0; i < T_TM; ++i) {
-    const int m = m0 + T_TM * ty + i;
+    const int m = m0 + row_of(i);
     if (m >= a.M) continue;
 #pragma unroll
-    for (int j = 0; j < T_TN; ++j) {
-      const int r = r0 + T_TN * tx + j;
-      if (r < a.R) a.xv[(size_t)m * a.R + r] = total[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int col = h * (T_BN / 2) + 4 * tx;
+      const float4* p = reinterpret_cast<const float4*>(mine + (size_t)row_of(i) * T_BN + col);
+      const float4 t = fold_chunks(p, a.nk, (size_t)T_BM * T_BN / 4);
+      const float o[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (col + j < nv) a.xv[(size_t)m * a.R + r0 + col + j] = o[j];
     }
   }
 }
@@ -506,10 +581,32 @@ __global__ void __launch_bounds__(T_THREADS) tiled_kernel(Args a) {
 // rotation launch: grid (M); the rotated row quantized and, with V, written
 // ---------------------------------------------------------------------------
 
-// stages row `row` of x (K values) into buf as f32; all loads before stores
+// stages row `row` of x (K values) into buf as f32, 16 bytes a load where
+// the row allows; all loads before stores
 template <typename TX>
 __device__ __forceinline__ void stage_row(const TX* __restrict__ row, int K, float* buf) {
+  constexpr int N = quant_rows::Vec16<TX>::N;
   const int tid = threadIdx.x;
+  if (K % N == 0 && !(reinterpret_cast<uintptr_t>(row) & 15)) {
+    for (int i0 = 0; i0 < K / N; i0 += 4 * Q_THREADS) {
+      float t[4][N];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + j * Q_THREADS + tid;
+        if (i < K / N) quant_rows::Vec16<TX>::load(row + (size_t)i * N, t[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + j * Q_THREADS + tid;
+        if (i < K / N)
+#pragma unroll
+          for (int e = 0; e < N; e += 4)
+            *reinterpret_cast<float4*>(buf + i * N + e) =
+                make_float4(t[j][e], t[j][e + 1], t[j][e + 2], t[j][e + 3]);
+      }
+    }
+    return;
+  }
   for (int i0 = 0; i0 < K; i0 += 16 * Q_THREADS) {
     float t[16];
 #pragma unroll
@@ -534,7 +631,10 @@ __global__ void __launch_bounds__(Q_THREADS) rotate_kernel(Args a, const TX* __r
   stage_row(x + row * a.K, a.K, buf);
   __syncthreads();
   fwht_rows::rotate<Q_THREADS>(buf, a.K, a.K, nrm);  // ends with a barrier
-  if (xr)
+  if (xr && a.K % 4 == 0)
+    for (int i = threadIdx.x; i < a.K / 4; i += Q_THREADS)
+      reinterpret_cast<float4*>(xr + row * a.K)[i] = reinterpret_cast<const float4*>(buf)[i];
+  else if (xr)
     for (int i = threadIdx.x; i < a.K; i += Q_THREADS) xr[row * a.K + i] = buf[i];
   float* srow = a.sx + row * (a.group > 0 ? a.K / a.group : 1);
   if (a.group > 0)
@@ -570,15 +670,16 @@ struct Plan {
 Plan plan_of(int M, int K, int R, int rotate, int xe, int ve, int sms) {
   Plan p;
   if (rotate) xe = 4;  // the projection reads the f32 rotated rows
-  p.tiled = M > STREAM_M && K >= TILED_MIN_K;
   p.bk = chunk_k(K);
   p.chunks = tiles(K, p.bk);
+  p.tiled = M > STREAM_M && K >= TILED_MIN_K &&
+            tiles(M, T_BM) * tiles(R, T_BN) * p.chunks >= sms;
   if (p.tiled) {
     p.rows = T_BM, p.cols = T_BN, p.threads = T_THREADS;
     p.smem = tiled_smem(xe, ve);
   } else {
     p.rows = M <= 4 ? 4 : STREAM_M, p.cols = S_COLS, p.threads = S_THREADS;
-    p.smem = stream_region(p.rows, p.bk, ve) + 4 * p.rows * p.bk;
+    p.smem = stream_smem(p.rows, p.bk, xe, ve);
   }
   p.tiles_m = tiles(M, p.rows);
   p.tiles_r = tiles(R, p.cols);
@@ -598,6 +699,9 @@ Plan plan_of(int M, int K, int R, int rotate, int xe, int ve, int sms) {
   return p;
 }
 
+// Raise the kernel's dynamic shared memory limit to smem where it exceeds
+// the last one set (the default 48 KB also holds the static shared bytes,
+// so the first launch always sets it).
 template <typename F>
 int allow_smem(F kern, int smem, int& configured) {
   if (smem <= configured) return 0;
@@ -612,18 +716,18 @@ template <typename TX, typename TF>
 int project(const Args& a, const Plan& p, cudaStream_t s) {
   if (p.tiled) {
     auto kern = tiled_kernel<TX, TF>;
-    static int configured = 48 * 1024;  // per instantiation
+    static int configured = 0;  // per instantiation
     if (const int e = allow_smem(kern, p.smem, configured)) return e;
     const int grid = p.tiles_m * p.tiles_r * p.splits + (a.quant ? a.M : 0);
     kern<<<grid, T_THREADS, p.smem, s>>>(a);
   } else if (p.rows == 4) {
     auto kern = stream_kernel<4, TX, TF>;
-    static int configured = 48 * 1024;
+    static int configured = 0;
     if (const int e = allow_smem(kern, p.smem, configured)) return e;
     kern<<<dim3(p.chunks * p.tiles_r + (a.quant ? 4 : 0), p.tiles_m), S_THREADS, p.smem, s>>>(a);
   } else {
     auto kern = stream_kernel<STREAM_M, TX, TF>;
-    static int configured = 48 * 1024;
+    static int configured = 0;
     if (const int e = allow_smem(kern, p.smem, configured)) return e;
     kern<<<dim3(p.chunks * p.tiles_r + (a.quant ? STREAM_M : 0), p.tiles_m), S_THREADS, p.smem,
            s>>>(a);
@@ -639,7 +743,7 @@ int project_v(int x_bf16, const Args& a, const Plan& p, cudaStream_t s) {
 template <typename TX>
 int rotate_rows(const Args& a, float* xr, cudaStream_t s) {
   auto kern = rotate_kernel<TX>;
-  static int configured = 48 * 1024;
+  static int configured = 0;
   const int smem = 4 * a.K + 4 * (Q_THREADS / 32);
   if (const int e = allow_smem(kern, smem, configured)) return e;
   kern<<<a.M, Q_THREADS, smem, s>>>(a, static_cast<const TX*>(a.x), xr, fwht_rows::norm(a.K));

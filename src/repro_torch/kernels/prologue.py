@@ -20,9 +20,10 @@ Bound on an H100 SXM (3.35 TB/s, 67 f32 TFLOP/s): at decode, memory, V
 dominating (2·K·R bytes in bf16, 5 MB and 1.5 us at K=8192, R=307); at
 large M the f32 operations 2·M·K·R.  Two regimes from shapes alone
 (:func:`prologue_plan`; the source's head comment says what each does):
-M <= 16 streams V by cp.async with K split in chunks over blocks; larger M
-takes register-tiled 64 x 32 output tiles, K split only where the tiles
-leave the card under-filled.  With ``rotate`` a first launch rotates each
+M <= 16 (and larger M where the tiles below would not fill the card)
+streams V by cp.async with K split in chunks over blocks; larger M takes
+register-tiled 128 x 64 output tiles, K split only where the tiles leave
+the card under-filled.  With ``rotate`` a first launch rotates each
 row once.  An unrotated call is one device operation: no memset, scratch
 cached per stream, tickets left at zero by every launch.
 
@@ -82,8 +83,8 @@ def fused_prologue_plain(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
 MAX_BK, SUBS = 512, 8
 STREAM_M, TILED_MIN_K = 16, 256
 S_THREADS, S_COLS = 256, 32
-T_BM, T_BN, T_BK, T_STAGES, T_THREADS = 64, 32, 32, 4, 128
-WAVES = 3
+T_BM, T_BN, T_BK, T_STAGES, T_THREADS = 128, 64, 32, 3, 128
+WAVES = 2
 # SMs of an H100 SXM; the kernel reads the card's own count
 H100_SMS = 132
 
@@ -106,7 +107,7 @@ class ProloguePlan(NamedTuple):
     """A call of the kernel at (M, K, R), as the source plans it
     (``fused_prologue_plan``; the fields in its order)."""
 
-    tiled: int            # 1: M > 16 and K >= 256, register tiles; 0: the V stream
+    tiled: int            # 1: register tiles; 0: the V stream
     rows: int             # rows of an output tile
     cols: int             # columns of an output tile
     tiles_m: int
@@ -127,8 +128,9 @@ def prologue_plan(m: int, k: int, r: int, rotate: bool = False, x_bytes: int = 2
     """The kernel's launch plan, from (M, K, R), the rotation, the operand
     widths (bytes of an x and of a V value) and the SM count alone.
 
-    Stream (M <= 16, or K < 256): a block per (chunk, 32 columns, row tile
-    of 4 rows at M <= 4, else 16).  Tiled: 64 x 32 output tiles, over all
+    Stream (M <= 16, K < 256, or fewer (128 x 64 output tile, chunk) pairs
+    than SMs): a block per (chunk, 32 columns, row tile of 4 rows at M <=
+    4, else 16).  Tiled: 128 x 64 output tiles, over all
     of K, or, where the tiles are fewer than the SMs, over whole chunks so
     that about ``WAVES`` blocks run an SM.  Where K is split, ``zeroed``
     holds a ticket per output tile and ``scratch`` the chunk partials
@@ -136,16 +138,18 @@ def prologue_plan(m: int, k: int, r: int, rotate: bool = False, x_bytes: int = 2
     rows (M, K) f32, which the projection reads (its x 4 bytes)."""
     if rotate:
         x_bytes = 4
-    tiled = int(m > STREAM_M and k >= TILED_MIN_K)
     bk = chunk_k(k)
     chunks = -(-k // bk)
+    tiled = int(m > STREAM_M and k >= TILED_MIN_K
+                and -(-m // T_BM) * -(-r // T_BN) * chunks >= sms)
     if tiled:
         rows, cols, threads = T_BM, T_BN, T_THREADS
         smem = (T_STAGES * (T_BM * _seg_bytes(T_BK, x_bytes) + T_BK * _seg_bytes(T_BN, v_bytes))
                 + 4 * T_BK * (T_BM + T_BN))
     else:
         rows, cols, threads = 4 if m <= 4 else STREAM_M, S_COLS, S_THREADS
-        smem = max(bk * _seg_bytes(S_COLS, v_bytes), 4 * SUBS * rows * S_COLS) + 4 * rows * bk
+        smem = (max(bk * _seg_bytes(S_COLS, v_bytes), 4 * SUBS * rows * S_COLS)
+                + SUBS * rows * _seg_bytes(bk // SUBS, x_bytes))
     tiles_m, tiles_r = -(-m // rows), -(-r // cols)
     ntiles = tiles_m * tiles_r
     cps, splits = 1, chunks
