@@ -239,6 +239,77 @@ def build_variant(name, subs):
     return lib
 
 
+LOOP = "#pragma unroll\n    for (int kk = 0; kk < T_BK; ++kk) {"
+VARIANTS = {
+    "base": [],
+    "kk4": [(LOOP, LOOP.replace("unroll", "unroll 4"))],
+    "kk8": [(LOOP, LOOP.replace("unroll", "unroll 8"))],
+    "st4": [("T_BK = 32, T_STAGES = 3,", "T_BK = 32, T_STAGES = 4,")],
+    "parts2": [("constexpr int S_PARTS = 4;", "constexpr int S_PARTS = 2;")],
+}
+VARIANT_SHAPES = [(4, 3072, 307), (16, 3072, 307), (16, 8192, 307), (100, 8192, 922),
+                  (256, 8192, 1024), (2048, 8192, 922)]
+
+
+def variants(flush):
+    """Each variant's registers and spills, and its time at VARIANT_SHAPES,
+    the variants in turns (forward, then backward)."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, libs = {}, {}
+    for name, subs in VARIANTS.items():
+        text = NEW_SRC.read_text()
+        for a, b in subs:
+            if a not in text:
+                raise RuntimeError(f"variant {name}: {a!r} not in the source")
+            text = text.replace(a, b)
+        src = build.BUILD_DIR / f"variant_{name}.cu"
+        src.write_text(text)
+        out = build.BUILD_DIR / f"libvariant_{name}.so"
+        procs[name] = (subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                                         str(build.CSRC), "-o", str(out), str(src)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), out)
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        lines = log.splitlines()
+        regs = []
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and ("tiled_kernelI13" in line or "stream_kernelILi4E13" in line
+                                              or "stream_kernelILi8E13" in line):
+                kind = line.split("_cu_")[1][8:40].split("EE")[0]
+                regs.append(f"{kind}: " + " ".join(lines[i + 1].split()[0:1] + lines[i + 2].split()[3:5]
+                                                    + lines[i + 1].split()[4:5]))
+        print(f"variant {name}: " + " | ".join(regs), flush=True)
+        lib = ctypes.CDLL(str(out))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_prologue.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.fused_prologue.restype = ctypes.c_int
+        libs[name] = lib
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    zeroed = torch.zeros(1 << 16, dtype=torch.uint8, device="cuda")
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for (m, k, r) in VARIANT_SHAPES:
+        x, v = problem(gen, m, k, r, BF, BF)
+        ref = prologue.fused_prologue(x, v, 4, 0.9)[2]
+        reps = 5 if m == 2048 else 20
+        order = list(libs) + list(libs)[::-1]
+        t = {name: [] for name in libs}
+        for name in order:
+            lib = libs[name]
+            got = run_variant(lib, x, v, zeroed, scratch)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise RuntimeError(f"variant {name} differs at M={m} K={k} R={r}")
+            t[name].append(time_ms(lambda: run_variant(lib, x, v, zeroed, scratch), flush, reps))
+        line = "  ".join(f"{name} {statistics.mean(ts) * 1e3:8.2f}" for name, ts in t.items())
+        print(f"  M={m:<5} K={k:<5} R={r:<4} (us, bitwise the wrapper's): {line}", flush=True)
+        out[f"{m}x{k}x{r}"] = {name: statistics.mean(ts) * 1e3 for name, ts in t.items()}
+    return out
+
+
 def run_variant(lib, x, v, zeroed, scratch):
     m, k = x.shape
     r = v.shape[1]
@@ -295,6 +366,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--no-times", action="store_true")
     ap.add_argument("--timeline", action="store_true")
+    ap.add_argument("--variants", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prologue_probe: no CUDA device", file=sys.stderr)
@@ -310,10 +382,12 @@ def main(argv=None) -> int:
     rows, bad = compare(old)
     times = [] if args.no_times else timings(old, flush)
     tl = timeline(flush) if args.timeline else []
+    var = variants(flush) if args.variants else {}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": card.strip(), "floor_us": floor * 1e3,
-                                              "cases": rows, "times": times, "timeline": tl}))
+                                              "cases": rows, "times": times, "timeline": tl,
+                                              "variants": var}))
     return 1 if bad else 0
 
 

@@ -30,8 +30,10 @@
 // Design.  Two regimes, chosen from shapes alone (prologue.prologue_plan
 // mirrors the plan, fused_prologue_plan exports it):
 // * stream (M <= 16, K < 256, or fewer (128 x 64 tile, chunk) pairs than
-//   SMs, the tiled regime's units of work): a block is one chunk of K by 32 columns of
-//   R by a tile of 4 or 16 rows; warp w runs sub-chunk w, lane c column c,
+//   SMs, the tiled regime's units of work): a block is one chunk of K by 32
+//   columns of R by a tile of 4 rows (M <= 4), 8 (M <= 16, so that a
+//   16-row chunk spreads over twice the SMs) or 16; warp w runs sub-chunk
+//   w, lane c column c,
 //   every row of the tile at once.  Each warp copies its V rows by 16-byte
 //   cp.async (the aligned words that cover each row's 32-column segment: V
 //   rows are R values long and need no alignment) in four groups, stages
@@ -178,18 +180,20 @@ __device__ __forceinline__ void quantize(const Args& a, const TX* x, int row, fl
 // Take the ticket of output tile `tile` once `total` blocks write into it:
 // true for the last of them, which resets the ticket for the next launch.
 // Called by every thread of the block.
+// The block's partials, stored before the barrier, are released to the
+// device by the ticket's acq_rel atomic, which also acquires the others'.
 __device__ __forceinline__ bool take_ticket(int* tickets, int tile, int total, int* last) {
-  __threadfence();  // this block's partials are visible before its ticket
   __syncthreads();
   if (threadIdx.x == 0) {
-    const bool l = atomicAdd(tickets + tile, 1) == total - 1;
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+                 : "=r"(old) : "l"(tickets + tile) : "memory");
+    const bool l = old == total - 1;
     if (l) tickets[tile] = 0;
     *last = l;
   }
   __syncthreads();
-  const bool l = *last;
-  if (l) __threadfence();
-  return l;
+  return *last;
 }
 
 // The sum of n partials p[0], p[stride], ... added in ascending order from
@@ -678,7 +682,7 @@ Plan plan_of(int M, int K, int R, int rotate, int xe, int ve, int sms) {
     p.rows = T_BM, p.cols = T_BN, p.threads = T_THREADS;
     p.smem = tiled_smem(xe, ve);
   } else {
-    p.rows = M <= 4 ? 4 : STREAM_M, p.cols = S_COLS, p.threads = S_THREADS;
+    p.rows = M <= 4 ? 4 : M <= STREAM_M ? 8 : STREAM_M, p.cols = S_COLS, p.threads = S_THREADS;
     p.smem = stream_smem(p.rows, p.bk, xe, ve);
   }
   p.tiles_m = tiles(M, p.rows);
@@ -725,6 +729,11 @@ int project(const Args& a, const Plan& p, cudaStream_t s) {
     static int configured = 0;
     if (const int e = allow_smem(kern, p.smem, configured)) return e;
     kern<<<dim3(p.chunks * p.tiles_r + (a.quant ? 4 : 0), p.tiles_m), S_THREADS, p.smem, s>>>(a);
+  } else if (p.rows == 8) {
+    auto kern = stream_kernel<8, TX, TF>;
+    static int configured = 0;
+    if (const int e = allow_smem(kern, p.smem, configured)) return e;
+    kern<<<dim3(p.chunks * p.tiles_r + (a.quant ? 8 : 0), p.tiles_m), S_THREADS, p.smem, s>>>(a);
   } else {
     auto kern = stream_kernel<STREAM_M, TX, TF>;
     static int configured = 0;
