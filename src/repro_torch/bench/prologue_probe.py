@@ -239,13 +239,34 @@ def build_variant(name, subs):
     return lib
 
 
-LOOP = "#pragma unroll\n    for (int kk = 0; kk < T_BK; ++kk) {"
+def _sub(*pairs):
+    def f(text):
+        for a, b in pairs:
+            if a not in text:
+                raise RuntimeError(f"{a!r} not in the source")
+            text = text.replace(a, b)
+        return text
+    return f
+
+
+def _chunk_smem(text):
+    """The tiled kernel's chunk sums in shared memory, [T_TM·T_TN][threads]."""
+    import re
+    text = _sub(("return T_STAGES * tiled_stage(xe, ve) + 4 * T_BK * (T_BM + T_BN);",
+                 "return T_STAGES * tiled_stage(xe, ve) + 4 * T_BK * (T_BM + T_BN) + "
+                 "4 * T_TM * T_TN * T_THREADS;"),
+                ("  float* vs = xs + T_BK * T_BM;                                    // [T_BK][T_BN]",
+                 "  float* vs = xs + T_BK * T_BM;\n  float* cs = vs + T_BK * T_BN;"),
+                ("  float acc[T_TM][T_TN], chunk[T_TM][T_TN];", "  float acc[T_TM][T_TN];"),
+                ("acc[i][j] = chunk[i][j] = 0.f;", "acc[i][j] = 0.f;"))(text)
+    return re.sub(r"chunk\[i\]\[(\w+)\]", r"cs[T_THREADS * (T_TN * i + \1) + tid]", text)
+
+
 VARIANTS = {
-    "base": [],
-    "kk4": [(LOOP, LOOP.replace("unroll", "unroll 4"))],
-    "kk8": [(LOOP, LOOP.replace("unroll", "unroll 8"))],
-    "st4": [("T_BK = 32, T_STAGES = 3,", "T_BK = 32, T_STAGES = 4,")],
-    "parts2": [("constexpr int S_PARTS = 4;", "constexpr int S_PARTS = 2;")],
+    "base": _sub(),
+    "chunk_smem": _chunk_smem,
+    "bounds1": _sub(("__launch_bounds__(T_THREADS, 2) tiled_kernel", "__launch_bounds__(T_THREADS, 1) tiled_kernel")),
+    "st2": _sub(("T_BK = 32, T_STAGES = 3,", "T_BK = 32, T_STAGES = 2,")),
 }
 VARIANT_SHAPES = [(4, 3072, 307), (16, 3072, 307), (16, 8192, 307), (100, 8192, 922),
                   (256, 8192, 1024), (2048, 8192, 922)]
@@ -256,12 +277,8 @@ def variants(flush):
     the variants in turns (forward, then backward)."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, libs = {}, {}
-    for name, subs in VARIANTS.items():
-        text = NEW_SRC.read_text()
-        for a, b in subs:
-            if a not in text:
-                raise RuntimeError(f"variant {name}: {a!r} not in the source")
-            text = text.replace(a, b)
+    for name, edit in VARIANTS.items():
+        text = edit(NEW_SRC.read_text())
         src = build.BUILD_DIR / f"variant_{name}.cu"
         src.write_text(text)
         out = build.BUILD_DIR / f"libvariant_{name}.so"
@@ -276,12 +293,11 @@ def variants(flush):
         lines = log.splitlines()
         regs = []
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and ("tiled_kernelI13" in line or "stream_kernelILi4E13" in line
-                                              or "stream_kernelILi8E13" in line):
-                kind = line.split("_cu_")[1][8:40].split("EE")[0]
-                regs.append(f"{kind}: " + " ".join(lines[i + 1].split()[0:1] + lines[i + 2].split()[3:5]
-                                                    + lines[i + 1].split()[4:5]))
-        print(f"variant {name}: " + " | ".join(regs), flush=True)
+            if "Compiling entry" in line and "kernelI" in line and i + 2 < len(lines):
+                kind = line.split("_kernel")[0].split("_")[-1] + line.split("_kernel")[1][:12]
+                regs.append(f"{kind}: {lines[i + 1].strip()} {lines[i + 2].strip()}")
+        print(f"variant {name}:\n    " + "\n    ".join(r.replace("ptxas info    : ", "")
+                                                      for r in regs), flush=True)
         lib = ctypes.CDLL(str(out))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_prologue.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
@@ -308,6 +324,88 @@ def variants(flush):
         print(f"  M={m:<5} K={k:<5} R={r:<4} (us, bitwise the wrapper's): {line}", flush=True)
         out[f"{m}x{k}x{r}"] = {name: statistics.mean(ts) * 1e3 for name, ts in t.items()}
     return out
+
+
+LDS_BENCH = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+// cycles of one SM for `iters` rounds of 8 shared loads a thread, 8 warps;
+// pattern: 0 float4 one address, 1 float4 8 distinct (a quarter-warp each
+// 128 B), 2 float4 32 distinct, 3 float one address, 4 float4 4 distinct
+// (lane / 8), 5 float 32 distinct, 6 u16 32 distinct 2 bytes apart
+__global__ void lds_kernel(int pattern, int iters, float* out, long long* cyc) {
+  __shared__ __align__(16) float buf[8192];
+  for (int i = threadIdx.x; i < 8192; i += blockDim.x) buf[i] = i;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  int off = 0;
+  switch (pattern) {
+    case 1: off = (lane % 8) * 4; break;
+    case 2: off = lane * 4; break;
+    case 4: off = (lane / 8) * 4; break;
+    case 5: off = lane; break;
+    default: off = 0;
+  }
+  unsigned base = (unsigned)__cvta_generic_to_shared(buf) + off * 4;
+  if (pattern == 6) base = (unsigned)__cvta_generic_to_shared(buf) + lane * 2;
+  float acc = 0.f;
+  __syncthreads();
+  long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+    const unsigned b = base + ((it & 1) << 12);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (pattern == 3 || pattern == 5) {
+        float v;
+        asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(b + q * 2048));
+        acc += v;
+      } else if (pattern == 6) {
+        unsigned short v;
+        asm volatile("ld.shared.u16 %0, [%1];" : "=h"(v) : "r"(b + q * 2048));
+        acc += (float)v;
+      } else {
+        float a, c, d, e;
+        asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                     : "=f"(a), "=f"(c), "=f"(d), "=f"(e) : "r"(b + q * 2048));
+        acc += a + c + d + e;
+      }
+    }
+  }
+  __syncthreads();
+  long long t1 = clock64();
+  if (threadIdx.x == 0) *cyc = t1 - t0;
+  out[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+extern "C" int lds_bench(int pattern, int iters, void* out, void* cyc) {
+  lds_kernel<<<1, 256>>>(pattern, iters, (float*)out, (long long*)cyc);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def lds_bench():
+    """Shared-memory cycles per warp-load of each access pattern (one SM,
+    8 warps): how many wavefronts a broadcast 16-byte load costs."""
+    src = build.BUILD_DIR / "lds_bench.cu"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(LDS_BENCH)
+    out = build.BUILD_DIR / "liblds_bench.so"
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out), str(src)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    lib.lds_bench.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    buf = torch.empty(256, device="cuda")
+    cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
+    names = ["f4 one address", "f4 8 distinct/quarter", "f4 32 distinct", "f32 one address",
+             "f4 4 distinct (lane/8)", "f32 32 distinct", "u16 32 distinct"]
+    res = {}
+    for pat, name in enumerate(names):
+        lib.lds_bench(pat, 64, buf.data_ptr(), cyc.data_ptr())
+        lib.lds_bench(pat, 4096, buf.data_ptr(), cyc.data_ptr())
+        c = cyc.item() / (4096 * 8 * 8)
+        res[name] = c
+        print(f"  lds {name:<24} {c:.2f} SM cycles a warp-load", flush=True)
+    return res
 
 
 def run_variant(lib, x, v, zeroed, scratch):
@@ -367,6 +465,8 @@ def main(argv=None) -> int:
     ap.add_argument("--no-times", action="store_true")
     ap.add_argument("--timeline", action="store_true")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--lds", action="store_true")
+    ap.add_argument("--lds-only", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prologue_probe: no CUDA device", file=sys.stderr)
@@ -379,7 +479,8 @@ def main(argv=None) -> int:
     one = torch.zeros(1, device="cuda")
     floor = time_ms(lambda: one.add_(1), flush)
     print(f"timing floor {floor * 1e3:.2f} us", flush=True)
-    rows, bad = compare(old)
+    lds = lds_bench() if args.lds else {}
+    rows, bad = ([], 0) if args.lds_only else compare(old)
     times = [] if args.no_times else timings(old, flush)
     tl = timeline(flush) if args.timeline else []
     var = variants(flush) if args.variants else {}
@@ -387,7 +488,7 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": card.strip(), "floor_us": floor * 1e3,
                                               "cases": rows, "times": times, "timeline": tl,
-                                              "variants": var}))
+                                              "variants": var, "lds": lds}))
     return 1 if bad else 0
 
 

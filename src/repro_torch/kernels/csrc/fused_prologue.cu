@@ -43,7 +43,7 @@
 //   last block of each (row tile, column tile) to take its ticket adds the
 //   nk partials in ascending K, writes xv and resets the ticket, so no
 //   memset precedes a launch.  The tiles' quantizer blocks (one a row) run
-//   in the same grid: an unrotated call is one device operation.
+//   first in the same grid: an unrotated call is one device operation.
 // * tiled (the other shapes): a block owns a 128 x 64 output tile and a
 //   range of whole chunks; x and V stages of 32 k stream through a ring of
 //   three by cp.async and are converted to f32 compute layouts (x
@@ -196,30 +196,34 @@ __device__ __forceinline__ bool take_ticket(int* tickets, int tile, int total, i
   return *last;
 }
 
-// The sum of n partials p[0], p[stride], ... added in ascending order from
-// the first, their loads issued eight at a time ahead of the adds.
-template <typename T>
-__device__ __forceinline__ T fold_chunks(const T* p, int n, size_t stride);
-
 __device__ __forceinline__ float add4(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
                      __fadd_rn(a.w, b.w));
 }
 
-template <typename T>
-__device__ __forceinline__ T fold_chunks(const T* p, int n, size_t stride) {
-  T s = __ldcg(p);
-  for (int c = 1; c < n; c += 8) {
-    T t[8];
+// For each of Q outputs q (where on[q]), the sum of its n partials p[q][0],
+// p[q][stride], ... added in ascending order from the first; the loads of
+// every output are issued B chunks at a time ahead of the adds.
+template <int Q, int B = 8 / Q, typename T>
+__device__ __forceinline__ void fold_chunks(const T* const (&p)[Q], const bool (&on)[Q], int n,
+                                            size_t stride, T (&sum)[Q]) {
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
-      if (c + q < n) t[q] = __ldcg(p + (size_t)(c + q) * stride);
+  for (int q = 0; q < Q; ++q)
+    if (on[q]) sum[q] = __ldcg(p[q]);
+  for (int c = 1; c < n; c += B) {
+    T t[Q][B];
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
-      if (c + q < n) s = add4(s, t[q]);
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int e = 0; e < B; ++e)
+        if (on[q] && c + e < n) t[q][e] = __ldcg(p[q] + (size_t)(c + e) * stride);
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int e = 0; e < B; ++e)
+        if (on[q] && c + e < n) sum[q] = add4(sum[q], t[q][e]);
   }
-  return s;
 }
 
 // ---------------------------------------------------------------------------
@@ -262,15 +266,15 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   constexpr int XV = 16 / XE;  // x values a 16-byte load
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * MR, mv = min(MR, a.M - m0);
-  const int nproj = a.nk * a.tiles_r;
+  const int nq = a.quant ? MR : 0;  // quantizer blocks first: none waits behind the tiles
 
-  if ((int)blockIdx.x >= nproj) {  // quantizer block: row m0 + m
-    const int m = (int)blockIdx.x - nproj;
-    if (m < mv) quantize<S_THREADS>(a, static_cast<const TX*>(a.x), m0 + m,
-                                    reinterpret_cast<float*>(smem));
+  if ((int)blockIdx.x < nq) {  // quantizer block: row m0 + blockIdx.x
+    if ((int)blockIdx.x < mv)
+      quantize<S_THREADS>(a, static_cast<const TX*>(a.x), m0 + (int)blockIdx.x,
+                          reinterpret_cast<float*>(smem));
     return;
   }
-  const int kc = (int)blockIdx.x % a.nk, rt = (int)blockIdx.x / a.nk;
+  const int b = (int)blockIdx.x - nq, kc = b % a.nk, rt = b / a.nk;
   const int bk = a.bk, sub = a.sub;
   const int kb = kc * bk + warp * sub;             // the warp's sub-chunk
   const int n = max(0, min(sub, a.K - kb));        // its k inside K
@@ -369,10 +373,21 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
 
   // 4. the tile's last block adds the nk partials in ascending K
   if (!take_ticket(a.tickets, tile, a.nk, &last)) return;
-  for (int i = tid; i < MR * S_COLS; i += S_THREADS) {
-    const int m = i / S_COLS, c = i % S_COLS;
-    if (m < mv && c < rv)
-      a.xv[(size_t)(m0 + m) * a.R + r0 + c] = fold_chunks(mine + i, a.nk, (size_t)MR * S_COLS);
+  constexpr int Q = (MR * S_COLS + S_THREADS - 1) / S_THREADS;  // outputs a thread
+  const float* p[Q];
+  bool on[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int i = tid + q * S_THREADS, m = i / S_COLS, c = i % S_COLS;
+    on[q] = i < MR * S_COLS && m < mv && c < rv;
+    p[q] = mine + (on[q] ? i : 0);
+  }
+  float sum[Q];
+  fold_chunks<Q>(p, on, a.nk, (size_t)MR * S_COLS, sum);
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int i = tid + q * S_THREADS;
+    if (on[q]) a.xv[(size_t)(m0 + i / S_COLS) * a.R + r0 + i % S_COLS] = sum[q];
   }
 }
 
@@ -423,14 +438,14 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
   float* xs = reinterpret_cast<float*>(smem + T_STAGES * STAGE);  // [T_BK][T_BM]
   float* vs = xs + T_BK * T_BM;                                    // [T_BK][T_BN]
   const int tid = threadIdx.x;
-  const int ntiles = a.tiles_m * a.tiles_r, nproj = ntiles * a.splits;
+  const int ntiles = a.tiles_m * a.tiles_r, nq = a.quant ? a.M : 0;
 
-  if ((int)blockIdx.x >= nproj) {  // quantizer block: one row
-    quantize<T_THREADS>(a, static_cast<const TX*>(a.x), (int)blockIdx.x - nproj,
+  if ((int)blockIdx.x < nq) {  // quantizer block: one row, first in the grid
+    quantize<T_THREADS>(a, static_cast<const TX*>(a.x), (int)blockIdx.x,
                         reinterpret_cast<float*>(smem));
     return;
   }
-  const int split = (int)blockIdx.x / ntiles, tile = (int)blockIdx.x % ntiles;
+  const int b = (int)blockIdx.x - nq, split = b / ntiles, tile = b % ntiles;
   const int m0 = tile / a.tiles_r * T_BM, r0 = tile % a.tiles_r * T_BN;
   const int c0 = split * a.cps, c1 = min(c0 + a.cps, a.nk);
   const int kbeg = c0 * a.bk, nst = (c1 - c0) * a.bk / T_BK;
@@ -565,18 +580,24 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
   // K split: the tile's last block adds the chunk sums in ascending K
   if (!take_ticket(a.tickets, tile, a.splits, &last)) return;
 #pragma unroll 1
-  for (int i = 0; i < T_TM; ++i) {
-    const int m = m0 + row_of(i);
-    if (m >= a.M) continue;
+  for (int i0 = 0; i0 < T_TM; i0 += 4) {  // four rows, both column halves, at a time
+    const float4* p[8];
+    bool on[8];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = h * (T_BN / 2) + 4 * tx;
-      const float4* p = reinterpret_cast<const float4*>(mine + (size_t)row_of(i) * T_BN + col);
-      const float4 t = fold_chunks(p, a.nk, (size_t)T_BM * T_BN / 4);
-      const float o[4] = {t.x, t.y, t.z, t.w};
+    for (int q = 0; q < 8; ++q) {
+      const int i = i0 + q / 2, col = q % 2 * (T_BN / 2) + 4 * tx;
+      on[q] = m0 + row_of(i) < a.M;
+      p[q] = reinterpret_cast<const float4*>(mine + (size_t)row_of(i) * T_BN + col);
+    }
+    float4 t[8];
+    fold_chunks<8, 4>(p, on, a.nk, (size_t)T_BM * T_BN / 4, t);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = q % 2 * (T_BN / 2) + 4 * tx;
+      const float o[4] = {t[q].x, t[q].y, t[q].z, t[q].w};
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (col + j < nv) a.xv[(size_t)m * a.R + r0 + col + j] = o[j];
+        if (on[q] && col + j < nv) a.xv[(size_t)(m0 + row_of(i0 + q / 2)) * a.R + r0 + col + j] = o[j];
     }
   }
 }
