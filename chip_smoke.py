@@ -10,8 +10,10 @@ Phases, each fatal on failure:
      the rotation's host constant against the plain version's, count the
      tensor-core instructions (``cuobjdump -sass``; none is a failure):
      HMMA in the two dense flash libraries, IMMA in the W4A4 GEMM's, and
-     hold ``w4a4.gemm_plan`` equal to the GEMM source's own plan at the
-     served, prefill, phase-12 and ragged shapes;
+     hold ``w4a4.gemm_plan`` and ``prologue.prologue_plan`` equal to the
+     GEMM's and the prologue's source plans at the served, prefill,
+     phase-12 and ragged shapes, the prologue's registers and spills
+     printed for each of its entries;
   3. the premises of the dense flash kernels' accuracy standard probed on
      the card (the TF32 split bitwise its plain emulation, one m16n8k8 mma
      on chosen addends within the model of its accumulation, what the card
@@ -20,7 +22,9 @@ Phases, each fatal on failure:
      with times: the fused kernel at SmolLM-135M's sites, the prologue,
      GEMM and quantizer kernels at Phi-3-mini's (the GEMM's rows at M 1, 4,
      16 and 100 bitwise the same rows of a 2048-row call, per-token and at
-     g 128, R 307, across its two tile regimes), the two paged attention
+     g 128, R 307, across its two tile regimes; the prologue's xq, sx and
+     xv rows the same way at K 3072 and 8192 with R 307, K 8192 with R 922,
+     rotated too, across its V stream and register tiles), the two paged attention
      kernels at both models' decode shapes, one long ragged Phi-3 batch and
      Gemma-7b's head_dim 256 (f32 and bf16 pools, int8 and int4 pools),
      with an inactive row and garbage in the pages no row owns, each within
@@ -51,8 +55,9 @@ Phases, each fatal on failure:
   6. serve Phi-3-mini at full width (PHI3_LAYERS layers) on the
      same traffic: every QLinear demotes to the chained path (prologue →
      GEMM kernel), shown by ``health()["decode_plan"]`` and the counts;
-     its decode window profiled with the attention on the kernel route and
-     on the reference's gather route, in turns;
+     its decode window profiled (no memset may appear in it) with the
+     attention on the kernel route and on the reference's gather route, in
+     turns;
   7. Phi-3-mini's teacher-forced ``paged_step`` on the chained path, each
      call held against the plain chained pair, then on the unfused path
      (quantizer kernel → x·V in torch → GEMM kernel), the two compared;
@@ -384,11 +389,55 @@ def phase_chain_kernels(device):
           "the int4 GEMM with its rescale and LR epilogue, the quantizer, or "
           "the quantizer with x·V", flush=True)
     _gemm_rows_gate(device)
+    _prologue_rows_gate(device)
     return worst, timed
 
 
 # M of the calls whose rows must be bitwise the 2048-row call's
 GEMM_ROW_MS = (1, SLOTS, CHUNK, 100)
+# the prologue's rows gate (K, R, rotate): Phi-3-mini's two site K at R 307,
+# its wd at the paper's 30 % rank, and that one rotated
+PROLOGUE_ROW_CASES = [(3072, 307, False), (8192, 307, False), (8192, 922, False),
+                      (8192, 922, True)]
+
+
+def _prologue_rows_gate(device):
+    """The prologue kernel's rows do not depend on M, fatal: for each of
+    PROLOGUE_ROW_CASES, per-token and at g 128 (bf16 x and V as served),
+    each row of xq, sx and xv of calls at M = GEMM_ROW_MS is bitwise the
+    same row of the 2048-row call on the same rows.  The calls span both
+    regimes (M <= 16 streams V, with 4- and 8-row tiles; M 100 streams at
+    R 307 and takes the register tiles at R 922; M 2048 the register tiles)."""
+    import torch
+
+    from repro_torch.bench.common import w4a4_problem
+    from repro_torch.kernels import prologue
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mmax = 2048
+    for (k, r, rot) in PROLOGUE_ROW_CASES:
+        for g in (None, PHI3_GROUP):
+            x, v, _, _, _ = w4a4_problem(gen, mmax, k, 1, r, bf16, bf16, device, g)
+            whole = prologue.fused_prologue(x, v, 4, 0.9, rot, g)
+            plans = []
+            for m in GEMM_ROW_MS:
+                part = prologue.fused_prologue(x[:m].contiguous(), v, 4, 0.9, rot, g)
+                torch.cuda.synchronize()
+                for a, b, what in zip(part, whole, ("xq", "sx", "xv")):
+                    if not torch.equal(a, b[:m]):
+                        raise SystemExit(f"prologue {what} rows at M={m} K={k} R={r} g={g} "
+                                         f"rotate={rot} are not bitwise the same rows of the "
+                                         f"M={mmax} call")
+                p = prologue.prologue_plan(m, k, r, rot, 2, 2, sms)
+                plans.append(f"M {m}: {'tiled' if p.tiled else f'stream {p.rows}-row'}")
+            p = prologue.prologue_plan(mmax, k, r, rot, 2, 2, sms)
+            print(f"  prologue rows K={k:<5} R={r:<4} g={g} rotate={rot!s:<5}: M {GEMM_ROW_MS} "
+                  f"bitwise the M={mmax} call's rows ({'; '.join(plans)}; M {mmax}: "
+                  f"{'tiled' if p.tiled else 'stream'}, {p.splits} split"
+                  f"{'s' if p.splits > 1 else ''})", flush=True)
+            del x, v, whole
 
 
 def _gemm_rows_gate(device):
@@ -925,6 +974,48 @@ def _gemm_plan_cases():
                     (4, 200, 33, 10), (100, 90, 33, 45), (4, 3072, 3073, 3072)]
 
 
+def _prologue_plan_cases():
+    """(M, K, R, rotate, x bytes, V bytes) of the prologue's plan gate: the
+    served Phi-3-mini and Gemma-7b sites at the decode, prefill-chunk and
+    long-prompt-chunk M, phase 12's sizes and ranks, rotated where K is a
+    power of two, f32 operands, and ragged shapes."""
+    from repro_torch.bench.latency_kernels import MS, PHI3_WD, RANKS, SIZES
+
+    served = [(3072, 307), (8192, 307), (3072, 409), (24576, 307), (8192, 922)]
+    cases = [(m, k, r, False, 2, 2) for (k, r) in served
+             for m in (1, SLOTS, CHUNK, 17, 100, 777, 2048)]
+    cases += [(m, k, r, rot, 2, 2) for m in MS for (k, _) in SIZES + [PHI3_WD]
+              for r in RANKS + [307] for rot in (False, True) if not rot or not k & (k - 1)]
+    cases += [(m, k, r, rot, xb, vb) for (m, k, r) in ((5, 16384, 40), (20, 1030, 1024),
+                                                     (2048, 8192, 922), (7, 256, 33))
+              for rot in (False, True) if not rot or not k & (k - 1)
+              for (xb, vb) in ((4, 4), (4, 2), (2, 4))]
+    return cases + [(17, 200, 7, False, 2, 2), (3, 90, 0, False, 2, 2), (33, 8194, 5, False, 2, 2),
+                    (1, 3072, 3073, False, 2, 2), (4, 200, 33, False, 4, 4),
+                    (100, 90, 33, False, 4, 4), (2048, 8, 3, True, 2, 2)]
+
+
+def _kernel_registers(name):
+    """(entry, 'registers, spills') of each kernel entry in ``name``'s last
+    build log (``nvcc -Xptxas -v``)."""
+    from repro_torch.kernels import build
+
+    lines = build.BUILD_LOG.get(name, "").splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        entry = line.split("'")[1]
+        for kind in ("stream_kernel", "tiled_kernel", "rotate_kernel"):
+            if kind in entry:
+                entry = kind + entry.split(kind)[1].split("EEvNS")[0].split("EEv")[0]
+        regs = next((ln.split(":")[-1].split(",")[0].strip() for ln in lines[i + 1:i + 4]
+                     if "registers" in ln), "?")
+        spill = next((ln.strip() for ln in lines[i + 1:i + 4] if "spill" in ln), "?")
+        out.append((entry, f"{regs}; {spill}"))
+    return out
+
+
 # the premises' probe: values whose TF32 rounding is known (ties at the 11th
 # significand bit both ways and both signs, a carry into the exponent, the
 # largest normals, the smallest normal, pi), and one value on each side of
@@ -1364,14 +1455,17 @@ def build_model(device, arch="smollm-135m", n_layers=None):
     return cfg, qparams
 
 
-def phase_serve(cfg, qparams, device, kernels, kv_spec=None, route_ab=False):
+def phase_serve(cfg, qparams, device, kernels, kv_spec=None, route_ab=False,
+                no_memset=False):
     """Serve the traffic through ``ServeEngine.submit``/``run`` with a KV
     pool of ``kv_spec`` (None: f32); every QLinear call must launch each
     kernel named in ``kernels`` once, every decode step's attention the
     spec's paged attention kernel once per layer, every prefill chunk's the
     spec's dense flash kernel (#7 for a float pool, #8 for a quantized one)
     once per layer, and no other kernel or plain version may run.
-    ``route_ab`` adds :func:`profile_routes`."""
+    ``route_ab`` adds :func:`profile_routes`; ``no_memset`` fails if the
+    profiled decode window holds any memset (the chained path's kernels
+    leave their tickets at zero: none may precede a launch)."""
     import numpy as np
     import torch
 
@@ -1445,6 +1539,9 @@ def phase_serve(cfg, qparams, device, kernels, kv_spec=None, route_ab=False):
                          f"every prefill attention through {pre}")
     n_tok = sum(rec.new_tokens for rec in done.values())
     prof = profile_decode(cfg, qparams, device, engine, prompts())
+    if no_memset and prof["memsets_per_step"]:
+        raise SystemExit(f"serve: the decode window holds {prof['memsets_per_step']:.0f} "
+                         f"memsets a step; the chained path's kernels launch none")
     if route_ab:
         prof["routes"] = profile_routes(cfg, qparams, device, prompts(), kv_spec)
     stats = {
@@ -1497,9 +1594,12 @@ def _device_profile(prof, wall, steps, what, top):
     from torch.autograd import DeviceType
 
     rows = []
+    memsets = 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
+        if "memset" in evt.key.lower():
+            memsets += evt.count
         if evt.self_device_time_total > 0:
             rows.append((evt.self_device_time_total, evt.key, evt.count))
     if not rows:
@@ -1509,7 +1609,8 @@ def _device_profile(prof, wall, steps, what, top):
     ops = sum(r[2] for r in rows) / steps
     print(f"  profile: {steps} {what} in {wall * 1e3:.2f} ms wall, device "
           f"busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}, "
-          f"{ops:.0f} device operations a step", flush=True)
+          f"{ops:.0f} device operations a step, {memsets / steps:.0f} memsets a step",
+          flush=True)
     for dev_us, key, count in rows[:top]:
         print(f"    {dev_us / steps / 1e3:8.3f} ms/step  x{count // steps:<5} {key[:90]}",
               flush=True)
@@ -1517,6 +1618,7 @@ def _device_profile(prof, wall, steps, what, top):
             "device_busy_ms_per_step": busy / steps * 1e3,
             "device_idle_share": 1 - busy / wall,
             "device_ops_per_step": ops,
+            "memsets_per_step": memsets / steps,
             "top": [{"key": key, "ms_per_step": dev_us / steps / 1e3,
                      "count_per_step": count // steps} for dev_us, key, count in rows[:top]]}
 
@@ -3521,6 +3623,17 @@ def main() -> int:
     print(f"  w4a4.gemm_plan == the source's plan at {len(plan_cases)} shapes ({sms} SMs); "
           f"Phi-3 wd at M {SLOTS}: {w4a4.gemm_plan(SLOTS, 8192, 3072, None, sms)}",
           flush=True)
+    # prologue.prologue_plan mirrors the prologue source's plan, the same way
+    plan_cases = _prologue_plan_cases()
+    for case in plan_cases:
+        want = prologue.source_plan(*case, sms)
+        if prologue.prologue_plan(*case, sms) != want:
+            raise SystemExit(f"prologue.prologue_plan{case + (sms,)} is not the source's {want}")
+    print(f"  prologue.prologue_plan == the source's plan at {len(plan_cases)} shapes "
+          f"({sms} SMs); Phi-3 wd at M {SLOTS}: "
+          f"{prologue.prologue_plan(SLOTS, 8192, 307, False, 2, 2, sms)}", flush=True)
+    for entry, regs in _kernel_registers("fused_prologue"):
+        print(f"  fused_prologue {entry}: {regs}", flush=True)
 
     phase("3. kernels against their plain versions")
     probe = phase_tc_probe(device)
@@ -3543,7 +3656,7 @@ def main() -> int:
     pcfg, pparams = build_model(device, "phi3-mini-3.8b", PHI3_LAYERS)
     phi3_counts, phi3_serve = phase_serve(pcfg, pparams, device,
                                           ["fused_prologue", "w4a4_lowrank_matmul"],
-                                          route_ab=True)
+                                          route_ab=True, no_memset=True)
 
     phase("7. Phi-3-mini teacher-forced paged_step, chained and unfused paths")
     paths = phase_paths(pcfg, pparams, device)

@@ -196,8 +196,8 @@ TIMELINE = [
      "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
      "  const unsigned long long t0 = probe_now();\n  unsigned long long tv0 = 0;\n"
      "  const int m0 = blockIdx.y * MR, mv = min(MR, a.M - m0);"),
-    ("                                    reinterpret_cast<float*>(smem));\n    return;",
-     "                                    reinterpret_cast<float*>(smem));\n"
+    ("                          reinterpret_cast<float*>(smem));\n    return;",
+     "                          reinterpret_cast<float*>(smem));\n"
      "    probe_stamp(t0, t0, t0, t0, t0, 3);\n    return;"),
     ("    __syncwarp();\n    int j = p * rows_part;",
      "    __syncwarp();\n    if (p == 0) tv0 = probe_now();\n    int j = p * rows_part;"),
@@ -210,8 +210,8 @@ TIMELINE = [
      "  const bool probe_last = take_ticket(a.tickets, tile, a.nk, &last);\n"
      "  const unsigned long long t3 = probe_now();\n"
      "  if (!probe_last) { probe_stamp(t0, tv0, t1, t2, t3, 1); return; }"),
-    ("      a.xv[(size_t)(m0 + m) * a.R + r0 + c] = fold_chunks(mine + i, a.nk, (size_t)MR * S_COLS);\n  }\n}",
-     "      a.xv[(size_t)(m0 + m) * a.R + r0 + c] = fold_chunks(mine + i, a.nk, (size_t)MR * S_COLS);\n  }\n"
+    ("    if (on[q]) a.xv[(size_t)(m0 + i / S_COLS) * a.R + r0 + i % S_COLS] = sum[q];\n  }\n}",
+     "    if (on[q]) a.xv[(size_t)(m0 + i / S_COLS) * a.R + r0 + i % S_COLS] = sum[q];\n  }\n"
      "  __syncthreads();\n  probe_stamp(t0, tv0, t1, t2, t3, 2);\n}"),
 ]
 
@@ -264,12 +264,15 @@ def _chunk_smem(text):
 
 VARIANTS = {
     "base": _sub(),
-    "chunk_smem": _chunk_smem,
-    "bounds1": _sub(("__launch_bounds__(T_THREADS, 2) tiled_kernel", "__launch_bounds__(T_THREADS, 1) tiled_kernel")),
-    "st2": _sub(("T_BK = 32, T_STAGES = 3,", "T_BK = 32, T_STAGES = 2,")),
+    "stream_all": _sub(("  p.tiled = M > STREAM_M && K >= TILED_MIN_K &&",
+                        "  p.tiled = false && M > STREAM_M && K >= TILED_MIN_K &&")),
+    "tiled_all": _sub(("            tiles(M, T_BM) * tiles(R, T_BN) * p.chunks >= sms;",
+                       "            tiles(M, T_BM) * tiles(R, T_BN) * p.chunks >= 1;")),
+    "parts2": _sub(("constexpr int S_PARTS = 4;", "constexpr int S_PARTS = 2;")),
 }
-VARIANT_SHAPES = [(4, 3072, 307), (16, 3072, 307), (16, 8192, 307), (100, 8192, 922),
-                  (256, 8192, 1024), (2048, 8192, 922)]
+VARIANT_SHAPES = [(4, 3072, 307), (4, 8192, 307), (16, 3072, 307), (16, 8192, 307),
+                  (100, 3072, 307), (100, 8192, 307), (100, 8192, 922), (256, 8192, 1024),
+                  (2048, 4096, 128), (2048, 8192, 922)]
 
 
 def variants(flush):

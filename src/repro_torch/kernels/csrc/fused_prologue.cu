@@ -438,14 +438,14 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
   float* xs = reinterpret_cast<float*>(smem + T_STAGES * STAGE);  // [T_BK][T_BM]
   float* vs = xs + T_BK * T_BM;                                    // [T_BK][T_BN]
   const int tid = threadIdx.x;
-  const int ntiles = a.tiles_m * a.tiles_r, nq = a.quant ? a.M : 0;
+  const int ntiles = a.tiles_m * a.tiles_r, nproj = ntiles * a.splits;
 
-  if ((int)blockIdx.x < nq) {  // quantizer block: one row, first in the grid
-    quantize<T_THREADS>(a, static_cast<const TX*>(a.x), (int)blockIdx.x,
+  if ((int)blockIdx.x >= nproj) {  // quantizer block: one row, after the tiles (it fills their tail)
+    quantize<T_THREADS>(a, static_cast<const TX*>(a.x), (int)blockIdx.x - nproj,
                         reinterpret_cast<float*>(smem));
     return;
   }
-  const int b = (int)blockIdx.x - nq, split = b / ntiles, tile = b % ntiles;
+  const int split = (int)blockIdx.x / ntiles, tile = (int)blockIdx.x % ntiles;
   const int m0 = tile / a.tiles_r * T_BM, r0 = tile % a.tiles_r * T_BN;
   const int c0 = split * a.cps, c1 = min(c0 + a.cps, a.nk);
   const int kbeg = c0 * a.bk, nst = (c1 - c0) * a.bk / T_BK;
