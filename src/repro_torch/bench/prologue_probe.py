@@ -262,17 +262,34 @@ def _chunk_smem(text):
     return re.sub(r"chunk\[i\]\[(\w+)\]", r"cs[T_THREADS * (T_TN * i + \1) + tid]", text)
 
 
+XF32 = _sub(
+    ("  return stream_region(MR, bk, ve) + SUBS * MR * seg_bytes(bk / SUBS, xe);",
+     "  return stream_region(MR, bk, ve) + SUBS * MR * seg_bytes(bk / SUBS, xe) + 4 * MR * bk;"),
+    ("  unsigned char* xw = smem + stream_region(MR, bk, VE) + (size_t)warp * MR * xsb;",
+     "  unsigned char* xw = smem + stream_region(MR, bk, VE) + (size_t)warp * MR * xsb;\n"
+     "  float* xf = reinterpret_cast<float*>(smem + stream_region(MR, bk, VE) + SUBS * MR * xsb)"
+     " + warp * MR * sub;"),
+    ("    __syncwarp();\n    int j = p * rows_part;",
+     "    __syncwarp();\n"
+     "    if (p == 0 && xvec) {\n"
+     "      for (int i = lane; i < MR * sub; i += 32)\n"
+     "        xf[i] = i % sub < n ? load_elem<TX>(xw + i / sub * xsb + i % sub * XE) : 0.f;\n"
+     "      __syncwarp();\n    }\n"
+     "    int j = p * rows_part;"),
+    ("          for (int h = 0; h < 8 / XV; ++h) load16<TX>(xw + m * xsb + (j + h * XV) * XE, xk + h * XV);",
+     "          for (int h = 0; h < 2; ++h) {\n"
+     "            const float4 f = *reinterpret_cast<const float4*>(xf + m * sub + j + 4 * h);\n"
+     "            xk[4 * h] = f.x, xk[4 * h + 1] = f.y, xk[4 * h + 2] = f.z, xk[4 * h + 3] = f.w;\n"
+     "          }"),
+)
+
 VARIANTS = {
     "base": _sub(),
-    "stream_all": _sub(("  p.tiled = M > STREAM_M && K >= TILED_MIN_K &&",
-                        "  p.tiled = false && M > STREAM_M && K >= TILED_MIN_K &&")),
-    "tiled_all": _sub(("            tiles(M, T_BM) * tiles(R, T_BN) * p.chunks >= sms;",
-                       "            tiles(M, T_BM) * tiles(R, T_BN) * p.chunks >= 1;")),
+    "xf32": XF32,
     "parts2": _sub(("constexpr int S_PARTS = 4;", "constexpr int S_PARTS = 2;")),
 }
 VARIANT_SHAPES = [(4, 3072, 307), (4, 8192, 307), (16, 3072, 307), (16, 8192, 307),
-                  (100, 3072, 307), (100, 8192, 307), (100, 8192, 922), (256, 8192, 1024),
-                  (2048, 4096, 128), (2048, 8192, 922)]
+                  (100, 3072, 307), (100, 8192, 307), (4, 8192, 922)]
 
 
 def variants(flush):

@@ -32,8 +32,9 @@
 // * stream (M <= 16, K < 256, or fewer (128 x 64 tile, chunk) pairs than
 //   SMs, the tiled regime's units of work): a block is one chunk of K by 32
 //   columns of R by a tile of 4 rows (M <= 4), 8 (M <= 16, so that a
-//   16-row chunk spreads over twice the SMs) or 16; warp w runs sub-chunk
-//   w, lane c column c,
+//   16-row chunk spreads over twice the SMs) or 16 (by 64 columns, two a
+//   lane, so that each x load serves two chains); warp w runs sub-chunk
+//   w, lane c column c (and c + 32),
 //   every row of the tile at once.  Each warp copies its V rows by 16-byte
 //   cp.async (the aligned words that cover each row's 32-column segment: V
 //   rows are R values long and need no alignment) in four groups, stages
@@ -230,10 +231,16 @@ __device__ __forceinline__ void fold_chunks(const T* const (&p)[Q], const bool (
 // stream regime: grid (nk · tiles_r + quantizer blocks, tiles_m)
 // ---------------------------------------------------------------------------
 
-// dynamic shared memory: [SUBS][sub] V row slots (reused for the warps'
-// chains [SUBS][MR][S_COLS]), then [SUBS][MR] x row slots of a sub-chunk
+// columns of a lane: two at 16-row tiles, so that each x load serves two
+// chains; one at decode, where more blocks matter more
+__host__ __device__ constexpr int stream_cpl(int MR) { return MR == STREAM_M ? 2 : 1; }
+
+// dynamic shared memory: [SUBS][sub] V row slots of S_COLS·CPL columns
+// (reused for the warps' chains [SUBS][MR][S_COLS·CPL]), then [SUBS][MR] x
+// row slots of a sub-chunk
 __host__ __device__ inline int stream_region(int MR, int bk, int ve) {
-  const int vrows = bk * seg_bytes(S_COLS, ve), chains = 4 * SUBS * MR * S_COLS;
+  const int cols = S_COLS * stream_cpl(MR);
+  const int vrows = bk * seg_bytes(cols, ve), chains = 4 * SUBS * MR * cols;
   return vrows > chains ? vrows : chains;
 }
 __host__ __device__ inline int stream_smem(int MR, int bk, int xe, int ve) {
@@ -262,7 +269,8 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last;
   constexpr int XE = sizeof(TX), VE = sizeof(TF);
-  constexpr int SB = seg_bytes(S_COLS, VE), NWV = seg_words(S_COLS, VE);  // a V row's slot
+  constexpr int CPL = stream_cpl(MR), COLS = S_COLS * CPL;  // columns a lane, a block
+  constexpr int SB = seg_bytes(COLS, VE), NWV = seg_words(COLS, VE);  // a V row's slot
   constexpr int XV = 16 / XE;  // x values a 16-byte load
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * MR, mv = min(MR, a.M - m0);
@@ -278,7 +286,7 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   const int bk = a.bk, sub = a.sub;
   const int kb = kc * bk + warp * sub;             // the warp's sub-chunk
   const int n = max(0, min(sub, a.K - kb));        // its k inside K
-  const int r0 = rt * S_COLS, rv = min(S_COLS, a.R - r0);
+  const int r0 = rt * COLS, rv = min(COLS, a.R - r0);
   const int xsb = seg_bytes(sub, XE);              // an x row's slot
   unsigned char* vs = smem + (size_t)warp * sub * SB;
   unsigned char* xw = smem + stream_region(MR, bk, VE) + (size_t)warp * MR * xsb;
@@ -304,14 +312,16 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
     cp_async_commit();
   }
 
-  // 2. the chains: column r0 + lane, every row of the tile, k ascending.
+  // 2. the chains: columns r0 + lane (+ 32), every row of the tile, k ascending.
   //    Row j of V starts (off + j·rb) & 15 bytes into its slot, which
   //    repeats every 8 rows; x rows are read 16 bytes at a time where they
   //    start on a 16-byte word (the rows past M hold no data and are not
   //    written out).
-  float acc[MR];
+  float acc[CPL][MR];
 #pragma unroll
-  for (int m = 0; m < MR; ++m) acc[m] = 0.f;
+  for (int h = 0; h < CPL; ++h)
+#pragma unroll
+    for (int m = 0; m < MR; ++m) acc[h][m] = 0.f;
   const int rb = (int)(((size_t)a.R * VE) & 15);
   const int off = (int)((vbase + ((size_t)kb * a.R + r0) * VE) & 15);
   int vo[8];
@@ -328,66 +338,78 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
     const int j1 = min(j + rows_part, n);
     if (xvec)
       for (; j + 8 <= j1; j += 8) {
-        float vk[8];
+        float vk[CPL][8];
 #pragma unroll
-        for (int q = 0; q < 8; ++q) vk[q] = load_elem<TF>(vs + (j + q) * SB + vo[q]);
+        for (int h = 0; h < CPL; ++h)
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            vk[h][q] = load_elem<TF>(vs + (j + q) * SB + vo[q] + 32 * h * VE);
 #pragma unroll
         for (int m = 0; m < MR; ++m) {
           float xk[8];
 #pragma unroll
-          for (int h = 0; h < 8 / XV; ++h) load16<TX>(xw + m * xsb + (j + h * XV) * XE, xk + h * XV);
+          for (int e = 0; e < 8 / XV; ++e) load16<TX>(xw + m * xsb + (j + e * XV) * XE, xk + e * XV);
 #pragma unroll
-          for (int q = 0; q < 8; ++q) acc[m] = fmaf(xk[q], vk[q], acc[m]);
+          for (int h = 0; h < CPL; ++h)
+#pragma unroll
+            for (int q = 0; q < 8; ++q) acc[h][m] = fmaf(xk[q], vk[h][q], acc[h][m]);
         }
       }
     for (; j < j1; ++j) {
-      const float vk = load_elem<TF>(vs + j * SB + ((off + j * rb) & 15) + lane * VE);
+      float vk[CPL];
+#pragma unroll
+      for (int h = 0; h < CPL; ++h)
+        vk[h] = load_elem<TF>(vs + j * SB + ((off + j * rb) & 15) + (lane + 32 * h) * VE);
 #pragma unroll
       for (int m = 0; m < MR; ++m) {
         const int xo = (int)((xbase + ((size_t)(m0 + m) * a.K + kb) * XE) & 15);
-        acc[m] = fmaf(load_elem<TX>(xw + m * xsb + xo + j * XE), vk, acc[m]);
+        const float xk = load_elem<TX>(xw + m * xsb + xo + j * XE);
+#pragma unroll
+        for (int h = 0; h < CPL; ++h) acc[h][m] = fmaf(xk, vk[h], acc[h][m]);
       }
     }
   }
 
   // 3. the chunk's partial: the warps' chains added in warp order
   __syncthreads();  // every warp is done with its V rows; its chains take their place
-  float* chains = reinterpret_cast<float*>(smem);  // [SUBS][MR][S_COLS]
+  float* chains = reinterpret_cast<float*>(smem);  // [SUBS][MR][COLS]
 #pragma unroll
-  for (int m = 0; m < MR; ++m) chains[(warp * MR + m) * S_COLS + lane] = acc[m];
+  for (int h = 0; h < CPL; ++h)
+#pragma unroll
+    for (int m = 0; m < MR; ++m) chains[(warp * MR + m) * COLS + 32 * h + lane] = acc[h][m];
   __syncthreads();
   const int tile = (int)blockIdx.y * a.tiles_r + rt;
-  float* mine = a.part + (size_t)tile * a.nk * MR * S_COLS;
-  for (int i = tid; i < MR * S_COLS; i += S_THREADS) {
+  float* mine = a.part + (size_t)tile * a.nk * MR * COLS;
+  for (int i = tid; i < MR * COLS; i += S_THREADS) {
     float s = chains[i];
 #pragma unroll
-    for (int w = 1; w < SUBS; ++w) s = __fadd_rn(s, chains[w * MR * S_COLS + i]);
-    const int m = i / S_COLS, c = i % S_COLS;
+    for (int w = 1; w < SUBS; ++w) s = __fadd_rn(s, chains[w * MR * COLS + i]);
+    const int m = i / COLS, c = i % COLS;
     if (a.nk == 1) {
       if (m < mv && c < rv) a.xv[(size_t)(m0 + m) * a.R + r0 + c] = s;
     } else {
-      mine[(size_t)kc * MR * S_COLS + i] = s;
+      mine[(size_t)kc * MR * COLS + i] = s;
     }
   }
   if (a.nk == 1) return;
 
   // 4. the tile's last block adds the nk partials in ascending K
   if (!take_ticket(a.tickets, tile, a.nk, &last)) return;
-  constexpr int Q = (MR * S_COLS + S_THREADS - 1) / S_THREADS;  // outputs a thread
+  constexpr int Q = (MR * COLS + S_THREADS - 1) / S_THREADS;  // outputs a thread
   const float* p[Q];
   bool on[Q];
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
-    const int i = tid + q * S_THREADS, m = i / S_COLS, c = i % S_COLS;
-    on[q] = i < MR * S_COLS && m < mv && c < rv;
+    const int i = tid + q * S_THREADS, m = i / COLS, c = i % COLS;
+    on[q] = i < MR * COLS && m < mv && c < rv;
     p[q] = mine + (on[q] ? i : 0);
   }
   float sum[Q];
-  fold_chunks<Q>(p, on, a.nk, (size_t)MR * S_COLS, sum);
+  fold_chunks<Q>(p, on, a.nk, (size_t)MR * COLS, sum);
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const int i = tid + q * S_THREADS;
-    if (on[q]) a.xv[(size_t)(m0 + i / S_COLS) * a.R + r0 + i % S_COLS] = sum[q];
+    if (on[q]) a.xv[(size_t)(m0 + i / COLS) * a.R + r0 + i % COLS] = sum[q];
   }
 }
 
@@ -703,7 +725,8 @@ Plan plan_of(int M, int K, int R, int rotate, int xe, int ve, int sms) {
     p.rows = T_BM, p.cols = T_BN, p.threads = T_THREADS;
     p.smem = tiled_smem(xe, ve);
   } else {
-    p.rows = M <= 4 ? 4 : M <= STREAM_M ? 8 : STREAM_M, p.cols = S_COLS, p.threads = S_THREADS;
+    p.rows = M <= 4 ? 4 : M <= STREAM_M ? 8 : STREAM_M;
+    p.cols = S_COLS * stream_cpl(p.rows), p.threads = S_THREADS;
     p.smem = stream_smem(p.rows, p.bk, xe, ve);
   }
   p.tiles_m = tiles(M, p.rows);

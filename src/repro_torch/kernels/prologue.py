@@ -130,7 +130,8 @@ def prologue_plan(m: int, k: int, r: int, rotate: bool = False, x_bytes: int = 2
 
     Stream (M <= 16, K < 256, or fewer (128 x 64 output tile, chunk) pairs
     than SMs): a block per (chunk, 32 columns, row tile of 4 rows at M <=
-    4, 8 at M <= 16, else 16).  Tiled: 128 x 64 output tiles, over all
+    4, 8 at M <= 16; else 16 rows by 64 columns).  Tiled: 128 x 64 output
+    tiles, over all
     of K, or, where the tiles are fewer than the SMs, over whole chunks so
     that about ``WAVES`` blocks run an SM.  Where K is split, ``zeroed``
     holds a ticket per output tile and ``scratch`` the chunk partials
@@ -147,8 +148,9 @@ def prologue_plan(m: int, k: int, r: int, rotate: bool = False, x_bytes: int = 2
         smem = (T_STAGES * (T_BM * _seg_bytes(T_BK, x_bytes) + T_BK * _seg_bytes(T_BN, v_bytes))
                 + 4 * T_BK * (T_BM + T_BN))
     else:
-        rows, cols, threads = 4 if m <= 4 else 8 if m <= STREAM_M else STREAM_M, S_COLS, S_THREADS
-        smem = (max(bk * _seg_bytes(S_COLS, v_bytes), 4 * SUBS * rows * S_COLS)
+        rows = 4 if m <= 4 else 8 if m <= STREAM_M else STREAM_M
+        cols, threads = S_COLS * (2 if rows == STREAM_M else 1), S_THREADS
+        smem = (max(bk * _seg_bytes(cols, v_bytes), 4 * SUBS * rows * cols)
                 + SUBS * rows * _seg_bytes(bk // SUBS, x_bytes))
     tiles_m, tiles_r = -(-m // rows), -(-r // cols)
     ntiles = tiles_m * tiles_r
