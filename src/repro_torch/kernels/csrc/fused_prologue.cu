@@ -33,23 +33,26 @@
 //   SMs, the tiled regime's units of work): a block is one chunk of K by 32
 //   columns of R by a tile of 4 rows (M <= 4), 8 (M <= 16, so that a
 //   16-row chunk spreads over twice the SMs) or 16 (by 64 columns, two a
-//   lane, so that each x load serves two chains); warp w runs sub-chunk
-//   w, lane c column c (and c + 32),
-//   every row of the tile at once.  Each warp copies its V rows by 16-byte
-//   cp.async (the aligned words that cover each row's 32-column segment: V
-//   rows are R values long and need no alignment) in four groups, stages
-//   its x sub-chunk in shared memory as f32, and runs its chains as the
-//   groups land, four k a step (one float4 of x a row, four V values).
-//   The warps' chains are added in warp order into the chunk's partial; the
-//   last block of each (row tile, column tile) to take its ticket adds the
-//   nk partials in ascending K, writes xv and resets the ticket, so no
-//   memset precedes a launch.  The tiles' quantizer blocks (one a row) run
-//   first in the same grid: an unrotated call is one device operation.
+//   lane, so that each x load serves two chains); warp w runs sub-chunk w,
+//   lane c column c (and c + 32), every row of the tile at once.  Each warp
+//   copies its x rows and its V rows by 16-byte cp.async (the aligned words
+//   that cover each row's segment: V rows are R values long and need no
+//   alignment), V in four groups, and runs its chains as the groups land,
+//   eight k a step: eight V values a column, then a row's eight x values
+//   from one 16-byte broadcast load (x stays bf16 in shared memory and is
+//   converted in registers: as f32 it took twice the broadcast loads, which
+//   are what this loop waits on).  The warps' chains are added in warp order
+//   into the chunk's partial; the last block of each (row tile, column
+//   tile) to take its ticket adds the nk partials in ascending K, writes xv
+//   and resets the ticket, so no memset precedes a launch.  The tiles'
+//   quantizer blocks (one a row, reading it 16 bytes a load) run first in
+//   the same grid: an unrotated call is one device operation.
 // * tiled (the other shapes): a block owns a 128 x 64 output tile and a
 //   range of whole chunks; x and V stages of 32 k stream through a ring of
 //   three by cp.async and are converted to f32 compute layouts (x
-//   transposed, V as it is); each thread keeps an 8 x 8 micro-tile (64 FMAs for
-//   four float4 loads a k, the shared-memory loads and the FMAs balanced)
+//   transposed, V as it is); each thread keeps an 8 x 8 micro-tile (64
+//   FMAs for four float4 loads a k, the shared-memory loads and the FMAs
+//   balanced)
 //   with its chains and chunk sums in registers, folded at every sub-chunk
 //   end; at every chunk end the sums go into xv (the running total) or,
 //   where K is split over blocks (only where the output tiles are fewer
@@ -62,8 +65,9 @@
 // Scratch (the partials, the rotated rows) and the tickets live in buffers
 // the wrapper caches; every launch leaves the tickets zero.
 //
-// Later work: a tensor-core x·V (an accuracy standard of its own), and the
-// quantizer's row read in 16-byte vectors.
+// Later work: a tensor-core x·V (an accuracy standard of its own); at
+// decode, the ticket's and the finishing block's round trips to L2 (PERF.md
+// gives the per-block timelines) and the quantizer blocks' second read of x.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -197,8 +201,8 @@ __device__ __forceinline__ bool take_ticket(int* tickets, int tile, int total, i
   return *last;
 }
 
-__device__ __forceinline__ float add4(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float4 fadd(float4 a, float4 b) {
   return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
                      __fadd_rn(a.w, b.w));
 }
@@ -223,7 +227,7 @@ __device__ __forceinline__ void fold_chunks(const T* const (&p)[Q], const bool (
     for (int q = 0; q < Q; ++q)
 #pragma unroll
       for (int e = 0; e < B; ++e)
-        if (on[q] && c + e < n) sum[q] = add4(sum[q], t[q][e]);
+        if (on[q] && c + e < n) sum[q] = fadd(sum[q], t[q][e]);
   }
 }
 
@@ -250,18 +254,7 @@ __host__ __device__ inline int stream_smem(int MR, int bk, int xe, int ve) {
 // 16 bytes of a copied segment (16-byte aligned) as f32: 8 bf16 or 4 f32
 template <typename T>
 __device__ __forceinline__ void load16(const unsigned char* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  if (sizeof(T) == 4) {
-    out[0] = __uint_as_float(u.x), out[1] = __uint_as_float(u.y);
-    out[2] = __uint_as_float(u.z), out[3] = __uint_as_float(u.w);
-  } else {
-    const uint32_t q[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      out[2 * e] = __uint_as_float(q[e] << 16);
-      out[2 * e + 1] = __uint_as_float(q[e] & 0xFFFF0000u);
-    }
-  }
+  quant_rows::Vec16<T>::load(reinterpret_cast<const T*>(p), out);
 }
 
 template <int MR, typename TX, typename TF>
@@ -290,7 +283,8 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   const int xsb = seg_bytes(sub, XE);              // an x row's slot
   unsigned char* vs = smem + (size_t)warp * sub * SB;
   unsigned char* xw = smem + stream_region(MR, bk, VE) + (size_t)warp * MR * xsb;
-  const uintptr_t xbase = reinterpret_cast<uintptr_t>(a.x), vbase = reinterpret_cast<uintptr_t>(a.v);
+  const uintptr_t xbase = reinterpret_cast<uintptr_t>(a.x);
+  const uintptr_t vbase = reinterpret_cast<uintptr_t>(a.v);
 
   // 1. by cp.async: the warp's x rows (with the first group) and its V
   //    rows, columns r0.., in S_PARTS groups of rows; nothing past M or K
@@ -327,7 +321,8 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   int vo[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) vo[q] = ((off + q * rb) & 15) + lane * VE;
-  const bool xvec = ((xbase | (size_t)a.K * XE | (size_t)kb * XE) & 15) == 0 && !(rows_part & 7);
+  const bool xvec =
+      ((xbase | (size_t)a.K * XE | (size_t)kb * XE) & 15) == 0 && !(rows_part & 7);
   for (int p = 0; p < parts; ++p) {
     if (parts == 1 || p == S_PARTS - 1) cp_async_wait<0>();
     else if (p == 0) cp_async_wait<S_PARTS - 1>();
@@ -348,7 +343,8 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
         for (int m = 0; m < MR; ++m) {
           float xk[8];
 #pragma unroll
-          for (int e = 0; e < 8 / XV; ++e) load16<TX>(xw + m * xsb + (j + e * XV) * XE, xk + e * XV);
+          for (int e = 0; e < 8 / XV; ++e)
+            load16<TX>(xw + m * xsb + (j + e * XV) * XE, xk + e * XV);
 #pragma unroll
           for (int h = 0; h < CPL; ++h)
 #pragma unroll
@@ -434,15 +430,7 @@ __device__ __forceinline__ void load_run(const unsigned char* p, bool aligned, f
   constexpr int ES = sizeof(T), PER = 16 / ES;
   if (aligned) {
 #pragma unroll
-    for (int w = 0; w < N / PER; ++w) {
-      const uint4 u = *reinterpret_cast<const uint4*>(p + 16 * w);
-      const uint32_t q[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int e = 0; e < PER; ++e) {
-        if (ES == 4) out[PER * w + e] = __uint_as_float(q[e]);
-        else out[PER * w + e] = __uint_as_float((e & 1 ? q[e / 2] >> 16 : q[e / 2] & 0xFFFFu) << 16);
-      }
-    }
+    for (int w = 0; w < N / PER; ++w) load16<T>(p + 16 * w, out + PER * w);
   } else {
 #pragma unroll
     for (int e = 0; e < N; ++e) out[e] = load_elem<T>(p + e * ES);
@@ -456,13 +444,13 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
   constexpr int XE = sizeof(TX), VE = sizeof(TF);
   constexpr int XSB = seg_bytes(T_BK, XE), VSB = seg_bytes(T_BN, VE);
   constexpr int XRAW = T_BM * XSB, STAGE = tiled_stage(XE, VE);
-  constexpr int VPARTS = T_THREADS / T_BK, VRUN = T_BN / VPARTS;  // V columns a thread converts
+  constexpr int VPARTS = T_THREADS / T_BK, VRUN = T_BN / VPARTS;  // V columns a thread
   float* xs = reinterpret_cast<float*>(smem + T_STAGES * STAGE);  // [T_BK][T_BM]
   float* vs = xs + T_BK * T_BM;                                    // [T_BK][T_BN]
   const int tid = threadIdx.x;
   const int ntiles = a.tiles_m * a.tiles_r, nproj = ntiles * a.splits;
 
-  if ((int)blockIdx.x >= nproj) {  // quantizer block: one row, after the tiles (it fills their tail)
+  if ((int)blockIdx.x >= nproj) {  // quantizer block: one row, after the tiles (their tail)
     quantize<T_THREADS>(a, static_cast<const TX*>(a.x), (int)blockIdx.x - nproj,
                         reinterpret_cast<float*>(smem));
     return;
@@ -478,10 +466,12 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
   // first word at every stage (a stage is T_BK k, a split starts at a
   // multiple of 256).
   const bool xrow = m0 + tid < a.M;
-  const uintptr_t xsrc = reinterpret_cast<uintptr_t>(a.x) + ((size_t)(m0 + tid) * a.K + kbeg) * XE;
+  const uintptr_t xsrc =
+      reinterpret_cast<uintptr_t>(a.x) + ((size_t)(m0 + tid) * a.K + kbeg) * XE;
   const int xoff = (int)(xsrc & 15);
   const int vj = tid / VPARTS, vp = tid % VPARTS;
-  const uintptr_t vsrc = reinterpret_cast<uintptr_t>(a.v) + ((size_t)(kbeg + vj) * a.R + r0) * VE;
+  const uintptr_t vsrc =
+      reinterpret_cast<uintptr_t>(a.v) + ((size_t)(kbeg + vj) * a.R + r0) * VE;
   const int voff = (int)(vsrc & 15);
 
   // copies of stage s into its ring slot (nothing past M or K)
@@ -506,7 +496,8 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
       float t[16];
       load_run<TX, 16>(st + tid * XSB + xoff + 16 * h * XE, xoff == 0, t);
 #pragma unroll
-      for (int q = 0; q < 16; ++q) xs[(16 * h + q) * T_BM + tid] = xrow && 16 * h + q < kn ? t[q] : 0.f;
+      for (int q = 0; q < 16; ++q)
+        xs[(16 * h + q) * T_BM + tid] = xrow && 16 * h + q < kn ? t[q] : 0.f;
     }
     float t[VRUN];
     load_run<TF, VRUN>(st + XRAW + vj * VSB + voff + vp * VRUN * VE, false, t);
@@ -550,9 +541,11 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
 #pragma unroll
     for (int kk = 0; kk < T_BK; ++kk) {
       const float4 a0 = *reinterpret_cast<const float4*>(xs + kk * T_BM + 4 * ty);
-      const float4 a1 = *reinterpret_cast<const float4*>(xs + kk * T_BM + T_BM / 2 + 4 * ty);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(xs + kk * T_BM + T_BM / 2 + 4 * ty);
       const float4 b0 = *reinterpret_cast<const float4*>(vs + kk * T_BN + 4 * tx);
-      const float4 b1 = *reinterpret_cast<const float4*>(vs + kk * T_BN + T_BN / 2 + 4 * tx);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(vs + kk * T_BN + T_BN / 2 + 4 * tx);
       const float xr[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float vr[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -589,7 +582,8 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < T_TM; ++i) {
         float* p = mine + ((size_t)c * T_BM + row_of(i)) * T_BN + 4 * tx;
-        *reinterpret_cast<float4*>(p) = make_float4(chunk[i][0], chunk[i][1], chunk[i][2], chunk[i][3]);
+        *reinterpret_cast<float4*>(p) =
+            make_float4(chunk[i][0], chunk[i][1], chunk[i][2], chunk[i][3]);
         *reinterpret_cast<float4*>(p + T_BN / 2) =
             make_float4(chunk[i][4], chunk[i][5], chunk[i][6], chunk[i][7]);
       }
@@ -619,7 +613,8 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
       const float o[4] = {t[q].x, t[q].y, t[q].z, t[q].w};
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (on[q] && col + j < nv) a.xv[(size_t)(m0 + row_of(i0 + q / 2)) * a.R + r0 + col + j] = o[j];
+        if (on[q] && col + j < nv)
+          a.xv[(size_t)(m0 + row_of(i0 + q / 2)) * a.R + r0 + col + j] = o[j];
     }
   }
 }
@@ -731,6 +726,7 @@ Plan plan_of(int M, int K, int R, int rotate, int xe, int ve, int sms) {
   }
   p.tiles_m = tiles(M, p.rows);
   p.tiles_r = tiles(R, p.cols);
+  if (R == 0) p.smem = 4 * (S_THREADS / 32);  // quantizer blocks alone: their reduction
   p.cps = 1, p.splits = p.chunks;  // stream: a block a chunk
   const int ntiles = p.tiles_m * p.tiles_r;
   if (p.tiled && ntiles < sms) {  // under one tile an SM: whole chunks a split, ~WAVES blocks an SM

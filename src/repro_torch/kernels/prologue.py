@@ -153,6 +153,8 @@ def prologue_plan(m: int, k: int, r: int, rotate: bool = False, x_bytes: int = 2
         smem = (max(bk * _seg_bytes(cols, v_bytes), 4 * SUBS * rows * cols)
                 + SUBS * rows * _seg_bytes(bk // SUBS, x_bytes))
     tiles_m, tiles_r = -(-m // rows), -(-r // cols)
+    if r == 0:  # quantizer blocks alone: their reduction's shared memory
+        smem = 4 * (S_THREADS // 32)
     ntiles = tiles_m * tiles_r
     cps, splits = 1, chunks
     if tiled:
