@@ -210,8 +210,8 @@ TIMELINE = [
      "  const bool probe_last = take_ticket(a.tickets, tile, a.nk, &last);\n"
      "  const unsigned long long t3 = probe_now();\n"
      "  if (!probe_last) { probe_stamp(t0, tv0, t1, t2, t3, 1); return; }"),
-    ("    if (on[q]) a.xv[(size_t)(m0 + i / S_COLS) * a.R + r0 + i % S_COLS] = sum[q];\n  }\n}",
-     "    if (on[q]) a.xv[(size_t)(m0 + i / S_COLS) * a.R + r0 + i % S_COLS] = sum[q];\n  }\n"
+    ("    if (on[q]) a.xv[(size_t)(m0 + i / COLS) * a.R + r0 + i % COLS] = sum[q];\n  }\n}",
+     "    if (on[q]) a.xv[(size_t)(m0 + i / COLS) * a.R + r0 + i % COLS] = sum[q];\n  }\n"
      "  __syncthreads();\n  probe_stamp(t0, tv0, t1, t2, t3, 2);\n}"),
 ]
 
