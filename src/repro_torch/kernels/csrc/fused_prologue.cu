@@ -251,12 +251,6 @@ __host__ __device__ inline int stream_smem(int MR, int bk, int xe, int ve) {
   return stream_region(MR, bk, ve) + SUBS * MR * seg_bytes(bk / SUBS, xe);
 }
 
-// 16 bytes of a copied segment (16-byte aligned) as f32: 8 bf16 or 4 f32
-template <typename T>
-__device__ __forceinline__ void load16(const unsigned char* p, float* out) {
-  quant_rows::Vec16<T>::load(reinterpret_cast<const T*>(p), out);
-}
-
 template <int MR, typename TX, typename TF>
 __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -264,7 +258,7 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   constexpr int XE = sizeof(TX), VE = sizeof(TF);
   constexpr int CPL = stream_cpl(MR), COLS = S_COLS * CPL;  // columns a lane, a block
   constexpr int SB = seg_bytes(COLS, VE), NWV = seg_words(COLS, VE);  // a V row's slot
-  constexpr int XV = 16 / XE;  // x values a 16-byte load
+  constexpr int XV = quant_rows::Vec16<TX>::N;  // x values a 16-byte load
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * MR, mv = min(MR, a.M - m0);
   const int nq = a.quant ? MR : 0;  // quantizer blocks first: none waits behind the tiles
@@ -344,7 +338,8 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
           float xk[8];
 #pragma unroll
           for (int e = 0; e < 8 / XV; ++e)
-            load16<TX>(xw + m * xsb + (j + e * XV) * XE, xk + e * XV);
+            quant_rows::Vec16<TX>::load(
+                reinterpret_cast<const TX*>(xw + m * xsb + (j + e * XV) * XE), xk + e * XV);
 #pragma unroll
           for (int h = 0; h < CPL; ++h)
 #pragma unroll
@@ -430,7 +425,8 @@ __device__ __forceinline__ void load_run(const unsigned char* p, bool aligned, f
   constexpr int ES = sizeof(T), PER = 16 / ES;
   if (aligned) {
 #pragma unroll
-    for (int w = 0; w < N / PER; ++w) load16<T>(p + 16 * w, out + PER * w);
+    for (int w = 0; w < N / PER; ++w)
+      quant_rows::Vec16<T>::load(reinterpret_cast<const T*>(p + 16 * w), out + PER * w);
   } else {
 #pragma unroll
     for (int e = 0; e < N; ++e) out[e] = load_elem<T>(p + e * ES);
