@@ -209,7 +209,7 @@ __device__ __forceinline__ float4 fadd(float4 a, float4 b) {
 
 // For each of Q outputs q (where on[q]), the sum of its n partials p[q][0],
 // p[q][stride], ... added in ascending order from the first; the loads of
-// every output are issued B chunks at a time ahead of the adds.
+// every output go out B chunks at a time ahead of the adds.
 template <int Q, int B = 8 / Q, typename T>
 __device__ __forceinline__ void fold_chunks(const T* const (&p)[Q], const bool (&on)[Q], int n,
                                             size_t stride, T (&sum)[Q]) {
@@ -471,7 +471,7 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
   const int voff = (int)(vsrc & 15);
 
   // copies of stage s into its ring slot (nothing past M or K)
-  auto issue = [&](int s) {
+  auto copy_stage = [&](int s) {
     unsigned char* st = smem + (s % T_STAGES) * STAGE;
     const int kn = min(T_BK, a.K - (kbeg + s * T_BK));
     if (kn <= 0) return;
@@ -524,14 +524,14 @@ __global__ void __launch_bounds__(T_THREADS, 2) tiled_kernel(Args a) {
 
 #pragma unroll
   for (int s = 0; s < T_STAGES - 1; ++s) {
-    if (s < nst) issue(s);
+    if (s < nst) copy_stage(s);
     cp_async_commit();
   }
   for (int s = 0; s < nst; ++s) {
     cp_async_wait<T_STAGES - 2>();
     __syncthreads();  // stage s landed; every thread is done with the last f32 stage
     convert(s);
-    if (s + T_STAGES - 1 < nst) issue(s + T_STAGES - 1);  // into stage s - 1's slot
+    if (s + T_STAGES - 1 < nst) copy_stage(s + T_STAGES - 1);  // into stage s - 1's slot
     cp_async_commit();
     __syncthreads();
 #pragma unroll
