@@ -31,10 +31,11 @@
 // mirrors the plan, fused_prologue_plan exports it):
 // * stream (M <= 16, K < 256, or fewer (128 x 64 tile, chunk) pairs than
 //   SMs, the tiled regime's units of work): a block is one chunk of K by 32
-//   columns of R by a tile of 4 rows (M <= 4), 8 (M <= 16, so that a
-//   16-row chunk spreads over twice the SMs) or 16 (by 64 columns, two a
-//   lane, so that each x load serves two chains); warp w runs sub-chunk w,
-//   lane c column c (and c + 32), every row of the tile at once.  Each warp
+//   columns of R by a tile of 4 rows (M <= 4; 16 columns, two rows a lane,
+//   where 32-column blocks would be fewer than the SMs), 8 (M <= 16, so
+//   that a 16-row chunk spreads over twice the SMs) or 16 (by 64 columns,
+//   two a lane, so that each x load serves two chains); warp w runs
+//   sub-chunk w, each lane a column (and the one 32 on) of its rows.  Each warp
 //   copies its x rows and its V rows by 16-byte cp.async (the aligned words
 //   that cover each row's segment: V rows are R values long and need no
 //   alignment), V in four groups, and runs its chains as the groups land,
@@ -85,7 +86,8 @@ constexpr int MAX_BK = 512;       // the reference's largest projection chunk
 constexpr int SUBS = 8;           // sub-chunk chains a chunk
 constexpr int STREAM_M = 16;      // M up to this takes the stream regime, and so does
 constexpr int TILED_MIN_K = 256;  // every M below this K (sub-chunks under T_BK)
-// stream regime: a block = a chunk x S_COLS columns x a row tile; warp w = sub-chunk w
+// stream regime: a block = a chunk x S_COLS columns (or half) x a row tile; warp w =
+// sub-chunk w
 constexpr int S_THREADS = 32 * SUBS;
 constexpr int S_COLS = 32;
 constexpr int S_PARTS = 4;        // cp.async groups of a warp's V rows
@@ -238,25 +240,28 @@ __device__ __forceinline__ void fold_chunks(const T* const (&p)[Q], const bool (
 // columns of a lane: two at 16-row tiles, so that each x load serves two
 // chains; one at decode, where more blocks matter more
 __host__ __device__ constexpr int stream_cpl(int MR) { return MR == STREAM_M ? 2 : 1; }
+// lanes a column set (LC): 32, or 16 at 4-row tiles whose 32-column
+// blocks would be fewer than the SMs (a decode call at K 3072: twice the
+// blocks, each lane two of the tile's rows)
 
-// dynamic shared memory: [SUBS][sub] V row slots of S_COLS·CPL columns
-// (reused for the warps' chains [SUBS][MR][S_COLS·CPL]), then [SUBS][MR] x
-// row slots of a sub-chunk
-__host__ __device__ inline int stream_region(int MR, int bk, int ve) {
-  const int cols = S_COLS * stream_cpl(MR);
+// dynamic shared memory: [SUBS][sub] V row slots of a block's columns
+// (reused for the warps' chains [SUBS][MR][cols]), then [SUBS][MR] x row
+// slots of a sub-chunk
+__host__ __device__ inline int stream_region(int MR, int cols, int bk, int ve) {
   const int vrows = bk * seg_bytes(cols, ve), chains = 4 * SUBS * MR * cols;
   return vrows > chains ? vrows : chains;
 }
-__host__ __device__ inline int stream_smem(int MR, int bk, int xe, int ve) {
-  return stream_region(MR, bk, ve) + SUBS * MR * seg_bytes(bk / SUBS, xe);
+__host__ __device__ inline int stream_smem(int MR, int cols, int bk, int xe, int ve) {
+  return stream_region(MR, cols, bk, ve) + SUBS * MR * seg_bytes(bk / SUBS, xe);
 }
 
-template <int MR, typename TX, typename TF>
+template <int MR, int LC, typename TX, typename TF>
 __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last;
   constexpr int XE = sizeof(TX), VE = sizeof(TF);
-  constexpr int CPL = stream_cpl(MR), COLS = S_COLS * CPL;  // columns a lane, a block
+  constexpr int CPL = stream_cpl(MR), COLS = LC * CPL;  // columns a lane, a block
+  constexpr int MRL = MR * LC / 32;  // rows a lane: lane group g = lane / LC takes rows g·MRL..
   constexpr int SB = seg_bytes(COLS, VE), NWV = seg_words(COLS, VE);  // a V row's slot
   constexpr int XV = quant_rows::Vec16<TX>::N;  // x values a 16-byte load
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -276,7 +281,7 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
   const int r0 = rt * COLS, rv = min(COLS, a.R - r0);
   const int xsb = seg_bytes(sub, XE);              // an x row's slot
   unsigned char* vs = smem + (size_t)warp * sub * SB;
-  unsigned char* xw = smem + stream_region(MR, bk, VE) + (size_t)warp * MR * xsb;
+  unsigned char* xw = smem + stream_region(MR, COLS, bk, VE) + (size_t)warp * MR * xsb;
   const uintptr_t xbase = reinterpret_cast<uintptr_t>(a.x);
   const uintptr_t vbase = reinterpret_cast<uintptr_t>(a.v);
 
@@ -300,21 +305,23 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
     cp_async_commit();
   }
 
-  // 2. the chains: columns r0 + lane (+ 32), every row of the tile, k ascending.
+  // 2. the chains: columns r0 + c (+ LC), c = lane % LC, rows g·MRL.. of
+  //    the tile, g = lane / LC, k ascending.
   //    Row j of V starts (off + j·rb) & 15 bytes into its slot, which
   //    repeats every 8 rows; x rows are read 16 bytes at a time where they
   //    start on a 16-byte word (the rows past M hold no data and are not
   //    written out).
-  float acc[CPL][MR];
+  const int lc = lane % LC, mg = lane / LC * MRL;
+  float acc[CPL][MRL];
 #pragma unroll
   for (int h = 0; h < CPL; ++h)
 #pragma unroll
-    for (int m = 0; m < MR; ++m) acc[h][m] = 0.f;
+    for (int m = 0; m < MRL; ++m) acc[h][m] = 0.f;
   const int rb = (int)(((size_t)a.R * VE) & 15);
   const int off = (int)((vbase + ((size_t)kb * a.R + r0) * VE) & 15);
   int vo[8];
 #pragma unroll
-  for (int q = 0; q < 8; ++q) vo[q] = ((off + q * rb) & 15) + lane * VE;
+  for (int q = 0; q < 8; ++q) vo[q] = ((off + q * rb) & 15) + lc * VE;
   const bool xvec =
       ((xbase | (size_t)a.K * XE | (size_t)kb * XE) & 15) == 0 && !(rows_part & 7);
   for (int p = 0; p < parts; ++p) {
@@ -332,14 +339,14 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
         for (int h = 0; h < CPL; ++h)
 #pragma unroll
           for (int q = 0; q < 8; ++q)
-            vk[h][q] = load_elem<TF>(vs + (j + q) * SB + vo[q] + 32 * h * VE);
+            vk[h][q] = load_elem<TF>(vs + (j + q) * SB + vo[q] + LC * h * VE);
 #pragma unroll
-        for (int m = 0; m < MR; ++m) {
+        for (int m = 0; m < MRL; ++m) {
           float xk[8];
 #pragma unroll
           for (int e = 0; e < 8 / XV; ++e)
             quant_rows::Vec16<TX>::load(
-                reinterpret_cast<const TX*>(xw + m * xsb + (j + e * XV) * XE), xk + e * XV);
+                reinterpret_cast<const TX*>(xw + (mg + m) * xsb + (j + e * XV) * XE), xk + e * XV);
 #pragma unroll
           for (int h = 0; h < CPL; ++h)
 #pragma unroll
@@ -350,11 +357,11 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
       float vk[CPL];
 #pragma unroll
       for (int h = 0; h < CPL; ++h)
-        vk[h] = load_elem<TF>(vs + j * SB + ((off + j * rb) & 15) + (lane + 32 * h) * VE);
+        vk[h] = load_elem<TF>(vs + j * SB + ((off + j * rb) & 15) + (lc + LC * h) * VE);
 #pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const int xo = (int)((xbase + ((size_t)(m0 + m) * a.K + kb) * XE) & 15);
-        const float xk = load_elem<TX>(xw + m * xsb + xo + j * XE);
+      for (int m = 0; m < MRL; ++m) {
+        const int xo = (int)((xbase + ((size_t)(m0 + mg + m) * a.K + kb) * XE) & 15);
+        const float xk = load_elem<TX>(xw + (mg + m) * xsb + xo + j * XE);
 #pragma unroll
         for (int h = 0; h < CPL; ++h) acc[h][m] = fmaf(xk, vk[h], acc[h][m]);
       }
@@ -367,7 +374,8 @@ __global__ void __launch_bounds__(S_THREADS) stream_kernel(Args a) {
 #pragma unroll
   for (int h = 0; h < CPL; ++h)
 #pragma unroll
-    for (int m = 0; m < MR; ++m) chains[(warp * MR + m) * COLS + 32 * h + lane] = acc[h][m];
+    for (int m = 0; m < MRL; ++m)
+      chains[(warp * MR + mg + m) * COLS + LC * h + lc] = acc[h][m];
   __syncthreads();
   const int tile = (int)blockIdx.y * a.tiles_r + rt;
   float* mine = a.part + (size_t)tile * a.nk * MR * COLS;
@@ -717,8 +725,9 @@ Plan plan_of(int M, int K, int R, int rotate, int xe, int ve, int sms) {
     p.smem = tiled_smem(xe, ve);
   } else {
     p.rows = M <= 4 ? 4 : M <= STREAM_M ? 8 : STREAM_M;
-    p.cols = S_COLS * stream_cpl(p.rows), p.threads = S_THREADS;
-    p.smem = stream_smem(p.rows, p.bk, xe, ve);
+    const bool lc16 = p.rows == 4 && p.chunks * tiles(R, S_COLS) * tiles(M, 4) < sms;
+    p.cols = (lc16 ? S_COLS / 2 : S_COLS) * stream_cpl(p.rows), p.threads = S_THREADS;
+    p.smem = stream_smem(p.rows, p.cols, p.bk, xe, ve);
   }
   p.tiles_m = tiles(M, p.rows);
   p.tiles_r = tiles(R, p.cols);
@@ -760,18 +769,23 @@ int project(const Args& a, const Plan& p, cudaStream_t s) {
     if (const int e = allow_smem(kern, p.smem, configured)) return e;
     const int grid = p.tiles_m * p.tiles_r * p.splits + (a.quant ? a.M : 0);
     kern<<<grid, T_THREADS, p.smem, s>>>(a);
+  } else if (p.rows == 4 && p.cols == S_COLS / 2) {
+    auto kern = stream_kernel<4, S_COLS / 2, TX, TF>;
+    static int configured = 0;
+    if (const int e = allow_smem(kern, p.smem, configured)) return e;
+    kern<<<dim3(p.chunks * p.tiles_r + (a.quant ? 4 : 0), p.tiles_m), S_THREADS, p.smem, s>>>(a);
   } else if (p.rows == 4) {
-    auto kern = stream_kernel<4, TX, TF>;
+    auto kern = stream_kernel<4, S_COLS, TX, TF>;
     static int configured = 0;
     if (const int e = allow_smem(kern, p.smem, configured)) return e;
     kern<<<dim3(p.chunks * p.tiles_r + (a.quant ? 4 : 0), p.tiles_m), S_THREADS, p.smem, s>>>(a);
   } else if (p.rows == 8) {
-    auto kern = stream_kernel<8, TX, TF>;
+    auto kern = stream_kernel<8, S_COLS, TX, TF>;
     static int configured = 0;
     if (const int e = allow_smem(kern, p.smem, configured)) return e;
     kern<<<dim3(p.chunks * p.tiles_r + (a.quant ? 8 : 0), p.tiles_m), S_THREADS, p.smem, s>>>(a);
   } else {
-    auto kern = stream_kernel<STREAM_M, TX, TF>;
+    auto kern = stream_kernel<STREAM_M, S_COLS, TX, TF>;
     static int configured = 0;
     if (const int e = allow_smem(kern, p.smem, configured)) return e;
     kern<<<dim3(p.chunks * p.tiles_r + (a.quant ? STREAM_M : 0), p.tiles_m), S_THREADS, p.smem,

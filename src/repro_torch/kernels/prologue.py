@@ -130,7 +130,8 @@ def prologue_plan(m: int, k: int, r: int, rotate: bool = False, x_bytes: int = 2
 
     Stream (M <= 16, K < 256, or fewer (128 x 64 output tile, chunk) pairs
     than SMs): a block per (chunk, 32 columns, row tile of 4 rows at M <=
-    4, 8 at M <= 16; else 16 rows by 64 columns).  Tiled: 128 x 64 output
+    4 (16 columns where 32-column blocks would be fewer than the SMs), 8
+    at M <= 16; else 16 rows by 64 columns).  Tiled: 128 x 64 output
     tiles, over all
     of K, or, where the tiles are fewer than the SMs, over whole chunks so
     that about ``WAVES`` blocks run an SM.  Where K is split, ``zeroed``
@@ -149,7 +150,9 @@ def prologue_plan(m: int, k: int, r: int, rotate: bool = False, x_bytes: int = 2
                 + 4 * T_BK * (T_BM + T_BN))
     else:
         rows = 4 if m <= 4 else 8 if m <= STREAM_M else STREAM_M
-        cols, threads = S_COLS * (2 if rows == STREAM_M else 1), S_THREADS
+        lc16 = rows == 4 and chunks * -(-r // S_COLS) * -(-m // 4) < sms
+        cols = (S_COLS // 2 if lc16 else S_COLS) * (2 if rows == STREAM_M else 1)
+        threads = S_THREADS
         smem = (max(bk * _seg_bytes(cols, v_bytes), 4 * SUBS * rows * cols)
                 + SUBS * rows * _seg_bytes(bk // SUBS, x_bytes))
     tiles_m, tiles_r = -(-m // rows), -(-r // cols)

@@ -78,7 +78,8 @@ def test_plan_covers_every_chain_once(case):
     if not plan.tiled:
         assert plan.chunks_per_split == 1 and plan.splits == plan.chunks
         assert plan.rows == (4 if m <= 4 else 8 if m <= prologue.STREAM_M else 16)
-        assert plan.cols == (64 if plan.rows == 16 else 32)
+        lc16 = plan.rows == 4 and plan.chunks * -(-r // 32) < sms
+        assert plan.cols == (64 if plan.rows == 16 else 16 if lc16 else 32)
     assert (plan.splits - 1) * plan.chunks_per_split < plan.chunks
     assert plan.splits * plan.chunks_per_split >= plan.chunks
     assert plan.threads <= 1024 and 0 < plan.smem_bytes <= 227 * 1024
