@@ -35,8 +35,8 @@
 //   where 32-column blocks would be fewer than the SMs), 8 (M <= 16, so
 //   that a 16-row chunk spreads over twice the SMs) or 16 (by 64 columns,
 //   two a lane, so that each x load serves two chains); warp w runs
-//   sub-chunk w, each lane a column (and the one 32 on) of its rows.  Each warp
-//   copies its x rows and its V rows by 16-byte cp.async (the aligned words
+//   sub-chunk w, each lane a column (and the one 32 on) of its rows.  Each
+//   warp copies its x rows and its V rows by 16-byte cp.async (the aligned words
 //   that cover each row's segment: V rows are R values long and need no
 //   alignment), V in four groups, and runs its chains as the groups land,
 //   eight k a step: eight V values a column, then a row's eight x values
@@ -52,10 +52,9 @@
 //   range of whole chunks; x and V stages of 32 k stream through a ring of
 //   three by cp.async and are converted to f32 compute layouts (x
 //   transposed, V as it is); each thread keeps an 8 x 8 micro-tile (64
-//   FMAs for four float4 loads a k, the shared-memory loads and the FMAs
-//   balanced)
-//   with its chains and chunk sums in registers, folded at every sub-chunk
-//   end; at every chunk end the sums go into xv (the running total) or,
+//   FMAs for four float4 loads a k) with its chains and chunk sums in
+//   registers, folded at every sub-chunk end; at every chunk end the sums
+//   go into xv (the running total) or,
 //   where K is split over blocks (only where the output tiles are fewer
 //   than the SMs: about WAVES blocks an SM), to scratch, and the tile's
 //   last block adds them in ascending K, as in the stream regime.

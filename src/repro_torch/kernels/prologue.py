@@ -43,8 +43,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.hadamard import MAX_D, check_width
-from repro_torch.kernels.rowops import (check_group, fwht_rows, project_rows,
-                                        scale_round_quantize)
+from repro_torch.kernels.rowops import (check_group, default_proj_tiles, fwht_rows,
+                                        project_rows, scale_round_quantize)
 
 KERNEL = "fused_prologue"
 LAUNCHES = {"fused_prologue": 0, "fused_prologue_plain": 0}
@@ -75,12 +75,11 @@ def fused_prologue_plain(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
     return xq, sx, None if v is None else project_rows(xf, v)
 
 
-# the source's plan constants: the largest chunk, sub-chunk chains a chunk;
-# the stream regime's M and least tiled K; the stream block's threads and
-# columns and its V slot for a column tile (32 values, bf16 or f32); the
+# the source's plan constants: sub-chunk chains a chunk; the stream
+# regime's M and least tiled K; the stream block's threads and columns; the
 # tiled block's output tile, k a stage, stages and threads; tiled blocks an
 # SM the K-split aims at
-MAX_BK, SUBS = 512, 8
+SUBS = 8
 STREAM_M, TILED_MIN_K = 16, 256
 S_THREADS, S_COLS = 256, 32
 T_BM, T_BN, T_BK, T_STAGES, T_THREADS = 128, 64, 32, 3, 128
@@ -92,15 +91,6 @@ H100_SMS = 132
 def _seg_bytes(n: int, es: int) -> int:
     """Shared bytes of a copied row segment of n elements of es bytes."""
     return 16 * ((n * es + 15) // 16 + 1)
-
-
-def chunk_k(k: int) -> int:
-    """The x·V chunk: min(512, the largest power of two <= max(K, 8)),
-    ``rowops.default_proj_tiles``' bk."""
-    p = 8
-    while p * 2 <= k and p * 2 <= MAX_BK:
-        p *= 2
-    return p
 
 
 class ProloguePlan(NamedTuple):
@@ -140,7 +130,7 @@ def prologue_plan(m: int, k: int, r: int, rotate: bool = False, x_bytes: int = 2
     rows (M, K) f32, which the projection reads (its x 4 bytes)."""
     if rotate:
         x_bytes = 4
-    bk = chunk_k(k)
+    bk = default_proj_tiles(k, 1)[0]  # the reference's x·V chunk, the source's chunk_k
     chunks = -(-k // bk)
     tiled = int(m > STREAM_M and k >= TILED_MIN_K
                 and -(-m // T_BM) * -(-r // T_BN) * chunks >= sms)

@@ -29,6 +29,7 @@ import torch
 from repro_torch.bench.common import xv_tolerance
 from repro_torch.kernels import prologue
 from repro_torch.kernels.hadamard import fwht_plain
+from repro_torch.kernels.rowops import default_proj_tiles
 
 # (M, K, R, rotate, x bytes, V bytes, SMs): Phi-3-mini's sites at decode
 # and chunk M, phase 12's large M, ragged K (not a multiple of the chunk or
@@ -71,7 +72,7 @@ def test_plan_covers_every_chain_once(case):
     m, k, r, rot, xb, vb, sms = case
     plan = prologue.prologue_plan(m, k, r, rot, xb, vb, sms)
     assert plan == prologue.prologue_plan(m, k, r, rot, xb, vb, sms)
-    assert plan.bk == prologue.chunk_k(k) and plan.chunks == -(-k // plan.bk)
+    assert plan.bk == default_proj_tiles(k, 1)[0] and plan.chunks == -(-k // plan.bk)
     assert plan.tiled == (m > prologue.STREAM_M and k >= prologue.TILED_MIN_K
                           and -(-m // prologue.T_BM) * -(-r // prologue.T_BN) * plan.chunks
                           >= sms)
