@@ -1,5 +1,5 @@
-"""Activation quantizer on Hopper, its plain version and its launch
-counters.
+"""Activation quantizer on Hopper, its plain version, its launch plan and
+its launch counters.
 
 The kernel (``csrc/act_quant.cu``, CUDA C++ for sm_90a) replaces the TPU
 kernel ``repro/kernels/actquant.py::act_quant_kernel``: x (M, K) → xq
@@ -9,8 +9,19 @@ K/g) scale plane, bitwise the codes and scales of
 include ``csrc/quant_rows.cuh``).  It is the quantizer of the unfused path
 (``kernels/ops.py``).
 
-Bound on an H100 SXM (3.35 TB/s): memory (x read, one byte per code
-written).  One block per row, so a row's result never depends on M.
+Bound on an H100 SXM (3.35 TB/s): memory, (x_bytes + 1)·M·K + 4·M·(K/g,
+or 1) bytes (x read once, the codes and scales written once;
+``chip_smoke.py::_chain_bounds``).
+
+Design (:func:`act_quant_plan`; the source's head comment has the whole
+of it): a group is quantized as a row of g values of its own, so the group
+branch is the per-token body over M·K/g rows of width g.  ``tpr`` threads
+take a row, each holding its 16-byte units (or single values, for the
+element-wise reader) in registers, so x is read once: a lane segment of
+one warp for rows of up to ``WARP_MAX_K`` values, a block above that, and
+rows too wide for a block's registers staged once in shared memory (up to
+``MAX_K`` values).  The plan depends on (K, g, x's width, alignment) alone,
+so a row's codes and scale never depend on M.
 
 :func:`act_quant` is the wrapper: a CPU tensor runs
 :func:`act_quant_plain`; a CUDA tensor launches the kernel or raises.
@@ -21,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +41,11 @@ from repro_torch.kernels.rowops import check_group, scale_round_quantize
 
 KERNEL = "act_quant"
 LAUNCHES = {"act_quant": 0, "act_quant_plain": 0}
+# the source's constants: the widest row a warp (or fewer lanes) takes, the
+# threads of a block of such rows, of a block-wide row at most, the values
+# a block-wide row's thread holds at most and aims at, the widest row
+WARP_MAX_K, WARP_BLOCK, MAX_THREADS, HELD_MAX, HELD_VALUES = 2048, 256, 1024, 32, 16
+MAX_K = 57344
 
 
 def reset_launches() -> None:
@@ -45,14 +62,88 @@ def act_quant_plain(x, bits: int = 4, clip_ratio: float = 1.0, group: int = None
                                 clip_ratio, group)
 
 
+class ActQuantPlan(NamedTuple):
+    """A call of the kernel at (M, K, group), as the source plans it
+    (``act_quant_plan``; the fields in its order)."""
+
+    vec: int             # 1: 16-byte units; 0: single values
+    staged: int          # 1: the row staged in shared memory
+    width: int           # values a row: K, or g
+    units: int           # units a row
+    tpr: int             # threads a row
+    loads: int           # units a thread at most
+    chunks: int          # register units of the held body (loads to a power of two)
+    rows_per_block: int
+    threads: int         # a block
+    smem_bytes: int      # dynamic shared memory
+    rows: int            # M, or M·K/g
+    blocks: int
+
+
+def _pow2ceil(v: int) -> int:
+    p = 1
+    while p < v:
+        p <<= 1
+    return p
+
+
+def act_quant_plan(m: int, k: int, group: int = None, x_bytes: int = 2,
+                   aligned: bool = True) -> ActQuantPlan:
+    """The kernel's launch plan at (M, K, group) for x of ``x_bytes`` a value,
+    x and xq aligned for 16-byte units or not.  Only ``rows`` and ``blocks``
+    depend on M.
+
+    A row is K values, or a group of g (M·K/g rows).  Units are 16 bytes
+    (8 bf16, 4 f32) where the row width is a multiple of that and the
+    operands are aligned, else single values.  Rows of up to ``WARP_MAX_K``
+    values: the row's units (at most 32) threads a row, 256 / tpr rows a
+    block.  Wider rows: a block a row, of the power of two of threads (at
+    most 1,024) that gives each ~``HELD_VALUES`` values; where a thread
+    would hold more than ``HELD_MAX``, the row is staged in shared memory."""
+    width = group or k
+    rows = m * (k // group) if group else m
+    n = 16 // x_bytes
+    vec = int(bool(aligned) and width % n == 0)
+    if not vec:
+        n = 1
+    units = width // n
+    per = HELD_VALUES // n
+    if width <= WARP_MAX_K:
+        tpr = min(32, _pow2ceil(units))
+    else:
+        tpr = min(MAX_THREADS, _pow2ceil(-(-units // per)))
+    loads = -(-units // tpr)
+    chunks = _pow2ceil(loads)
+    staged = int(width > WARP_MAX_K and chunks * n > HELD_MAX)
+    if staged:
+        chunks = 0
+    threads = MAX_THREADS if staged else max(tpr, WARP_BLOCK)
+    rpb = 1 if staged else threads // tpr
+    return ActQuantPlan(vec, staged, width, units, tpr, loads, chunks, rpb, threads,
+                        4 * width if staged else 0, rows, -(-rows // rpb))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
-    """The built library with its C signature declared (once per name)."""
+    """The built library with its C signatures declared (once per name)."""
     lib = build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.act_quant.argtypes = [p, i, p, p, i, i, i, i, ctypes.c_float, p]
     lib.act_quant.restype = ctypes.c_int
+    lib.act_quant_plan.argtypes = [ctypes.c_longlong, i, i, i, i,
+                                   ctypes.POINTER(ctypes.c_longlong)]
+    lib.act_quant_plan.restype = None
+    lib.act_quant_max_k.argtypes = []
+    lib.act_quant_max_k.restype = i
     return lib
+
+
+def source_plan(m: int, k: int, group: int = None, x_bytes: int = 2,
+                aligned: bool = True) -> ActQuantPlan:
+    """The built kernel's own plan; :func:`act_quant_plan` mirrors it."""
+    out = (ctypes.c_longlong * len(ActQuantPlan._fields))()
+    _lib(KERNEL).act_quant_plan(m, k, group or 0, int(x_bytes == 2), int(bool(aligned)), out)
+    return ActQuantPlan(*out)
 
 
 def act_quant(x, bits: int = 4, clip_ratio: float = 1.0, group: int = None):
@@ -70,6 +161,8 @@ def act_quant(x, bits: int = 4, clip_ratio: float = 1.0, group: int = None):
     m, k = x.shape
     if group is not None:
         check_group(k, group)
+    if (group or k) > MAX_K:
+        raise ValueError(f"a row of {group or k} values exceeds the kernel's MAX_K {MAX_K}")
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m, 1 if group is None else k // group), dtype=torch.float32,
                      device=x.device)

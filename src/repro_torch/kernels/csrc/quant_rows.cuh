@@ -1,6 +1,9 @@
 // Activation quantizer shared by act_quant.cu, fused_prologue.cu and (the
 // group body) fused_w4a4_lrc.cu, so the kernels' codes and scales are
-// bitwise the same by construction.
+// bitwise the same by construction.  quantize_row, quantize_group and
+// quantize_row_grouped are #1's and #3's bodies; quantize_held and
+// quantize_staged (at the end) are act_quant.cu's, which compute the same
+// formulas through scale_of and code_of.
 //
 // Numerics follow repro/kernels/rowops.py::scale_round_quantize exactly:
 // amax = max |x| over the row (per token) or over each group of g
@@ -140,6 +143,142 @@ __device__ void quantize_row_grouped(const TX* __restrict__ x, int K, int g,
   for (int grp = threadIdx.x >> 5; grp < K / g; grp += NTHREADS / 32)
     quantize_group(x + (size_t)grp * g, g, q + (size_t)grp * g, s + grp, qmax,
                    clip_ratio);
+}
+
+// The scale of a row or group from its amax: guarded (amax <= 0 -> 1), then
+// (clip * amax) / qmax with true IEEE multiply and divide.
+__device__ __forceinline__ float scale_of(float amax, float clip_ratio, int qmax) {
+  if (amax <= 0.f) amax = 1.f;
+  return __fdiv_rn(__fmul_rn(clip_ratio, amax), (float)qmax);
+}
+
+// The code of v at scale s: clamp(rint(v / s), lo, hi), lo = -qmax - 1 and
+// hi = qmax, the division true IEEE, the rounding half to even.
+__device__ __forceinline__ int8_t code_of(float v, float s, float lo, float hi) {
+  return (int8_t)(int)fminf(fmaxf(rintf(__fdiv_rn(v, s)), lo), hi);
+}
+
+// A thread's unit of a row: N values.  VEC: one 16-byte load (8 bf16 or 4
+// f32; x 16-byte aligned, the codes N-byte aligned) and N codes stored at
+// once; otherwise one value and one code (the element-wise reader).
+template <typename TX, bool VEC>
+struct Units;
+
+template <typename TX>
+struct Units<TX, true> {
+  static constexpr int N = Vec16<TX>::N;
+  __device__ static __forceinline__ void load(const TX* x, int i, float* v) {
+    Vec16<TX>::load(x + (size_t)i * N, v);
+  }
+  __device__ static __forceinline__ void store(int8_t* q, int i, const float* v, float s,
+                                               float lo, float hi) {
+    uint32_t w[N / 4] = {};
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      w[e / 4] |= (uint32_t)(uint8_t)code_of(v[e], s, lo, hi) << (8 * (e % 4));
+    if constexpr (N == 8)
+      *reinterpret_cast<uint2*>(q + (size_t)i * N) = make_uint2(w[0], w[N / 4 - 1]);
+    else
+      *reinterpret_cast<uint32_t*>(q + (size_t)i * N) = w[0];
+  }
+};
+
+template <typename TX>
+struct Units<TX, false> {
+  static constexpr int N = 1;
+  __device__ static __forceinline__ void load(const TX* x, int i, float* v) {
+    v[0] = to_f32(x[i]);
+  }
+  __device__ static __forceinline__ void store(int8_t* q, int i, const float* v, float s,
+                                               float lo, float hi) {
+    q[i] = code_of(v[0], s, lo, hi);
+  }
+};
+
+// Quantizes one row of `width` values (x) into q and *s with the tpr
+// threads that share it (tpr a power of two; tpr <= 32: a lane segment of
+// one warp, several rows a warp; tpr > 32: the whole block, one row).
+// Thread t = threadIdx.x % tpr holds the units t, t + tpr, ... (at most C):
+// every load is issued before the first value is used, the row's amax is
+// reduced from the held values by __shfl_xor_sync within the segment (and
+// through `red`, blockDim.x / 32 floats of shared memory, across the
+// block's warps), and the codes are computed from the same registers: x is
+// read once.  `live` false (a row past M) loads and stores nothing but
+// takes part in the reduction.  Every thread of the block must call it.
+template <typename TX, bool VEC, int C>
+__device__ __forceinline__ void quantize_held(const TX* __restrict__ x, int width,
+                                              int8_t* __restrict__ q, float* __restrict__ s,
+                                              bool live, int tpr, int qmax, float clip_ratio,
+                                              float* red) {
+  using U = Units<TX, VEC>;
+  constexpr int N = U::N;
+  const int units = width / N;
+  const int t = threadIdx.x & (tpr - 1);
+  float v[C][N];
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    if (live && t + j * tpr < units) U::load(x, t + j * tpr, v[j]);
+  float a = 0.f;
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    if (live && t + j * tpr < units) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) a = fmaxf(a, fabsf(v[j][e]));
+    }
+  for (int off = min(tpr, 32) >> 1; off > 0; off >>= 1)
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+  if (tpr > 32) {
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = a;
+    __syncthreads();
+    a = red[0];
+    for (int w = 1; w < tpr / 32; ++w) a = fmaxf(a, red[w]);
+  }
+  const float sc = scale_of(a, clip_ratio, qmax);
+  if (live && t == 0) *s = sc;
+  const float lo = (float)(-qmax - 1), hi = (float)qmax;
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    if (live && t + j * tpr < units) U::store(q, t + j * tpr, v[j], sc, lo, hi);
+}
+
+// Quantizes one row too wide for the block's registers with the whole
+// block: the row is read once, its values kept in `row_s` (width floats of
+// shared memory) while the amax is taken, and the codes computed from
+// there; each thread reads back only what it wrote.  `red` as above.
+template <typename TX, bool VEC>
+__device__ void quantize_staged(const TX* __restrict__ x, int width, int8_t* __restrict__ q,
+                                float* __restrict__ s, int qmax, float clip_ratio,
+                                float* row_s, float* red) {
+  using U = Units<TX, VEC>;
+  constexpr int N = U::N;
+  const int units = width / N;
+  float a = 0.f;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < units; i += blockDim.x) {
+    float v[N];
+    U::load(x, i, v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      a = fmaxf(a, fabsf(v[e]));
+      row_s[i * N + e] = v[e];
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = a;
+  __syncthreads();
+  a = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) a = fmaxf(a, red[w]);
+  const float sc = scale_of(a, clip_ratio, qmax);
+  if (threadIdx.x == 0) *s = sc;
+  const float lo = (float)(-qmax - 1), hi = (float)qmax;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < units; i += blockDim.x) {
+    float v[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = row_s[i * N + e];
+    U::store(q, i, v, sc, lo, hi);
+  }
 }
 
 }  // namespace quant_rows
