@@ -13,6 +13,7 @@ W4A4+LRC call at M 16 and 2048 for the kernels' share of it.
 from __future__ import annotations
 
 import ctypes
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -28,15 +29,22 @@ HBM = 3.35e12
 
 
 def build_old():
+    """Every source under probe_old/ built beside the current ones."""
     out = {}
     procs = {}
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in ("act_quant_old", "fwht_old"):
+    builds = {src.stem: (src, []) for src in sorted(OLD.glob("*.cu"))}
+    builds.update({f"fwht_mb_{f.lower()}": (OLD / "fwht_mb.src", [f"-DPROBE_{f}"])
+                   for f in ("COPY", "NO_LANE", "NO_XCHG")})
+    builds.update({f"act_quant_mb_{f.lower()}": (OLD / "act_quant_mb.src", [f"-DPROBE_{f}"])
+                   for f in ("COPY", "NO_DIV")})
+    for name, (src, flags) in builds.items():
         so = build.BUILD_DIR / f"lib{name}.so"
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so),
-               str(OLD / f"{name}.cu")]
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-x", "cu", "-I", str(OLD), "-I",
+               str(build.CSRC), "-o", str(so), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so)
+    P, I = ctypes.c_void_p, ctypes.c_int
     for name, (p, so) in procs.items():
         log, _ = p.communicate()
         print(f"--- {name} build (rc {p.returncode})\n" + "\n".join(
@@ -44,10 +52,12 @@ def build_old():
         if p.returncode:
             print(log)
             sys.exit(1)
-        out[name] = ctypes.CDLL(str(so))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    out["act_quant_old"].act_quant.argtypes = [P, I, P, P, I, I, I, I, ctypes.c_float, P]
-    out["fwht_old"].fwht.argtypes = [P, I, P, I, I, P]
+        lib = ctypes.CDLL(str(so))
+        if name.startswith("act_quant"):
+            lib.act_quant.argtypes = [P, I, P, P, I, I, I, I, ctypes.c_float, P]
+        else:
+            lib.fwht.argtypes = [P, I, P, I, I, P]
+        out[name] = lib
     return out
 
 
@@ -92,12 +102,16 @@ def main():
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln))
     old = build_old()
     la, lf = old["act_quant_old"], old["fwht_old"]
+    aq_vars = {n: lib for n, lib in old.items() if n.startswith("act_quant_v")}
+    fw_vars = {n: lib for n, lib in old.items() if n.startswith("fwht_v")}
+    aq_mb = {n: lib for n, lib in old.items() if n.startswith("act_quant_mb")}
+    fw_mb = {n: lib for n, lib in old.items() if n.startswith("fwht_mb")}
     gen = torch.Generator(device=dev).manual_seed(0)
     bad = 0
 
     print("== #4 bitwise: new, old, plain")
     cases = [(m, k, g) for m in (1, 4, 16, 100, 2048) for k in (576, 1536, 3072, 4096, 5120, 8192)
-             for g in (None, 128, 64)]
+             for g in (None, 128, 64) if g is None or k % g == 0]
     cases += [(33, 8194, None), (5, 16384, None), (3, 90, None), (17, 200, 8), (4, 200, 10),
               (100, 90, 45), (4, 3072, 3072), (3, 24576, None), (2, 40000, None),
               (3, 33, None), (2, 1, None)]
@@ -110,11 +124,13 @@ def main():
                     continue
                 xx = misaligned(x) if mis else x
                 a = actquant.act_quant(xx, 4, 0.9, g)
-                b = aq_old(la, xx, g)
                 c = actquant.act_quant_plain(xx, 4, 0.9, g)
-                torch.cuda.synchronize()
-                ok = all(torch.equal(p, q) for p, q in zip(a, b)) and all(
-                    torch.equal(p, q) for p, q in zip(a, c))
+                ok = True
+                for lib in [la, *aq_vars.values()]:
+                    b = aq_old(lib, xx, g)
+                    torch.cuda.synchronize()
+                    ok = ok and all(torch.equal(p, q) for p, q in zip(b, c))
+                ok = ok and all(torch.equal(p, q) for p, q in zip(a, c))
                 if not ok:
                     bad += 1
                     print(f"  DIFFER M={m} K={k} g={g} {dt} misaligned={mis}", flush=True)
@@ -133,10 +149,13 @@ def main():
                         continue
                     xx = misaligned(x) if mis else x
                     a = hadamard.fwht(xx)
-                    b = fw_old(lf, xx)
                     c = hadamard.fwht_plain(xx)
-                    torch.cuda.synchronize()
-                    if not (torch.equal(a, b) and torch.equal(a, c)):
+                    ok = torch.equal(a, c)
+                    for lib in [lf, *fw_vars.values()]:
+                        b = fw_old(lib, xx)
+                        torch.cuda.synchronize()
+                        ok = ok and torch.equal(b, c)
+                    if not ok:
                         bad += 1
                         print(f"  DIFFER M={m} D={d} {dt} misaligned={mis}", flush=True)
     print(f"  D 1..32768, M 1/3/4/100/2048: {'all bitwise' if bad == nb else 'DIFFER'}",
@@ -163,38 +182,73 @@ def main():
     print(f"  bad so far: {bad}", flush=True)
 
     flush = flush_buffer(dev)
+    clean = torch.empty(16 * 2**20, dtype=torch.float32, device=dev)
     one = torch.zeros(1, device=dev)
     print(f"== timing floor {time_ms(lambda: one.add_(1), flush) * 1e3:.2f} us")
 
-    def turns(fa, fb):
-        t = [time_ms(fa, flush), time_ms(fb, flush), time_ms(fb, flush), time_ms(fa, flush)]
-        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    def time_clean(fn, reps=30, warmup=5):
+        """time_ms with an L2 left clean: the flush reads 64 MB instead of
+        writing it, so no dirty line is written back during the call."""
+        for _ in range(warmup):
+            fn()
+        ts = []
+        for _ in range(reps):
+            clean.sum()
+            torch.cuda._sleep(2_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts)
 
-    print("== #4 times (us): old new bound, bf16")
+    def turns(fns):
+        """Each fn timed twice (forward then backward order), both flushes;
+        returns {name: (dirty us, clean us)}."""
+        names = list(fns)
+        out = {n: [0.0, 0.0] for n in names}
+        for order in (names, names[::-1]):
+            for n in order:
+                out[n][0] += time_ms(fns[n], flush) * 500
+                out[n][1] += time_clean(fns[n]) * 500
+        return out
+
+    def show(label, res, nbytes):
+        b = nbytes / HBM * 1e6
+        print(f"  {label}: bound {b:7.3f} | " + " | ".join(
+            f"{n} {d:7.2f}/{c:7.2f}" for n, (d, c) in res.items()), flush=True)
+
+    print("== #4 times (us, dirty/clean flush), bf16")
+    layer = {}
     for g in (None, 128):
         for m in (4, 16, 256, 2048):
             for k in (3072, 4096, 5120, 8192):
                 x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-                to, tn = turns(lambda: aq_old(la, x, g), lambda: actquant.act_quant(x, 4, 0.9, g))
-                nbytes = 3 * m * k + 4 * m * (k // g if g else 1)
-                print(f"  g={g} M={m:<5} K={k:<5} old {to * 1e3:8.2f} new {tn * 1e3:8.2f} "
-                      f"bound {nbytes / HBM * 1e6:7.3f}", flush=True)
-        # Phi-3 layer: six sites at K 3072, one at 8192, M 4
-        xs = [torch.randn((4, k), generator=gen, device=dev).to(torch.bfloat16)
-              for k in (3072,) * 6 + (8192,)]
-        ts = [turns(lambda: aq_old(la, x, g), lambda: actquant.act_quant(x, 4, 0.9, g))
-              for x in xs]
-        lo, ln = sum(t[0] for t in ts), sum(t[1] for t in ts)
-        print(f"  Phi-3 layer M 4 g={g}: old {lo * 1e3:.2f} new {ln * 1e3:.2f}", flush=True)
+                fns = {"old": lambda: aq_old(la, x, g)}
+                fns.update({n[10:]: (lambda lib=lib: aq_old(lib, x, g))
+                            for n, lib in {**aq_vars, **aq_mb}.items()})
+                fns["new"] = lambda: actquant.act_quant(x, 4, 0.9, g)
+                res = turns(fns)
+                show(f"g={g} M={m:<5} K={k:<5}", res, 3 * m * k + 4 * m * (k // g if g else 1))
+                if m == 4:
+                    for n, (d, c) in res.items():
+                        w = 6 if k == 3072 else 1 if k == 8192 else 0
+                        layer[(g, n)] = layer.get((g, n), 0.0) + w * d
+    print("  Phi-3 layer at M 4 (6 x K 3072 + K 8192, dirty): " + ", ".join(
+        f"g={g} {n} {t:.2f}" for (g, n), t in layer.items()), flush=True)
 
-    print("== #5 times (us): old new bound")
+    print("== #5 times (us, dirty/clean flush)")
     for (m, d) in [(4, 8192), (256, 4096), (2048, 8192), (13, 512), (1, 2), (8, 16384),
                    (3, 32768), (2048, 4096), (16, 8192), (256, 8192), (2048, 1024)]:
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn((m, d), generator=gen, device=dev).to(dt)
-            to, tn = turns(lambda: fw_old(lf, x), lambda: hadamard.fwht(x))
-            print(f"  M={m:<5} D={d:<6} {str(dt)[6:]:<9} old {to * 1e3:8.2f} new {tn * 1e3:8.2f} "
-                  f"bound {2 * m * d * x.element_size() / HBM * 1e6:7.3f}", flush=True)
+            fns = {"old": lambda: fw_old(lf, x)}
+            fns.update({n[5:]: (lambda lib=lib: fw_old(lib, x))
+                        for n, lib in {**fw_vars, **fw_mb}.items()})
+            fns["new"] = lambda: hadamard.fwht(x)
+            show(f"M={m:<5} D={d:<6} {str(dt)[6:]:<9}", turns(fns), 2 * m * d * x.element_size())
 
     print("== unfused call profile (torch.profiler, device time by kernel)")
     from torch.profiler import ProfilerActivity, profile

@@ -42,11 +42,10 @@ from repro_torch.kernels.rowops import check_group, scale_round_quantize
 KERNEL = "act_quant"
 LAUNCHES = {"act_quant": 0, "act_quant_plain": 0}
 # the source's constants: the widest row a warp (or fewer lanes) takes, the
-# threads of a block of such rows, of a block-wide row at most, the values
-# a block-wide row's thread holds at most and aims at, the widest row
-WARP_MAX_K, WARP_BLOCK, MAX_THREADS, HELD_MAX, HELD_VALUES = 2048, 256, 1024, 32, 16
+# threads of a block of such rows and of a block-wide row at most, the
+# registers of units a block-wide row's thread holds, the widest row
+WARP_MAX_K, WARP_BLOCK, MAX_THREADS, HELD_REGS = 2048, 256, 1024, 16
 MAX_K = 57344
-
 
 def reset_launches() -> None:
     for key in LAUNCHES:
@@ -71,7 +70,7 @@ class ActQuantPlan(NamedTuple):
     width: int           # values a row: K, or g
     units: int           # units a row
     tpr: int             # threads a row
-    loads: int           # units a thread at most
+    loads: int           # units of a row a thread at most
     chunks: int          # register units of the held body (loads to a power of two)
     rows_per_block: int
     threads: int         # a block
@@ -95,30 +94,31 @@ def act_quant_plan(m: int, k: int, group: int = None, x_bytes: int = 2,
 
     A row is K values, or a group of g (M·K/g rows).  Units are 16 bytes
     (8 bf16, 4 f32) where the row width is a multiple of that and the
-    operands are aligned, else single values.  Rows of up to ``WARP_MAX_K``
-    values: the row's units (at most 32) threads a row, 256 / tpr rows a
-    block.  Wider rows: a block a row, of the power of two of threads (at
-    most 1,024) that gives each ~``HELD_VALUES`` values; where a thread
-    would hold more than ``HELD_MAX``, the row is staged in shared memory."""
+    operands are aligned, else single values; a thread holds a 16-byte unit
+    in 4 registers, a single value in 1.  Rows of up to ``WARP_MAX_K``
+    values: the row's units (at most 32) threads a row, 256 threads a
+    block.  Wider
+    rows: a block a row, of the power of two of threads (at most 1,024) that
+    gives each ``HELD_REGS`` registers of units; where that is not enough
+    at 1,024 threads, the row is staged in shared memory."""
     width = group or k
     rows = m * (k // group) if group else m
     n = 16 // x_bytes
     vec = int(bool(aligned) and width % n == 0)
-    if not vec:
-        n = 1
-    units = width // n
-    per = HELD_VALUES // n
-    if width <= WARP_MAX_K:
+    units = width // (n if vec else 1)
+    warp = width <= WARP_MAX_K
+    per = HELD_REGS // (4 if vec else 1)
+    if warp:
         tpr = min(32, _pow2ceil(units))
     else:
         tpr = min(MAX_THREADS, _pow2ceil(-(-units // per)))
     loads = -(-units // tpr)
     chunks = _pow2ceil(loads)
-    staged = int(width > WARP_MAX_K and chunks * n > HELD_MAX)
+    staged = int(not warp and chunks > per)
     if staged:
         chunks = 0
-    threads = MAX_THREADS if staged else max(tpr, WARP_BLOCK)
-    rpb = 1 if staged else threads // tpr
+    threads = MAX_THREADS if staged else WARP_BLOCK if warp else tpr
+    rpb = threads // tpr
     return ActQuantPlan(vec, staged, width, units, tpr, loads, chunks, rpb, threads,
                         4 * width if staged else 0, rows, -(-rows // rpb))
 

@@ -21,16 +21,17 @@
 // width g.  A row of `width` values is read in units of 16 bytes (8 bf16 or
 // 4 f32) where width is a multiple of that and x and xq are aligned, of one
 // value otherwise (the element-wise reader), and each thread holds its units
-// in registers (quant_rows::quantize_held): x is read once, every load
-// issued before the first is used.  tpr threads take a row:
+// in registers as loaded (quant_rows::quantize_held): x is read once, every
+// load issued before the first is used.  tpr threads take a row:
 //   * rows of up to WARP_MAX_K values: tpr = the row's units, at most 32
 //     (16 lanes a g 128 group at bf16, 8 at g 64), 256 / tpr rows a block,
 //     the amax a __shfl_xor_sync tree within the row's lanes;
-//   * wider rows: a block of tpr threads (up to 1,024) a row, ~16 values a
-//     thread, the warps' maxima through shared memory;
-//   * rows too wide for 1,024 threads' registers (more than HELD_MAX values
-//     a thread, K > 32,768) are staged once in shared memory as f32
-//     (quant_rows::quantize_staged), up to MAX_K values.
+//   * wider rows: a block a row, of the power of two of threads (up to
+//     1,024) that gives each HELD_REGS registers of units (4 units of 16
+//     bytes, or 16 single values), the warps' maxima through shared memory;
+//   * rows that would need more than HELD_REGS registers of units a thread
+//     at 1,024 threads (K > 32,768 at bf16, 16,384 at f32) are staged once in
+//     shared memory as f32 (quant_rows::quantize_staged), up to MAX_K values.
 // The plan depends on (K, g, x's width, alignment) alone, never on M
 // (act_quant_plan exports it; actquant.act_quant_plan mirrors it), so a
 // row's codes and scale never depend on M or on the other rows.
@@ -46,10 +47,14 @@ namespace {
 
 constexpr int WARP_MAX_K = 2048;   // widest row a warp (or fewer lanes) takes
 constexpr int WARP_BLOCK = 256;    // threads of a block of such rows
-constexpr int MAX_THREADS = 1024;  // threads of a block-wide row
-constexpr int HELD_MAX = 32;       // values a thread of a block-wide row holds
-constexpr int HELD_VALUES = 16;    // values a thread of a block-wide row aims at
+constexpr int MAX_THREADS = 1024;  // threads of a block-wide row at most
+constexpr int HELD_REGS = 16;      // registers of units a block-wide row's thread holds
 constexpr int MAX_K = 57344;       // a staged row: 224 KB of f32
+
+// A 16-byte unit takes four registers as held, a single value one.
+__host__ __device__ constexpr int unit_regs(bool vec) { return vec ? 4 : 1; }
+// The units a thread of a block-wide row aims at.
+__host__ __device__ constexpr int units_held(bool vec) { return HELD_REGS / unit_regs(vec); }
 
 struct Plan {
   int vec;             // 16-byte units (1) or single values (0)
@@ -57,7 +62,7 @@ struct Plan {
   int width;           // values a row: K, or g
   int units;           // units a row
   int tpr;             // threads a row
-  int loads;           // units a thread at most
+  int loads;           // units of a row a thread at most
   int chunks;          // the held body's register units (loads to a power of two)
   int rows_per_block;
   int threads;         // a block
@@ -78,25 +83,24 @@ Plan plan_of(long long M, int K, int group, int x_bytes, int aligned) {
   p.rows = group > 0 ? M * (K / group) : M;
   const int N = 16 / x_bytes;
   p.vec = aligned && p.width % N == 0;
-  const int n = p.vec ? N : 1;
-  p.units = p.width / n;
-  const int per = HELD_VALUES / n;  // units a block-wide row's thread aims at
-  p.tpr = p.width <= WARP_MAX_K ? std::min(32, pow2ceil(p.units))
-                                : std::min(MAX_THREADS, pow2ceil((p.units + per - 1) / per));
+  p.units = p.width / (p.vec ? N : 1);
+  const bool warp = p.width <= WARP_MAX_K;
+  const int per = units_held(p.vec);
+  p.tpr = warp ? std::min(32, pow2ceil(p.units))
+               : std::min(MAX_THREADS, pow2ceil((p.units + per - 1) / per));
   p.loads = (p.units + p.tpr - 1) / p.tpr;
   p.chunks = pow2ceil(p.loads);
-  p.staged = p.width > WARP_MAX_K && p.chunks * n > HELD_MAX;
+  p.staged = !warp && p.chunks > per;
   if (p.staged) p.chunks = 0;
-  p.threads = p.staged ? MAX_THREADS : std::max(p.tpr, WARP_BLOCK);
-  p.rows_per_block = p.staged ? 1 : p.threads / p.tpr;
+  p.threads = p.staged ? MAX_THREADS : warp ? WARP_BLOCK : p.tpr;
+  p.rows_per_block = p.threads / p.tpr;
   p.smem = p.staged ? 4 * p.width : 0;
   p.blocks = (p.rows + p.rows_per_block - 1) / p.rows_per_block;
   return p;
 }
 
 template <typename TX, bool VEC, int C>
-__global__ void __launch_bounds__(C * quant_rows::Units<TX, VEC>::N > HELD_MAX ? WARP_BLOCK
-                                                                              : MAX_THREADS)
+__global__ void __launch_bounds__(C * unit_regs(VEC) > HELD_REGS ? WARP_BLOCK : MAX_THREADS)
 held_kernel(const TX* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
             long long rows, int width, int tpr, int qmax, float clip_ratio) {
   __shared__ float red[MAX_THREADS / 32];
@@ -116,13 +120,13 @@ staged_kernel(const TX* __restrict__ x, int8_t* __restrict__ xq, float* __restri
                                        qmax, clip_ratio, row_s, red);
 }
 
-// The held body with C register units a thread, C = p.chunks (1, 2, 4, ...
-// up to 64 values a thread).
+// The held body with C register units a row, C = p.chunks (1, 2, 4, ... up
+// to 16 units of 16 bytes, or 64 single values, a thread: rows of up to
+// WARP_MAX_K values at 32 lanes).
 template <typename TX, bool VEC, int C = 1>
 int launch_held(const Plan& p, const TX* x, int8_t* xq, float* sx, int qmax, float clip_ratio,
                 cudaStream_t s) {
-  constexpr int N = quant_rows::Units<TX, VEC>::N;
-  if constexpr (C * N <= 2 * HELD_MAX) {
+  if constexpr (C <= (VEC ? 16 : 64)) {
     if (p.chunks != C) return launch_held<TX, VEC, 2 * C>(p, x, xq, sx, qmax, clip_ratio, s);
     held_kernel<TX, VEC, C><<<(unsigned)p.blocks, p.threads, 0, s>>>(
         x, xq, sx, p.rows, p.width, p.tpr, qmax, clip_ratio);
@@ -173,8 +177,9 @@ int act_quant_max_k() { return MAX_K; }
 // dynamic shared bytes, rows, blocks.
 void act_quant_plan(long long M, int K, int group, int x_bf16, int aligned, long long* out) {
   const Plan p = plan_of(M, K, group, x_bf16 ? 2 : 4, aligned);
-  const long long v[12] = {p.vec, p.staged, p.width, p.units, p.tpr, p.loads, p.chunks,
-                           p.rows_per_block, p.threads, p.smem, p.rows, p.blocks};
+  const long long v[12] = {p.vec,   p.staged,         p.width,   p.units,
+                           p.tpr,   p.loads,          p.chunks,  p.rows_per_block,
+                           p.threads, p.smem,         p.rows,    p.blocks};
   for (int i = 0; i < 12; ++i) out[i] = v[i];
 }
 

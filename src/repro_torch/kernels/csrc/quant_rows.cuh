@@ -158,17 +158,31 @@ __device__ __forceinline__ int8_t code_of(float v, float s, float lo, float hi) 
   return (int8_t)(int)fminf(fmaxf(rintf(__fdiv_rn(v, s)), lo), hi);
 }
 
-// A thread's unit of a row: N values.  VEC: one 16-byte load (8 bf16 or 4
-// f32; x 16-byte aligned, the codes N-byte aligned) and N codes stored at
-// once; otherwise one value and one code (the element-wise reader).
+// A thread's unit of a row: N values, held as loaded (Raw) until used.
+// VEC: one 16-byte load (8 bf16 or 4 f32; x 16-byte aligned, the codes
+// N-byte aligned) and N codes stored at once; otherwise one value and one
+// code (the element-wise reader).
 template <typename TX, bool VEC>
 struct Units;
 
 template <typename TX>
 struct Units<TX, true> {
   static constexpr int N = Vec16<TX>::N;
-  __device__ static __forceinline__ void load(const TX* x, int i, float* v) {
-    Vec16<TX>::load(x + (size_t)i * N, v);
+  using Raw = uint4;
+  __device__ static __forceinline__ Raw load(const TX* x, int i) {
+    return *reinterpret_cast<const uint4*>(x + (size_t)i * N);
+  }
+  __device__ static __forceinline__ void unpack(const Raw& r, float* v) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (N == 8) {  // as Vec16<__nv_bfloat16>::load
+        v[2 * e] = __uint_as_float(w[e] << 16);
+        v[2 * e + 1] = __uint_as_float(w[e] & 0xFFFF0000u);
+      } else {
+        v[e] = __uint_as_float(w[e]);
+      }
+    }
   }
   __device__ static __forceinline__ void store(int8_t* q, int i, const float* v, float s,
                                                float lo, float hi) {
@@ -186,9 +200,9 @@ struct Units<TX, true> {
 template <typename TX>
 struct Units<TX, false> {
   static constexpr int N = 1;
-  __device__ static __forceinline__ void load(const TX* x, int i, float* v) {
-    v[0] = to_f32(x[i]);
-  }
+  using Raw = TX;
+  __device__ static __forceinline__ Raw load(const TX* x, int i) { return x[i]; }
+  __device__ static __forceinline__ void unpack(const Raw& r, float* v) { v[0] = to_f32(r); }
   __device__ static __forceinline__ void store(int8_t* q, int i, const float* v, float s,
                                                float lo, float hi) {
     q[i] = code_of(v[0], s, lo, hi);
@@ -198,13 +212,14 @@ struct Units<TX, false> {
 // Quantizes one row of `width` values (x) into q and *s with the tpr
 // threads that share it (tpr a power of two; tpr <= 32: a lane segment of
 // one warp, several rows a warp; tpr > 32: the whole block, one row).
-// Thread t = threadIdx.x % tpr holds the units t, t + tpr, ... (at most C):
-// every load is issued before the first value is used, the row's amax is
-// reduced from the held values by __shfl_xor_sync within the segment (and
-// through `red`, blockDim.x / 32 floats of shared memory, across the
-// block's warps), and the codes are computed from the same registers: x is
-// read once.  `live` false (a row past M) loads and stores nothing but
-// takes part in the reduction.  Every thread of the block must call it.
+// Thread t = threadIdx.x % tpr holds the units t, t + tpr, ... (at most C)
+// as loaded: every load is issued before the first value is used, the
+// row's amax is reduced from the held values by __shfl_xor_sync within the
+// segment (and through `red`, blockDim.x / 32 floats of shared memory,
+// across the block's warps), and the codes are computed from the same
+// registers: x is read once.  `live` false (a row past M) loads and stores
+// nothing but takes part in the reduction.  Every thread of the block must
+// call it.
 template <typename TX, bool VEC, int C>
 __device__ __forceinline__ void quantize_held(const TX* __restrict__ x, int width,
                                               int8_t* __restrict__ q, float* __restrict__ s,
@@ -214,16 +229,18 @@ __device__ __forceinline__ void quantize_held(const TX* __restrict__ x, int widt
   constexpr int N = U::N;
   const int units = width / N;
   const int t = threadIdx.x & (tpr - 1);
-  float v[C][N];
+  typename U::Raw raw[C];
 #pragma unroll
   for (int j = 0; j < C; ++j)
-    if (live && t + j * tpr < units) U::load(x, t + j * tpr, v[j]);
+    if (live && t + j * tpr < units) raw[j] = U::load(x, t + j * tpr);
   float a = 0.f;
 #pragma unroll
   for (int j = 0; j < C; ++j)
     if (live && t + j * tpr < units) {
+      float v[N];
+      U::unpack(raw[j], v);
 #pragma unroll
-      for (int e = 0; e < N; ++e) a = fmaxf(a, fabsf(v[j][e]));
+      for (int e = 0; e < N; ++e) a = fmaxf(a, fabsf(v[e]));
     }
   for (int off = min(tpr, 32) >> 1; off > 0; off >>= 1)
     a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
@@ -238,7 +255,11 @@ __device__ __forceinline__ void quantize_held(const TX* __restrict__ x, int widt
   const float lo = (float)(-qmax - 1), hi = (float)qmax;
 #pragma unroll
   for (int j = 0; j < C; ++j)
-    if (live && t + j * tpr < units) U::store(q, t + j * tpr, v[j], sc, lo, hi);
+    if (live && t + j * tpr < units) {
+      float v[N];
+      U::unpack(raw[j], v);
+      U::store(q, t + j * tpr, v, sc, lo, hi);
+    }
 }
 
 // Quantizes one row too wide for the block's registers with the whole
@@ -256,7 +277,7 @@ __device__ void quantize_staged(const TX* __restrict__ x, int width, int8_t* __r
 #pragma unroll 4
   for (int i = threadIdx.x; i < units; i += blockDim.x) {
     float v[N];
-    U::load(x, i, v);
+    U::unpack(U::load(x, i), v);
 #pragma unroll
     for (int e = 0; e < N; ++e) {
       a = fmaxf(a, fabsf(v[e]));
