@@ -446,7 +446,79 @@ def phase_chain_kernels(device):
           "the quantizer with x·V", flush=True)
     _gemm_rows_gate(device)
     _prologue_rows_gate(device)
+    _quant_rows_gate(device)
+    timed.update(_quant_times(device))
     return worst, timed
+
+
+# the quantizer's rows gate and times: Phi-3-mini's two site K and phase
+# 12's K; M of its times
+QUANT_KS = (3072, 4096, 5120, 8192)
+QUANT_MS = (SLOTS, CHUNK, 256, 2048)
+
+
+def _quant_rows_gate(device):
+    """The quantizer kernel's rows do not depend on M, fatal: at QUANT_KS,
+    per token and at g 128 (bf16 x as served), each row of the codes and
+    scales of calls at M = GEMM_ROW_MS is bitwise the same row of the
+    2048-row call on the same rows, and the 2048-row call bitwise the plain
+    version.  Its plan is the same at every M (``act_quant_plan``)."""
+    import torch
+
+    from repro_torch.kernels import actquant
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    mmax = 2048
+    for k in QUANT_KS:
+        x = torch.randn((mmax, k), generator=gen, device=device).to(torch.bfloat16)
+        for g in (None, PHI3_GROUP):
+            whole = actquant.act_quant(x, 4, 0.9, g)
+            torch.cuda.synchronize()
+            for a, b, what in zip(whole, actquant.act_quant_plain(x, 4, 0.9, g), ("xq", "sx")):
+                if not torch.equal(a, b):
+                    raise SystemExit(f"act_quant {what} at M={mmax} K={k} g={g} is not bitwise "
+                                     f"its plain version")
+            for m in GEMM_ROW_MS:
+                part = actquant.act_quant(x[:m].contiguous(), 4, 0.9, g)
+                torch.cuda.synchronize()
+                for a, b, what in zip(part, whole, ("xq", "sx")):
+                    if not torch.equal(a, b[:m]):
+                        raise SystemExit(f"act_quant {what} rows at M={m} K={k} g={g} are not "
+                                         f"bitwise the same rows of the M={mmax} call")
+            p = actquant.act_quant_plan(mmax, k, g, 2)
+            print(f"  act_quant rows K={k:<5} g={g}: M {GEMM_ROW_MS} bitwise the M={mmax} "
+                  f"call's rows (plan: {p.tpr} threads a row, {p.loads} 16-byte loads a "
+                  f"thread, {p.rows_per_block} rows a block)", flush=True)
+        del x
+
+
+def _quant_times(device):
+    """The quantizer kernel alone at M = QUANT_MS over QUANT_KS, per token
+    and at g 128 (bf16 x), beside its bound (``_chain_bounds``'s, the scale
+    plane in place of the scales at g 128) and its plain version: µs, median
+    of 30 calls, L2 flushed."""
+    import torch
+
+    from repro_torch.bench.common import flush_buffer, time_ms
+    from repro_torch.kernels import actquant
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    flush = flush_buffer(device)
+    timed = {}
+    print("  act_quant alone (bf16 x; µs, median of 30, L2 flushed; bound: x read, codes "
+          "and scales written once):", flush=True)
+    for g in (None, PHI3_GROUP):
+        for m in QUANT_MS:
+            for k in QUANT_KS:
+                x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+                t_k = time_ms(lambda: actquant.act_quant(x, 4, 0.9, g), flush)
+                t_p = time_ms(lambda: actquant.act_quant_plain(x, 4, 0.9, g), flush)
+                b, by = _bound(3 * m * k + 4 * m * (k // g if g else 1), f32_ops=3 * m * k)
+                timed[("act_quant_alone", m, k, g)] = (t_k, t_p, b, by)
+                print(f"    g={str(g):<4} M={m:<5} K={k:<5} kernel {t_k * 1e3:8.2f}  plain "
+                      f"{t_p * 1e3:9.2f}  bound {b * 1e3:7.3f} ({by}; {t_k / b:.1f}x)",
+                      flush=True)
+    return timed
 
 
 # M of the calls whose rows must be bitwise the 2048-row call's
@@ -536,8 +608,11 @@ def _gemm_rows_gate(device):
 
 
 # kernel #5 (M, D): Phi-3-mini's mlp/wd at decode, phase 12's K at M 256 and
-# 2048, a ragged short row, the narrowest row and a row wider than any site
-FWHT_SHAPES = [(4, 8192), (256, 4096), (2048, 8192), (13, 512), (1, 2), (8, 16384)]
+# 2048, a ragged short row, the narrowest row, a row wider than any site and
+# the widest row the kernel takes
+FWHT_SHAPES = [(4, 8192), (256, 4096), (2048, 8192), (13, 512), (1, 2), (8, 16384), (3, 32768)]
+# #5's rows gate: D and the M of the call the rows are held to
+FWHT_ROW_DS, FWHT_ROW_WHOLE = (4096, 8192), 2048
 # the fused kernel's rotate branch at SmolLM-width sites (K, N, R), K a power
 # of two; then a ragged one (odd N, M over one tile) and f32 operands
 ROT_FUSED_SITES = [(256, 576, 58), (512, 1536, 58), (1024, 576, 58)]
@@ -616,6 +691,22 @@ def phase_rotate_kernels(device):
                 raise SystemExit(f"fwht disagrees with its plain version at M={m} "
                                  f"D={d} {dt} (max |diff| {err:.3e})")
         del h
+    for d in FWHT_ROW_DS:
+        for dt in (f32, bf16):
+            x = torch.randn((FWHT_ROW_WHOLE, d), generator=gen, device=device).to(dt)
+            whole = hadamard.fwht(x)
+            torch.cuda.synchronize()
+            if not torch.equal(whole, hadamard.fwht_plain(x)):
+                raise SystemExit(f"fwht at M={FWHT_ROW_WHOLE} D={d} {dt} is not bitwise its "
+                                 f"plain version")
+            for m in GEMM_ROW_MS:
+                part = hadamard.fwht(x[:m].contiguous())
+                torch.cuda.synchronize()
+                if not torch.equal(part, whole[:m]):
+                    raise SystemExit(f"fwht rows at M={m} D={d} {dt} are not bitwise the same "
+                                     f"rows of the M={FWHT_ROW_WHOLE} call")
+    print(f"    rows of M {GEMM_ROW_MS} bitwise the M={FWHT_ROW_WHOLE} call's at D "
+          f"{FWHT_ROW_DS}, f32 and bf16", flush=True)
 
     print("  (b) fused_w4a4_lrc rotate branch against its plain version", flush=True)
     cases = [(mm, k, n, r, bf16, bf16) for (k, n, r) in ROT_FUSED_SITES for mm in (SLOTS, CHUNK)]
@@ -1120,6 +1211,58 @@ def phase_fused_build():
         print(f"  fused_w4a4_lrc_kernel{entry}: {regs}; {spill}", flush=True)
 
 
+def _act_quant_plan_cases():
+    """(M, K, group, x bytes, aligned) of the quantizer's plan gate: the
+    served models' site K (SmolLM-135M, Phi-3-mini, Gemma-7b) and phase 12's,
+    at M 1 to 2048, per token and at g 64 and 128 where they divide K, f32
+    and bf16 x, aligned or not (the element-wise reader), and the ragged
+    shapes of phases 3 and 13, a row staged in shared memory among them."""
+    from repro_torch.bench.latency_kernels import SIZES
+    from repro_torch.kernels import actquant
+
+    ks = sorted({k for (k, _, _) in list(SITES.values()) + list(PHI3_SITES.values())}
+                | {k for (k, _) in SIZES} | {24576})
+    cases = [(m, k, g, xb, al) for k in ks for m in (1, SLOTS, CHUNK, 100, 2048)
+             for g in (None, SMOL_GROUP, PHI3_GROUP) if g is None or k % g == 0
+             for xb in (2, 4) for al in (True, False)]
+    return cases + [(33, 8194, None, 2, True), (5, 16384, None, 4, True),
+                    (3, 90, None, 2, True), (17, 200, 8, 2, True), (4, 200, 10, 4, True),
+                    (100, 90, 45, 4, True), (4, 3072, 3072, 2, True), (2, 40000, None, 2, True),
+                    (2, actquant.MAX_K, None, 4, False)]
+
+
+def phase_quant_build():
+    """Phase 2's gates of the quantizer (#4) and the transform (#5), fatal:
+    ``actquant.act_quant_plan`` equal to the source's plan at
+    ``_act_quant_plan_cases``, ``hadamard.fwht_plan`` to the source's at
+    every power of two up to MAX_D, f32 and bf16; every instantiation's
+    registers and spills printed."""
+    from repro_torch.kernels import actquant, hadamard
+
+    cases = _act_quant_plan_cases()
+    for case in cases:
+        want = actquant.source_plan(*case)
+        if actquant.act_quant_plan(*case) != want:
+            raise SystemExit(f"actquant.act_quant_plan{case} is not the source's {want}")
+    if actquant._lib("act_quant").act_quant_max_k() != actquant.MAX_K:
+        raise SystemExit("actquant.MAX_K is not the source's widest row")
+    print(f"  actquant.act_quant_plan == the source's plan at {len(cases)} shapes; Phi-3 wd "
+          f"at M {SLOTS}: {actquant.act_quant_plan(SLOTS, 8192, None, 2)}", flush=True)
+    widths = [2 ** e for e in range(_log2(hadamard.MAX_D) + 1)]
+    for d in widths:
+        for xb in (2, 4):
+            want = hadamard.source_plan(d, xb)
+            if hadamard.fwht_plan(d, xb) != want:
+                raise SystemExit(f"hadamard.fwht_plan({d}, {xb}) is not the source's {want}")
+    p = hadamard.fwht_plan(8192, 2)
+    print(f"  hadamard.fwht_plan == the source's plan at D 1..{hadamard.MAX_D}, f32 and bf16; "
+          f"D 8192 bf16: {p.threads} threads, {p.chunks} loads a thread, {p.exchanges} "
+          f"exchange, sweeps (h, stage, registers 0 / lanes 1, bit) {p.steps}", flush=True)
+    for name in ("act_quant", "fwht"):
+        for entry, regs in _kernel_registers(name):
+            print(f"  {name} {entry}: {regs}", flush=True)
+
+
 def _kernel_registers(name):
     """(entry, 'registers, spills') of each kernel entry in ``name``'s last
     build log (``nvcc -Xptxas -v``)."""
@@ -1131,7 +1274,8 @@ def _kernel_registers(name):
         if "Compiling entry function" not in line:
             continue
         entry = line.split("'")[1]
-        for kind in ("stream_kernel", "tiled_kernel", "rotate_kernel"):
+        for kind in ("stream_kernel", "tiled_kernel", "rotate_kernel", "held_kernel",
+                     "staged_kernel", "fwht_kernel"):
             if kind in entry:
                 entry = kind + entry.split(kind)[1].split("EEvNS")[0].split("EEv")[0]
         regs = next((ln.split(":")[-1].split(",")[0].strip() for ln in lines[i + 1:i + 4]
@@ -3771,6 +3915,8 @@ def main() -> int:
           f"{prologue.prologue_plan(SLOTS, 8192, 307, False, 2, 2, sms)}", flush=True)
     for entry, regs in _kernel_registers("fused_prologue"):
         print(f"  fused_prologue {entry}: {regs}", flush=True)
+    # the quantizer's and the transform's plans mirrored, their registers
+    phase_quant_build()
 
     phase("3. kernels against their plain versions")
     probe = phase_tc_probe(device)
@@ -3889,6 +4035,9 @@ def main() -> int:
         ("w4a4_lowrank_matmul", m, *PHI3_SITES[site])])) for m in (SLOTS, CHUNK)
         for site in PHI3_SITES}
     kernels[2]["alone"] = latency["gemm_alone"]
+    kernels[3]["alone"] = {f"{'g' + str(g) if g else 'token'}_M{m}_K{k}": dict(zip(
+        site_keys, chain_timed[("act_quant_alone", m, k, g)]))
+        for g in (None, PHI3_GROUP) for m in QUANT_MS for k in QUANT_KS}
     kernels[0]["sites"] = {f"M{m}_{site}": dict(zip(site_keys, timed[
         ("fused_w4a4_lrc", m, *SITES[site])])) for m in (SLOTS, CHUNK) for site in SITES}
     add_rotation_entries(kernels, rot_worst, rot_timed, lat)

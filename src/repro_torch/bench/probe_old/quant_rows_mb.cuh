@@ -213,67 +213,59 @@ struct Units<TX, false> {
   }
 };
 
-// Quantizes RPT rows of `width` values each with the tpr threads that share
-// them (tpr a power of two; tpr <= 32: a lane segment of one warp; tpr >
-// 32: the whole block, and RPT 1).  Row r of the segment is row0 + r·rstride
-// (rows at or past `rows` load and store nothing but take part in the
-// reductions).  Thread t = threadIdx.x % tpr holds the units t, t + tpr, ...
-// (at most C) of each row as loaded: every load is issued before the first
-// value is used, each row's amax is reduced by __shfl_xor_sync within the
+// Quantizes one row of `width` values (x) into q and *s with the tpr
+// threads that share it (tpr a power of two; tpr <= 32: a lane segment of
+// one warp, several rows a warp; tpr > 32: the whole block, one row).
+// Thread t = threadIdx.x % tpr holds the units t, t + tpr, ... (at most C)
+// as loaded: every load is issued before the first value is used, the
+// row's amax is reduced from the held values by __shfl_xor_sync within the
 // segment (and through `red`, blockDim.x / 32 floats of shared memory,
-// across the block's warps), and the codes come from the same registers:
-// x is read once.  q, s: the codes and scales of row 0.  Every thread of
-// the block must call it.
-template <typename TX, bool VEC, int C, int RPT>
+// across the block's warps), and the codes are computed from the same
+// registers: x is read once.  `live` false (a row past M) loads and stores
+// nothing but takes part in the reduction.  Every thread of the block must
+// call it.
+template <typename TX, bool VEC, int C>
 __device__ __forceinline__ void quantize_held(const TX* __restrict__ x, int width,
                                               int8_t* __restrict__ q, float* __restrict__ s,
-                                              long long row0, long long rstride, long long rows,
-                                              int tpr, int qmax, float clip_ratio, float* red) {
+                                              bool live, int tpr, int qmax, float clip_ratio,
+                                              float* red) {
   using U = Units<TX, VEC>;
   constexpr int N = U::N;
   const int units = width / N;
   const int t = threadIdx.x & (tpr - 1);
-  typename U::Raw raw[RPT][C];
+  typename U::Raw raw[C];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
+  for (int j = 0; j < C; ++j)
+    if (live && t + j * tpr < units) raw[j] = U::load(x, t + j * tpr);
+  float a = 0.f;
 #pragma unroll
-    for (int j = 0; j < C; ++j)
-      if (row0 + r * rstride < rows && t + j * tpr < units)
-        raw[r][j] = U::load(x + (row0 + r * rstride) * width, t + j * tpr);
-  const float lo = (float)(-qmax - 1), hi = (float)qmax;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const long long row = row0 + r * rstride;
-    const bool live = row < rows;
-    float a = 0.f;
-#pragma unroll
-    for (int j = 0; j < C; ++j)
-      if (live && t + j * tpr < units) {
-        float v[N];
-        U::unpack(raw[r][j], v);
+  for (int j = 0; j < C; ++j)
+    if (live && t + j * tpr < units) {
+      float v[N];
+      U::unpack(raw[j], v);
 #ifndef PROBE_COPY
 #pragma unroll
-        for (int e = 0; e < N; ++e) a = fmaxf(a, fabsf(v[e]));
+      for (int e = 0; e < N; ++e) a = fmaxf(a, fabsf(v[e]));
 #endif
-      }
-    for (int off = min(tpr, 32) >> 1; off > 0; off >>= 1)
-      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
-    if (tpr > 32) {
-      if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = a;
-      __syncthreads();
-      a = red[0];
-      for (int w = 1; w < tpr / 32; ++w) a = fmaxf(a, red[w]);
     }
-    const float sc = scale_of(a, clip_ratio, qmax);
-    if (live && t == 0) s[row] = sc;
-#pragma unroll
-    for (int j = 0; j < C; ++j)
-      if (live && t + j * tpr < units) {
-        float v[N];
-        U::unpack(raw[r][j], v);
-        U::store(q + row * width, t + j * tpr, v, sc, lo, hi);
-      }
+  for (int off = min(tpr, 32) >> 1; off > 0; off >>= 1)
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+  if (tpr > 32) {
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = a;
+    __syncthreads();
+    a = red[0];
+    for (int w = 1; w < tpr / 32; ++w) a = fmaxf(a, red[w]);
   }
+  const float sc = scale_of(a, clip_ratio, qmax);
+  if (live && t == 0) *s = sc;
+  const float lo = (float)(-qmax - 1), hi = (float)qmax;
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    if (live && t + j * tpr < units) {
+      float v[N];
+      U::unpack(raw[j], v);
+      U::store(q, t + j * tpr, v, sc, lo, hi);
+    }
 }
 
 // Quantizes one row too wide for the block's registers with the whole
