@@ -462,7 +462,9 @@ def _quant_rows_gate(device):
     per token and at g 128 (bf16 x as served), each row of the codes and
     scales of calls at M = GEMM_ROW_MS is bitwise the same row of the
     2048-row call on the same rows, and the 2048-row call bitwise the plain
-    version.  Its plan is the same at every M (``act_quant_plan``)."""
+    version.  Its plan is the same at every M (``act_quant_plan``).  Rows
+    too wide for a block's registers (the staged body) are held bitwise the
+    plain version too."""
     import torch
 
     from repro_torch.kernels import actquant
@@ -490,6 +492,19 @@ def _quant_rows_gate(device):
                   f"call's rows (plan: {p.tpr} threads a row, {p.loads} 16-byte loads a "
                   f"thread, {p.rows_per_block} rows a block)", flush=True)
         del x
+    # rows too wide for a block's registers take the staged body
+    for k, dt in ((40000, torch.bfloat16), (20000, torch.float32)):
+        x = torch.randn((3, k), generator=gen, device=device).to(dt)
+        if not actquant.act_quant_plan(3, k, None, x.element_size()).staged:
+            raise SystemExit(f"act_quant's plan does not stage a row of {k} {dt}")
+        got = actquant.act_quant(x, 4, 0.9)
+        torch.cuda.synchronize()
+        for a, b, what in zip(got, actquant.act_quant_plain(x, 4, 0.9), ("xq", "sx")):
+            if not torch.equal(a, b):
+                raise SystemExit(f"act_quant {what} of a staged row K={k} {dt} is not bitwise "
+                                 f"its plain version")
+    print("  act_quant staged rows (K 40000 bf16, 20000 f32) bitwise the plain version",
+          flush=True)
 
 
 def _quant_times(device):
