@@ -145,6 +145,31 @@ Phases, each fatal on failure:
      on f32 and int8 pools, the greedy streams bitwise equal across chunk
      widths; (d) the engine's deadlines on the card (a 1e-9 s deadline
      times out, a -1 s one is rejected, finished records carry timings);
+ 15. the serving contracts, run after phase 13 on phases 4 and 8's models
+     and traffic (SLOTS slots, page PAGE, chunk CHUNK, N_REQUESTS x
+     PROMPT_LEN-token prompts x NEW_TOKENS greedy tokens): (a) SmolLM-135M's
+     chaos matrix (the reference's seven (kind, phase) rows, K = 2 of the 8
+     requests targeted past the retry budget): the 6 untargeted streams
+     bitwise phase 4's, the targets FAILED (a decode ``cache_corruption``
+     victim as ``non_finite_logits``: its NaN reaches its logits on the
+     kernel path and no other row) after ``max_retries``, the allocator
+     whole, every page free, no NaN left in the pool, launches exact over
+     every attempt; a sampled injector; transient decode ``exception`` and
+     ``cache_corruption`` and a transient prefill ``cache_corruption`` (chunk
+     4) finishing bitwise phase 4's streams (the in-place page rollback);
+     (b) crashes (``process_crash``) mid-decode with a snapshot every step,
+     mid-prefill (chunk 4), mid-decode with no snapshot (journal only) and
+     after a stale snapshot, each restored by ``ServeEngine.restore`` on the
+     card: every rid terminal once in the journal, the journal's tokens the
+     records', the streams bitwise phase 4's, launches exact, a pool
+     restored from a snapshot bitwise the one it saved; (c) Phi-3-mini with
+     an int8 pool: a crash mid-decode restored from a snapshot (codes and
+     scale planes bitwise) and a transient decode ``cache_corruption``, both
+     bitwise phase 8's int8 streams; (d) ``repro_torch.launch.serve``'s two
+     harnesses in process (reduced SmolLM, ``--quantize``), each returning
+     0; (e) one snapshot's bytes and seconds, the restores' seconds, and
+     phase 4's traffic with the journal on (fsync) and off, in tok/s, each
+     beside the card's name and power limit;
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
 result.
@@ -1739,6 +1764,31 @@ def build_model(device, arch="smollm-135m", n_layers=None):
     return cfg, qparams
 
 
+def serve_prompts(cfg):
+    """The served traffic's prompts, as ``repro_torch.launch.serve`` makes
+    them."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, PROMPT_LEN).astype(np.int32)
+            for _ in range(N_REQUESTS)]
+
+
+def served_launches(cfg, health, n_decode, n_prefill, kernels, names):
+    """The launches ``n_decode`` decode and ``n_prefill`` prefill model
+    calls of an engine with ``health`` must make, by wrapper name (every
+    name in ``names``): each kernel in ``kernels`` once per QLinear call
+    (7 a layer), the decode attention kernel once per layer of a decode
+    call, the prefill attention kernel once per layer of a prefill call,
+    nothing else."""
+    expected = {name: 0 for name in names}
+    for name in kernels:
+        expected[name] = 7 * cfg.n_layers * (n_decode + n_prefill)
+    expected[health["decode_attention"]["kernel"]] = cfg.n_layers * n_decode
+    expected[health["prefill_attention"]["kernel"]] = cfg.n_layers * n_prefill
+    return expected
+
+
 def phase_serve(cfg, qparams, device, kernels, kv_spec=None, route_ab=False,
                 no_memset=False):
     """Serve the traffic through ``ServeEngine.submit``/``run`` with a KV
@@ -1761,13 +1811,8 @@ def phase_serve(cfg, qparams, device, kernels, kv_spec=None, route_ab=False,
                            page_size=PAGE, prefill_chunk=CHUNK, device=device,
                            kv_spec=kv_spec)
 
-    def prompts():  # as launch/serve.py makes them
-        rng = np.random.default_rng(0)
-        return [rng.integers(0, cfg.vocab_size, PROMPT_LEN).astype(np.int32)
-                for _ in range(N_REQUESTS)]
-
     warm = engine()  # first-use costs (cuBLAS handles, allocator) out of the timing
-    warm.submit(Request(rid=0, prompt=prompts()[0], max_new_tokens=2))
+    warm.submit(Request(rid=0, prompt=serve_prompts(cfg)[0], max_new_tokens=2))
     warm.run()
 
     eng = engine()
@@ -1783,7 +1828,7 @@ def phase_serve(cfg, qparams, device, kernels, kv_spec=None, route_ab=False,
         return out
 
     eng._paged = timed
-    for i, p in enumerate(prompts()):
+    for i, p in enumerate(serve_prompts(cfg)):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
     reset_launches()
     t0 = time.perf_counter()
@@ -1804,9 +1849,8 @@ def phase_serve(cfg, qparams, device, kernels, kv_spec=None, route_ab=False,
     pre = health["prefill_attention"]["kernel"]
     want_attn = cfg.n_layers * eng.counters["decode_calls"]
     want_pre = cfg.n_layers * eng.counters["prefill_calls"]
-    expected = {name: want if name in kernels else 0 for name in counts}
-    expected[attn] = want_attn
-    expected[pre] = want_pre
+    expected = served_launches(cfg, health, eng.counters["decode_calls"],
+                               eng.counters["prefill_calls"], kernels, counts)
     print(f"  {N_REQUESTS} requests x {NEW_TOKENS} tokens finished; counters "
           f"{eng.counters}", flush=True)
     for site in health["decode_plan"]:
@@ -1823,12 +1867,12 @@ def phase_serve(cfg, qparams, device, kernels, kv_spec=None, route_ab=False,
                          f"not every decode attention through {attn}, or not "
                          f"every prefill attention through {pre}")
     n_tok = sum(rec.new_tokens for rec in done.values())
-    prof = profile_decode(cfg, qparams, device, engine, prompts())
+    prof = profile_decode(cfg, qparams, device, engine, serve_prompts(cfg))
     if no_memset and prof["memsets_per_step"]:
         raise SystemExit(f"serve: the decode window holds {prof['memsets_per_step']:.0f} "
                          f"memsets a step; the W4A4 paths' kernels launch none")
     if route_ab:
-        prof["routes"] = profile_routes(cfg, qparams, device, prompts(), kv_spec)
+        prof["routes"] = profile_routes(cfg, qparams, device, serve_prompts(cfg), kv_spec)
     stats = {
         "tokens_per_s": n_tok / wall,
         "wall_s": wall,
@@ -1838,6 +1882,9 @@ def phase_serve(cfg, qparams, device, kernels, kv_spec=None, route_ab=False,
         "prefill_calls": eng.counters["prefill_calls"],
         "kv": health["kv"],
         **prof,
+        # the fault-free streams phase 15 holds its runs to (left out of
+        # the printed summary)
+        "streams": {rid: list(rec.out_tokens) for rid, rec in done.items()},
     }
     print(f"  {n_tok} tokens in {wall:.3f} s = {stats['tokens_per_s']:.1f} tok/s; "
           f"decode step {stats['decode_step_ms']:.2f} ms (median of "
@@ -3832,6 +3879,343 @@ def add_gemma_entries(kernels, worst, timed, counts):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the serving contracts (faults and retries, crash recovery, CLI)
+# ---------------------------------------------------------------------------
+
+# the reference's chaos matrix (tests/test_serve_faults.py), each row aimed
+# at CHAOS_TARGETS with more repeats than the engine's retry budget
+CHAOS_MATRIX = (("exception", "prefill"), ("exception", "decode"),
+                ("exception", "sampling"), ("nan_logits", "prefill"),
+                ("nan_logits", "decode"), ("inf_logits", "decode"),
+                ("cache_corruption", "decode"))
+CHAOS_TARGETS = (2, 5)
+MAX_RETRIES = 2    # the engine's default retry budget
+SPLIT_CHUNK = 4    # a prefill chunk that splits the 12-token prompts in three
+
+
+def _contract_engine(cfg, params, device, kv_spec=None, prefill_chunk=CHUNK, **kw):
+    """Phase 4's engine (its traffic submitted) with the contracts' knobs
+    ``kw``."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_seq=64, page_size=PAGE,
+                      prefill_chunk=prefill_chunk, device=device, kv_spec=kv_spec,
+                      max_retries=MAX_RETRIES, **kw)
+    for i, p in enumerate(serve_prompts(cfg)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    return eng
+
+
+def _run_counted(cfg, eng, kernels, what, max_steps=1024):
+    """``eng.run()``, its launches held exact against the model calls it
+    made (every attempt, retried or not)."""
+    import torch
+
+    before = dict(eng.counters)
+    reset_launches()
+    done = eng.run(max_steps)
+    torch.cuda.synchronize()
+    counts = launches()
+    want = served_launches(cfg, eng.health(),
+                           eng.counters["decode_calls"] - before["decode_calls"],
+                           eng.counters["prefill_calls"] - before["prefill_calls"],
+                           kernels, counts)
+    if counts != want:
+        raise SystemExit(f"contracts ({what}): launches {counts} are not the "
+                         f"model calls' {want}")
+    return done
+
+
+def _check_streams(done, baseline, what, targets=(), kind=None):
+    """Every untargeted request FINISHED with its fault-free stream; every
+    target FAILED after the whole retry budget (with ``kind`` if given)."""
+    from repro_torch.serve.lifecycle import RequestState
+
+    if sorted(done) != sorted(baseline):
+        raise SystemExit(f"contracts ({what}): records for {sorted(done)}, "
+                         f"want {sorted(baseline)}")
+    for rid, rec in done.items():
+        if rid in targets:
+            kinds = (kind,) if kind else ("injected", "non_finite_logits")
+            if (rec.status is not RequestState.FAILED or rec.error_kind not in kinds
+                    or rec.retries != MAX_RETRIES):
+                raise SystemExit(f"contracts ({what}): target {rid} ended "
+                                 f"{rec.status} [{rec.error_kind}] after {rec.retries} "
+                                 f"retries; want failed {kinds} after {MAX_RETRIES}")
+        elif rec.status is not RequestState.FINISHED or rec.out_tokens != baseline[rid]:
+            raise SystemExit(f"contracts ({what}): rid {rid} ended {rec.status} with "
+                             f"{rec.out_tokens}; want the fault-free {baseline[rid]}")
+
+
+def _check_pool(eng, what):
+    """Allocator invariants, every page back, no NaN left in the pool."""
+    eng.alloc.check()
+    if eng.alloc.free_pages != eng.alloc.capacity:
+        raise SystemExit(f"contracts ({what}): {eng.alloc.used_pages} pages held "
+                         f"after the run")
+    for name, leaf in eng.pool.items():
+        if leaf.is_floating_point() and bool(leaf.isnan().any()):
+            raise SystemExit(f"contracts ({what}): NaN left in the pool's {name}")
+
+
+def _chaos(cfg, params, device, kernels, baseline):
+    """(a): the chaos matrix, a sampled injector and transient faults."""
+    from repro_torch.serve.faults import FaultInjector, FaultSpec
+
+    out = {}
+    for kind, ph in CHAOS_MATRIX:
+        what = f"{kind} at {ph}"
+        inj = FaultInjector([FaultSpec(kind, ph, rid, at_call=0 if ph == "prefill" else rid % 2,
+                                       repeat=MAX_RETRIES + 2) for rid in CHAOS_TARGETS])
+        eng = _contract_engine(cfg, params, device, injector=inj)
+        done = _run_counted(cfg, eng, kernels, what)
+        # a poisoned page's NaN must reach its own row's logits on the
+        # kernel path (an amax or a code conversion that drops it would
+        # let the victim finish)
+        _check_streams(done, baseline, what, CHAOS_TARGETS,
+                       "non_finite_logits" if kind == "cache_corruption" else None)
+        _check_pool(eng, what)
+        out[f"{kind}-{ph}"] = {k: eng.counters[k] for k in
+                               ("retries", "failed", "finished", "decode_calls",
+                                "prefill_calls")}
+        print(f"  chaos {what}: targets {list(CHAOS_TARGETS)} failed "
+              f"[{done[CHAOS_TARGETS[0]].error_kind}] after {MAX_RETRIES} retries, "
+              f"{N_REQUESTS - len(CHAOS_TARGETS)} streams bitwise phase 4's; "
+              f"{out[f'{kind}-{ph}']}", flush=True)
+    inj = FaultInjector.sample(range(N_REQUESTS), k=2, seed=15, repeat=MAX_RETRIES + 2)
+    eng = _contract_engine(cfg, params, device, injector=inj)
+    done = _run_counted(cfg, eng, kernels, "sampled injector")
+    _check_streams(done, baseline, "sampled injector", inj.targets)
+    _check_pool(eng, "sampled injector")
+    out["sampled"] = {"specs": [(s.kind, s.phase, s.rid, s.at_call) for s in inj.specs]}
+    print(f"  sampled injector (seed 15): {out['sampled']['specs']} failed, the rest "
+          f"bitwise phase 4's", flush=True)
+    for kind, ph, rid, at_call, chunk in (("exception", "decode", 3, 2, CHUNK),
+                                          ("cache_corruption", "decode", 3, 2, CHUNK),
+                                          ("cache_corruption", "prefill", 6, 1, SPLIT_CHUNK)):
+        what = f"transient {kind} at {ph}"
+        inj = FaultInjector([FaultSpec(kind, ph, rid, at_call=at_call)])
+        eng = _contract_engine(cfg, params, device, injector=inj, prefill_chunk=chunk)
+        done = _run_counted(cfg, eng, kernels, what)
+        _check_streams(done, baseline, what)
+        _check_pool(eng, what)
+        if done[rid].retries != 1 or not inj.fired:
+            raise SystemExit(f"contracts ({what}): rid {rid} retried "
+                             f"{done[rid].retries} times, fired {inj.fired}")
+        out[f"transient-{kind}-{ph}"] = {"retries": eng.counters["retries"]}
+        print(f"  {what} (rid {rid}, chunk {chunk}): retried once, all "
+              f"{N_REQUESTS} streams bitwise phase 4's (pages rolled back)", flush=True)
+    return out
+
+
+def _tick(eng, n):
+    """n steps of the engine loop without ``run()``'s drain at the end."""
+    for _ in range(n):
+        eng.counters["steps"] += 1
+        eng._expire_deadlines()
+        eng._admit()
+        eng._prefill_tick()
+        eng._step()
+
+
+def _recover(cfg, params, device, kernels, baseline, workdir, what, *, crash=None,
+             snapshot_every=0, snapshots=True, stale=False, kv_spec=None,
+             prefill_chunk=CHUNK):
+    """Serve the traffic journaled (fsync'd) until ``crash`` (a FaultSpec)
+    kills the engine, or (``stale``) abandon it mid-flight after a snapshot
+    the journal then outruns; ``ServeEngine.restore`` on the card; every
+    rid terminal exactly once in the journal, journal tokens == records ==
+    the fault-free streams, launches exact, and a pool restored from a
+    snapshot bitwise the pool that snapshot saved."""
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.faults import FaultInjector, SimulatedCrash
+    from repro_torch.serve.journal import JournalWriter, collate, read_journal
+
+    jpath = workdir / "journal.wal"
+    snap_dir = str(workdir / "snaps") if snapshots else None
+    journal = JournalWriter(jpath, fsync=True)
+    eng = _contract_engine(cfg, params, device, kv_spec=kv_spec,
+                           prefill_chunk=prefill_chunk, journal=journal,
+                           snapshot_dir=snap_dir, snapshot_every=snapshot_every,
+                           injector=None if crash is None else FaultInjector([crash]))
+    saved = {}
+    take = eng.snapshot
+
+    def snapshot():  # as the engine's, keeping what it saved and its cost
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = take()
+        seconds = time.perf_counter() - t0
+        saved.update(step=eng.counters["steps"], seconds=seconds,
+                     bytes=sum(f.stat().st_size for f in Path(path).iterdir()),
+                     pool={n: leaf.clone() for n, leaf in eng.pool.items()})
+        return path
+
+    eng.snapshot = snapshot
+    try:
+        if stale:
+            _tick(eng, 4)
+            eng.snapshot()
+            _tick(eng, 4)
+        else:
+            try:
+                eng.run()
+            except SimulatedCrash as e:
+                print(f"  {what}: {e}", flush=True)
+            else:
+                raise SystemExit(f"contracts ({what}): the crash point was never hit")
+    finally:
+        journal.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng2 = ServeEngine.restore(cfg, params, jpath, snapshot_dir=snap_dir,
+                               max_retries=MAX_RETRIES, device=device)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    marker = collate(read_journal(jpath).records).recovers[-1]
+    step = marker["snapshot_step"]
+    if snapshots and step != saved.get("step"):
+        raise SystemExit(f"contracts ({what}): restored snapshot step {step}, "
+                         f"the last one saved was {saved.get('step')}")
+    if step is not None:
+        for name, leaf in saved["pool"].items():
+            if eng2.pool[name].device != leaf.device or not torch.equal(eng2.pool[name], leaf):
+                raise SystemExit(f"contracts ({what}): the restored pool's {name} is "
+                                 f"not bitwise the one snapshot {step} saved")
+    done = _run_counted(cfg, eng2, kernels, what)
+    eng2.journal.close()
+    col = collate(read_journal(jpath).records)
+    if sorted(col.terminals) != list(range(N_REQUESTS)):
+        raise SystemExit(f"contracts ({what}): journaled terminals {sorted(col.terminals)}")
+    for rid, rec in done.items():
+        if col.tokens.get(rid, []) != rec.out_tokens:
+            raise SystemExit(f"contracts ({what}): rid {rid}'s journal stream is not "
+                             f"its record's")
+    _check_streams(done, baseline, what)
+    _check_pool(eng2, what)
+    out = {"snapshot_step": step, "resumed": marker["resumed"],
+           "requeued": marker["requeued"], "restore_s": restore_s,
+           "decode_calls_after": eng2.counters["decode_calls"]}
+    if saved:
+        out.update(snapshot_s=saved["seconds"], snapshot_bytes=saved["bytes"])
+    print(f"  {what}: restored (snapshot step {step}, resumed {marker['resumed']}, "
+          f"requeued {marker['requeued']}) in {restore_s:.3f} s; every rid terminal "
+          f"once, streams bitwise the fault-free run's" + (", pool bitwise the snapshot's"
+                                                  if step is not None else ""), flush=True)
+    return out
+
+
+def phase_contracts(device, card, cfg, qparams, smol_base, pcfg, pparams, phi3_base):
+    """Phase 15: the serving contracts on the card (see the module
+    docstring); every check fatal."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serve.faults import FaultSpec
+    from repro_torch.serve.journal import JournalWriter
+
+    smol, chained = ["fused_w4a4_lrc"], ["fused_prologue", "w4a4_lowrank_matmul"]
+    int8 = _kv_spec("int8")
+    out = {"card": card}
+    print("  (a) faults and retries, SmolLM-135M:", flush=True)
+    out["chaos"] = _chaos(cfg, qparams, device, smol, smol_base)
+
+    print("  (b) crash recovery, SmolLM-135M:", flush=True)
+    rec = out["recovery"] = {}
+    with tempfile.TemporaryDirectory(prefix="contracts_") as tmp:
+        root = Path(tmp)
+        for name, kw in (
+                ("decode, snapshots every step", dict(
+                    crash=FaultSpec("process_crash", "decode", 2, at_call=5),
+                    snapshot_every=1)),
+                ("prefill (chunk 4), snapshots every step", dict(
+                    # the third chunk: the first two ran in the step that
+                    # admitted rid 5, so the snapshot holds its offset 8
+                    crash=FaultSpec("process_crash", "prefill", 5, at_call=2),
+                    snapshot_every=1, prefill_chunk=SPLIT_CHUNK)),
+                ("decode, journal only", dict(
+                    crash=FaultSpec("process_crash", "decode", 1, at_call=6),
+                    snapshots=False)),
+                ("stale snapshot", dict(stale=True))):
+            workdir = root / f"smol{len(rec)}"
+            rec[name] = _recover(cfg, qparams, device, smol, smol_base, workdir,
+                                 f"SmolLM crash {name}", **kw)
+        if not rec["decode, journal only"]["requeued"] or not rec["stale snapshot"]["requeued"]:
+            raise SystemExit("contracts: the journal-only and stale restores replayed nothing")
+
+        print("  (c) Phi-3-mini, int8 pool:", flush=True)
+        out["phi3_int8"] = {"crash": _recover(
+            pcfg, pparams, device, chained, phi3_base, root / "phi3",
+            "Phi-3 int8 crash at decode, snapshots every step", kv_spec=int8,
+            crash=FaultSpec("process_crash", "decode", 2, at_call=5), snapshot_every=1)}
+        from repro_torch.serve.faults import FaultInjector
+
+        inj = FaultInjector([FaultSpec("cache_corruption", "decode", 3, at_call=2)])
+        eng = _contract_engine(pcfg, pparams, device, kv_spec=int8, injector=inj)
+        done = _run_counted(pcfg, eng, chained, "Phi-3 int8 transient cache_corruption")
+        _check_streams(done, phi3_base, "Phi-3 int8 transient cache_corruption")
+        _check_pool(eng, "Phi-3 int8 transient cache_corruption")
+        if done[3].retries != 1:
+            raise SystemExit(f"contracts: Phi-3 rid 3 retried {done[3].retries} times")
+        out["phi3_int8"]["transient_cache_corruption"] = {"retries": eng.counters["retries"]}
+        print("  Phi-3 int8 transient cache_corruption at decode: the scale planes "
+              "rolled back, all streams bitwise phase 8's", flush=True)
+
+        print("  (d) the serving CLI's harnesses (reduced SmolLM-135M, W4A4+LRC):",
+              flush=True)
+        out["cli"] = {}
+        for name, argv in (("chaos", ["--inject-faults", "2", "--parity-check"]),
+                           ("crash", ["--crash-after", "2", "--snapshot-every", "4",
+                                      "--parity-check", "--ckpt-dir", str(root / "cli")])):
+            rc = serve_main(["--quantize", "--device", device] + argv)
+            if rc != 0:
+                raise SystemExit(f"contracts: the CLI's {name} harness returned {rc}")
+            out["cli"][name] = rc
+
+        print("  (e) the journal's cost, SmolLM-135M (phase 4's traffic):", flush=True)
+        out["journal"] = {}
+        for label, fsync in (("off", None), ("on", True), ("off", None), ("on", True)):
+            journal = (None if fsync is None
+                       else JournalWriter(root / f"cost{label}.wal", fsync=True, overwrite=True))
+            eng = _contract_engine(cfg, qparams, device, journal=journal)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if journal is not None:
+                journal.close()
+            _check_streams(done, smol_base, f"journal {label}")
+            n_tok = sum(r.new_tokens for r in done.values())
+            out["journal"].setdefault(label, []).append(n_tok / wall)
+    sn = rec["decode, snapshots every step"]
+    ph = out["phi3_int8"]["crash"]
+    print(f"  [{card}] snapshot: SmolLM-135M f32 pool {sn['snapshot_bytes']} B in "
+          f"{sn['snapshot_s'] * 1e3:.1f} ms; Phi-3-mini int8 pool {ph['snapshot_bytes']} B "
+          f"in {ph['snapshot_s'] * 1e3:.1f} ms", flush=True)
+    print(f"  [{card}] restore: SmolLM-135M " + ", ".join(
+        f"{k} {v['restore_s']:.3f} s" for k, v in rec.items())
+        + f"; Phi-3-mini int8 {ph['restore_s']:.3f} s", flush=True)
+    print(f"  [{card}] phase 4's traffic with the journal off / on (fsync): "
+          + " / ".join(f"{', '.join(f'{t:.1f}' for t in out['journal'][k])} tok/s"
+                       for k in ("off", "on")), flush=True)
+    return out
+
+
+def _without_streams(tree):
+    """The summary without the served token streams phase 15 compared."""
+    if isinstance(tree, dict):
+        return {k: _without_streams(v) for k, v in tree.items() if k != "streams"}
+    if isinstance(tree, list):
+        return [_without_streams(v) for v in tree]
+    return tree
+
+
 def main() -> int:
     import torch
 
@@ -3992,6 +4376,11 @@ def main() -> int:
           f"g {PHI3_GROUP})")
     groups, group_worst, group_timed, group_smol, group_phi3 = phase_groups(
         device, cfg, qparams, pcfg, pparams)
+
+    phase("15. the serving contracts: faults and deferred retries, crash recovery, "
+          "the serving CLI (SmolLM-135M fused, Phi-3-mini chained with an int8 pool)")
+    contracts = phase_contracts(device, card, cfg, qparams, serve["streams"], pcfg,
+                                pparams, kv_serve["int8"]["streams"])
     del qparams, pparams
 
     phase(f"14. Gemma-7b, head_dim 256 ({GEMMA_LAYERS} layers, chained path, prefill "
@@ -4125,11 +4514,12 @@ def main() -> int:
                    if name == "flash_attention_quant"},
     })
     add_gemma_entries(kernels, gemma_worst, gemma_timed, gemma_counts)
-    print(json.dumps({"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
-                      "phi3_paths": paths, "phi3_kv_serve": kv_serve,
-                      "calibration": calib, "long_prefill": long_prefill,
-                      "kv_sweep": sweep, "latency": latency, "groups": groups,
-                      "gemma": gemma, "tc_probe": probe}, default=str))
+    summary = {"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
+               "phi3_paths": paths, "phi3_kv_serve": kv_serve,
+               "calibration": calib, "long_prefill": long_prefill,
+               "kv_sweep": sweep, "latency": latency, "groups": groups,
+               "gemma": gemma, "tc_probe": probe, "contracts": contracts}
+    print(json.dumps(_without_streams(summary), default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

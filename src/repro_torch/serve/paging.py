@@ -35,9 +35,6 @@ Invariants (enforced by ``check()``, tested in
   its accounting (free list and per-request lists) for the sidecar, and
   ``check()`` asserts that the two never diverge: a scale plane is never
   freed, aliased or double-allocated apart from its data page.
-
-The reference's snapshot state (``to_state``/``from_state``) serves a
-feature the port has not taken yet (ROADMAP Queue 1) and is left out.
 """
 
 from __future__ import annotations
@@ -162,6 +159,47 @@ class PageAllocator:
         del self._owned[rid]
         self._free.extend(reversed(pages))
         return len(pages)
+
+    # -- snapshot / restore -------------------------------------------------
+
+    def to_state(self) -> dict:
+        """JSON-serializable snapshot of the full allocator state (free
+        list order included — LIFO recycling survives a restore)."""
+        state = {
+            "num_pages": self.num_pages,
+            "page_size": self.page_size,
+            "free": list(self._free),
+            "owned": {str(rid): list(pages)
+                      for rid, pages in self._owned.items()},
+            "sidecar": self.sidecar,
+        }
+        if self.sidecar:
+            state["side_free"] = list(self._side_free)
+            state["side_owned"] = {str(rid): list(pages)
+                                   for rid, pages in self._side_owned.items()}
+        return state
+
+    @classmethod
+    def from_state(cls, state: dict) -> "PageAllocator":
+        """Rebuild an allocator from :meth:`to_state`, validating every
+        conservation invariant — a corrupt snapshot raises ``ValueError``
+        instead of silently double-allocating pages later.  (Pre-sidecar
+        snapshots carry no ``sidecar`` key and restore as plain
+        allocators.)"""
+        alloc = cls(int(state["num_pages"]), int(state["page_size"]),
+                    sidecar=bool(state.get("sidecar", False)))
+        alloc._free = [int(p) for p in state["free"]]
+        alloc._owned = {int(rid): [int(p) for p in pages]
+                        for rid, pages in state["owned"].items()}
+        if alloc.sidecar:
+            alloc._side_free = [int(p) for p in state["side_free"]]
+            alloc._side_owned = {int(rid): [int(p) for p in pages]
+                                 for rid, pages in state["side_owned"].items()}
+        try:
+            alloc.check()
+        except AssertionError as e:
+            raise ValueError(f"corrupt allocator snapshot: {e}") from None
+        return alloc
 
     # -- diagnostics --------------------------------------------------------
 

@@ -170,6 +170,8 @@ def test_non_finite_logits_fail_the_request(setup):
     eng, done = _serve(tcfg, params, _prompts(tcfg)[:2])
     assert {rec.status for rec in done.values()} == {RequestState.FAILED}
     assert {rec.error_kind for rec in done.values()} == {"non_finite_logits"}
+    # each went through the default retry budget before it failed
+    assert {rec.retries for rec in done.values()} == {2}
     assert eng.alloc.free_pages == eng.alloc.capacity
 
 

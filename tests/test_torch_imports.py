@@ -39,7 +39,8 @@ def test_port_modules_found():
     for name in ("data.tokens", "data.loader", "core.stats", "core.hadamard",
                  "core.rotation", "core.gptq", "core.lrc", "quant.rotate",
                  "quant.calibrate", "bench.kv_sweep", "kernels.hadamard",
-                 "bench.latency_kernels", "bench.common"):
+                 "bench.latency_kernels", "bench.common", "checkpoint.ckpt",
+                 "serve.faults", "serve.journal", "launch.serve"):
         assert f"repro_torch.{name}" in MODULES
 
 
