@@ -8,9 +8,12 @@ engine retries before failing a request.  Crash safety lives in
 ``ServeEngine.snapshot`` / ``ServeEngine.restore``; the ``process_crash``
 fault kind (:class:`~repro_torch.serve.faults.SimulatedCrash`) drives the
 recovery harness of ``repro_torch.launch.serve``.
+
+``ServeEngine`` and ``PagesExhausted`` load on first use: the engine
+imports the model, whose attention imports ``serve.kvquant``, so an eager
+import here would make importing the model import itself.
 """
 
-from repro_torch.serve.engine import PagesExhausted, ServeEngine
 from repro_torch.serve.faults import (FaultInjector, FaultSpec, InjectedFault,
                                       SimulatedCrash)
 from repro_torch.serve.journal import (Collated, JournalCorruption,
@@ -23,3 +26,11 @@ from repro_torch.serve.lifecycle import (ErrorKind, IllegalTransition, Request,
                                          RETRYABLE_KINDS)
 from repro_torch.serve.paging import NULL_PAGE, PageAllocator
 from repro_torch.serve.sampling import NonFiniteLogitsError, sample_token
+
+
+def __getattr__(name):
+    if name in ("PagesExhausted", "ServeEngine"):
+        from repro_torch.serve import engine
+
+        return getattr(engine, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

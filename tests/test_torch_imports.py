@@ -51,6 +51,20 @@ def test_modules_import_with_jax_blocked(chunk):
                    env=env, cwd=ROOT, timeout=300)
 
 
+@pytest.mark.parametrize("first", ["repro_torch.models.common",
+                                   "repro_torch.quant.calibrate",
+                                   "repro_torch.serve.kvquant",
+                                   "repro_torch.serve"])
+def test_no_import_cycle(first):
+    """Each of these, imported first in a fresh interpreter, loads: the
+    model's attention imports ``serve.kvquant`` and the engine imports the
+    model, so the serve package must not import the engine eagerly."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    subprocess.run([sys.executable, "-c", _BLOCKED, first,
+                    "repro_torch.serve.engine"], check=True, env=env, cwd=ROOT,
+                   timeout=300)
+
+
 _REFERENCE_IMPORT = re.compile(r"^\s*(from|import)\s+repro(\.|\s|$)", re.M)
 
 
