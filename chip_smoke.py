@@ -158,18 +158,22 @@ Phases, each fatal on failure:
      ``cache_corruption`` and a transient prefill ``cache_corruption`` (chunk
      4) finishing bitwise phase 4's streams (the in-place page rollback);
      (b) crashes (``process_crash``) mid-decode with a snapshot every step,
-     mid-prefill (chunk 4), mid-decode with no snapshot (journal only) and
-     after a stale snapshot, each restored by ``ServeEngine.restore`` on the
+     mid-prefill (chunk 4), mid-decode with no snapshot (journal only, its
+     slots' journaled tokens replayed) and with a snapshot every 4 steps and
+     a crash in step 6 (the journal a step ahead of the snapshot: no slot
+     resumes in place), each restored by ``ServeEngine.restore`` on the
      card: every rid terminal once in the journal, the journal's tokens the
      records', the streams bitwise phase 4's, launches exact, a pool
      restored from a snapshot bitwise the one it saved; (c) Phi-3-mini with
      an int8 pool: a crash mid-decode restored from a snapshot (codes and
      scale planes bitwise) and a transient decode ``cache_corruption``, both
      bitwise phase 8's int8 streams; (d) ``repro_torch.launch.serve``'s two
-     harnesses in process (reduced SmolLM, ``--quantize``), each returning
-     0; (e) one snapshot's bytes and seconds, the restores' seconds, and
-     phase 4's traffic with the journal on (fsync) and off, in tok/s, each
-     beside the card's name and power limit;
+     harnesses in process (SmolLM ``--reduced`` and ``--full``,
+     ``--quantize``), each returning 0; (e) one snapshot's bytes and
+     seconds, the restores' seconds, phase 4's traffic with the journal on
+     (fsync) and off, in tok/s, and the host seconds of the journal's
+     appends (write and fsync) a record and a token, each beside the card's
+     name and power limit;
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
 result.
@@ -3892,6 +3896,25 @@ CHAOS_MATRIX = (("exception", "prefill"), ("exception", "decode"),
 CHAOS_TARGETS = (2, 5)
 MAX_RETRIES = 2    # the engine's default retry budget
 SPLIT_CHUNK = 4    # a prefill chunk that splits the 12-token prompts in three
+STALE_CALL = 5     # rid 0's decode call of step 6
+
+
+def _timed_journal(path):
+    """An fsync'd ``JournalWriter`` that sums the host seconds its appends
+    (write and fsync) take, in ``seconds``."""
+    from repro_torch.serve.journal import JournalWriter
+
+    class Timed(JournalWriter):
+        seconds = 0.0
+
+        def append(self, kind, **fields):
+            t0 = time.perf_counter()
+            try:
+                return super().append(kind, **fields)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+    return Timed(path, fsync=True, overwrite=True)
 
 
 def _contract_engine(cfg, params, device, kv_spec=None, prefill_chunk=CHUNK, **kw):
@@ -4009,22 +4032,10 @@ def _chaos(cfg, params, device, kernels, baseline):
     return out
 
 
-def _tick(eng, n):
-    """n steps of the engine loop without ``run()``'s drain at the end."""
-    for _ in range(n):
-        eng.counters["steps"] += 1
-        eng._expire_deadlines()
-        eng._admit()
-        eng._prefill_tick()
-        eng._step()
-
-
-def _recover(cfg, params, device, kernels, baseline, workdir, what, *, crash=None,
-             snapshot_every=0, snapshots=True, stale=False, kv_spec=None,
-             prefill_chunk=CHUNK):
+def _recover(cfg, params, device, kernels, baseline, workdir, what, *, crash,
+             snapshot_every=0, snapshots=True, kv_spec=None, prefill_chunk=CHUNK):
     """Serve the traffic journaled (fsync'd) until ``crash`` (a FaultSpec)
-    kills the engine, or (``stale``) abandon it mid-flight after a snapshot
-    the journal then outruns; ``ServeEngine.restore`` on the card; every
+    kills the engine; ``ServeEngine.restore`` on the card; every
     rid terminal exactly once in the journal, journal tokens == records ==
     the fault-free streams, launches exact, and a pool restored from a
     snapshot bitwise the pool that snapshot saved."""
@@ -4040,7 +4051,7 @@ def _recover(cfg, params, device, kernels, baseline, workdir, what, *, crash=Non
     eng = _contract_engine(cfg, params, device, kv_spec=kv_spec,
                            prefill_chunk=prefill_chunk, journal=journal,
                            snapshot_dir=snap_dir, snapshot_every=snapshot_every,
-                           injector=None if crash is None else FaultInjector([crash]))
+                           injector=FaultInjector([crash]))
     saved = {}
     take = eng.snapshot
 
@@ -4056,17 +4067,11 @@ def _recover(cfg, params, device, kernels, baseline, workdir, what, *, crash=Non
 
     eng.snapshot = snapshot
     try:
-        if stale:
-            _tick(eng, 4)
-            eng.snapshot()
-            _tick(eng, 4)
-        else:
-            try:
-                eng.run()
-            except SimulatedCrash as e:
-                print(f"  {what}: {e}", flush=True)
-            else:
-                raise SystemExit(f"contracts ({what}): the crash point was never hit")
+        eng.run()
+    except SimulatedCrash as e:
+        print(f"  {what}: {e} at step {eng.counters['steps']}", flush=True)
+    else:
+        raise SystemExit(f"contracts ({what}): the crash point was never hit")
     finally:
         journal.close()
     torch.cuda.synchronize()
@@ -4075,7 +4080,10 @@ def _recover(cfg, params, device, kernels, baseline, workdir, what, *, crash=Non
                                max_retries=MAX_RETRIES, device=device)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
-    marker = collate(read_journal(jpath).records).recovers[-1]
+    col = collate(read_journal(jpath).records)
+    marker = col.recovers[-1]
+    # requeued requests with journaled tokens: fed through decode again
+    replayed = [rid for rid in marker["requeued"] if col.tokens.get(rid)]
     step = marker["snapshot_step"]
     if snapshots and step != saved.get("step"):
         raise SystemExit(f"contracts ({what}): restored snapshot step {step}, "
@@ -4097,12 +4105,12 @@ def _recover(cfg, params, device, kernels, baseline, workdir, what, *, crash=Non
     _check_streams(done, baseline, what)
     _check_pool(eng2, what)
     out = {"snapshot_step": step, "resumed": marker["resumed"],
-           "requeued": marker["requeued"], "restore_s": restore_s,
+           "requeued": marker["requeued"], "replayed": replayed, "restore_s": restore_s,
            "decode_calls_after": eng2.counters["decode_calls"]}
     if saved:
         out.update(snapshot_s=saved["seconds"], snapshot_bytes=saved["bytes"])
     print(f"  {what}: restored (snapshot step {step}, resumed {marker['resumed']}, "
-          f"requeued {marker['requeued']}) in {restore_s:.3f} s; every rid terminal "
+          f"requeued {marker['requeued']}, replayed {replayed}) in {restore_s:.3f} s; every rid terminal "
           f"once, streams bitwise the fault-free run's" + (", pool bitwise the snapshot's"
                                                   if step is not None else ""), flush=True)
     return out
@@ -4117,7 +4125,6 @@ def phase_contracts(device, card, cfg, qparams, smol_base, pcfg, pparams, phi3_b
 
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.serve.faults import FaultSpec
-    from repro_torch.serve.journal import JournalWriter
 
     smol, chained = ["fused_w4a4_lrc"], ["fused_prologue", "w4a4_lowrank_matmul"]
     int8 = _kv_spec("int8")
@@ -4141,12 +4148,17 @@ def phase_contracts(device, card, cfg, qparams, smol_base, pcfg, pparams, phi3_b
                 ("decode, journal only", dict(
                     crash=FaultSpec("process_crash", "decode", 1, at_call=6),
                     snapshots=False)),
-                ("stale snapshot", dict(stale=True))):
+                ("stale snapshot", dict(
+                    # snapshots every 4 steps: the crash in step 6 leaves
+                    # the journal a step ahead of step 4's
+                    crash=FaultSpec("process_crash", "decode", 0, at_call=STALE_CALL),
+                    snapshot_every=4))):
             workdir = root / f"smol{len(rec)}"
             rec[name] = _recover(cfg, qparams, device, smol, smol_base, workdir,
                                  f"SmolLM crash {name}", **kw)
-        if not rec["decode, journal only"]["requeued"] or not rec["stale snapshot"]["requeued"]:
-            raise SystemExit("contracts: the journal-only and stale restores replayed nothing")
+        if not rec["decode, journal only"]["replayed"] or rec["stale snapshot"]["resumed"]:
+            raise SystemExit("contracts: the journal-only restore replayed nothing, or the "
+                             "stale snapshot's slots resumed in place")
 
         print("  (c) Phi-3-mini, int8 pool:", flush=True)
         out["phi3_int8"] = {"crash": _recover(
@@ -4166,33 +4178,40 @@ def phase_contracts(device, card, cfg, qparams, smol_base, pcfg, pparams, phi3_b
         print("  Phi-3 int8 transient cache_corruption at decode: the scale planes "
               "rolled back, all streams bitwise phase 8's", flush=True)
 
-        print("  (d) the serving CLI's harnesses (reduced SmolLM-135M, W4A4+LRC):",
-              flush=True)
+        print("  (d) the serving CLI's harnesses (SmolLM-135M reduced and at its "
+              "published widths, W4A4+LRC):", flush=True)
         out["cli"] = {}
-        for name, argv in (("chaos", ["--inject-faults", "2", "--parity-check"]),
-                           ("crash", ["--crash-after", "2", "--snapshot-every", "4",
-                                      "--parity-check", "--ckpt-dir", str(root / "cli")])):
-            rc = serve_main(["--quantize", "--device", device] + argv)
-            if rc != 0:
-                raise SystemExit(f"contracts: the CLI's {name} harness returned {rc}")
-            out["cli"][name] = rc
+        for width in ("--reduced", "--full"):
+            for name, argv in (("chaos", ["--inject-faults", "2", "--parity-check"]),
+                               ("crash", ["--crash-after", "2", "--snapshot-every", "4",
+                                          "--parity-check",
+                                          "--ckpt-dir", str(root / f"cli{width}")])):
+                rc = serve_main([width, "--quantize", "--device", device] + argv)
+                if rc != 0:
+                    raise SystemExit(f"contracts: the CLI's {name} harness ({width}) "
+                                     f"returned {rc}")
+                out["cli"][f"{name} {width[2:]}"] = rc
 
         print("  (e) the journal's cost, SmolLM-135M (phase 4's traffic):", flush=True)
-        out["journal"] = {}
-        for label, fsync in (("off", None), ("on", True), ("off", None), ("on", True)):
-            journal = (None if fsync is None
-                       else JournalWriter(root / f"cost{label}.wal", fsync=True, overwrite=True))
+        out["journal"] = {"off": [], "on": [], "append": []}
+        for on in (False, True, False, True):
+            journal = _timed_journal(root / "cost.wal") if on else None
             eng = _contract_engine(cfg, qparams, device, journal=journal)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             done = eng.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            if journal is not None:
-                journal.close()
-            _check_streams(done, smol_base, f"journal {label}")
+            _check_streams(done, smol_base, f"journal {'on' if on else 'off'}")
             n_tok = sum(r.new_tokens for r in done.values())
-            out["journal"].setdefault(label, []).append(n_tok / wall)
+            out["journal"]["on" if on else "off"].append(n_tok / wall)
+            if on:
+                journal.close()
+                out["journal"]["append"].append(
+                    {"records": journal.seq, "tokens": n_tok, "seconds": journal.seconds,
+                     "ms_per_record": journal.seconds / journal.seq * 1e3,
+                     "ms_per_token": journal.seconds / n_tok * 1e3,
+                     "share_of_run": journal.seconds / wall})
     sn = rec["decode, snapshots every step"]
     ph = out["phi3_int8"]["crash"]
     print(f"  [{card}] snapshot: SmolLM-135M f32 pool {sn['snapshot_bytes']} B in "
@@ -4204,6 +4223,11 @@ def phase_contracts(device, card, cfg, qparams, smol_base, pcfg, pparams, phi3_b
     print(f"  [{card}] phase 4's traffic with the journal off / on (fsync): "
           + " / ".join(f"{', '.join(f'{t:.1f}' for t in out['journal'][k])} tok/s"
                        for k in ("off", "on")), flush=True)
+    for a in out["journal"]["append"]:
+        print(f"  [{card}] journal appends (write + fsync): {a['records']} records, "
+              f"{a['seconds'] * 1e3:.2f} ms in all, {a['ms_per_record']:.4f} ms a record, "
+              f"{a['ms_per_token']:.4f} ms a token, {a['share_of_run'] * 100:.2f} % of "
+              f"the run", flush=True)
     return out
 
 

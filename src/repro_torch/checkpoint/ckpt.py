@@ -207,22 +207,17 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 
 class CheckpointManager:
-    """save-every-N + keep-k rotation + resume-from-latest (with fallback
-    past incomplete checkpoints and crash-debris garbage collection)."""
+    """keep-k rotation + resume-from-latest (with fallback past incomplete
+    checkpoints and crash-debris garbage collection).  The caller keeps its
+    own schedule: the serving engine snapshots every ``snapshot_every``
+    steps."""
 
-    def __init__(self, ckpt_dir, every: int = 100, keep: int = 3):
+    def __init__(self, ckpt_dir, keep: int = 3):
         self.dir = Path(ckpt_dir)
-        self.every = every
         self.keep = keep
 
-    def maybe_save(self, step: int, tree) -> Optional[str]:
-        if step % self.every != 0:
-            return None
-        return self.save(step, tree)
-
     def save(self, step: int, tree) -> str:
-        """Unconditional atomic save + rotation (``maybe_save`` without the
-        every-N gate: the serving engine snapshots on its own schedule)."""
+        """Atomic save + rotation."""
         path = save_checkpoint(self.dir, step, tree)
         self._gc()
         return path

@@ -237,7 +237,7 @@ class ServeEngine:
         # crash safety: the write-ahead journal and the snapshot schedule
         self.journal = journal
         self.snapshot_every = snapshot_every
-        self._ckpt = (CheckpointManager(snapshot_dir, every=1, keep=snapshot_keep)
+        self._ckpt = (CheckpointManager(snapshot_dir, keep=snapshot_keep)
                       if snapshot_dir is not None else None)
         self._journaled_submits: set = set()
         self._journaled_terminals: set = set()

@@ -173,7 +173,9 @@ class FaultInjector:
     def corrupt_cache(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A copy of the cache with every float leaf NaN everywhere; integer
         leaves (codes, offsets) keep their values, so the corruption
-        surfaces as non-finite activations, not an index error."""
+        surfaces as non-finite activations, not an index error.  For the
+        stacked and per-slot engine modes, not ported yet: the paged
+        engine uses :meth:`corrupt_pages`."""
         return {name: (torch.full_like(leaf, float("nan")) if leaf.is_floating_point()
                        else leaf) for name, leaf in cache.items()}
 
@@ -195,7 +197,8 @@ class FaultInjector:
     @staticmethod
     def corrupt_rows(cache: Dict[str, torch.Tensor], row: int) -> Dict[str, torch.Tensor]:
         """A copy of a stacked cache with batch row ``row`` (axis 1 of every
-        float leaf of rank >= 2) NaN."""
+        float leaf of rank >= 2) NaN.  For the stacked engine mode, not
+        ported yet."""
         out = {}
         for name, leaf in cache.items():
             if leaf.is_floating_point() and leaf.ndim >= 2:

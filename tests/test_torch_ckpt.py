@@ -78,12 +78,12 @@ def test_load_checks_names_and_shapes(tmp_path):
 
 
 def test_keep_k_rotation_and_debris(tmp_path):
-    mgr = CheckpointManager(tmp_path, every=2, keep=2)
+    mgr = CheckpointManager(tmp_path, keep=2)
     (tmp_path / "step_garbage").mkdir(parents=True)
     (tmp_path / "notes.txt").write_text("stray")
     (tmp_path / ".tmp_step_00000099").mkdir()  # a mid-save crash's debris
-    for step in range(1, 8):
-        mgr.maybe_save(step, {"x": torch.tensor([step])})
+    for step in (2, 4, 6):
+        mgr.save(step, {"x": torch.tensor([step])})
     assert sorted(p.name for p in tmp_path.iterdir() if p.name.startswith("step_0")) == \
         ["step_00000004", "step_00000006"]
     assert not (tmp_path / ".tmp_step_00000099").exists()
