@@ -36,7 +36,9 @@ Phases, each fatal on failure:
      reader, three splits); their split-KV body's rows bitwise the same
      alone (pages moved) and in the batch, and at MPB 4 and 256; the dense
      causal flash-attention kernel at SmolLM's calibration shape, Phi-3's
-     heads (f32, bf16), a ragged S and S = 1, and the prefill kernels: the quantized flash
+     heads (f32, bf16), a ragged S, S = 1 and phase 16's head_dim 32 (an
+     8 x 64 evaluation batch, the 24 x 96 calibration walk), and the
+     prefill kernels: the quantized flash
      kernel (#8, int8 and int4 group 32) at the kv_sweep shape, a whole
      Phi-3 prompt and a 256-row chunk of it at position 1792, each with an
      f32 and a bf16 q, and a ragged S with a bf16 q, each bitwise #7 on the
@@ -174,6 +176,22 @@ Phases, each fatal on failure:
      (fsync) and off, in tok/s, and the host seconds of the journal's
      appends (write and fsync) a record and a token, each beside the card's
      name and power limit;
+ 16. training and the paper's Table 1 (last): (a) one train step of the
+     reduced f32 model on the card against the same step on the CPU (TF32
+     off; loss, every gradient leaf and the grad norm within the stated
+     bounds); (b) ``train/trainer.train`` of SmolLM-135M at full width and
+     depth (bf16 params, f32 moments), batch 16 x 128, lr 3e-4, 30 steps:
+     every loss finite, the last 5 below the first 5, no kernel launched;
+     step ms, tokens/s and peak memory printed; (c) 6 steps straight
+     against 3, a restart from the checkpoint and 3 more: params and
+     moments bitwise; (d) the benchmark model (``BENCH_CFG``) trained 300
+     steps on the card, then Table 1 (FP16, QuaRot, SVD, LRC (1), LRC (5))
+     with its calibration walks on #7 and every model on the sim column
+     and the kernel column (#1 at every site, #7 in every forward): the
+     launches exact, no NaN, the kernel column within
+     ``bench.common.KERNEL_COLUMN_BOUND`` of sim, the closed-gap fraction
+     and each stage's seconds printed; (e) a grad-mode call into #1 and
+     into #7 with an input that requires grad raises;
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
 result.
@@ -1068,8 +1086,12 @@ def phase_attention_kernels(device):
 
 # dense causal attention shapes (batch, seq, heads, kv heads, head_dim,
 # dtype): the SmolLM-135M calibration walk of phase 9 (32 x 2048 tokens),
-# Phi-3-mini's heads at 4 x 2048, a ragged S and S = 1
+# Phi-3-mini's heads at 4 x 2048, a ragged S and S = 1, and the benchmark
+# model of phase 16 (head_dim 32): an evaluation batch of 8 x 64 and the
+# calibration walk over 24 x 96 tokens
 FLASH_SHAPES = {
+    "bench-eval": (8, 64, 4, 2, 32, "float32"),
+    "bench-calib": (24, 96, 4, 2, 32, "float32"),
     "smollm-calib": (32, 2048, 9, 3, 64, "float32"),
     "phi3-f32": (4, 2048, 32, 32, 96, "float32"),
     "phi3-bf16": (4, 2048, 32, 32, 96, "bfloat16"),
@@ -4233,6 +4255,278 @@ def phase_contracts(device, card, cfg, qparams, smol_base, pcfg, pparams, phi3_b
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training on the card and the paper's Table 1 on a trained model
+# ---------------------------------------------------------------------------
+
+# (a) one train step of the reduced model (f32, TF32 off) on the card
+# against the same step on the CPU: cuBLAS and the CPU's BLAS sum in other
+# orders, so the loss is held within relative 1e-5 and every gradient leaf
+# within 1e-4 of its largest element (on the CPU the port against the JAX
+# reference, two frameworks' f32 orders, measured 2e-7 and 1e-6)
+STEP_LOSS_REL = 1e-5
+STEP_GRAD_REL = 1e-4
+# (b) SmolLM-135M at its published widths and depth, the reference
+# launcher's defaults: batch 16 x seq 128, lr 3e-4
+TRAIN_STEPS_FULL = 30
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 16, 128, 3e-4
+# (c) the resume check: 6 steps straight against 3, a restart, then 3
+RESUME_STEPS, RESUME_EVERY = 6, 3
+
+
+def _train_configs():
+    """(the reduced f32 model of (a) and (c), the full model of (b))."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import reduced
+
+    return reduced(get_config("smollm-135m")), get_config("smollm-135m")
+
+
+def _state_to(state, device):
+    from repro_torch.train.optimizer import AdamWState, tree_map
+    from repro_torch.train.steps import TrainState
+
+    to = lambda t: t.to(device)
+    return TrainState(params=tree_map(to, state.params),
+                      opt=AdamWState(step=to(state.opt.step), mu=tree_map(to, state.opt.mu),
+                                     nu=tree_map(to, state.opt.nu)))
+
+
+def _state_leaves(state):
+    from repro_torch.train.optimizer import tree_leaves
+
+    return tree_leaves([state.params, state.opt.mu, state.opt.nu, state.opt.step])
+
+
+def _step_card_vs_cpu(device, cfg):
+    """(a): the loss and every gradient leaf of one batch, then one whole
+    train step, on the card and on the CPU from the same state."""
+    import torch
+
+    from repro_torch.data.loader import batches
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import tree_leaves
+
+    cpu = steps.init_train_state(cfg, seed=0, device="cpu")
+    card = _state_to(cpu, device)
+    _, batch = next(batches(cfg, 8, 64, seed=1, device="cpu"))
+    card_batch = {"tokens": batch["tokens"].to(device)}
+    loss_c, grads_c = steps.value_and_grad(cfg, cpu.params, batch)
+    loss_g, grads_g = steps.value_and_grad(cfg, card.params, card_batch)
+    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grad_rel = max(float((g.cpu() - c).abs().max() / c.abs().max())
+                   for g, c in zip(tree_leaves(grads_g), tree_leaves(grads_c)))
+    fn = steps.make_train_step(cfg, base_lr=1e-3, warmup=0, total_steps=10, remat="none")
+    (new_c, m_c), (new_g, m_g) = fn(cpu, batch), fn(card, card_batch)
+    norm_rel = abs(float(m_g["grad_norm"]) - float(m_c["grad_norm"])) / float(m_c["grad_norm"])
+    finite = all(bool(torch.isfinite(t).all()) for t in _state_leaves(new_g))
+    print(f"  (a) one step, reduced f32 model, B 8 x S 64: loss card {float(loss_g):.7f} "
+          f"CPU {float(loss_c):.7f} (rel {loss_rel:.2e}, limit {STEP_LOSS_REL:g}); worst "
+          f"grad leaf {grad_rel:.2e} of its largest element (limit {STEP_GRAD_REL:g}); "
+          f"grad norm rel {norm_rel:.2e}; new state finite {finite}", flush=True)
+    if not (loss_rel <= STEP_LOSS_REL and grad_rel <= STEP_GRAD_REL
+            and norm_rel <= STEP_LOSS_REL and finite):
+        raise SystemExit("phase 16(a): the card's train step disagrees with the CPU's")
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, grad_norm_rel=norm_rel)
+
+
+def _train_full(device, cfg):
+    """(b): ``train`` at full width and depth; no kernel may launch."""
+    import math
+
+    import torch
+
+    from repro_torch.train.trainer import train
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses, watchdog = train(cfg, steps=TRAIN_STEPS_FULL, global_batch=TRAIN_BATCH,
+                                    seq_len=TRAIN_SEQ, lr=TRAIN_LR, device=device,
+                                    log=lambda s: print(f"    {s}", flush=True))
+    wall = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    step_ms = statistics.median(watchdog.times[1:]) * 1e3
+    out = dict(steps=len(losses), first5=first, last5=last, losses=losses,
+               first_step_ms=watchdog.times[0] * 1e3, step_ms=step_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3, peak_gib=peak,
+               wall_s=wall, params_dtype=cfg.dtype, launches=sum(counts.values()))
+    print(f"  (b) SmolLM-135M full width and depth ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.dtype} params, f32 moments), B {TRAIN_BATCH} x S {TRAIN_SEQ}, lr "
+          f"{TRAIN_LR:g}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 5 "
+          f"{first:.4f}, last 5 {last:.4f}); step {step_ms:.1f} ms median (first "
+          f"{out['first_step_ms']:.0f} ms), {out['tokens_per_s']:,.0f} tokens/s, peak "
+          f"{peak:.2f} GiB, {wall:.1f} s; kernel launches {out['launches']}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit("phase 16(b): a training loss is not finite")
+    if not last < first:
+        raise SystemExit("phase 16(b): the loss did not fall over the run")
+    if out["launches"]:
+        raise SystemExit(f"phase 16(b): training launched kernels: "
+                         f"{ {k: v for k, v in counts.items() if v} }")
+    return out
+
+
+def _resume(device, cfg):
+    """(c): 6 steps straight against 3, a restart from the step-3
+    checkpoint, then 3 more: bitwise the same params and moments.  A second
+    straight run says whether a difference is the card's or the resume's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.train.trainer import train
+
+    kw = dict(steps=RESUME_STEPS, global_batch=4, seq_len=32, lr=1e-2, device=device,
+              log=lambda s: None)
+    with tempfile.TemporaryDirectory(prefix="resume_") as tmp:
+        straight, hist_a, _ = train(cfg, ckpt_dir=f"{tmp}/a", ckpt_every=100, **kw)
+        again, _, _ = train(cfg, **kw)
+        train(cfg, ckpt_dir=f"{tmp}/b", ckpt_every=RESUME_EVERY,
+              **dict(kw, steps=RESUME_EVERY))
+        seen = []
+        resumed, hist_b, _ = train(cfg, ckpt_dir=f"{tmp}/b", ckpt_every=RESUME_EVERY,
+                                   **dict(kw, log=seen.append))
+    same = lambda x, y: all(a.dtype == b.dtype and torch.equal(a, b)
+                            for a, b in zip(_state_leaves(x), _state_leaves(y)))
+    bitwise, repeat = same(straight, resumed), same(straight, again)
+    print(f"  (c) resume: {RESUME_STEPS} steps straight vs {RESUME_EVERY} + restart "
+          f"({seen[0] if seen else 'no resume'}) + {RESUME_STEPS - RESUME_EVERY}: params "
+          f"and moments bitwise {bitwise}, losses {hist_a[RESUME_EVERY:] == hist_b}; two "
+          f"straight runs bitwise {repeat}", flush=True)
+    if not (bitwise and seen[:1] == [f"[resume] from step {RESUME_EVERY}"]):
+        raise SystemExit("phase 16(c): the resumed run is not bitwise the straight one")
+    return dict(bitwise=bitwise, straight_runs_bitwise=repeat)
+
+
+def _table1(device):
+    """(d): ``BENCH_CFG`` trained for ``TRAIN_STEPS`` into a temporary
+    directory, then Table 1 (FP16, QuaRot, SVD, LRC (1), LRC (5)) with the
+    calibration walks on the card ("auto": #7) and each model evaluated on
+    the sim column (gather attention) and the kernel column ("auto": #1 at
+    every site, #7 in every forward).  Launches exact, no NaN, the kernel
+    column within ``common.KERNEL_COLUMN_BOUND`` of the sim column."""
+    import math
+    import tempfile
+
+    from repro_torch.bench import common, table1_w4a4
+    from repro_torch.kernels.context import KernelContext
+
+    stages = {}
+    with tempfile.TemporaryDirectory(prefix="bench_") as tmp:
+        t0 = time.perf_counter()
+        cfg, params = common.get_bench_model(device=device, bench_dir=f"{tmp}/model",
+                                             log=lambda s: None)
+        stages["train"] = time.perf_counter() - t0
+        bench = common.Bench(cfg, params, common.calib_tokens(cfg, device=device),
+                             common.eval_batches(cfg, device=device), out_dir=f"{tmp}/tables")
+        policy = common.make_policy("lrc")
+        plans = {}
+        for block, names in (("attn", ("wq", "wk", "wv", "wo")), ("mlp", ("wg", "wu", "wd"))):
+            for name in names:
+                k, n = params["layers"][0][block][name].shape
+                for r in (0, policy.rank(k, n)):
+                    plans[f"{block}/{name} r{r}"] = KernelContext().resolve_plan(
+                        8 * 64, k, n, r, layer=f"{block}/{name}").path
+        print(f"  (d) {common.TRAIN_STEPS} steps of BENCH_CFG ({cfg.n_layers} layers, d "
+              f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}) in "
+              f"{stages['train']:.1f} s; each site's resolved path: {plans}", flush=True)
+        reset_launches()
+        timings = {}
+        results = table1_w4a4.run(bench=bench, timings=timings)
+        counts = launches()
+    n_models = len(table1_w4a4.METHODS)
+    n_evals, n_layers = len(bench.evals), cfg.n_layers
+    want = {"flash_attention": n_models * n_layers + (n_models + 1) * n_evals * n_layers,
+            "fused_w4a4_lrc": n_models * n_evals * n_layers * 7}
+    other = {k: v for k, v in counts.items() if v and k not in want}
+    print(f"  launches: {dict((k, counts[k]) for k in want)} (want {want}; every calibration "
+          f"walk's layer and every kernel-column forward's layer launch #7, every kernel-"
+          f"column site #1); others {other or 'none'}", flush=True)
+    if any(counts[k] != v for k, v in want.items()) or other:
+        raise SystemExit("phase 16(d): Table 1's launches are not the exact count")
+    bound = common.KERNEL_COLUMN_BOUND
+    for name, (ppl, acc, ppl_k, acc_k) in results.items():
+        ok = all(math.isfinite(v) for v in (ppl, acc, ppl_k, acc_k)) and \
+            abs(ppl_k - ppl) <= bound["ppl_rel"] * ppl and abs(acc_k - acc) <= bound["acc_abs"]
+        t = timings[name]
+        print(f"    {name:8s} sim ppl {ppl:.4f} acc {acc:.4f} | kernel ppl {ppl_k:.4f} acc "
+              f"{acc_k:.4f} | calibration {t.get('quant_s', 0.0):.2f} s, evaluation "
+              f"{t['eval_s']:.2f} s  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"phase 16(d): {name}'s kernel column is not within {bound} "
+                             f"of its sim column (or not finite)")
+    closed = {col: table1_w4a4.closed_frac(results["FP16"][i], results["QuaRot"][i],
+                                           results["LRC (1)"][i])
+              for col, i in (("sim", 1), ("kernel", 3))}
+    print(f"  LRC (1) closes {closed['sim']:.3f} of the QuaRot accuracy gap on the sim "
+          f"column, {closed['kernel']:.3f} on the kernel column", flush=True)
+    return dict(results=results, closed=closed, stages=stages, timings=timings,
+                launches={k: counts[k] for k in want}, plans=plans)
+
+
+def _grad_mode_refused(device):
+    """One grad-mode call each into #1 and #7 with an input that requires
+    grad: each must raise (no kernel has a backward), launching nothing."""
+    import torch
+
+    from repro_torch.bench.common import w4a4_problem
+    from repro_torch.kernels import flash_attn, fused_gemm
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    x, v, wp, sw, u = w4a4_problem(gen, 8, 128, 64, 8, torch.float32, torch.bfloat16, device)
+    q, k, kv = (torch.randn((1, 16, h, 32), generator=gen, device=device) for h in (4, 2, 2))
+    reset_launches()
+    calls = {"fused_w4a4_lrc": lambda: fused_gemm.fused_w4a4_lrc(
+                 x.requires_grad_(True), v, wp, sw, u),
+             "flash_attention": lambda: flash_attn.flash_attention(
+                 q.requires_grad_(True), k, kv, 0.1)}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            print(f"  (e) {name} under grad mode with an input that requires grad: "
+                  f"RuntimeError ({e})", flush=True)
+            continue
+        raise SystemExit(f"phase 16(e): {name} ran under grad mode on an input that "
+                         f"requires grad")
+    if any(launches().values()):
+        raise SystemExit("phase 16(e): a refused call launched a kernel")
+
+
+def phase_train(device):
+    """Phase 16: (a) one train step on the card against the CPU's; (b)
+    SmolLM-135M trained at full width; (c) the bitwise resume; (d) Table 1
+    on the trained benchmark model through kernels #1 and #7; (e) the
+    kernel wrappers refuse autograd.  Returns the summary and Table 1's
+    launches."""
+    import torch
+
+    small, full = _train_configs()
+    times = {}
+    t0 = time.perf_counter()
+    out = {"step": _step_card_vs_cpu(device, small)}
+    times["a"] = time.perf_counter() - t0
+    out["full"] = _train_full(device, full)
+    times["b"] = time.perf_counter() - t0 - times["a"]
+    torch.cuda.empty_cache()
+    out["resume"] = _resume(device, small)
+    times["c"] = time.perf_counter() - t0 - times["a"] - times["b"]
+    out["table1"] = _table1(device)
+    times["d"] = time.perf_counter() - t0 - sum(times.values())
+    _grad_mode_refused(device)
+    times["e"] = time.perf_counter() - t0 - sum(times.values())
+    out["seconds"] = times
+    print("  phase 16 seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in times.items()),
+          flush=True)
+    return out, out["table1"]["launches"]
+
+
 def _without_streams(tree):
     """The summary without the served token streams phase 15 compared."""
     if isinstance(tree, dict):
@@ -4413,6 +4707,10 @@ def main() -> int:
           f"through the flash kernels at D 256)")
     gemma, gemma_worst, gemma_timed, gemma_counts = phase_gemma(device)
 
+    phase("16. training on the card (a step against the CPU's, SmolLM-135M at full width, "
+          "the bitwise resume) and Table 1 on the trained benchmark model")
+    train, table1_counts = phase_train(device)
+
     # launches of the two dense kernels on the main paths: every prefill
     # chunk of phases 4, 6, 8, 9 (its served model) and 10, the walk of
     # phase 9, phase 11's pass
@@ -4429,6 +4727,7 @@ def main() -> int:
                                   for key, r in long_prefill[pool].items()
                                   if key.startswith("kernel/"))
                             + sum(n for name, n in sweep_counts.items() if name != "f32"))
+    flash_launches += table1_counts["flash_attention"]
 
     def entry(name, replaces, n, sites, timing, err, at):
         layer = [timing[(name, SLOTS, *sites[s])] for s in sites]
@@ -4446,7 +4745,9 @@ def main() -> int:
     at_phi3 = f"one Phi-3-mini decoder layer's 7 sites at M={SLOTS}, L2 flushed"
     kernels = [
         entry("fused_w4a4_lrc", "src/repro/kernels/fused_gemm.py:208",
-              smol_counts["fused_w4a4_lrc"], SITES, timed, worst, at_smol),
+              smol_counts["fused_w4a4_lrc"] + table1_counts["fused_w4a4_lrc"], SITES, timed,
+              worst, at_smol + "; launches from phase 4's serving and phase 16's Table 1 "
+              "kernel column"),
         entry("fused_prologue", "src/repro/kernels/prologue.py:93",
               phi3_counts["fused_prologue"] + lat["fused_prologue"], PHI3_SITES, chain_timed,
               chain_worst["fused_prologue"], at_phi3),
@@ -4515,8 +4816,9 @@ def main() -> int:
         "at": (f"one SmolLM-135M calibration layer's causal attention, B="
                f"{SMOL_CALIB_SEQS} S={CALIB_SEQ_LEN} H 9 KH 3 D 64 f32, L2 flushed; "
                f"library: SDPA is_causal on an expanded-KV copy; launches from "
-               f"phase 9's walk and every float-pool prefill chunk of phases 4, 6, 9, "
-               f"10 and 11"),
+               f"phase 9's walk, every float-pool prefill chunk of phases 4, 6, 9, "
+               f"10 and 11, and phase 16's Table 1 (its calibration walks and kernel-"
+               f"column forwards, D 32)"),
         "shapes": shapes,
     })
     t_k, t_p, b_ms, by, b_cc, _, t_c = prefill_timed[("flash_attention_quant", "smollm-b4",
@@ -4544,7 +4846,8 @@ def main() -> int:
                "phi3_paths": paths, "phi3_kv_serve": kv_serve,
                "calibration": calib, "long_prefill": long_prefill,
                "kv_sweep": sweep, "latency": latency, "groups": groups,
-               "gemma": gemma, "tc_probe": probe, "contracts": contracts}
+               "gemma": gemma, "tc_probe": probe, "contracts": contracts,
+               "train": train}
     print(json.dumps(_without_streams(summary), default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))

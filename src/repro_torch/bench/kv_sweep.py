@@ -1,5 +1,4 @@
-"""KV-cache quantization sweep (counterpart of ``benchmarks/kv_sweep.py``
-and of ``ppl_and_acc`` / ``eval_batches`` in ``benchmarks/common.py``):
+"""KV-cache quantization sweep (counterpart of ``benchmarks/kv_sweep.py``):
 PPL and next-token accuracy of serving a model out of f32, int8 and
 int4-g128 paged KV pools, with the bytes each pool stores per token.
 
@@ -12,9 +11,9 @@ row's gathered pages (the quantized one dequantizes each tile on chip), on
 the CPU through the reference's gather route unless ``ctx`` asks for the
 kernel route (the kernels' plain versions).
 
-The model and the eval batches are arguments: the reference sweeps a bench
-model trained on the synthetic corpus, which waits for the port of the
-training path.
+The model and the eval batches are arguments: the reference sweeps its
+bench model trained on the synthetic corpus, which
+``bench.common.get_bench_model`` trains in the port too.
 
     from repro_torch.bench.kv_sweep import eval_batches, run
     rows = run(cfg, params, eval_batches(cfg))
@@ -22,11 +21,10 @@ training path.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from repro_torch.data.loader import batches
+from repro_torch.bench.common import (eval_batches, ppl_acc,  # noqa: F401
+                                      ppl_and_acc, score)
 from repro_torch.models import model as model_lib
 from repro_torch.serve.kvquant import KVSpec
 
@@ -43,38 +41,6 @@ SWEEP = [
 
 HEADER = ["kv", "ppl", "acc", "delta_ppl", "delta_acc",
           "kv_bytes_per_token", "ref_bytes_per_token", "ref_reduction_vs_f32"]
-
-
-def eval_batches(cfg, n: int = 4, bsz: int = 8, seq: int = 64, seed: int = 77,
-                 device="cuda"):
-    """``n`` held-out batches of ``bsz`` × ``seq`` tokens (the reference's
-    ``benchmarks.common.eval_batches``), on ``device``."""
-    it = batches(cfg, bsz, seq, seed=seed, device=device)
-    return [b for _, b in (next(it) for _ in range(n))]
-
-
-def score(logits, toks):
-    """(Σ log p(next token), Σ top-1 hits, count) over every position but
-    the last, in f32 as the reference scores."""
-    lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
-    labels = toks[:, 1:].long()
-    ll = torch.gather(lp, -1, labels[..., None])[..., 0]
-    pred = torch.argmax(lp, dim=-1)
-    return float(ll.sum()), float((pred == labels).sum()), labels.numel()
-
-
-def ppl_acc(parts):
-    """(PPL, ACC) from the :func:`score` of every batch."""
-    total_ll = sum(p[0] for p in parts)
-    total_acc = sum(p[1] for p in parts)
-    total_n = sum(p[2] for p in parts)
-    return float(math.exp(-total_ll / total_n)), total_acc / total_n
-
-
-def ppl_and_acc(cfg, params, evals, ctx=None):
-    """PPL and ACC of the cache-free forward (``model.forward``)."""
-    return ppl_acc([score(model_lib.forward(cfg, params, batch, ctx=ctx),
-                          batch["tokens"]) for batch in evals])
 
 
 def paged_step_logits(cfg, params, toks, spec: KVSpec, ctx=None):

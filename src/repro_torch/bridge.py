@@ -150,3 +150,28 @@ def cache_from_jax(cache: dict, device="cuda") -> dict:
 def cache_to_numpy(cache: dict, bf16_dtype=None) -> dict:
     """The port's pool → numpy leaves in the reference's layout."""
     return {k: tensor_to_numpy(v, bf16_dtype) for k, v in cache.items()}
+
+
+def train_state_from_jax(params: dict, mu: dict, nu: dict, step, device="cuda"):
+    """The reference's ``TrainState`` given as numpy trees (its params and
+    its AdamW moments ``mu``/``nu``, layers stacked) and its step count →
+    the port's :class:`~repro_torch.train.steps.TrainState` on ``device``,
+    every tree unstacked as :func:`params_from_jax` unstacks the params."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.steps import TrainState
+
+    device = resolve_device(device)
+    step = torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device)
+    return TrainState(params=params_from_jax(params, device),
+                      opt=AdamWState(step=step, mu=params_from_jax(mu, device),
+                                     nu=params_from_jax(nu, device)))
+
+
+def train_state_to_numpy(state, bf16_dtype=None) -> dict:
+    """The port's ``TrainState`` → ``dict(params, mu, nu, step)`` as numpy
+    in the reference's layout (layers stacked), the inverse of
+    :func:`train_state_from_jax`."""
+    return dict(params=params_to_numpy(state.params, bf16_dtype),
+                mu=params_to_numpy(state.opt.mu, bf16_dtype),
+                nu=params_to_numpy(state.opt.nu, bf16_dtype),
+                step=np.asarray(int(state.opt.step), np.int32))

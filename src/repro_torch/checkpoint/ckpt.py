@@ -17,13 +17,18 @@
   ``CheckpointManager.restore_latest`` falls back step by step to the newest
   checkpoint that loads cleanly.
 
-The serving engine's snapshots (``ServeEngine.snapshot`` / ``restore``)
-ride on this path.  The reference's ``shardings`` (mesh-elastic restore)
-waits for the port's distributed serving.
+A tree is made of dicts, lists and dataclasses (the trainer's
+``TrainState`` and ``AdamWState``), a dataclass's leaves named by its field
+names as the reference's registered dataclasses are.  The trainer saves
+every N steps through ``CheckpointManager.maybe_save``; the serving
+engine's snapshots (``ServeEngine.snapshot`` / ``restore``) ride on the
+same path on a schedule of their own.  The reference's ``shardings``
+(mesh-elastic restore) waits for the port's distributed serving.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -43,8 +48,12 @@ class CheckpointError(RuntimeError):
 
 
 def _flatten_with_names(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
-    """(name, leaf) pairs of a tree of dicts and lists, names joined by
-    ``__`` as the reference's pytree paths are."""
+    """(name, leaf) pairs of a tree of dicts, lists and dataclasses, names
+    joined by ``__`` as the reference's pytree paths are."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [pair for f in dataclasses.fields(tree)
+                for pair in _flatten_with_names(getattr(tree, f.name),
+                                                prefix + (f.name,))]
     if isinstance(tree, dict):
         return [pair for k, v in tree.items()
                 for pair in _flatten_with_names(v, prefix + (str(k),))]
@@ -57,6 +66,10 @@ def _flatten_with_names(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, A
 def _unflatten_like(like, leaves):
     """A tree shaped as ``like`` whose leaves are taken in order from the
     iterator ``leaves``."""
+    if dataclasses.is_dataclass(like) and not isinstance(like, type):
+        return dataclasses.replace(like, **{
+            f.name: _unflatten_like(getattr(like, f.name), leaves)
+            for f in dataclasses.fields(like)})
     if isinstance(like, dict):
         return {k: _unflatten_like(v, leaves) for k, v in like.items()}
     if isinstance(like, (list, tuple)):
@@ -207,17 +220,23 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 
 class CheckpointManager:
-    """keep-k rotation + resume-from-latest (with fallback past incomplete
-    checkpoints and crash-debris garbage collection).  The caller keeps its
-    own schedule: the serving engine snapshots every ``snapshot_every``
-    steps."""
+    """save-every-N + keep-k rotation + resume-from-latest (with fallback
+    past incomplete checkpoints and crash-debris garbage collection)."""
 
-    def __init__(self, ckpt_dir, keep: int = 3):
+    def __init__(self, ckpt_dir, every: int = 100, keep: int = 3):
         self.dir = Path(ckpt_dir)
+        self.every = every
         self.keep = keep
 
+    def maybe_save(self, step: int, tree) -> Optional[str]:
+        """:meth:`save` at every ``every``-th step, else nothing (None)."""
+        if step % self.every != 0:
+            return None
+        return self.save(step, tree)
+
     def save(self, step: int, tree) -> str:
-        """Atomic save + rotation."""
+        """Unconditional atomic save + rotation (``maybe_save`` without the
+        every-N gate: the serving engine snapshots on its own schedule)."""
         path = save_checkpoint(self.dir, step, tree)
         self._gc()
         return path

@@ -156,6 +156,7 @@ def act_quant(x, bits: int = 4, clip_ratio: float = 1.0, group: int = None):
         return act_quant_plain(x, bits, clip_ratio, group)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.refuse_grad("act_quant", x)
     build.check_activations(x, bits)
     build.check_operands(x, [x])
     m, k = x.shape

@@ -118,6 +118,19 @@ def check_operands(first, tensors) -> None:
                          f"cuda:{torch.cuda.current_device()}")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """No kernel has a backward.  Under grad mode an input that requires
+    grad would give an output autograd cannot differentiate (no
+    ``grad_fn``), and a training step through it would leave the inputs'
+    gradients silently at zero: raise instead.  Train through the plain
+    routes (``KernelContext(attention="gather")``, float weights)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: called under grad mode with an input that "
+            f"requires grad; run it under torch.no_grad() or detach the inputs")
+
+
 def stream_of(t) -> int:
     """The handle of the current CUDA stream of ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

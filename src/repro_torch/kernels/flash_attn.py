@@ -405,6 +405,7 @@ def paged_flash_attention(q, k_pages, v_pages, block_table, lengths,
                                            lengths, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    build.refuse_grad("paged_flash_attention", q, k_pages, v_pages)
     b, h, kh, mpb = _check_common(q, k_pages, v_pages, block_table, lengths)
     if k_pages.dtype not in (torch.float32, torch.bfloat16) \
             or v_pages.dtype != k_pages.dtype:
@@ -443,6 +444,7 @@ def paged_flash_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
             scale, kv_spec)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    build.refuse_grad("paged_flash_attention_quant", q, k_scales, v_scales)
     b, h, kh, mpb = _check_common(q, k_pages, v_pages, block_table, lengths)
     d = q.shape[2]
     if not kv_spec.is_quantized:
@@ -511,6 +513,7 @@ def flash_attention(q, k, v, scale: float, causal: bool = True,
         return flash_attention_plain(q, k, v, scale, causal, q_start)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    build.refuse_grad("flash_attention", q, k, v)
     b, sq, h, d, skv, kh = _check_dense(q, k, v, q_start)
     dv = v.shape[3]
     if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
@@ -549,6 +552,7 @@ def flash_attention_quant(q, k_quant, k_scales, v_quant, v_scales,
                                            q_start)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    build.refuse_grad("flash_attention_quant", q, k_scales, v_scales)
     b, sq, h, d, skv, kh = _check_dense(q, k_quant, v_quant, q_start)
     if not kv_spec.is_quantized:
         raise ValueError(f"kv spec {kv_spec.describe()!r} is not quantized")

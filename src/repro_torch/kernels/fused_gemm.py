@@ -266,6 +266,7 @@ def fused_w4a4_lrc(x, v, wpacked, sw, u, bits: int = 4,
                                     group)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.refuse_grad("fused_w4a4_lrc", x, v, sw, u)
     _check(x, v, wpacked, sw, u, bits)
     m, k = x.shape
     if rotate:

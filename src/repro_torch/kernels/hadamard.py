@@ -161,6 +161,7 @@ def fwht(x: torch.Tensor) -> torch.Tensor:
         return fwht_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.refuse_grad("fwht", x)
     build.check_activations(x, 4)
     m, d = x.shape
     check_width(d)

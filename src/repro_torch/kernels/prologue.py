@@ -215,6 +215,7 @@ def fused_prologue(x, v=None, bits: int = 4, clip_ratio: float = 1.0,
         return fused_prologue_plain(x, v, bits, clip_ratio, rotate, group)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.refuse_grad("fused_prologue", x, v)
     build.check_activations(x, bits)
     m, k = x.shape
     if rotate:

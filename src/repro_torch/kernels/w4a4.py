@@ -214,6 +214,7 @@ def w4a4_lowrank_matmul(xq, sx, wpacked, sw, xv=None, u=None,
         return w4a4_lowrank_matmul_plain(xq, sx, wpacked, sw, xv, u, group)
     if xq.device.type != "cuda":
         raise ValueError(f"unsupported device {xq.device}")
+    build.refuse_grad("w4a4_lowrank_matmul", sx, sw, xv, u)
     _check(xq, sx, wpacked, sw, xv, u, group)
     m, k = xq.shape
     n = wpacked.shape[1]

@@ -27,6 +27,8 @@ class ModelConfig:
     logit_softcap: float = 0.0
     embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d)
     dtype: str = "bfloat16"
+    # activation checkpointing for the training path: none | full | dots
+    remat: str = "none"
 
     @property
     def q_dim(self) -> int:

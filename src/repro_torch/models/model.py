@@ -1,5 +1,5 @@
 """Model facade: family dispatch (counterpart of ``repro/models/model.py``;
-the dense family is the one ported)."""
+the dense family is the one ported), and the training loss."""
 
 from __future__ import annotations
 
@@ -25,6 +25,24 @@ def forward(cfg, params, batch, ctx=None):
     """batch: dict(tokens (B, S)); ``ctx`` as in ``transformer.forward``."""
     _dense_only(cfg)
     return transformer.forward(cfg, params, batch["tokens"], ctx=ctx)
+
+
+def _ce(logits, labels):
+    """Mean next-token cross-entropy, the log-softmax in f32."""
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(lp, -1, labels.long()[..., None])[..., 0]
+    return -torch.mean(ll)
+
+
+def loss_fn(cfg, params, batch, ctx=None):
+    """Next-token CE over the token stream.  The reference's MTP auxiliary
+    loss (moe) and its patch prefix (vlm) belong to families that are not
+    ported.  ``ctx`` as in :func:`forward`; training passes the gather
+    route, since no kernel has a backward."""
+    _dense_only(cfg)
+    tokens = batch["tokens"]
+    logits = forward(cfg, params, batch, ctx=ctx)
+    return _ce(logits[:, :-1], tokens[:, 1:])
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,

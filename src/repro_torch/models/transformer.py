@@ -17,6 +17,7 @@ from repro_torch.models.common import (causal_mask, gqa_attention_block,
                                        paged_gqa_attention_block,
                                        paged_gqa_attention_block_quantized,
                                        rms_norm, rope_table)
+from repro_torch.models.remat import maybe_remat
 
 
 def _init_linear(gen, d_in, d_out, dtype, device, scale=None):
@@ -93,15 +94,18 @@ def forward(cfg, params, tokens, ctx=None):
     """Teacher-forcing forward. tokens: (B, S) integer.  ``ctx.attention``
     (a :class:`~repro_torch.kernels.context.KernelContext`; None = "auto")
     picks the causal attention's route: the flash-attention kernel or the
-    reference's :func:`~repro_torch.models.common.attention`."""
+    reference's :func:`~repro_torch.models.common.attention`.  Each layer
+    runs under ``cfg.remat``'s activation checkpointing
+    (:func:`~repro_torch.models.remat.maybe_remat`)."""
     x = embed_tokens(cfg, params, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     route = (DEFAULT_CONTEXT if ctx is None else ctx).attention_route(
         x.device, cfg.head_dim)
     mask = None if route == "kernel" else causal_mask(s, s, 0, device=x.device)
+    layer = maybe_remat(cfg, decoder_layer)
     for lp in params["layers"]:
-        x = decoder_layer(cfg, lp, x, positions, mask, route)
+        x = layer(cfg, lp, x, positions, mask, route)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)
 

@@ -40,7 +40,10 @@ def test_port_modules_found():
                  "core.rotation", "core.gptq", "core.lrc", "quant.rotate",
                  "quant.calibrate", "bench.kv_sweep", "kernels.hadamard",
                  "bench.latency_kernels", "bench.common", "checkpoint.ckpt",
-                 "serve.faults", "serve.journal", "launch.serve"):
+                 "serve.faults", "serve.journal", "launch.serve", "models.remat",
+                 "train.optimizer", "train.steps", "train.trainer", "launch.train",
+                 "bench.table1_w4a4", "bench.table2_groups", "bench.table3_weightonly",
+                 "bench.fig2_rank_sweep", "bench.fig3_quantizer", "bench.run"):
         assert f"repro_torch.{name}" in MODULES
 
 

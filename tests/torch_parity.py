@@ -1,6 +1,17 @@
 """Shared helpers of the ``test_torch_*`` parity tests: the reference's
 objects as the numpy trees the bridge takes, and the reduced SmolLM both
-packages are compared on."""
+packages are compared on.
+
+Importing this module caps torch's intra-op threads at one.  The tests'
+tensors are small, so a torch op gains nothing from more threads, while
+under pytest-xdist (several workers on the same cores, each worker
+importing every test module at collection) every worker's OpenMP pool of
+one thread per core spins between ops and takes the cores from the
+others: the heaviest port test files ran 5 to 90 times slower that way.
+torch is the only library the cap touches (JAX and numpy keep their
+thread pools).  Both sides of every bitwise check between two torch
+computations run in the same worker, so under the same cap.
+"""
 
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from repro_torch.core.quantizers import pack_int4
 from repro_torch.models.config import reduced
 
 ROOT = Path(__file__).resolve().parents[1]
+torch.set_num_threads(1)
 SEED = 0
 RTN_SVD = dict(quant_method="rtn", correction="svd", rank_frac=0.10,
                clip_ratio=0.9)
