@@ -188,9 +188,12 @@ Phases, each fatal on failure:
      steps on the card, then Table 1 (FP16, QuaRot, SVD, LRC (1), LRC (5))
      with its calibration walks on #7 and every model on the sim column
      and the kernel column (#1 at every site, #7 in every forward): the
-     launches exact, no NaN, the kernel column within
-     ``bench.common.KERNEL_COLUMN_BOUND`` of sim, the closed-gap fraction
-     and each stage's seconds printed; (e) a grad-mode call into #1 and
+     launches exact, no NaN, every #1 call within ``lr_tolerance`` of its
+     plain version and bitwise the chained path, the kernel column within
+     ``bench.common.KERNEL_COLUMN_BOUND`` of sim and LRC (1)'s kernel
+     column with half of its LR ranks or none (controls) outside it, the
+     closed-gap fraction and each stage's seconds printed; (e) a grad-mode
+     call into #1 and
      into #7 with an input that requires grad raises;
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
@@ -2025,7 +2028,6 @@ def phase_parity(cfg, qparams, device):
     import numpy as np
     import torch
 
-    from repro_torch.bench.common import lr_tolerance
     from repro_torch.kernels import fused_gemm, ops
     from repro_torch.kernels.context import KernelContext
     from repro_torch.models import model
@@ -2050,22 +2052,8 @@ def phase_parity(cfg, qparams, device):
             raise SystemExit(f"parity: non-finite logits from {impl}")
         return out
 
-    site = {"calls": 0, "worst": 0.0, "bad": 0, "not_chained": 0}
-
-    def checked(x, v, wp, sw, u, bits=4, clip_ratio=1.0, rotate=False, group=None):
-        y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, bits, clip_ratio, rotate, group)
-        yp = fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, bits, clip_ratio, rotate,
-                                             group)
-        err = (y - yp).abs()
-        tol = lr_tolerance(x, v, u, x.shape[1], 0 if v is None else v.shape[1], yp)
-        site["calls"] += 1
-        site["worst"] = max(site["worst"], err.max().item())
-        site["bad"] += int(not bool((err <= tol).all()))
-        site["not_chained"] += int(not torch.equal(
-            y, _fused_chained(x, v, wp, sw, u, rotate, group, bits, clip_ratio)))
-        return y
-
-    ops.fused_w4a4_lrc = checked
+    site = {"calls": 0, "worst": 0.0, "bad": 0, "not_chained": 0, "shapes": set()}
+    ops.fused_w4a4_lrc = _checked_fused(site)
     try:
         kernel = logits_of("pallas")
         ops.fused_w4a4_lrc = fused_gemm.fused_w4a4_lrc_plain
@@ -4402,17 +4390,84 @@ def _resume(device, cfg):
     return dict(bitwise=bitwise, straight_runs_bitwise=repeat)
 
 
+def _uncounted(fn, *args):
+    """``fn(*args)`` with every kernel count put back after it: a launch
+    made to compare a kernel with another version is not the main path's."""
+    saved = [(mod, dict(mod.LAUNCHES)) for mod in _kernel_modules()]
+    try:
+        return fn(*args)
+    finally:
+        for mod, counts in saved:
+            mod.LAUNCHES.update(counts)
+
+
+def _checked_fused(site):
+    """A stand-in for ``ops.fused_w4a4_lrc`` that launches #1, as the main
+    path does, and holds each call's output to the plain version within
+    ``lr_tolerance`` and bitwise to the chained path (#3 then #2) on the
+    same inputs, those comparisons uncounted.  ``site`` gathers the calls,
+    the worst error, the misses and the shapes seen."""
+    import torch
+
+    from repro_torch.bench.common import lr_tolerance
+    from repro_torch.kernels import fused_gemm
+
+    def checked(x, v, wp, sw, u, bits=4, clip_ratio=1.0, rotate=False, group=None):
+        y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, bits, clip_ratio, rotate, group)
+        yp = _uncounted(fused_gemm.fused_w4a4_lrc_plain, x, v, wp, sw, u, bits, clip_ratio,
+                        rotate, group)
+        y_ch = _uncounted(_fused_chained, x, v, wp, sw, u, rotate, group, bits, clip_ratio)
+        r = 0 if v is None else v.shape[1]
+        err = (y - yp).abs()
+        site["calls"] += 1
+        site["worst"] = max(site["worst"], err.max().item())
+        site["bad"] += int(not bool((err <= lr_tolerance(x, v, u, x.shape[1], r, yp)).all()))
+        site["not_chained"] += int(not torch.equal(y, y_ch))
+        site["shapes"].add((x.shape[0], x.shape[1], wp.shape[1], r, group))
+        return y
+
+    return checked
+
+
+def _lr_dropped(fraction):
+    """A faulty stand-in for ``ops.fused_w4a4_lrc``: #1 with only the first
+    ``fraction`` of the LR term's ranks (0: the LR term dropped), for the
+    control that the kernel column's bound must see."""
+    from repro_torch.kernels import fused_gemm
+
+    def faulty(x, v, wp, sw, u, bits=4, clip_ratio=1.0, rotate=False, group=None):
+        keep = 0 if v is None else int(v.shape[1] * fraction)
+        if keep:
+            v, u = v[:, :keep].contiguous(), u[:, :keep].contiguous()
+        else:
+            v = u = None
+        return fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, bits, clip_ratio, rotate, group)
+
+    return faulty
+
+
+def _outside(bound, sim, col):
+    """Whether a kernel column ``col`` = (ppl, acc) is outside ``bound`` of
+    its sim column ``sim``."""
+    return abs(col[0] - sim[0]) > bound["ppl_rel"] * sim[0] or \
+        abs(col[1] - sim[1]) > bound["acc_abs"]
+
+
 def _table1(device):
     """(d): ``BENCH_CFG`` trained for ``TRAIN_STEPS`` into a temporary
     directory, then Table 1 (FP16, QuaRot, SVD, LRC (1), LRC (5)) with the
     calibration walks on the card ("auto": #7) and each model evaluated on
-    the sim column (gather attention) and the kernel column ("auto": #1 at
-    every site, #7 in every forward).  Launches exact, no NaN, the kernel
-    column within ``common.KERNEL_COLUMN_BOUND`` of the sim column."""
+    the sim column (gather attention) and the kernel column (the fused
+    path: #1 at every site; the kernel route: #7 in every forward).
+    Launches exact, no NaN, every #1 call of the kernel column held to its
+    plain version and to the chained path, the kernel column within
+    ``common.KERNEL_COLUMN_BOUND`` of the sim column, and LRC (1)'s kernel
+    column with half of its LR ranks or none (a faulty kernel) outside it."""
     import math
     import tempfile
 
     from repro_torch.bench import common, table1_w4a4
+    from repro_torch.kernels import fused_gemm, ops
     from repro_torch.kernels.context import KernelContext
 
     stages = {}
@@ -4434,10 +4489,32 @@ def _table1(device):
         print(f"  (d) {common.TRAIN_STEPS} steps of BENCH_CFG ({cfg.n_layers} layers, d "
               f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}) in "
               f"{stages['train']:.1f} s; each site's resolved path: {plans}", flush=True)
+        qparams = {}
+        quantize = table1_w4a4.quantize
+        site = {"calls": 0, "worst": 0.0, "bad": 0, "not_chained": 0, "shapes": set()}
+
+        def quantize_kept(cfg, params, policy, calib):
+            qp = quantize(cfg, params, policy, calib)
+            qparams[(policy.correction, policy.lrc_iters)] = qp
+            return qp
+
+        table1_w4a4.quantize, ops.fused_w4a4_lrc = quantize_kept, _checked_fused(site)
         reset_launches()
         timings = {}
-        results = table1_w4a4.run(bench=bench, timings=timings)
-        counts = launches()
+        try:
+            results = table1_w4a4.run(bench=bench, timings=timings)
+            counts = launches()
+        finally:
+            table1_w4a4.quantize, ops.fused_w4a4_lrc = quantize, fused_gemm.fused_w4a4_lrc
+        controls = {}
+        for frac in (0.0, 0.5):
+            ops.fused_w4a4_lrc = _lr_dropped(frac)
+            try:
+                for name, key in (("SVD", ("svd", 1)), ("LRC (1)", ("lrc", 1))):
+                    controls[(name, frac)] = _uncounted(common.evaluate, bench,
+                                                        qparams[key])[2:]
+            finally:
+                ops.fused_w4a4_lrc = fused_gemm.fused_w4a4_lrc
     n_models = len(table1_w4a4.METHODS)
     n_evals, n_layers = len(bench.evals), cfg.n_layers
     want = {"flash_attention": n_models * n_layers + (n_models + 1) * n_evals * n_layers,
@@ -4448,6 +4525,13 @@ def _table1(device):
           f"column site #1); others {other or 'none'}", flush=True)
     if any(counts[k] != v for k, v in want.items()) or other:
         raise SystemExit("phase 16(d): Table 1's launches are not the exact count")
+    print(f"  every #1 call of the kernel column ({site['calls']} calls at (M, K, N, R, "
+          f"group) {sorted(site['shapes'], key=str)}): max |kernel - plain| "
+          f"{site['worst']:.3e}, {site['bad']} outside lr_tolerance, {site['not_chained']} "
+          f"not bitwise the chained path", flush=True)
+    if site["calls"] != want["fused_w4a4_lrc"] or site["bad"] or site["not_chained"]:
+        raise SystemExit("phase 16(d): a #1 call of the kernel column disagrees with its "
+                         "plain version or the chained path")
     bound = common.KERNEL_COLUMN_BOUND
     for name, (ppl, acc, ppl_k, acc_k) in results.items():
         ok = all(math.isfinite(v) for v in (ppl, acc, ppl_k, acc_k)) and \
@@ -4459,13 +4543,25 @@ def _table1(device):
         if not ok:
             raise SystemExit(f"phase 16(d): {name}'s kernel column is not within {bound} "
                              f"of its sim column (or not finite)")
+    for (name, frac), (ppl_c, acc_c) in controls.items():
+        ppl, acc = results[name][:2]
+        print(f"    control: {name} kernel column with {frac:.0%} of the LR ranks kept: ppl "
+              f"{ppl_c:.4f} ({(ppl_c - ppl) / ppl:+.3%} of sim) acc {acc_c:.4f} "
+              f"({acc_c - acc:+.4f}); outside the bound "
+              f"{_outside(bound, results[name][:2], (ppl_c, acc_c))}", flush=True)
+    if not all(_outside(bound, results["LRC (1)"][:2], controls[("LRC (1)", frac)])
+               for frac in (0.0, 0.5)):
+        raise SystemExit(f"phase 16(d): the bound {bound} cannot see LRC (1)'s LR term "
+                         f"cut to half its ranks or dropped")
     closed = {col: table1_w4a4.closed_frac(results["FP16"][i], results["QuaRot"][i],
                                            results["LRC (1)"][i])
               for col, i in (("sim", 1), ("kernel", 3))}
     print(f"  LRC (1) closes {closed['sim']:.3f} of the QuaRot accuracy gap on the sim "
           f"column, {closed['kernel']:.3f} on the kernel column", flush=True)
     return dict(results=results, closed=closed, stages=stages, timings=timings,
-                launches={k: counts[k] for k in want}, plans=plans)
+                launches={k: counts[k] for k in want}, plans=plans,
+                per_call=dict(calls=site["calls"], worst=site["worst"]),
+                controls={f"{name} {frac:.0%} ranks": c for (name, frac), c in controls.items()})
 
 
 def _grad_mode_refused(device):

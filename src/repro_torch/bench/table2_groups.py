@@ -3,7 +3,7 @@
 d_ff granularity: 64).
 
 Each quantized model is evaluated on the sim column (the reference's
-semantics) and on the kernel column: its QLinears retagged ``"auto"``,
+semantics) and on the kernel column: its QLinears on the fused path,
 which on the card runs the fused W4A4+LRC kernel's group branch with the
 (M, K/g) scale plane at every site, attention through the flash kernel.
 The header keeps the reference's ``fused`` name for that column.

@@ -56,8 +56,11 @@ def value_and_grad(cfg, params, batch):
 
 def make_train_step(cfg, base_lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10_000, microbatches: int = 1,
-                    remat: str = "full"):
-    cfg = dataclasses.replace(cfg, remat=remat)
+                    remat: str | None = None):
+    """The train step of ``cfg``; its layers are rematerialised as
+    ``cfg.remat`` says, unless ``remat`` names another mode."""
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
 
     def train_step(state: TrainState, batch):
         if microbatches > 1:
