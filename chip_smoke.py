@@ -176,7 +176,7 @@ Phases, each fatal on failure:
      (fsync) and off, in tok/s, and the host seconds of the journal's
      appends (write and fsync) a record and a token, each beside the card's
      name and power limit;
- 16. training and the paper's Table 1 (last): (a) one train step of the
+ 16. training and the paper's Table 1: (a) one train step of the
      reduced f32 model on the card against the same step on the CPU (TF32
      off; loss, every gradient leaf and the grad norm within the stated
      bounds); (b) ``train/trainer.train`` of SmolLM-135M at full width and
@@ -195,6 +195,34 @@ Phases, each fatal on failure:
      closed-gap fraction and each stage's seconds printed; (e) a grad-mode
      call into #1 and
      into #7 with an input that requires grad raises;
+ 17. (last) the moe family: DeepSeek-V2 at full width (DEEPSEEK_LAYERS = 2:
+     layer 0 dense, layer 1 MoE with 160 routed experts top-6 and 2 shared;
+     MLA with 128 heads, q_lora 1536, kv_lora 512), random bf16 weights
+     from seed 0, every site W4A4+LRC by RTN + SVD on the card (seconds and
+     peak memory printed), the bf16 weights freed: (a) served in the
+     engine's per-slot mode (``health()["mode"] == "slots"``) on phase 4's
+     traffic (SLOTS slots, max_seq 64): each QLinear call launches its
+     path's kernels once (wkv_b fused, the rest chained, a routed expert
+     stack once per expert), #7 once per layer per call, nothing else;
+     each site's route, the median ms of a slot decode call and of a
+     prompt's prefill, and a profiled window of slot decode calls; (b) one
+     prefill and one decode call with every kernel call held to its plain
+     version (#3's codes bitwise and x·V within ``xv_tolerance``, #2 within
+     ``gemm_tolerance``, #1 within ``lr_tolerance`` and bitwise the chained
+     path, wkv_b's all-zero cache rows bitwise, #7 within
+     ``_flash_tolerance``; all 160 experts' sites, some picked by no
+     token); (c) #7 at the served shapes (Sq 12 at q_start 0, Sq 1 at
+     q_start 12-27, Skv 64, H = KH = 128, D 192, Dv 128, bf16) within
+     ``_flash_tolerance``, timed beside SDPA, and every distinct W4A4 site
+     timed on its served inputs; (d) the router's top-6 indices on the card
+     equal the CPU's on the same bf16 rows (also with tied expert pairs,
+     lower index first); (e) each request served alone bitwise its
+     co-tenant stream, and a crash mid-decode restored from a snapshot
+     (some slots resumed in place, some replayed from the journal) bitwise
+     the uninterrupted run; (f) ``_quantize_moe`` (GPTQ + LRC, per-expert
+     statistics) of the reduced DeepSeek-V2 on the card, one site of each
+     shape solved again on the CPU (codes bitwise), the logits of the two
+     walks correlated at least 0.9;
 then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 card, or without the repository beside it, it exits non-zero and prints no
 result.
@@ -220,17 +248,18 @@ INT8_OPS_PER_S = 1979e12
 TF32_OPS_PER_S = 495e12
 F32_OPS_PER_S = 67e12
 
-# Phi-3-mini's depth served here: all of its 32 layers.  The RTN+SVD
+# Phi-3-mini's depth served here: 16 of its 32 layers.  The RTN+SVD
 # quantization (a float64 SVD of up to 8192 x 3072 per site, ~1 s each on
-# the card) dominates the script's time; cut this first if it must shrink
-PHI3_LAYERS = 32
-# Gemma-7b's depth served in phase 14: 14 of its 28 layers.  Its RTN+SVD
+# the card, 6.6 s a layer) dominates the script's time; all 32 layers
+# (210 s of RTN+SVD) and phase 17 together would take the script past
+# 1,000 s of its 1,200 s limit, so half are served
+PHI3_LAYERS = 16
+# Gemma-7b's depth served in phase 14: 4 of its 28 layers.  Its RTN+SVD
 # quantization (a float64 SVD of up to 24576 x 3072 per site, ~6.6 s a
-# layer) is the longest step of the script; all 28 layers took the script
-# past 1,000 s of its 1,200 s limit on a slow host, so half are served.
-# Cut this first, then PHI3_LAYERS, if the script must shrink (width is
-# never cut)
-GEMMA_LAYERS = 14
+# layer) was the longest step of the script at 14 layers (93 s); phase
+# 17's DeepSeek-V2 (~130 s of RTN+SVD) took that room.  Cut this first,
+# then PHI3_LAYERS, if the script must shrink (width is never cut)
+GEMMA_LAYERS = 4
 
 # the chained and unfused paths' logits differ only by the order of x·V's
 # f32 sums, which can flip a 4-bit code at a rounding boundary; at least
@@ -4623,6 +4652,778 @@ def phase_train(device):
     return out, out["table1"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the moe family served (DeepSeek-V2 at full width, per-slot mode)
+# ---------------------------------------------------------------------------
+
+# DeepSeek-V2's depth served here: layer 0 (dense FFN, d_ff 12,288) and
+# layer 1 (MoE: 160 routed experts top-6 and 2 shared), at full width.
+# Never fewer than 2 layers, or the MoE layer is gone
+DEEPSEEK_LAYERS = 2
+DS_MAX_SEQ = 64
+# the decode offsets #7 is held at with random inputs (the served prompts'
+# 12 tokens plus up to 16 new ones)
+DS_DECODE_OFFSETS = tuple(range(PROMPT_LEN, PROMPT_LEN + NEW_TOKENS))
+# the slot decode calls of phase 17's profiled window
+DS_PROFILED_STEPS = 2
+# the reduced DeepSeek-V2 walked by _quantize_moe on the card and the CPU
+DS_CALIB_SEQS, DS_CALIB_LEN = 16, 64
+# the kernels of each QLinear path, one launch each per call
+PATH_KERNELS = {"fused": ("fused_w4a4_lrc",),
+                "chained": ("fused_prologue", "w4a4_lowrank_matmul"),
+                "unfused": ("act_quant", "w4a4_lowrank_matmul")}
+
+
+def _ds_sites(params):
+    """(path, QLinear, calls a model call makes) for every QLinear of a
+    DeepSeek tree, routed experts as one stacked site of E calls."""
+    from repro_torch.quant.qlinear import QLinear
+
+    out = []
+
+    def visit(node, path):
+        if isinstance(node, QLinear):
+            calls = node.qweight.shape[0] if node.qweight.dim() == 3 else 1
+            out.append(("/".join(path), node, calls))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                visit(v, path + (k,))
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                visit(v, path + (str(i),))
+
+    for group in ("dense_layers", "moe_layers"):
+        visit(params.get(group, []), (group,))
+    return out
+
+
+def _ds_path(q, m=1):
+    """The kernel path ``q``'s calls resolve to (M does not enter it)."""
+    from repro_torch.kernels import ops
+
+    ctx = ops.DEFAULT_CONTEXT if q.ctx is None else q.ctx
+    r = 0 if q.u is None else int(q.u.shape[-1])
+    return ctx.resolve_plan(m, q.d_in, q.d_out, r, layer=q.name,
+                            impl=None if q.impl == "pallas" else q.impl,
+                            act_group=q.act_group).path
+
+
+def _ds_expected(cfg, params, names, model_calls):
+    """The launches ``model_calls`` model calls must make, by wrapper name
+    (every name in ``names``): each kernel of a QLinear's path once per
+    call (a routed expert stack: once per expert), #7 once per layer of
+    each call, nothing else."""
+    expected = {name: 0 for name in names}
+    for _, q, calls in _ds_sites(params):
+        for name in PATH_KERNELS[_ds_path(q)]:
+            expected[name] += calls * model_calls
+    expected["flash_attention"] = cfg.n_layers * model_calls
+    return expected
+
+
+def _ds_build(device):
+    """DeepSeek-V2 at full width, DEEPSEEK_LAYERS layers, random bf16
+    weights from seed 0, every site W4A4+LRC by RTN + SVD (rank 10 %, clip
+    0.9) on the card; the bf16 weights freed.  Returns (cfg, qparams,
+    stats)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.quant.calibrate import quantize_model
+    from repro_torch.quant.policy import QuantPolicy
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=DEEPSEEK_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    bf16_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    policy = QuantPolicy(quant_method="rtn", correction="svd", rank_frac=0.10,
+                         clip_ratio=0.9)
+    t1 = time.perf_counter()
+    qparams = quantize_model(cfg, params, None, policy, rotate=False)
+    torch.cuda.synchronize()
+    rtn_s = time.perf_counter() - t1
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    q_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    sites = _ds_sites(qparams)
+    n_calls = sum(c for _, _, c in sites)
+    print(f"  {cfg.name}: {cfg.n_layers} layers ({cfg.n_dense_layers} dense, "
+          f"{cfg.n_layers - cfg.n_dense_layers} MoE), d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads (q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, "
+          f"nope {cfg.qk_nope_dim}, rope {cfg.qk_rope_dim}, v {cfg.v_head_dim}), "
+          f"{cfg.n_experts} experts top-{cfg.moe_top_k} of {cfg.d_expert}, "
+          f"{cfg.n_shared_experts} shared, dense d_ff {cfg.d_ff_dense}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}", flush=True)
+    print(f"  random bf16 weights {bf16_gb:.2f} GB in {init_s:.1f} s; RTN+SVD of "
+          f"{len(sites)} sites ({n_calls} QLinears) in {rtn_s:.1f} s; peak "
+          f"{peak_gb:.2f} GB; quantized weights resident {q_gb:.2f} GB (the bf16 "
+          f"weights freed)", flush=True)
+    return cfg, qparams, {"init_s": init_s, "rtn_svd_s": rtn_s, "bf16_gb": bf16_gb,
+                          "peak_gb": peak_gb, "quantized_gb": q_gb,
+                          "sites": len(sites), "qlinears": n_calls}
+
+
+def _ds_engine(cfg, qparams, device, **kw):
+    from repro_torch.serve.engine import ServeEngine
+
+    return ServeEngine(cfg, qparams, batch_slots=SLOTS, max_seq=DS_MAX_SEQ,
+                       device=device, max_retries=MAX_RETRIES, **kw)
+
+
+def _ds_serve(cfg, qparams, device, prompts):
+    """(a) The traffic through ``submit``/``run`` in slots mode; launches
+    exact; the median ms of a slot decode call and of a prompt's prefill;
+    a profiled window of slot decode calls.  Returns (counts, stats, eng)."""
+    import torch
+
+    from repro_torch.serve.engine import Request, RequestState
+
+    warm = _ds_engine(cfg, qparams, device)
+    warm.submit(Request(rid=0, prompt=prompts[0], max_new_tokens=2))
+    warm.run()
+    eng = _ds_engine(cfg, qparams, device)
+    health = eng.health()
+    if health["mode"] != "slots":
+        raise SystemExit(f"DeepSeek-V2: engine mode {health['mode']!r}, want 'slots'")
+    if health["decode_attention"] != {"route": "kernel", "kernel": "flash_attention",
+                                      "kv": "f32", "demoted": None}:
+        raise SystemExit(f"DeepSeek-V2: attention {health['decode_attention']} is not #7")
+    times = {"prefill": [], "decode": []}
+    for kind in times:
+        inner = getattr(eng, f"_{kind}")
+
+        def timed(*a, _inner=inner, _kind=kind, **kw):
+            t = time.perf_counter()
+            out = _inner(*a, **kw)
+            torch.cuda.synchronize()
+            times[_kind].append(time.perf_counter() - t)
+            return out
+
+        setattr(eng, f"_{kind}", timed)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    bad = [r for r, rec in done.items()
+           if rec.status is not RequestState.FINISHED or rec.new_tokens != NEW_TOKENS]
+    if len(done) != len(prompts) or bad:
+        raise SystemExit(f"DeepSeek-V2: requests {bad} did not finish: {done}")
+    calls = eng.counters["decode_calls"] + eng.counters["prefill_calls"]
+    expected = _ds_expected(cfg, eng.params, counts, calls)
+    routes = {}
+    for path, q, n in _ds_sites(eng.params):
+        r = 0 if q.u is None else int(q.u.shape[-1])
+        routes[path] = {"k": q.d_in, "n": q.d_out, "r": r, "calls": n,
+                        "path": _ds_path(q), "impl": q.impl}
+        print(f"  route {path:<32} K {q.d_in:<6} N {q.d_out:<6} R {r:<4} x{n:<4} "
+              f"{routes[path]['path']}", flush=True)
+    print(f"  {len(prompts)} requests x {NEW_TOKENS} tokens finished in slots mode; "
+          f"counters {eng.counters}", flush=True)
+    print(f"  {calls} model calls ({eng.counters['prefill_calls']} prefill, "
+          f"{eng.counters['decode_calls']} decode): launches {counts}; want {expected}",
+          flush=True)
+    if counts != expected:
+        raise SystemExit("DeepSeek-V2: the served launches are not one per kernel of "
+                         "each QLinear call's path and one #7 per layer per call")
+    per_call = {k: v // calls for k, v in expected.items() if v}
+    stats = {"wall_s": wall, "tokens_per_s": len(prompts) * NEW_TOKENS / wall,
+             "decode_call_ms": statistics.median(times["decode"]) * 1e3,
+             "prefill_ms": statistics.median(times["prefill"]) * 1e3,
+             "decode_calls": eng.counters["decode_calls"],
+             "prefill_calls": eng.counters["prefill_calls"],
+             "launches_per_call": per_call, "routes": routes, "kv": health["kv"],
+             "streams": {rid: list(rec.out_tokens) for rid, rec in done.items()}}
+    print(f"  slot decode call {stats['decode_call_ms']:.2f} ms (median of "
+          f"{len(times['decode'])}), prefill {stats['prefill_ms']:.2f} ms per "
+          f"{PROMPT_LEN}-token prompt (median of {len(times['prefill'])}); launches per "
+          f"model call {per_call}; {stats['tokens_per_s']:.1f} tok/s", flush=True)
+    stats.update(_ds_profile(cfg, qparams, device, prompts))
+    return counts, stats
+
+
+def _ds_profile(cfg, qparams, device, prompts, top=10):
+    """Where a slot decode call's time goes: SLOTS requests prefilled, then
+    DS_PROFILED_STEPS engine steps (SLOTS B=1 decode calls each) under
+    torch.profiler (:func:`_device_profile`, per decode call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request
+
+    eng = _ds_engine(cfg, qparams, device)
+    for i, p in enumerate(prompts[:SLOTS]):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    eng._admit()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DS_PROFILED_STEPS):
+            eng._step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls = DS_PROFILED_STEPS * SLOTS
+    out = _device_profile(prof, wall, calls, "slot decode calls", top)
+    return {"profiled_decode_call_ms": out["profiled_step_ms"],
+            "device_busy_ms_per_decode_call": out["device_busy_ms_per_step"],
+            "device_idle_share": out["device_idle_share"],
+            "device_ops_per_decode_call": out["device_ops_per_step"],
+            "top": out["top"]}
+
+
+def _ds_checked(cfg, eng, device, prompt):
+    """(b) One prefill call and one decode call of the served model with
+    every kernel call held to its plain version (those uncounted): #3's
+    codes and scales bitwise and x·V within ``xv_tolerance``; #2 within
+    ``gemm_tolerance``; #1 within ``lr_tolerance``, bitwise the chained path
+    and, on ``wkv_b``'s all-zero cache rows, bitwise its plain version; #7
+    within ``_flash_tolerance``.  The router's inputs are kept for (d).
+    Returns (stats, the captured inputs of each distinct site and of #7,
+    the router rows, the router weights)."""
+    import torch
+
+    from repro_torch.bench.common import gemm_tolerance, lr_tolerance, xv_tolerance
+    from repro_torch.kernels import flash_attn, fused_gemm, ops, prologue, w4a4
+    from repro_torch.models import moe
+
+    sites = {}
+    captured = {"flash": []}
+    router_rows = []
+    first_x = {}
+
+    def site(key):
+        return sites.setdefault(key, {"calls": 0, "bad": 0, "xv": 0.0, "y": 0.0,
+                                      "not_chained": 0, "zero_rows": 0,
+                                      "zero_rows_bad": 0})
+
+    def checked_prologue(x, v, bits=4, clip_ratio=1.0, rotate=False, group=None):
+        xq, sx, xv = prologue.fused_prologue(x, v, bits, clip_ratio, rotate, group)
+        xq_p, sx_p, xv_p = _uncounted(prologue.fused_prologue_plain, x, v, bits,
+                                      clip_ratio, rotate, group)
+        first_x["x"], first_x["v"] = x, v
+        s = site(("prologue", x.shape[1], v.shape[1]))
+        s["calls"] += 1
+        bad = not (torch.equal(xq, xq_p) and torch.equal(sx, sx_p))
+        err = (xv - xv_p).abs()
+        s["xv"] = max(s["xv"], err.max().item())
+        bad |= not bool((err <= xv_tolerance(x, v, x.shape[1], xv_p)).all())
+        s["bad"] += int(bad)
+        return xq, sx, xv
+
+    def checked_gemm(xq, sx, wp, sw, xv=None, u=None, group=None):
+        y = w4a4.w4a4_lowrank_matmul(xq, sx, wp, sw, xv, u, group)
+        y_p = _uncounted(w4a4.w4a4_lowrank_matmul_plain, xq, sx, wp, sw, xv, u, group)
+        r = 0 if xv is None else xv.shape[1]
+        key = (xq.shape[1], wp.shape[1], r)
+        s = site(("gemm",) + key)
+        s["calls"] += 1
+        err = (y - y_p).abs()
+        s["y"] = max(s["y"], err.max().item())
+        s["bad"] += int(not bool((err <= gemm_tolerance(xv, u, r, y_p)).all()))
+        zero = (first_x["x"] == 0).all(dim=1)
+        s["zero_rows"] += int(zero.sum())
+        s["zero_rows_bad"] += int(not torch.equal(y[zero], y_p[zero]))
+        # the last call of each shape is kept: the decode call's (M 1)
+        captured[("chained",) + key] = (first_x["x"], first_x["v"], wp, sw, u)
+        return y
+
+    def checked_fused(x, v, wp, sw, u, bits=4, clip_ratio=1.0, rotate=False, group=None):
+        y = fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, bits, clip_ratio, rotate, group)
+        yp = _uncounted(fused_gemm.fused_w4a4_lrc_plain, x, v, wp, sw, u, bits,
+                        clip_ratio, rotate, group)
+        y_ch = _uncounted(_fused_chained, x, v, wp, sw, u, rotate, group, bits, clip_ratio)
+        r = 0 if v is None else v.shape[1]
+        s = site(("fused", x.shape[1], wp.shape[1], r))
+        s["calls"] += 1
+        err = (y - yp).abs()
+        s["y"] = max(s["y"], err.max().item())
+        s["bad"] += int(not bool((err <= lr_tolerance(x, v, u, x.shape[1], r, yp)).all()))
+        s["not_chained"] += int(not torch.equal(y, y_ch))
+        zero = (x == 0).all(dim=1)
+        s["zero_rows"] += int(zero.sum())
+        s["zero_rows_bad"] += int(not torch.equal(y[zero], yp[zero]))
+        captured[("fused", x.shape[1], wp.shape[1], r)] = (x, v, wp, sw, u)
+        return y
+
+    def checked_flash(q, k, v, scale, causal=True, q_start=None):
+        y = flash_attn.flash_attention(q, k, v, scale, causal, q_start)
+        yp = _uncounted(flash_attn.flash_attention_plain, q, k, v, scale, causal, q_start)
+        q0 = 0 if q_start is None else int(q_start.max())
+        tol = _flash_tolerance(q, k, v, scale, yp, q0)
+        err = (y.double() - yp.double()).abs()
+        s = site(("flash", q.shape[1], k.shape[1], q0))
+        s["calls"] += 1
+        s["y"] = max(s["y"], err.max().item())
+        s["bad"] += int(not (bool(torch.isfinite(y).all()) and bool((err <= tol).all())))
+        captured["flash"].append((q, k, v, scale, q_start))
+        return y
+
+    orig_router = moe.router_weights
+
+    def recorded_router(cfg_, p, x):
+        w, idx = orig_router(cfg_, p, x)
+        router_rows.append((x, p["router"], idx, w))
+        return w, idx
+
+    saved = (ops.fused_prologue, ops.w4a4_lowrank_matmul, ops.fused_w4a4_lrc,
+             ops.flash_attention)
+    ops.fused_prologue, ops.w4a4_lowrank_matmul = checked_prologue, checked_gemm
+    ops.fused_w4a4_lrc, ops.flash_attention = checked_fused, checked_flash
+    moe.router_weights = recorded_router
+    reset_launches()
+    try:
+        cache = eng._fresh_cache()
+        toks = torch.from_numpy(prompt[None, :]).to(device)
+        logits, cache = eng._prefill(eng.params, {"tokens": toks}, cache)
+        tok = logits[:, -1].argmax(-1).reshape(1, 1).to(torch.int32)
+        logits2, cache = eng._decode(eng.params, tok, cache)
+        torch.cuda.synchronize()
+    finally:
+        (ops.fused_prologue, ops.w4a4_lowrank_matmul, ops.fused_w4a4_lrc,
+         ops.flash_attention) = saved
+        moe.router_weights = orig_router
+    counts = launches()
+    expected = _ds_expected(cfg, eng.params, counts, 2)
+    finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits2).all())
+    for key, s in sorted(sites.items(), key=str):
+        print(f"  (b) {key[0]:<8} {str(key[1:]):<22} calls {s['calls']:<4} max|kernel - "
+              f"plain| x·V {s['xv']:.3e} y {s['y']:.3e}; {s['bad']} outside the "
+              f"standard" + (f"; {s['not_chained']} not bitwise the chained path"
+                             if key[0] == "fused" else "")
+              + (f"; {s['zero_rows']} all-zero rows, {s['zero_rows_bad']} calls with "
+                 f"them not bitwise" if key[0] in ("fused", "gemm") else ""), flush=True)
+    bad = sum(s["bad"] + s["not_chained"] + s["zero_rows_bad"] for s in sites.values())
+    print(f"  (b) one prefill and one decode call: launches {counts}, want {expected}; "
+          f"logits finite {finite}", flush=True)
+    if bad or counts != expected or not finite:
+        raise SystemExit("DeepSeek-V2: a kernel call of the checked prefill/decode "
+                         "missed its standard, or the launches are not exact")
+    # wkv_b expands the whole cache, whose rows past the offset are zeros
+    wkv_b = [s for k, s in sites.items() if k[0] in ("fused", "gemm")
+             and k[1:3] == (cfg.kv_lora_rank, cfg.n_heads * (cfg.qk_nope_dim
+                                                           + cfg.v_head_dim))]
+    if not wkv_b or not all(s["zero_rows"] for s in wkv_b):
+        raise SystemExit("DeepSeek-V2: wkv_b's calls held no all-zero cache row")
+    picked = torch.zeros(cfg.n_experts, dtype=torch.bool, device=device)
+    for _, _, idx, _ in router_rows:
+        picked[idx.reshape(-1)] = True
+    unpicked = int((~picked).sum())
+    print(f"  (b) every routed expert's wg/wu/wd held (all {cfg.n_experts} experts run "
+          f"every token); {unpicked} of them were picked by no token of these calls",
+          flush=True)
+    if not unpicked:
+        raise SystemExit("DeepSeek-V2: no held expert went unpicked")
+    worst = {name: max([s[field] for k, s in sites.items() if k[0] == kind], default=0.0)
+             for name, kind, field in (("fused_prologue", "prologue", "xv"),
+                                       ("w4a4_lowrank_matmul", "gemm", "y"),
+                                       ("fused_w4a4_lrc", "fused", "y"),
+                                       ("flash_attention", "flash", "y"))}
+    stats = {"sites": {f"{k[0]}:{k[1:]}": {kk: vv for kk, vv in s.items()}
+                       for k, s in sites.items()},
+             "unpicked_experts": unpicked, "launches": counts}
+    return stats, worst, captured, router_rows
+
+
+def _ds_flash(device, captured, flush):
+    """(c) #7 at the served shapes with random bf16 inputs (Sq 12 at
+    q_start 0; Sq 1 at each offset of DS_DECODE_OFFSETS; Skv 64, H = KH =
+    128, D 192, Dv 128) within ``_flash_tolerance`` of its plain version,
+    and the served calls' own inputs timed: kernel, plain, bound, SDPA."""
+    import torch
+
+    from repro_torch.bench.common import time_ms
+    from repro_torch.kernels import flash_attn
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    h, d, dv = 128, 192, 128
+    scale = 1.0 / d**0.5
+    worst = 0.0
+    k = torch.randn((1, DS_MAX_SEQ, h, d), generator=gen, device=device).to(torch.bfloat16)
+    v = torch.randn((1, DS_MAX_SEQ, h, dv), generator=gen, device=device).to(torch.bfloat16)
+    cases = [(PROMPT_LEN, 0)] + [(1, off) for off in DS_DECODE_OFFSETS]
+    for sq, q0 in cases:
+        q = torch.randn((1, sq, h, d), generator=gen, device=device).to(torch.bfloat16)
+        qs = torch.full((1,), q0, dtype=torch.int32, device=device)
+        y = _uncounted(flash_attn.flash_attention, q, k, v, scale, True, qs)
+        yp = _uncounted(flash_attn.flash_attention_plain, q, k, v, scale, True, qs)
+        tol = _flash_tolerance(q, k, v, scale, yp, q0)
+        err = (y.double() - yp.double()).abs()
+        ok = bool(torch.isfinite(y).all()) and bool((err <= tol).all())
+        worst = max(worst, err.max().item())
+        if not ok:
+            raise SystemExit(f"DeepSeek-V2: #7 at Sq {sq}, q_start {q0} outside "
+                             f"_flash_tolerance (max err {err.max().item():.3e})")
+    print(f"  (c) #7 at Sq {PROMPT_LEN} (q_start 0) and Sq 1 at q_start "
+          f"{DS_DECODE_OFFSETS[0]}..{DS_DECODE_OFFSETS[-1]}, Skv {DS_MAX_SEQ}, H = KH = "
+          f"{h}, D {d}, Dv {dv}, bf16: max |kernel - plain| {worst:.3e}, all within "
+          f"_flash_tolerance", flush=True)
+    timed = {}
+    # layer 0's call of the prefill and of the decode
+    firsts = [next(c for c in captured if c[0].shape[1] > 1),
+              next(c for c in captured if c[0].shape[1] == 1)]
+    for q, kk, vv, sc, qs in firsts:
+        sq, q0 = q.shape[1], (0 if qs is None else int(qs.max()))
+        label = "prefill" if sq > 1 else "decode"
+        t_k = time_ms(lambda: _uncounted(flash_attn.flash_attention, q, kk, vv, sc, True, qs),
+                      flush)
+        t_p = time_ms(lambda: _uncounted(flash_attn.flash_attention_plain, q, kk, vv, sc,
+                                         True, qs), flush)
+        t_l = _sdpa_timer(q, kk, vv, q0, sc, flush)
+        # q read and the output written once, and only the K/V rows at or
+        # before the last query position; the products over the keys each
+        # row attends (q0 + i + 1), as three TF32 passes
+        b_ms, by, _ = _prefill_bound((1, sq, kk.shape[1], h, h, d, dv, q0, "bfloat16"),
+                                     2 * d, 2 * dv)
+        timed[label] = (t_k, t_p, b_ms, by, t_l)
+        print(f"  (c) #7 {label} (Sq {sq}, q_start {q0}, Skv {kk.shape[1]}): kernel "
+              f"{t_k * 1e3:.2f} us, plain {t_p * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us "
+              f"({by}), SDPA {t_l * 1e3:.2f} us", flush=True)
+    return worst, timed
+
+
+def _ds_site_times(cfg, captured, flush):
+    """The served decode call's distinct W4A4 sites timed on their own
+    inputs (M 1; wkv_b at M 64, the whole cache): #3 and #2 for each
+    chained site, #1 for the fused one, beside their bounds and plain
+    versions (L2 flushed)."""
+    from repro_torch.bench.common import time_ms
+    from repro_torch.kernels import fused_gemm, prologue, w4a4
+
+    timed = {}
+    for key, (x, v, wp, sw, u) in sorted(
+            ((k, c) for k, c in captured.items() if k != "flash"), key=str):
+        path, k, n, r = key
+        m = x.shape[0]
+        if m not in (1, DS_MAX_SEQ):
+            continue  # the prefill's calls (M 12); the decode's are timed
+        xb, fb = x.element_size(), 2
+        if path == "fused":
+            runs = {"fused_w4a4_lrc": (
+                lambda: fused_gemm.fused_w4a4_lrc(x, v, wp, sw, u, 4, 0.9),
+                lambda: fused_gemm.fused_w4a4_lrc_plain(x, v, wp, sw, u, 4, 0.9),
+                _bound_ms(m, k, n, r, xb, fb))}
+        else:
+            xq, sx, xv = prologue.fused_prologue_plain(x, v, 4, 0.9)
+            bounds = _chain_bounds(m, k, n, r, xb, fb)
+            runs = {"fused_prologue": (lambda: prologue.fused_prologue(x, v, 4, 0.9),
+                                       lambda: prologue.fused_prologue_plain(x, v, 4, 0.9),
+                                       bounds["fused_prologue"]),
+                    "w4a4_lowrank_matmul": (
+                        lambda: w4a4.w4a4_lowrank_matmul(xq, sx, wp, sw, xv, u),
+                        lambda: w4a4.w4a4_lowrank_matmul_plain(xq, sx, wp, sw, xv, u),
+                        bounds["w4a4_lowrank_matmul"])}
+        for name, (kern, plain, (b, by)) in runs.items():
+            t_k = time_ms(lambda: _uncounted(kern), flush)
+            t_p = time_ms(lambda: _uncounted(plain), flush)
+            timed[(name, m, k, n, r)] = (t_k, t_p, b, by)
+            print(f"    {name:<20} M {m:<3} K {k:<6} N {n:<6} R {r:<4} kernel "
+                  f"{t_k * 1e3:9.2f} us  plain {t_p * 1e3:10.2f} us  bound "
+                  f"{b * 1e3:8.3f} us ({by})", flush=True)
+    return timed
+
+
+def _ds_router(cfg, device, router_rows):
+    """(d) The router's top-k indices on the card equal the plain CPU
+    router's on the same bf16 rows, with the served router and with one
+    whose expert columns come in equal pairs (every score tied with
+    another: the lower index must come first, on both devices)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    rows = torch.cat([x.reshape(-1, x.shape[-1]) for x, _, _, _ in router_rows])
+    router = router_rows[0][1]
+    tied = router.clone()
+    tied[:, 1::2] = tied[:, 0::2]
+    out = {}
+    for label, w in (("served", router), ("tied pairs", tied)):
+        _, idx = moe.router_weights(cfg, {"router": w}, rows)
+        _, idx_c = moe.router_weights(cfg, {"router": w.cpu()}, rows.cpu())
+        same = torch.equal(idx.cpu(), idx_c)
+        out[label] = same
+        if label == "tied pairs":
+            pairs = idx_c.reshape(idx_c.shape[0], -1)
+            # in every tied pair that both made the top-k, the even index first
+            order = all(int(a) < int(b) for row in pairs.tolist()
+                        for a, b in zip(row, row[1:]) if a // 2 == b // 2)
+            out["tie_order"] = order
+            same = same and order
+        print(f"  (d) router top-{cfg.moe_top_k} over {rows.shape[0]} bf16 rows, "
+              f"{label}: card indices {'==' if out[label] else '!='} the CPU's"
+              + (f"; tied pairs lower index first: {out['tie_order']}"
+                 if label == "tied pairs" else ""), flush=True)
+        if not same:
+            raise SystemExit(f"DeepSeek-V2: the router's indices on the card differ from "
+                             f"the CPU's ({label})")
+    out["rows"] = int(rows.shape[0])
+    return out
+
+
+def _ds_streams(cfg, qparams, device, prompts, baseline):
+    """(e) Each request served alone (a 1-request run of a SLOTS-slot
+    engine) bitwise its co-tenant stream; then a crash mid-decode with a
+    snapshot every 4 steps, restored on the card, every stream bitwise
+    the uninterrupted run's and every rid terminal once in the journal."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.faults import FaultInjector, FaultSpec, SimulatedCrash
+    from repro_torch.serve.journal import JournalWriter, collate, read_journal
+
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng = _ds_engine(cfg, qparams, device)
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+        rec = eng.run()[i]
+        if rec.out_tokens != baseline[i]:
+            raise SystemExit(f"DeepSeek-V2: rid {i} alone {rec.out_tokens} is not its "
+                             f"co-tenant stream {baseline[i]}")
+    alone_s = time.perf_counter() - t0
+    print(f"  (e) each of the {len(prompts)} requests served alone: bitwise its "
+          f"co-tenant stream ({alone_s:.1f} s)", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jpath = Path(tmp) / "journal.wal"
+        journal = JournalWriter(jpath, fsync=True)
+        # rid 1's decode call of step 5, the step after the snapshot of step
+        # 4: rid 0 has decoded in it (its journal is ahead of the snapshot:
+        # re-prefilled, its tokens fed), rids 1-3 resume in place
+        crash = FaultSpec(kind="process_crash", phase="decode", rid=1, at_call=4)
+        eng = _ds_engine(cfg, qparams, device, journal=journal,
+                         snapshot_dir=str(Path(tmp) / "snaps"), snapshot_every=4,
+                         injector=FaultInjector([crash]))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+        try:
+            eng.run()
+        except SimulatedCrash as e:
+            print(f"  (e) {e} at step {eng.counters['steps']}", flush=True)
+        else:
+            raise SystemExit("DeepSeek-V2: the crash point was never hit")
+        finally:
+            journal.close()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng2 = ServeEngine.restore(cfg, qparams, jpath, snapshot_dir=str(Path(tmp) / "snaps"),
+                                   max_retries=MAX_RETRIES, device=device)
+        restore_s = time.perf_counter() - t1
+        marker = collate(read_journal(jpath).records).recovers[-1]
+        done = eng2.run()
+        eng2.journal.close()
+        col = collate(read_journal(jpath).records)
+    bad = [rid for rid in range(len(prompts))
+           if done[rid].out_tokens != baseline[rid] or col.tokens.get(rid) != baseline[rid]]
+    if sorted(col.terminals) != list(range(len(prompts))) or bad:
+        raise SystemExit(f"DeepSeek-V2: restored streams {bad} differ from the "
+                         f"uninterrupted run, or terminals {sorted(col.terminals)}")
+    print(f"  (e) restored from snapshot step {marker['snapshot_step']} in {restore_s:.3f} "
+          f"s (resumed {marker['resumed']}, requeued {marker['requeued']}): every "
+          f"rid terminal once, every stream bitwise the uninterrupted run's", flush=True)
+    return {"alone_s": alone_s, "restore_s": restore_s,
+            "snapshot_step": marker["snapshot_step"], "resumed": marker["resumed"],
+            "requeued": marker["requeued"]}
+
+
+def _tree_to(tree, device):
+    """A param tree (dicts, lists, tensors, QLinears) moved to ``device``."""
+    import dataclasses
+
+    from repro_torch.quant.qlinear import QLinear
+
+    if isinstance(tree, QLinear):
+        return dataclasses.replace(tree, **{
+            f: None if getattr(tree, f) is None else getattr(tree, f).to(device)
+            for f in ("qweight", "w_scale", "u", "v")})
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _ds_calibrate(device):
+    """(f) ``_quantize_moe`` (GPTQ + LRC, per-expert statistics, rank 10 %,
+    clip 0.9) on the reduced DeepSeek-V2 on the card, MLA's attention
+    through #7; one site of each weight shape solved again on this
+    machine's CPU in f64 from the card's statistics (codes and scales
+    bitwise, U·Vᵀ and the losses within CPU_REL, as phase 9 holds the dense
+    walker); the same walk on the CPU, the two models' logits correlated
+    at least 0.9 (ROADMAP Queue 3's standard for walks on two devices)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.lrc import lrc_solve
+    from repro_torch.core.quantizers import QuantSpec
+    from repro_torch.data.loader import calib_sequences
+    from repro_torch.models import model
+    from repro_torch.models.config import reduced
+    from repro_torch.quant import calibrate
+    from repro_torch.quant.policy import QuantPolicy
+
+    policy = QuantPolicy(**CALIB_POLICY)
+    cfg = reduced(get_config("deepseek-v2-236b"))
+    params = model.init_params(cfg, seed=0, device="cpu")
+    tokens = calib_sequences(cfg, n_seq=DS_CALIB_SEQS, seq_len=DS_CALIB_LEN, device="cpu")
+    sites, solves = {}, []
+    orig_solve, orig_lrc = calibrate.solve_site, calibrate.lrc_solve
+
+    def solve(w, st, pol, pre_rot=False, name=None):
+        sites.setdefault(tuple(w.shape), (w, st, len(solves)))
+        return orig_solve(w, st, pol, pre_rot, name)
+
+    def solve_lrc(*a, **kw):
+        res = orig_lrc(*a, **kw)
+        solves.append(res)
+        return res
+
+    card_params = _tree_to(params, device)
+    calibrate.solve_site, calibrate.lrc_solve = solve, solve_lrc
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        q_card = calibrate.quantize_model(cfg, card_params, tokens.to(device), policy)
+        torch.cuda.synchronize()
+    finally:
+        calibrate.solve_site, calibrate.lrc_solve = orig_solve, orig_lrc
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    want = {k: (cfg.n_layers if k == "flash_attention" else 0) for k in counts}
+    if counts != want:
+        raise SystemExit(f"DeepSeek-V2 walk: launches {counts}, want {cfg.n_layers} #7 "
+                         f"and nothing else")
+    n_sites = len(solves)
+    out = {"card_s": card_s, "lrc_solves": n_sites}
+    for shape, (w, st, i) in sorted(sites.items()):
+        ref = solves[i]
+        res = lrc_solve(w.to(torch.float64).T.cpu(), st.to("cpu"), QuantSpec(bits=4),
+                        k=policy.rank(*shape), iters=policy.lrc_iters,
+                        quant_method=policy.quant_method)
+        codes = (torch.equal(res.qweight, ref.qweight.cpu())
+                 and torch.equal(res.scales, ref.scales.cpu()))
+        u, v = ref.u.cpu().double(), ref.v.cpu().double()
+        uv_g = u @ v.T
+        tol = CPU_REL * uv_g.abs().max() + 2 * 2.0 ** -24 * (u.abs() @ v.abs().T)
+        uv_err = (res.u.double() @ res.v.double().T - uv_g).abs()
+        losses = max(abs(a - b) / abs(b) for a, b in zip(res.losses + [res.oracle_loss],
+                                                         ref.losses + [ref.oracle_loss]))
+        ok = codes and bool((uv_err <= tol).all()) and losses <= CPU_REL
+        out[str(shape)] = {"codes_bitwise": codes, "uv_max_abs_diff": uv_err.max().item(),
+                           "loss_max_rel_diff": losses}
+        print(f"  (f) site {shape}: card vs CPU codes+scales "
+              f"{'bitwise' if codes else 'DIFFER'}, U·Vᵀ max |diff| "
+              f"{uv_err.max().item():.3e}, losses max rel {losses:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"DeepSeek-V2 walk: site {shape} solved on the card "
+                             f"disagrees with the CPU")
+    q_cpu = calibrate.quantize_model(cfg, params, tokens, policy)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 32)))
+    q_back = _tree_to(q_card, "cpu")
+    a = model.forward(cfg, q_back, {"tokens": toks}).flatten()
+    b = model.forward(cfg, q_cpu, {"tokens": toks}).flatten()
+    corr = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+    out["logits_correlation"] = corr
+    print(f"  (f) reduced DeepSeek-V2 walked on the card in {card_s:.2f} s ({n_sites} LRC "
+          f"solves, {cfg.n_layers} #7 launches); its logits against the CPU walk's: "
+          f"correlation {corr:.4f}", flush=True)
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()) or corr < 0.9:
+        raise SystemExit("DeepSeek-V2 walk: the card's and the CPU's walks disagree")
+    return out
+
+
+def phase_deepseek(device):
+    """Phase 17 (see the module docstring).  Returns (stats, worst errors,
+    site times, #7 times, launches)."""
+    import torch
+
+    from repro_torch.bench.common import flush_buffer
+
+    t0 = time.perf_counter()
+    cfg, qparams, out = _ds_build(device)
+    prompts = serve_prompts(cfg)
+    print(f"  (a) served in slots mode: {SLOTS} slots, max_seq {DS_MAX_SEQ}, "
+          f"{N_REQUESTS} requests of {PROMPT_LEN} tokens x {NEW_TOKENS} new, greedy",
+          flush=True)
+    counts, out["serve"] = _ds_serve(cfg, qparams, device, prompts)
+    eng = _ds_engine(cfg, qparams, device)
+    out["checked"], worst, captured, router_rows = _ds_checked(cfg, eng, device, prompts[0])
+    flush = flush_buffer(device)
+    flash_worst, flash_timed = _ds_flash(device, captured["flash"], flush)
+    worst["flash_attention"] = max(worst["flash_attention"], flash_worst)
+    site_timed = _ds_site_times(cfg, captured, flush)
+    out["router"] = _ds_router(cfg, device, router_rows)
+    del eng, captured, router_rows
+    out["streams"] = _ds_streams(cfg, qparams, device, prompts,
+                                 out["serve"]["streams"])
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["calibration"] = _ds_calibrate(device)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 17: {out['seconds']:.1f} s", flush=True)
+    return out, worst, site_timed, flash_timed, counts
+
+
+def add_deepseek_entries(kernels, worst, site_timed, flash_timed, counts):
+    """The ``deepseek`` sub-entries of #1, #2, #3 and #7: phase 17's served
+    decode call's sites (one each, L2 flushed) and #7's served calls, the
+    launches of phase 17(a)'s serving (which the entries' own
+    ``launches`` then include) and the largest |kernel - plain| of phase
+    17(b) and (c)."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    at = ("DeepSeek-V2 at full width ({} layers), one slot decode call's sites on their "
+          "served inputs, L2 flushed; launches from phase 17(a)'s serving")
+    for entry in kernels:
+        name = entry["name"]
+        if name not in worst:
+            continue
+        if name == "flash_attention":
+            t_k, t_p, b, by, t_l = flash_timed["decode"]
+            sub = {"ms": t_k, "plain_ms": t_p, "bound_ms": b, "bound_by": by,
+                   "library_ms": t_l,
+                   "shapes": {label: dict(zip(keys + ("library_ms",), v))
+                              for label, v in flash_timed.items()},
+                   "at": ("DeepSeek-V2's MLA decode call: B 1, Sq 1, Skv 64, H = KH = 128, "
+                          "D 192, Dv 128, bf16, q_start at the served offset, L2 flushed; "
+                          "library: SDPA with a mask on an expanded copy; launches from "
+                          "phase 17(a)'s serving")}
+        else:
+            rows = {k: v for k, v in site_timed.items() if k[0] == name}
+            sub = {"ms": sum(v[0] for v in rows.values()),
+                   "plain_ms": sum(v[1] for v in rows.values()),
+                   "bound_ms": sum(v[2] for v in rows.values()),
+                   "bound_by": ("bytes" if all(v[3] == "bytes" for v in rows.values())
+                                else "operations"),
+                   "library_ms": None,
+                   "sites": {f"M{k[1]}_K{k[2]}_N{k[3]}_R{k[4]}": dict(zip(keys, v))
+                             for k, v in rows.items()},
+                   "at": at.format(DEEPSEEK_LAYERS) + "; ms = the sum over the distinct "
+                         "sites"}
+        sub["launches"] = counts[name]
+        sub["max_abs_err"] = worst[name]
+        entry["deepseek"] = sub
+        entry["launches"] += counts[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], worst[name])
+
+
 def _without_streams(tree):
     """The summary without the served token streams phase 15 compared."""
     if isinstance(tree, dict):
@@ -4807,6 +5608,10 @@ def main() -> int:
           "the bitwise resume) and Table 1 on the trained benchmark model")
     train, table1_counts = phase_train(device)
 
+    phase(f"17. serve DeepSeek-V2 at full width, {DEEPSEEK_LAYERS} layers (MLA, "
+          f"160 routed experts, 2 shared) in the per-slot engine mode")
+    deepseek, ds_worst, ds_sites, ds_flash, ds_counts = phase_deepseek(device)
+
     # launches of the two dense kernels on the main paths: every prefill
     # chunk of phases 4, 6, 8, 9 (its served model) and 10, the walk of
     # phase 9, phase 11's pass
@@ -4938,12 +5743,13 @@ def main() -> int:
                    if name == "flash_attention_quant"},
     })
     add_gemma_entries(kernels, gemma_worst, gemma_timed, gemma_counts)
+    add_deepseek_entries(kernels, ds_worst, ds_sites, ds_flash, ds_counts)
     summary = {"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
                "phi3_paths": paths, "phi3_kv_serve": kv_serve,
                "calibration": calib, "long_prefill": long_prefill,
                "kv_sweep": sweep, "latency": latency, "groups": groups,
                "gemma": gemma, "tc_probe": probe, "contracts": contracts,
-               "train": train}
+               "train": train, "deepseek": deepseek}
     print(json.dumps(_without_streams(summary), default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,12 +4,14 @@ The reference keeps its parameters as a pytree whose decoder layers are
 stacked on a leading axis (scanned) and whose quantized linears are
 ``QLinear`` pytrees.  The bridge takes that tree as **numpy arrays** —
 with each ``QLinear`` given as a plain dict of its fields — and returns the
-port's tensors: ``params["layers"]`` becomes a list of per-layer dicts and
-every dict that holds a ``qweight`` becomes a :class:`QLinear`.  The way
+port's tensors: ``params["layers"]`` (the moe family's ``dense_layers``
+and ``moe_layers``) becomes a list of per-layer dicts and every dict that
+holds a ``qweight`` becomes a :class:`QLinear`.  The way
 back (:func:`params_to_numpy`) restacks the layers.  A paged KV cache has
 the same layout in both packages, (L, NP, P, KH, ·) per leaf (``k``,
 ``v`` and, for a quantized ``KVSpec``, the ``k_scale``/``v_scale`` planes),
-and crosses leaf by leaf (:func:`cache_from_jax`, :func:`cache_to_numpy`).
+and crosses leaf by leaf (:func:`cache_from_jax`, :func:`cache_to_numpy`),
+as do the moe family's nested latent caches.
 
 bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses; they are recognised by the dtype's name and passed through their
@@ -33,7 +35,9 @@ _QLINEAR_STATIC = tuple(f.name for f in dataclasses.fields(QLinear)
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a)
+    if not a.flags.c_contiguous:  # (ascontiguousarray would make a 0-d array 1-d)
+        a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # e.g. a view of a jax array: torch needs its own
         a = a.copy()
     if a.dtype.name == "bfloat16":
@@ -88,13 +92,21 @@ def _n_layers(node) -> int:
     return np.asarray(node).shape[0]
 
 
+# the keys whose subtree stacks decoder layers on a leading axis in the
+# reference (dense: "layers"; moe: the leading dense-FFN layers, then the
+# MoE layers); every other subtree (an MTP block included) is one layer
+STACKED_KEYS = ("layers", "dense_layers", "moe_layers")
+
+
 def params_from_jax(tree: dict, device="cuda") -> dict:
     """The reference's param tree (numpy leaves, QLinears as dicts) → the
-    port's params on ``device``, layers unstacked."""
+    port's params on ``device``, layers unstacked.  A routed expert site
+    keeps its (E, …) axis below the layer axis, a QLinear's arrays
+    included."""
     device = resolve_device(device)
     out = {}
     for key, node in tree.items():
-        if key == "layers":
+        if key in STACKED_KEYS:
             n = _n_layers(node)
             out[key] = [_to_torch(_take(node, i), device) for i in range(n)]
         else:
@@ -133,7 +145,7 @@ def params_to_numpy(params: dict, bf16_dtype=None) -> dict:
     on a leading axis, QLinears as dicts of their fields)."""
     out = {}
     for key, node in params.items():
-        if key == "layers":
+        if key in STACKED_KEYS:
             out[key] = _stack([_to_numpy(lp, bf16_dtype) for lp in node])
         else:
             out[key] = _to_numpy(node, bf16_dtype)
@@ -141,15 +153,19 @@ def params_to_numpy(params: dict, bf16_dtype=None) -> dict:
 
 
 def cache_from_jax(cache: dict, device="cuda") -> dict:
-    """The reference's paged cache as numpy leaves → the port's pool on
-    ``device``, every leaf (scale planes included) in its own dtype."""
+    """The reference's cache as numpy leaves → the port's on ``device``,
+    every leaf in its own dtype: a paged pool (scale planes included), or
+    the moe family's nested ``{"dense", "moe"}`` latent caches, whose
+    int32 ``offset`` stays a 0-d device tensor."""
     device = resolve_device(device)
-    return {k: tensor_from_numpy(v, device) for k, v in cache.items()}
+    return {k: cache_from_jax(v, device) if isinstance(v, dict)
+            else tensor_from_numpy(v, device) for k, v in cache.items()}
 
 
 def cache_to_numpy(cache: dict, bf16_dtype=None) -> dict:
-    """The port's pool → numpy leaves in the reference's layout."""
-    return {k: tensor_to_numpy(v, bf16_dtype) for k, v in cache.items()}
+    """The port's cache → numpy leaves in the reference's layout."""
+    return {k: cache_to_numpy(v, bf16_dtype) if isinstance(v, dict)
+            else tensor_to_numpy(v, bf16_dtype) for k, v in cache.items()}
 
 
 def train_state_from_jax(params: dict, mu: dict, nu: dict, step, device="cuda"):

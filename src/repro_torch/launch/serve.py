@@ -2,14 +2,20 @@
 on the card (counterpart of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
-        [--full] [--quantize [--act-group G]] [--requests 8] [--new-tokens 16] \\
+        [--full [--layers L]] [--quantize [--act-group G]] [--requests 8] \\
+        [--new-tokens 16] \\
         [--page-size 16] [--kv-pages N] [--prefill-chunk C] \\
         [--kv-dtype int8|int4 --kv-group G] \\
         [--deadline-s 30] [--retries 2] [--queue-bound 64] \\
         [--inject-faults K --fault-seed S --parity-check] [--device cpu]
 
 The model is the config's reduced form (``--full`` for its published
-widths and depth) with random weights from seed 0; ``--quantize`` makes
+widths and depth; ``--layers L`` keeps its first L layers) with random
+weights from seed 0.  ``--arch deepseek-v2-236b`` or ``deepseek-v3-671b``
+serves the moe family in the engine's per-slot mode (B=1 latent caches;
+``--prefill-chunk`` and a quantized ``--kv-dtype`` need the paged layout
+and are refused); at full width it needs ``--layers`` on one card (2:
+DeepSeek-V2's dense layer and one MoE layer).  ``--quantize`` makes
 every linear W4A4+LRC by RTN with an SVD correction (rank 10 %, clip 0.9,
 no rotation; ``quant/calibrate.quantize_model``), and ``--impl`` picks the
 QLinear path the engine serves (``auto``: the kernel paths on the card, the
@@ -51,6 +57,7 @@ Queue 1 item 7).
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -210,6 +217,9 @@ def _parser():
                        help="the config's reduced form (default)")
     width.add_argument("--full", dest="reduced", action="store_false",
                        help="the config's published widths and depth")
+    ap.add_argument("--layers", type=_positive_int, default=None,
+                    help="serve the first L layers (a depth cut; a moe "
+                         "config keeps at least one MoE layer)")
     ap.add_argument("--quantize", action="store_true",
                     help="W4A4+LRC by RTN + SVD (rank 10%%, clip 0.9)")
     ap.add_argument("--act-group", type=_positive_int, default=None,
@@ -311,6 +321,11 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
+    if args.layers is not None:
+        if cfg.family == "moe" and args.layers <= cfg.n_dense_layers:
+            ap.error(f"--layers {args.layers} keeps no MoE layer of {cfg.name} "
+                     f"({cfg.n_dense_layers} dense layer(s) lead)")
+        cfg = dataclasses.replace(cfg, n_layers=min(args.layers, cfg.n_layers))
     params = model_lib.init_params(cfg, seed=0, device=device)
 
     if args.quantize:
@@ -383,9 +398,12 @@ def main(argv=None) -> int:
     finished = [r for r in done.values() if r.ok]
     print(f"{len(done)} requests ({len(finished)} finished), {total} tokens, "
           f"{dt:.2f}s -> {total / max(dt, 1e-9):.1f} tok/s on {device}")
-    kv = eng.health()["kv"]
-    print(f"kv cache: {kv['layout']}, {kv['bytes_per_token']} B/token (all "
-          f"layers, K+V incl. scale planes)")
+    health = eng.health()
+    kv = health["kv"]
+    what = ("K+V incl. scale planes" if health["mode"] == "paged"
+            else "the latent c_kv + k_rope rows")
+    print(f"{cfg.name}: {cfg.n_layers} layers, {health['mode']} mode; kv cache: "
+          f"{kv['layout']}, {kv['bytes_per_token']} B/token (all layers, {what})")
     _print_failure_summary(done, eng.health(), injector)
 
     ok = True

@@ -1,5 +1,6 @@
 """Shared transformer building blocks (counterpart of
-``repro/models/common.py``, the dense-family blocks).
+``repro/models/common.py``: the dense family's blocks and the contiguous
+cache update the moe family's latent caches take).
 
 Every linear goes through :func:`repro_torch.quant.qlinear.apply_linear`:
 a plain tensor runs a dense matmul; a ``QLinear`` runs the W4A4+LRC path.
@@ -61,6 +62,21 @@ def apply_rope(x: torch.Tensor, table) -> torch.Tensor:
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def cache_update(cache_arr: torch.Tensor, update: torch.Tensor, offset,
+                 axis: int = 1) -> torch.Tensor:
+    """The reference's ``dynamic_update_slice`` along ``axis`` at
+    ``offset``: a new tensor with ``update`` (cast to the cache's dtype)
+    written at ``offset``, where, as in ``jax.lax``, a negative offset
+    counts from the end and the start is then clamped to ``[0, size - n]``.
+    ``offset`` may be a device tensor: the start index stays on the device,
+    so nothing is read back to the host."""
+    n, size = update.shape[axis], cache_arr.shape[axis]
+    start = torch.as_tensor(offset, device=cache_arr.device).to(torch.long)
+    start = torch.clamp(torch.where(start < 0, start + size, start), 0, size - n)
+    idx = start.reshape(()) + torch.arange(n, device=cache_arr.device)
+    return cache_arr.index_copy(axis, idx, update.to(cache_arr.dtype))
 
 
 def causal_mask(q_len: int, kv_len: int, q_offset, device=None) -> torch.Tensor:

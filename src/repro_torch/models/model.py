@@ -1,29 +1,43 @@
 """Model facade: family dispatch (counterpart of ``repro/models/model.py``;
-the dense family is the one ported), and the training loss."""
+the dense and moe families are ported), and the training loss."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import deepseek, transformer
 
+# families whose decode state is an attention KV cache with a contiguous
+# layout the engine can page (vs. MLA's latent cache, which carries one
+# offset for the batch)
 PAGED_FAMILIES = ("dense",)
+# families whose decode state is per row (batch axis 1 on every leaf) and
+# carries no shared offset, so requests stack into one batched decode (the
+# reference's ssm; not ported)
+STACKED_FAMILIES = ("ssm",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
-def _dense_only(cfg):
-    if cfg.family != "dense":
+def _ported(cfg):
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; only 'dense' is")
+            f"family {cfg.family!r} is not ported; only {PORTED_FAMILIES} are")
 
 
 def init_params(cfg, seed: int = 0, max_seq: int = 0, device="cuda"):
-    _dense_only(cfg)
+    _ported(cfg)
+    if cfg.family == "moe":
+        return deepseek.init_params(cfg, seed, max_seq, device=device)
     return transformer.init_params(cfg, seed, max_seq, device=device)
 
 
 def forward(cfg, params, batch, ctx=None):
-    """batch: dict(tokens (B, S)); ``ctx`` as in ``transformer.forward``."""
-    _dense_only(cfg)
+    """batch: dict(tokens (B, S) [, moe_impl]); ``ctx`` as in
+    ``transformer.forward``."""
+    _ported(cfg)
+    if cfg.family == "moe":
+        return deepseek.forward(cfg, params, batch["tokens"],
+                                moe_impl=batch.get("moe_impl", "dense"), ctx=ctx)
     return transformer.forward(cfg, params, batch["tokens"], ctx=ctx)
 
 
@@ -35,14 +49,58 @@ def _ce(logits, labels):
 
 
 def loss_fn(cfg, params, batch, ctx=None):
-    """Next-token CE over the token stream.  The reference's MTP auxiliary
-    loss (moe) and its patch prefix (vlm) belong to families that are not
-    ported.  ``ctx`` as in :func:`forward`; training passes the gather
-    route, since no kernel has a backward."""
-    _dense_only(cfg)
+    """Next-token CE over the token stream.  The moe family's loss (its
+    MTP auxiliary term) comes with MoE training, and the vlm patch prefix
+    with that family; both raise.  ``ctx`` as in :func:`forward`; training
+    passes the gather route, since no kernel has a backward."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the training loss of family {cfg.family!r} is not ported; only "
+            f"'dense' (MoE and MTP training: ROADMAP Queue 1)")
     tokens = batch["tokens"]
     logits = forward(cfg, params, batch, ctx=ctx)
     return _ce(logits[:, :-1], tokens[:, 1:])
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device="cuda", kv_spec=None):
+    """The contiguous decode cache of a family served per slot.  A float
+    ``kv_spec`` sets its dtype; a quantized one needs the paged layout and
+    raises, as in the reference."""
+    if kv_spec is not None:
+        if kv_spec.is_quantized:
+            raise ValueError(
+                f"kv dtype {kv_spec.dtype!r} requires the paged cache layout; "
+                f"contiguous/{cfg.family!r} caches support f32/bf16 only")
+        dtype = kv_spec.cache_dtype
+    if cfg.family == "moe":
+        return deepseek.init_cache(cfg, batch, max_seq, dtype, device=device)
+    raise NotImplementedError(
+        f"the contiguous cache of family {cfg.family!r} is not ported (the "
+        f"dense family serves from the paged pool, init_paged_cache)")
+
+
+def prefill(cfg, params, batch, cache, ctx=None):
+    """The prompt into a contiguous cache (moe); returns (last row's logits
+    (B, 1, V), cache)."""
+    if cfg.family != "moe":
+        raise NotImplementedError(
+            f"contiguous-cache prefill of family {cfg.family!r} is not ported")
+    return deepseek.prefill(cfg, params, batch["tokens"], cache,
+                            moe_impl=batch.get("moe_impl", "dense"), ctx=ctx)
+
+
+def decode_step(cfg, params, tokens, cache, moe_impl: str = "dense",
+                with_stats: bool = False, ctx=None):
+    """One token per row against a contiguous cache (moe); ``with_stats``
+    appends the EP drop-stats dict (moe only, as in the reference)."""
+    if with_stats and cfg.family != "moe":
+        raise ValueError(f"with_stats is a moe-family knob, not {cfg.family!r}")
+    if cfg.family != "moe":
+        raise NotImplementedError(
+            f"contiguous-cache decode of family {cfg.family!r} is not ported")
+    return deepseek.decode_step(cfg, params, tokens, cache, moe_impl=moe_impl,
+                                with_stats=with_stats, ctx=ctx)
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,

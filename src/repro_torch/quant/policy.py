@@ -1,5 +1,6 @@
 """Which weights get W4A4 + LRC treatment, and at what rank (counterpart
-of ``repro/quant/policy.py``; the fields the port uses).
+of ``repro/quant/policy.py``; the fields the port uses, and the
+reference's site patterns, ``should_quantize`` and ``path_str``).
 
 ``rank_frac`` — the paper's headline knob: low-rank size as a fraction of
 min(d_in, d_out).  ``act_group`` — the activation scale group (paper
@@ -9,7 +10,23 @@ Table 2: 128; None = per-token), with per-layer ``act_group_overrides``.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
+
+# the reference's quantized sites (``repro/quant/policy.py``): every
+# transformer linear, expert and MLA projection; the embedding, the lm
+# head, the router and the norms stay in full precision
+_QUANT_PATTERNS = [
+    r"(attn|xattn)/w[qkvo]$",
+    r"attn/w(q|kv)_[ab]$",
+    r"(mlp|shared)/w[guid]$",
+    r"(mlp|shared)/wo$",
+    r"experts/w[gud]$",
+    r"in_proj$",
+    r"out_proj$",
+    r"mtp/proj$",
+]
+_QUANT_RE = re.compile("|".join(f"(?:{p})" for p in _QUANT_PATTERNS))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +66,14 @@ class QuantPolicy:
         object.__setattr__(self, "act_group_overrides",
                            tuple(sorted(ovr, key=lambda e: e[0])))
 
+    def should_quantize(self, path_str: str, shape) -> bool:
+        """Whether the weight at ``path_str`` (:func:`path_str`) of
+        ``shape`` becomes a QLinear: a matrix (or a stack of expert
+        matrices) at one of the reference's site patterns."""
+        if len(shape) < 2:
+            return False
+        return bool(_QUANT_RE.search(path_str))
+
     def act_group_for(self, name: Optional[str]) -> Optional[int]:
         """The activation scale group of one layer: the override whose key
         is ``name`` or a "/"-delimited suffix of it ("mlp/wd" matches
@@ -63,3 +88,9 @@ class QuantPolicy:
         if self.rank_frac <= 0:
             return 0
         return max(1, int(round(self.rank_frac * min(d_in, d_out))))
+
+
+def path_str(path) -> str:
+    """A param-tree path (its dict keys and list indices) as the reference
+    spells it: its parts joined by "/"."""
+    return "/".join(str(p) for p in path)

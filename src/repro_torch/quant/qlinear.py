@@ -82,6 +82,31 @@ def make_qlinear(q_out_in: torch.Tensor, scales: torch.Tensor,
         impl=impl, name=name)
 
 
+def expert(q: QLinear, e: int) -> QLinear:
+    """Expert ``e`` of a QLinear whose arrays carry a leading expert axis
+    (qweight (E, d_in/2, d_out), w_scale (E, d_out), u (E, d_out, R), v
+    (E, d_in, R)): the same layer over views of expert ``e``'s arrays,
+    each contiguous when the stacked arrays are."""
+    return dataclasses.replace(
+        q, qweight=q.qweight[e], w_scale=q.w_scale[e],
+        u=None if q.u is None else q.u[e], v=None if q.v is None else q.v[e])
+
+
+def stack_experts(qs) -> QLinear:
+    """Per-expert QLinears of one site (same static fields) → one QLinear
+    whose arrays carry a leading expert axis (:func:`expert` inverts it)."""
+    first = qs[0]
+
+    def stacked(name):
+        if getattr(first, name) is None:
+            return None
+        return torch.stack([getattr(q, name) for q in qs]).contiguous()
+
+    return dataclasses.replace(first, qweight=stacked("qweight"),
+                               w_scale=stacked("w_scale"), u=stacked("u"),
+                               v=stacked("v"))
+
+
 def _unpack_w(q: QLinear) -> torch.Tensor:
     """packed (d_in//2, d_out) -> int8 (d_in, d_out)."""
     return unpack_int4(q.qweight.T).T

@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine, paged dense mode (counterpart of
-``repro/serve/engine.py``).
+"""Continuous-batching serving engine (counterpart of
+``repro/serve/engine.py``): the paged mode of the dense family and the
+per-slot mode of the moe family.
 
 - **One model call per decode step.**  All decoding slots advance through a
   single batched ``paged_step`` — tokens ``(B, 1)`` with an active-slot
@@ -82,8 +83,23 @@ depend on its slot, its pages, its co-tenants or its retries.
   kernels at the same M as in the uninterrupted run, whose W4A4 codes a
   chunk-wide recomputation could flip.
 
-Not ported yet (ROADMAP Queue 1): meshes, and the stacked and per-slot
-modes of other families.
+- **Per-slot mode** (``"slots"``: the moe family, whose contiguous latent
+  caches carry one offset for the batch rows, ``model.init_cache``).  Each
+  slot owns a B=1 cache (``_fresh_cache``, f32 or the float ``kv_spec``'s
+  dtype); admission prefills the whole prompt at B=1
+  (:meth:`_slot_prefill`), and each engine step runs one B=1 decode call
+  per decoding slot (:meth:`_step_slots`), so ``decode_calls`` counts one
+  per slot attempt, as in the reference.  Every contract above holds in
+  this mode too: faults (``cache_corruption`` poisons a copy of the slot's
+  cache, :meth:`FaultInjector.corrupt_cache`), deferred retries (a failed
+  attempt commits nothing: the slot keeps its cache), cancel, the queue
+  bound, the stall watchdog, the journal, and snapshots of the slot caches
+  with ``restore``; a re-enqueued request with journaled tokens prefills
+  its prompt and feeds its tokens through the decode call, as in paged
+  mode.  A quantized ``kv_spec`` and ``prefill_chunk`` need the paged
+  layout and raise, as in the reference.
+
+Not ported yet (ROADMAP Queue 1): meshes, and the stacked mode (ssm).
 
 ``device=`` defaults to ``"cuda"`` and raises when no card is present; with
 ``kernel_impl="auto"`` every QLinear is retagged to the kernel paths on the
@@ -199,10 +215,20 @@ class ServeEngine:
                  snapshot_every: int = 0, snapshot_keep: int = 3,
                  device="cuda"):
         self.device = resolve_device(device)
-        if cfg.family not in model_lib.PAGED_FAMILIES:
+        # family -> decode-state layout; see the module docstring
+        if cfg.family in model_lib.PAGED_FAMILIES:
+            self.mode = "paged"
+        elif cfg.family in model_lib.STACKED_FAMILIES:
             raise NotImplementedError(
-                f"only the paged families {model_lib.PAGED_FAMILIES} are "
-                f"ported, not {cfg.family!r}")
+                f"the stacked engine mode (family {cfg.family!r}) is not "
+                f"ported; the paged {model_lib.PAGED_FAMILIES} and per-slot "
+                f"{model_lib.PORTED_FAMILIES} families are")
+        elif cfg.family in model_lib.PORTED_FAMILIES:
+            self.mode = "slots"
+        else:
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported; only "
+                f"{model_lib.PORTED_FAMILIES} are")
         if queue_policy not in ("reject_new", "drop_oldest"):
             raise ValueError(f"unknown queue_policy {queue_policy!r}; "
                              f"one of ('reject_new', 'drop_oldest')")
@@ -216,8 +242,17 @@ class ServeEngine:
             raise ValueError(f"snapshot_every must be >= 0, got {snapshot_every}")
         if snapshot_every and snapshot_dir is None:
             raise ValueError("snapshot_every > 0 requires snapshot_dir")
+        if prefill_chunk is not None and self.mode != "paged":
+            raise ValueError(
+                f"prefill_chunk requires a paged family "
+                f"{model_lib.PAGED_FAMILIES}, not {cfg.family!r}")
         self.kv_spec = kv_spec if kv_spec is not None else KVSpec()
         if self.kv_spec.is_quantized:
+            if self.mode != "paged":
+                raise ValueError(
+                    f"kv dtype {self.kv_spec.dtype!r} requires the paged KV "
+                    f"cache (families {model_lib.PAGED_FAMILIES}); "
+                    f"{cfg.family!r} serves in {self.mode!r} mode")
             # bad geometry (odd head_dim for int4, a group that does not
             # divide head_dim) raises here, not at the first prefill
             self.kv_spec.packed_head_dim(cfg.head_dim)
@@ -252,22 +287,31 @@ class ServeEngine:
         self.injector = injector
         self.clock = clock
         self.sleep_fn = sleep_fn
-        self.mode = "paged"
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
-        # the default pool covers every slot at full length, so the free
-        # list only runs dry when the caller shrinks kv_pages
-        self.pages_per_slot = -(-max_seq // page_size)
-        num_pages = (kv_pages if kv_pages is not None
-                     else batch_slots * self.pages_per_slot + 1)
-        self.alloc = PageAllocator(num_pages, page_size,
-                                   sidecar=self.kv_spec.is_quantized)
-        self.pool = model_lib.init_paged_cache(
-            cfg, num_pages, page_size, dtype=torch.float32, device=self.device,
-            kv_spec=self.kv_spec)
-        self.block_tables = np.zeros((batch_slots, self.pages_per_slot), np.int32)
+        # tokens in each slot's cache (its pages, or its contiguous cache)
         self.lengths = np.zeros((batch_slots,), np.int32)
         self._prefill_off = [0] * batch_slots
+        self.alloc: Optional[PageAllocator] = None
+        self.pool = None
+        self.slot_caches: List = []
+        if self.mode == "paged":
+            # the default pool covers every slot at full length, so the free
+            # list only runs dry when the caller shrinks kv_pages
+            self.pages_per_slot = -(-max_seq // page_size)
+            num_pages = (kv_pages if kv_pages is not None
+                         else batch_slots * self.pages_per_slot + 1)
+            self.alloc = PageAllocator(num_pages, page_size,
+                                       sidecar=self.kv_spec.is_quantized)
+            self.pool = model_lib.init_paged_cache(
+                cfg, num_pages, page_size, dtype=torch.float32,
+                device=self.device, kv_spec=self.kv_spec)
+            self.block_tables = np.zeros((batch_slots, self.pages_per_slot),
+                                         np.int32)
+        else:
+            # per-slot B=1 caches: the family's cache carries one offset for
+            # its batch rows, so slots cannot share a batched cache
+            self.slot_caches = [self._fresh_cache() for _ in range(batch_slots)]
 
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.slot_fail_streak: List[int] = [0] * batch_slots
@@ -287,17 +331,26 @@ class ServeEngine:
         self.stall_report: Optional[dict] = None
         self._paged = functools.partial(model_lib.paged_step, cfg,
                                         kv_spec=self.kv_spec, ctx=ctx)
+        self._prefill = functools.partial(model_lib.prefill, cfg, ctx=ctx)
+        self._decode = functools.partial(model_lib.decode_step, cfg, ctx=ctx)
         self.decode_plan = self._resolve_decode_plan()
         route_ctx = ctx if ctx is not None else ops.DEFAULT_CONTEXT
-        self.decode_attention = attention_report(
-            route_ctx, self.device, cfg.head_dim, self.kv_spec, decode=True)
-        self.prefill_attention = attention_report(
-            route_ctx, self.device, cfg.head_dim, self.kv_spec, decode=False)
+        if self.mode == "paged":
+            self.decode_attention = attention_report(
+                route_ctx, self.device, cfg.head_dim, self.kv_spec, decode=True)
+            self.prefill_attention = attention_report(
+                route_ctx, self.device, cfg.head_dim, self.kv_spec, decode=False)
+        else:
+            # both phases attend over the slot's whole contiguous cache with
+            # the dense flash kernel (#7), causally from the cache offset
+            self.decode_attention = self.prefill_attention = attention_report(
+                route_ctx, self.device, cfg.attn_head_dim, self.kv_spec,
+                decode=False)
 
         self._journal("open", mode=self.mode, family=cfg.family,
                       batch_slots=batch_slots, max_seq=max_seq,
                       eos_id=eos_id, seed=seed, page_size=page_size,
-                      kv_pages=self.alloc.num_pages,
+                      kv_pages=None if self.alloc is None else self.alloc.num_pages,
                       prefill_chunk=prefill_chunk, **self.kv_spec.to_meta())
 
     # -- public API ---------------------------------------------------------
@@ -418,7 +471,7 @@ class ServeEngine:
             "stalled": self.stall_report is not None,
             "mode": self.mode,
             "device": str(self.device),
-            "kv_pages": self.alloc.stats(),
+            "kv_pages": None if self.alloc is None else self.alloc.stats(),
             "kv": self._kv_health(),
             "decode_plan": self.decode_plan,
             "decode_attention": self.decode_attention,
@@ -428,34 +481,42 @@ class ServeEngine:
 
     def _kv_health(self) -> dict:
         """``health()["kv"]``: the KV storage scheme and ``bytes_per_token``,
-        the all-layer K+V device bytes of one token (data plus scale
-        planes, ``KVSpec.kv_bytes_per_token``)."""
+        the all-layer device bytes of one token: paged K+V (data plus scale
+        planes, ``KVSpec.kv_bytes_per_token``), or in per-slot mode the
+        latent cache's c_kv and k_rope rows."""
+        if self.mode == "paged":
+            per_token = self.cfg.n_layers * self.kv_spec.kv_bytes_per_token(
+                self.cfg.n_kv_heads, self.cfg.head_dim)
+        else:
+            item = torch.empty((), dtype=self.kv_spec.cache_dtype).element_size()
+            per_token = self.cfg.n_layers * item * (self.cfg.kv_lora_rank
+                                                    + self.cfg.qk_rope_dim)
         return {"dtype": self.kv_spec.dtype, "group": self.kv_spec.group,
-                "layout": self.kv_spec.describe(),
-                "bytes_per_token": self.cfg.n_layers * self.kv_spec.kv_bytes_per_token(
-                    self.cfg.n_kv_heads, self.cfg.head_dim)}
+                "layout": self.kv_spec.describe(), "bytes_per_token": per_token}
 
     # -- kernel-plan introspection ------------------------------------------
 
     def _resolve_decode_plan(self) -> List[dict]:
         """The path each distinct (K, N, R, act_group) QLinear site runs at
         decode: the batched step flattens (B, 1, K) activations to an (M =
-        batch_slots, K) GEMM, and the site's activation group (None:
-        per-token) enters the plan as it does in the forward.  A site on a
-        plain impl (sim, int8) reports that impl as its path.  Empty for
-        float params."""
+        batch_slots, K) GEMM (per-slot mode: M = 1 a call), and the site's
+        activation group (None: per-token) enters the plan as it does in
+        the forward.  A routed expert stack is one site.  A site on a plain
+        impl (sim, int8) reports that impl as its path.  Empty for float
+        params."""
         sites: Dict[tuple, dict] = {}
+        m = self.b if self.mode == "paged" else 1
 
         def visit(node):
             if isinstance(node, QLinear):
-                r = 0 if node.u is None else int(node.u.shape[1])
-                entry = {"m": self.b, "k": node.d_in, "n": node.d_out, "r": r,
+                r = 0 if node.u is None else int(node.u.shape[-1])
+                entry = {"m": m, "k": node.d_in, "n": node.d_out, "r": r,
                          "act_group": node.act_group, "impl": node.impl,
                          "path": node.impl, "pinned": False, "demoted": False}
                 if node.impl in KERNEL_IMPLS:
                     ctx = ops.DEFAULT_CONTEXT if node.ctx is None else node.ctx
                     entry.update(ctx.resolve_plan(
-                        self.b, node.d_in, node.d_out, r, layer=node.name,
+                        m, node.d_in, node.d_out, r, layer=node.name,
                         impl=None if node.impl == "pallas" else node.impl,
                         act_group=node.act_group)._asdict())
                 site = sites.setdefault(tuple(entry.values()),
@@ -494,11 +555,12 @@ class ServeEngine:
         if len(prompt) >= self.max_seq:
             return (ErrorKind.PROMPT_TOO_LONG,
                     f"prompt length {len(prompt)} >= max_seq {self.max_seq}")
-        need = self.alloc.pages_for(len(prompt) + 1)
-        if need > self.alloc.capacity:
-            return (ErrorKind.KV_CAPACITY,
-                    f"prompt needs {need} KV pages; pool capacity is "
-                    f"{self.alloc.capacity} pages of {self.page_size}")
+        if self.mode == "paged":
+            need = self.alloc.pages_for(len(prompt) + 1)
+            if need > self.alloc.capacity:
+                return (ErrorKind.KV_CAPACITY,
+                        f"prompt needs {need} KV pages; pool capacity is "
+                        f"{self.alloc.capacity} pages of {self.page_size}")
         if req.max_new_tokens < 1:
             return (ErrorKind.BAD_TOKEN_BUDGET,
                     f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
@@ -513,15 +575,16 @@ class ServeEngine:
             # a request that finishes or fails at prefill frees its slot at
             # once, so keep pulling from the queue until one sticks
             while not self.slot_dead[i] and self.slot_req[i] is None and self.queue:
-                head = self.queue[0]
-                # a recovered request will hold its journaled tokens too
-                need = self.alloc.pages_for(
-                    len(head.prompt) + len(head.out_tokens) + 1)
-                if need > self.alloc.free_pages:
-                    # FIFO backpressure until co-tenants free enough pages
-                    # (all idle means all pages free: no deadlock for a
-                    # prompt that passed _validate)
-                    return progressed
+                if self.mode == "paged":
+                    head = self.queue[0]
+                    # a recovered request will hold its journaled tokens too
+                    need = self.alloc.pages_for(
+                        len(head.prompt) + len(head.out_tokens) + 1)
+                    if need > self.alloc.free_pages:
+                        # FIFO backpressure until co-tenants free enough
+                        # pages (all idle means all pages free: no deadlock
+                        # for a prompt that passed _validate)
+                        return progressed
                 req = self.queue.pop(0)
                 progressed = True
                 req.advance(RequestState.PREFILLING, self.clock())
@@ -531,17 +594,23 @@ class ServeEngine:
                 self._journal("admit", rid=req.rid, slot=i)
                 self._prefill_off[i] = 0
                 self.lengths[i] = 0
-                self._prefill_advance(i)
+                if self.mode == "paged":
+                    self._prefill_advance(i)
+                else:
+                    self._slot_prefill(i, req)
         return progressed
 
     def _prefill_tick(self) -> bool:
-        """Advance every mid-prefill slot by one chunk (or retry the chunk
-        whose last attempt failed)."""
+        """Advance every mid-prefill slot by one chunk (paged mode), or
+        retry a whole-prompt prefill whose last attempt failed."""
         progressed = False
         for i in range(self.b):
             req = self.slot_req[i]
             if req is not None and req.state is RequestState.PREFILLING:
-                progressed |= self._prefill_advance(i)
+                if self.mode == "paged":
+                    progressed |= self._prefill_advance(i)
+                else:
+                    progressed |= self._slot_prefill(i, req)
         return progressed
 
     # -- prefill ------------------------------------------------------------
@@ -575,21 +644,11 @@ class ServeEngine:
         saved = None
         tok = None
         try:
-            if fault is not None:
-                if fault.kind == "slow_step":
-                    self.injector.sleep(fault.seconds)
-                elif fault.kind == "process_crash":
-                    raise SimulatedCrash(
-                        f"simulated crash at prefill of rid {req.rid} "
-                        f"(chunk offset {off})")
-                elif fault.kind == "exception":
-                    raise InjectedFault(
-                        f"injected prefill exception for rid {req.rid}")
-                elif fault.kind == "cache_corruption":
-                    pages = self.alloc.pages_of(req.rid)
-                    # the chunk's padding rows write the null page
-                    saved = self._save_pages(pages + [NULL_PAGE])
-                    self.injector.corrupt_pages(self.pool, pages)
+            if self._inject_before(fault, req, "prefill", f" (chunk offset {off})"):
+                pages = self.alloc.pages_of(req.rid)
+                # the chunk's padding rows write the null page
+                saved = self._save_pages(pages + [NULL_PAGE])
+                self.injector.corrupt_pages(self.pool, pages)
             tokens = np.zeros((1, chunk), np.int32)
             tokens[0, :n] = prompt[off:off + n]
             positions = off + np.arange(chunk, dtype=np.int32)[None, :]
@@ -601,8 +660,7 @@ class ServeEngine:
                 self._dev(valid), self.pool,
                 self._dev(self.block_tables[i:i + 1]), self._dev(srow),
                 is_prefill=True)
-            if fault is not None and fault.kind in ("nan_logits", "inf_logits"):
-                logits = self.injector.corrupt_logits(logits, fault.kind)
+            logits = self._inject_after(fault, logits)
             if final and not replay:
                 self._sampling_fault(req)
                 tok = int(self._sample(req, logits[:, -1])[0])
@@ -623,6 +681,40 @@ class ServeEngine:
             self._finish_prefill(i, req, tok)
         return True
 
+    def _slot_prefill(self, i: int, req: Request) -> bool:
+        """One guarded whole-prompt B=1 prefill attempt (per-slot mode)
+        into a fresh cache, committed to the slot only when the attempt
+        succeeds.  A recovered request (journaled tokens in ``out_tokens``)
+        prefills its prompt alone and samples nothing: the decode calls
+        then feed its tokens (see the module docstring)."""
+        prompt = np.asarray(req.prompt, np.int32)
+        replay = bool(req.out_tokens)
+        fault = (self.injector.poll(req.rid, "prefill")
+                 if self.injector is not None else None)
+        tok = None
+        try:
+            cache_in = self._fresh_cache()
+            if self._inject_before(fault, req, "prefill"):
+                cache_in = self.injector.corrupt_cache(cache_in)
+            self.counters["prefill_calls"] += 1
+            logits, new_cache = self._prefill(
+                self.params, {"tokens": self._dev(prompt[None, :])}, cache_in)
+            logits = self._inject_after(fault, logits)
+            if replay:
+                self._check_finite(logits, "a recovered request's prompt")
+            else:
+                self._sampling_fault(req)
+                tok = int(self._sample(req, logits[:, -1])[0])
+        except Exception as e:  # isolated: fails only this request
+            self._attempt_failed(i, req, e)
+            return True
+        self.slot_caches[i] = new_cache
+        self.lengths[i] = prompt.size
+        self._attempt_streak.pop(req.rid, None)
+        self.slot_fail_streak[i] = 0
+        self._finish_prefill(i, req, tok)
+        return True
+
     def _finish_prefill(self, i: int, req: Request, tok: Optional[int]):
         req.first_token_at = self.clock()
         if tok is None:
@@ -641,7 +733,10 @@ class ServeEngine:
     # -- stepping -----------------------------------------------------------
 
     def _step(self) -> bool:
-        """ONE batched ``paged_step`` over every decoding slot."""
+        """ONE batched ``paged_step`` over every decoding slot (paged mode;
+        per-slot mode: :meth:`_step_slots`)."""
+        if self.mode == "slots":
+            return self._step_slots()
         active = [i for i in range(self.b)
                   if self.slot_req[i] is not None
                   and self.slot_req[i].state is RequestState.DECODING]
@@ -731,8 +826,7 @@ class ServeEngine:
                 continue
             row = logits[i:i + 1, -1]
             try:
-                if f is not None and f.kind in ("nan_logits", "inf_logits"):
-                    row = self.injector.corrupt_logits(row, f.kind)
+                row = self._inject_after(f, row)
                 if self._feeding(i):
                     # a journaled token fed: nothing to sample
                     self._check_finite(row, "journaled-token feed")
@@ -768,6 +862,53 @@ class ServeEngine:
                 self._finalize(req, RequestState.FINISHED)
         return progressed
 
+    def _step_slots(self) -> bool:
+        """One B=1 decode call per decoding slot (per-slot mode), each
+        guarded on its own: a failed attempt commits nothing (the slot keeps
+        its cache and length) and retries on the next step."""
+        progressed = False
+        for i, req in enumerate(self.slot_req):
+            if req is None or req.state is not RequestState.DECODING:
+                continue
+            # the stream token at this slot's position: its last one, or for
+            # a recovered request still feeding, the next journaled one
+            last = np.asarray(
+                [[req.out_tokens[int(self.lengths[i]) - len(req.prompt)]]], np.int32)
+            fault = (self.injector.poll(req.rid, "decode")
+                     if self.injector is not None else None)
+            self.counters["decode_calls"] += 1
+            feeding = self._feeding(i)
+            tok = None
+            try:
+                cache_in = self.slot_caches[i]
+                if self._inject_before(fault, req, "decode"):
+                    cache_in = self.injector.corrupt_cache(cache_in)
+                logits, new_cache = self._decode(self.params, self._dev(last),
+                                                 cache_in)
+                logits = self._inject_after(fault, logits)
+                if feeding:
+                    # a journaled token fed: nothing to sample
+                    self._check_finite(logits, "journaled-token feed")
+                else:
+                    self._sampling_fault(req)
+                    tok = int(self._sample(req, logits[:, -1])[0])
+            except Exception as e:  # isolated: fails only this request
+                self._attempt_failed(i, req, e)
+                progressed = True
+                continue
+            self.slot_caches[i] = new_cache
+            self.lengths[i] += 1
+            self._attempt_streak.pop(req.rid, None)
+            self.slot_fail_streak[i] = 0
+            progressed = True
+            if feeding:
+                continue
+            self._commit_token(req, tok)
+            if self._should_finish(req, tok):
+                self._release_slot(i)
+                self._finalize(req, RequestState.FINISHED)
+        return progressed
+
     def _feeding(self, i: int) -> bool:
         """Slot ``i`` holds a recovered request whose step input is not yet
         its last journaled token."""
@@ -791,6 +932,29 @@ class ServeEngine:
         self.counters["retries"] += 1
         if self.retry_backoff_s > 0:
             self.sleep_fn(self.retry_backoff_s * (2 ** streak))
+
+    def _inject_before(self, fault, req: Request, phase: str, where: str = "") -> bool:
+        """Apply an attempt's polled ``fault`` before its model call: sleep
+        for ``slow_step``, raise for ``process_crash`` (a BaseException, so
+        it escapes the per-request guard) and ``exception``; True for
+        ``cache_corruption``, whose poisoning of the attempt's cache or
+        pages is the caller's."""
+        if fault is None:
+            return False
+        if fault.kind == "slow_step":
+            self.injector.sleep(fault.seconds)
+        elif fault.kind == "process_crash":
+            raise SimulatedCrash(f"simulated crash at {phase} of rid {req.rid}{where}")
+        elif fault.kind == "exception":
+            raise InjectedFault(f"injected {phase} exception for rid {req.rid}")
+        return fault.kind == "cache_corruption"
+
+    def _inject_after(self, fault, logits):
+        """The logits of an attempt with a ``nan_logits``/``inf_logits``
+        fault poisoned; otherwise as they are."""
+        if fault is not None and fault.kind in ("nan_logits", "inf_logits"):
+            return self.injector.corrupt_logits(logits, fault.kind)
+        return logits
 
     def _sampling_fault(self, req: Request):
         """Poll and apply the sampling boundary's fault, if any."""
@@ -866,10 +1030,13 @@ class ServeEngine:
 
     def _state_tree(self) -> dict:
         """The array state a snapshot persists (and the ``like`` tree a
-        restore loads against)."""
-        return {"pool": self.pool,
-                "block_tables": np.array(self.block_tables),
-                "lengths": np.array(self.lengths)}
+        restore loads against): the pool and block tables, or the slot
+        caches; and the slots' lengths."""
+        if self.mode == "paged":
+            return {"pool": self.pool,
+                    "block_tables": np.array(self.block_tables),
+                    "lengths": np.array(self.lengths)}
+        return {"slot_caches": self.slot_caches, "lengths": np.array(self.lengths)}
 
     def snapshot(self) -> Optional[str]:
         """Persist the decode state through the atomic checkpoint path
@@ -902,8 +1069,9 @@ class ServeEngine:
                 }
                 for i, req in enumerate(self.slot_req)
             ],
-            "alloc": self.alloc.to_state(),
         }
+        if self.mode == "paged":
+            meta["alloc"] = self.alloc.to_state()
         tree = {
             "state": self._state_tree(),
             # the variable-length JSON rides as a uint8 leaf, read back by
@@ -919,9 +1087,12 @@ class ServeEngine:
         """Drop a restored slot whose snapshot KV cannot be reused (its
         owner terminated after the snapshot, or the journal is ahead of the
         snapshot for this rid)."""
-        if self.alloc.holds(rid):
-            self.alloc.free(rid)
-        self.block_tables[i, :] = 0
+        if self.mode == "paged":
+            if self.alloc.holds(rid):
+                self.alloc.free(rid)
+            self.block_tables[i, :] = 0
+        else:
+            self.slot_caches[i] = self._fresh_cache()
         self.lengths[i] = 0
         self._prefill_off[i] = 0
 
@@ -1048,7 +1219,7 @@ class ServeEngine:
             warnings.warn("snapshot belongs to a different engine config; "
                           "recovering from the journal alone")
             snap_step, state, meta = None, None, None
-        if meta is not None:
+        if meta is not None and eng.mode == "paged":
             try:
                 restored_alloc = PageAllocator.from_state(meta["alloc"])
             except (KeyError, ValueError, TypeError) as e:
@@ -1061,9 +1232,13 @@ class ServeEngine:
             eng.counters = dict(meta["counters"])
             eng.slot_dead = [bool(x) for x in meta["slot_dead"]]
             eng.slot_fail_streak = [int(x) for x in meta["slot_fail_streak"]]
-            eng.alloc = restored_alloc
-            eng.pool = state["pool"]
-            eng.block_tables = np.asarray(state["block_tables"], np.int32).copy()
+            if eng.mode == "paged":
+                eng.alloc = restored_alloc
+                eng.pool = state["pool"]
+                eng.block_tables = np.asarray(state["block_tables"],
+                                              np.int32).copy()
+            else:
+                eng.slot_caches = list(state["slot_caches"])
             eng.lengths = np.asarray(state["lengths"], np.int32).copy()
             for i, s in enumerate(meta["slots"]):
                 if s is None:
@@ -1142,14 +1317,24 @@ class ServeEngine:
     def _release_slot(self, i: int):
         req = self.slot_req[i]
         self.slot_req[i] = None
-        # freed pages may hold stale values: a new owner rewrites every
-        # position below its length and the mask hides the rest
         if req is not None:
             self._attempt_streak.pop(req.rid, None)
-            self.alloc.free(req.rid)
-        self.block_tables[i, :] = 0
+        if self.mode == "paged":
+            # freed pages may hold stale values: a new owner rewrites every
+            # position below its length and the mask hides the rest
+            if req is not None:
+                self.alloc.free(req.rid)
+            self.block_tables[i, :] = 0
+        else:
+            self.slot_caches[i] = self._fresh_cache()
         self.lengths[i] = 0
         self._prefill_off[i] = 0
+
+    def _fresh_cache(self):
+        """A B=1 contiguous cache at ``max_seq``, f32 (the reference's
+        engine dtype) or the float ``kv_spec``'s dtype."""
+        return model_lib.init_cache(self.cfg, 1, self.max_seq, dtype=torch.float32,
+                                    device=self.device, kv_spec=self.kv_spec)
 
     def _finalize(self, req: Request, status: RequestState,
                   error_kind: Optional[str] = None, error: Optional[str] = None):

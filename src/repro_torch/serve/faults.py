@@ -19,8 +19,9 @@ Fault kinds:
 - ``slow_step``         burn ``seconds`` of (injectable) wall clock — pairs
                         with per-request deadlines to produce TIMED_OUT
 - ``cache_corruption``  poison the victim's KV pages (every float leaf of
-                        the pool; on a quantized pool the f32 scale planes)
-                        with NaN, surfacing as non-finite logits
+                        the pool; on a quantized pool the f32 scale planes),
+                        or in the per-slot mode a copy of its cache, with
+                        NaN, surfacing as non-finite logits
 - ``process_crash``     raise :class:`SimulatedCrash` (a ``BaseException``)
                         at the seeded (rid, phase, hit) point — it escapes
                         the engine's per-request ``except Exception``
@@ -170,14 +171,18 @@ class FaultInjector:
         return out
 
     @staticmethod
-    def corrupt_cache(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """A copy of the cache with every float leaf NaN everywhere; integer
-        leaves (codes, offsets) keep their values, so the corruption
-        surfaces as non-finite activations, not an index error.  For the
-        stacked and per-slot engine modes, not ported yet: the paged
-        engine uses :meth:`corrupt_pages`."""
-        return {name: (torch.full_like(leaf, float("nan")) if leaf.is_floating_point()
-                       else leaf) for name, leaf in cache.items()}
+    def corrupt_cache(cache: Dict[str, object]) -> Dict[str, object]:
+        """A copy of a cache tree (nested dicts, such as the moe family's
+        ``{"dense", "moe"}`` latent caches) with every float leaf NaN
+        everywhere; integer leaves (codes, offsets) keep their values, so
+        the corruption surfaces as non-finite activations, not an index
+        error.  The per-slot engine mode passes the copy to the victim's
+        attempt and keeps the slot's own cache; the paged engine uses
+        :meth:`corrupt_pages`."""
+        return {name: (FaultInjector.corrupt_cache(leaf) if isinstance(leaf, dict)
+                       else torch.full_like(leaf, float("nan"))
+                       if leaf.is_floating_point() else leaf)
+                for name, leaf in cache.items()}
 
     @staticmethod
     def corrupt_pages(cache: Dict[str, torch.Tensor], page_ids) -> Dict[str, torch.Tensor]:
