@@ -222,10 +222,41 @@ Phases, each fatal on failure:
      the uninterrupted run; (f) ``_quantize_moe`` (GPTQ + LRC, per-expert
      statistics) of the reduced DeepSeek-V2 on the card, one site of each
      shape solved again on the CPU (codes bitwise), the logits of the two
-     walks correlated at least 0.9;
-then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
-card, or without the repository beside it, it exits non-zero and prints no
-result.
+     walks correlated at least 0.9; (g) ``mla_absorb`` on the served model:
+     one prefill and DS_ABSORB_DECODES decode calls teacher-forced against
+     the naive path, every MLA attention call held to the naive path's on
+     the same inputs and wkv_b's effective weight (correlation at least
+     ABSORB_MIN_CORRELATION, within ABSORB_MAX_REL of the largest output;
+     the model's logits against the served naive path's printed), wall and
+     device-busy ms per decode call beside the naive path's;
+ 18. (a) Phi-4-mini at full width (``PHI4_LAYERS`` of 32 layers: 24/8 heads
+     of 128, d_ff 8,192, vocab 200,064), random bf16 weights from seed 0,
+     RTN+SVD on the card (seconds and peak GB printed), served on the
+     chained path on phase 4's traffic with exact launches, then SLOTS
+     prefill chunks and one decode step with every kernel call (#3, #2, #6,
+     #7) held to its plain version; (b) the same model through the
+     contiguous cache (``model.init_cache`` f32 B 1 max_seq 64,
+     ``prefill``, ``decode_step``; #7 at ``q_start``), teacher-forced with
+     the paged engine's stream: launches exact, every kernel call of both
+     paths' NEW_TOKENS calls held to its plain version, the prefill's
+     logits bitwise the engine's (#7 on the same operands), every step's
+     correlation at least CONTIG_MIN_CORRELATION; the witnesses: both
+     paths' attention calls walked in order (every q bitwise equal up to
+     the first attention output that differs), the gather route in both
+     bitwise at every step, f32 weights within CONTIG_F32_REL at every
+     step; the greedy agreement printed, and a decode call timed at max_seq
+     64 and CONTIG_LONG_SEQ; (c) ``launch.quantize`` (GPTQ + LRC) on SmolLM-135M
+     at full width from a checkpoint the phase writes: the walk's launches
+     exact, the output loaded through ``shell.quantized_param_shapes``
+     bitwise, then both trees served after ``retag_qlinear_impl`` with
+     every QLinear through #1, the loaded model's streams bitwise the
+     in-memory model's; (d) the reduced DeepSeek-V3 (CE + MTP) and -V2: a
+     train step on the card against the CPU's (phase 16's standard), then
+     MOE_TRAIN_STEPS steps with the loss finite and falling and no kernel
+     launched;
+then a ``{"kernels": [...]}`` line and, last, the device line.
+Without a card, or without the repository beside it, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -4315,9 +4346,10 @@ def _state_leaves(state):
     return tree_leaves([state.params, state.opt.mu, state.opt.nu, state.opt.step])
 
 
-def _step_card_vs_cpu(device, cfg):
+def _step_card_vs_cpu(device, cfg, label="(a)"):
     """(a): the loss and every gradient leaf of one batch, then one whole
-    train step, on the card and on the CPU from the same state."""
+    train step, on the card and on the CPU from the same state (printed
+    under ``label``)."""
     import torch
 
     from repro_torch.data.loader import batches
@@ -4337,13 +4369,13 @@ def _step_card_vs_cpu(device, cfg):
     (new_c, m_c), (new_g, m_g) = fn(cpu, batch), fn(card, card_batch)
     norm_rel = abs(float(m_g["grad_norm"]) - float(m_c["grad_norm"])) / float(m_c["grad_norm"])
     finite = all(bool(torch.isfinite(t).all()) for t in _state_leaves(new_g))
-    print(f"  (a) one step, reduced f32 model, B 8 x S 64: loss card {float(loss_g):.7f} "
+    print(f"  {label} one step, reduced f32 model, B 8 x S 64: loss card {float(loss_g):.7f} "
           f"CPU {float(loss_c):.7f} (rel {loss_rel:.2e}, limit {STEP_LOSS_REL:g}); worst "
           f"grad leaf {grad_rel:.2e} of its largest element (limit {STEP_GRAD_REL:g}); "
           f"grad norm rel {norm_rel:.2e}; new state finite {finite}", flush=True)
     if not (loss_rel <= STEP_LOSS_REL and grad_rel <= STEP_GRAD_REL
             and norm_rel <= STEP_LOSS_REL and finite):
-        raise SystemExit("phase 16(a): the card's train step disagrees with the CPU's")
+        raise SystemExit(f"{label}: the card's train step disagrees with the CPU's")
     return dict(loss_rel=loss_rel, grad_rel=grad_rel, grad_norm_rel=norm_rel)
 
 
@@ -5371,6 +5403,7 @@ def phase_deepseek(device):
     site_timed = _ds_site_times(cfg, captured, flush)
     out["router"] = _ds_router(cfg, device, router_rows)
     del eng, captured, router_rows
+    out["absorb"] = _ds_absorb(cfg, qparams, device, prompts[0])
     out["streams"] = _ds_streams(cfg, qparams, device, prompts,
                                  out["serve"]["streams"])
     del qparams
@@ -5422,6 +5455,668 @@ def add_deepseek_entries(kernels, worst, site_timed, flash_timed, counts):
         entry["deepseek"] = sub
         entry["launches"] += counts[name]
         entry["max_abs_err"] = max(entry["max_abs_err"], worst[name])
+
+
+# ---------------------------------------------------------------------------
+# phase 18: Phi-4-mini at full width, the dense contiguous cache, the
+# quantize launcher, MoE training (mla_absorb runs in phase 17(g))
+# ---------------------------------------------------------------------------
+
+# Phi-4-mini's depth served here: 4 of its 32 layers, at full width (24/8
+# heads of 128, d_ff 8,192, vocab 200,064); RTN+SVD at Phi-3's ~6.5 s a
+# layer keeps the phase inside the script's time
+PHI4_LAYERS = 4
+# (b) the contiguous cache: B 1, max_seq 64, f32 as the engine's pool; a
+# decode call is also timed at CONTIG_LONG_SEQ (a step writes its own rows
+# in place, so its time must not grow with max_seq)
+CONTIG_MAX_SEQ = 64
+CONTIG_LONG_SEQ = 4096
+# (b) the contiguous path against the paged engine for the same request,
+# teacher-forced with the engine's tokens (see _contiguous).  f32 weights:
+# every step's max |contiguous - engine| over the engine's max |logit|
+# stays within this (the CPU test of the same comparison: 1e-5 absolute,
+# tests/test_torch_dense_cache.py); the two differ only in #7 against #6's
+# f32 summation order
+CONTIG_F32_REL = 1e-5
+# the W4A4 model: once an attention output differs in one bf16 element
+# (#7 and #6 round some elements apart), 4-bit activation codes turn that
+# into code flips downstream, so every later step's logits correlate only
+# this well with the engine's (a floor; the gates that see a fault are the
+# bitwise ones and the held calls)
+CONTIG_MIN_CORRELATION = 0.9
+# (d) MoE training: steps of the reduced V3 (CE + MTP) and V2 on the card
+MOE_TRAIN_STEPS = 8
+# (g) of phase 17: the decode calls mla_absorb is held over, and its MLA
+# attention outputs against the naive path's on the same inputs and the
+# same wkv_b (its effective weight; bf16 in the naive path's expansion):
+# the naive path rounds the expanded K/V and #7's output to bf16, the
+# absorbed one computes in f32 and rounds its output once, a few bf16 ulps
+# (2^-8 relative each) of the largest output at most; a wrong mask or
+# weight moves them by their own size
+DS_ABSORB_DECODES = 4
+ABSORB_MIN_CORRELATION = 0.999
+ABSORB_MAX_REL = 2.0 ** -5
+
+
+def _held_calls():
+    """A context that holds every #3, #2, #6 and #7 call inside it to its
+    plain version on the same inputs (the plain calls uncounted): #3's
+    codes and scales bitwise and x·V within ``xv_tolerance``, #2 within
+    ``gemm_tolerance``, #6 within ``flash_attn.paged_attention_bound``, #7
+    within ``_flash_tolerance``.  Yields the per-kernel stats (calls,
+    worst |kernel - plain|, calls outside the standard)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.bench.common import gemm_tolerance, xv_tolerance
+    from repro_torch.kernels import flash_attn, ops, prologue, w4a4
+
+    names = ("fused_prologue", "w4a4_lowrank_matmul", "paged_flash_attention",
+             "flash_attention")
+    stats = {n: {"calls": 0, "worst": 0.0, "bad": 0} for n in names}
+
+    def note(name, err, ok):
+        s = stats[name]
+        s["calls"] += 1
+        s["worst"] = max(s["worst"], err)
+        s["bad"] += int(not ok)
+
+    def held_prologue(x, v, bits=4, clip_ratio=1.0, rotate=False, group=None):
+        xq, sx, xv = prologue.fused_prologue(x, v, bits, clip_ratio, rotate, group)
+        xq_p, sx_p, xv_p = _uncounted(prologue.fused_prologue_plain, x, v, bits,
+                                      clip_ratio, rotate, group)
+        ok, err = torch.equal(xq, xq_p) and torch.equal(sx, sx_p), 0.0
+        if v is not None:
+            e = (xv - xv_p).abs()
+            err = e.max().item()
+            ok = ok and bool((e <= xv_tolerance(x, v, x.shape[1], xv_p)).all())
+        note("fused_prologue", err, ok)
+        return xq, sx, xv
+
+    def held_gemm(xq, sx, wp, sw, xv=None, u=None, group=None):
+        y = w4a4.w4a4_lowrank_matmul(xq, sx, wp, sw, xv, u, group)
+        y_p = _uncounted(w4a4.w4a4_lowrank_matmul_plain, xq, sx, wp, sw, xv, u, group)
+        e = (y - y_p).abs()
+        r = 0 if xv is None else xv.shape[1]
+        note("w4a4_lowrank_matmul", e.max().item(),
+             bool((e <= gemm_tolerance(xv, u, r, y_p)).all()))
+        return y
+
+    def held_paged(q, kp, vp, bt, lengths, scale):
+        y = flash_attn.paged_flash_attention(q, kp, vp, bt, lengths, scale)
+        y_p = _uncounted(flash_attn.paged_flash_attention_plain, q, kp, vp, bt,
+                         lengths, scale)
+        dense = [p[bt.long()].reshape(q.shape[0], -1, *p.shape[2:]) for p in (kp, vp)]
+        tol = flash_attn.paged_attention_bound(q, *dense, lengths, scale, kp.shape[1], y_p)
+        e = (y.double() - y_p.double()).abs()
+        note("paged_flash_attention", e.max().item(), bool((e <= tol).all()))
+        return y
+
+    def held_flash(q, k, v, scale, causal=True, q_start=None):
+        y = flash_attn.flash_attention(q, k, v, scale, causal, q_start)
+        y_p = _uncounted(flash_attn.flash_attention_plain, q, k, v, scale, causal, q_start)
+        q0 = 0 if q_start is None else int(q_start.max())
+        e = (y.double() - y_p.double()).abs()
+        note("flash_attention", e.max().item(),
+             bool(torch.isfinite(y).all())
+             and bool((e <= _flash_tolerance(q, k, v, scale, y_p, q0)).all()))
+        return y
+
+    @contextlib.contextmanager
+    def held():
+        saved = (ops.fused_prologue, ops.w4a4_lowrank_matmul, ops.paged_flash_attention,
+                 ops.flash_attention)
+        (ops.fused_prologue, ops.w4a4_lowrank_matmul, ops.paged_flash_attention,
+         ops.flash_attention) = held_prologue, held_gemm, held_paged, held_flash
+        try:
+            yield stats
+        finally:
+            (ops.fused_prologue, ops.w4a4_lowrank_matmul, ops.paged_flash_attention,
+             ops.flash_attention) = saved
+
+    return held()
+
+
+def _held_gate(stats, want, what):
+    """Print ``stats`` of :func:`_held_calls` and fail unless every kernel
+    made ``want[name]`` calls, each within its standard."""
+    for name, s in stats.items():
+        print(f"  {what}: {name:<22} calls {s['calls']:<4} (want {want.get(name, 0)}) "
+              f"max |kernel - plain| {s['worst']:.3e}; {s['bad']} outside the standard",
+              flush=True)
+    if any(s["bad"] for s in stats.values()) or any(
+            s["calls"] != want.get(n, 0) for n, s in stats.items()):
+        raise SystemExit(f"phase 18 {what}: a kernel call missed its standard, or the "
+                         f"calls are not the path's")
+
+
+def _phi4_engine(cfg, params, device, slots=SLOTS, ctx=None):
+    from repro_torch.serve.engine import ServeEngine
+
+    return ServeEngine(cfg, params, batch_slots=slots, max_seq=CONTIG_MAX_SEQ,
+                       page_size=PAGE, prefill_chunk=CHUNK, device=device, ctx=ctx)
+
+
+def _phi4_held(cfg, qparams, device):
+    """(a) SLOTS prompts prefilled (one chunk each) and one decode step of
+    the served Phi-4-mini, every kernel call held to its plain version."""
+    import torch
+
+    from repro_torch.serve.engine import Request
+
+    eng = _phi4_engine(cfg, qparams, device)
+    for i, p in enumerate(serve_prompts(cfg)[:SLOTS]):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    with _held_calls() as stats:
+        eng._admit()
+        eng._step()
+        torch.cuda.synchronize()
+    sites, n = 7 * cfg.n_layers, cfg.n_layers
+    _held_gate(stats, {"fused_prologue": sites * (SLOTS + 1),
+                       "w4a4_lowrank_matmul": sites * (SLOTS + 1),
+                       "flash_attention": n * SLOTS, "paged_flash_attention": n},
+               f"(a) {SLOTS} prefill chunks and one decode step")
+    return {k: dict(v) for k, v in stats.items()}
+
+
+def _attention_log():
+    """A context that records (q, out) of every ``ops.flash_attention``
+    and ``ops.paged_flash_attention`` call inside it, in call order, as
+    (rows, heads · width) f32 on the host (exact for bf16; B 1)."""
+    import contextlib
+
+    from repro_torch.kernels import ops
+
+    calls = []
+
+    def logged(fn):
+        def call(q, *args, **kw):
+            out = fn(q, *args, **kw)
+            calls.append(tuple(t.detach().float().reshape(-1, t.shape[-2] * t.shape[-1]).cpu()
+                               for t in (q, out)))
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def log():
+        saved = ops.flash_attention, ops.paged_flash_attention
+        ops.flash_attention, ops.paged_flash_attention = map(logged, saved)
+        try:
+            yield calls
+        finally:
+            ops.flash_attention, ops.paged_flash_attention = saved
+
+    return log()
+
+
+def _engine_stream(cfg, params, device, prompt, ctx=None):
+    """One request through the paged engine (one slot) on ``ctx``'s
+    attention route, every kernel call held: (greedy stream, each model
+    call's last logits row, the attention calls' log, the held stats)."""
+    from repro_torch.serve.engine import Request
+
+    eng = _phi4_engine(cfg, params, device, slots=1, ctx=ctx)
+    rows, inner = [], eng._paged
+
+    def kept(*a, **kw):
+        out = inner(*a, **kw)
+        rows.append(out[0][:, -1].float())
+        return out
+
+    eng._paged = kept
+    eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=NEW_TOKENS))
+    with _held_calls() as held, _attention_log() as attn:
+        stream = list(eng.run()[0].out_tokens)
+    if len(rows) != NEW_TOKENS:
+        raise SystemExit(f"(b): the engine made {len(rows)} model calls, want {NEW_TOKENS}")
+    return stream, rows, attn, held
+
+
+def _contiguous_run(cfg, params, device, prompt, feed=None, ctx=None,
+                    max_seq=CONTIG_MAX_SEQ):
+    """NEW_TOKENS calls of the contiguous path: ``model.init_cache`` (f32,
+    B 1), ``prefill``, then ``decode_step`` fed ``feed`` (None: its own
+    greedy tokens).  Returns (each call's last logits row, greedy tokens,
+    seconds per call, the final offset)."""
+    import torch
+
+    from repro_torch.models import model
+
+    cache = model.init_cache(cfg, 1, max_seq, dtype=torch.float32, device=device)
+    toks = torch.from_numpy(prompt[None, :]).to(device)
+    rows, got, times = [], [], []
+    for i in range(NEW_TOKENS):
+        t0 = time.perf_counter()
+        if i == 0:
+            logits, cache = model.prefill(cfg, params, {"tokens": toks}, cache, ctx=ctx)
+        else:
+            tok = feed[i - 1] if feed is not None else got[-1]
+            tok = torch.tensor([[tok]], dtype=torch.int32, device=device)
+            logits, cache = model.decode_step(cfg, params, tok, cache, ctx=ctx)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rows.append(logits[:, -1].float())
+        got.append(int(logits[0, -1].argmax()))
+    return rows, got, times, int(cache["offset"])
+
+
+def _first_difference(mine, theirs, n_layers):
+    """Two runs' attention logs walked in call order, each call's rows
+    that both hold (the engine pads a prefill chunk after the prompt): None
+    when every q and output is bitwise equal, else (step, layer, q bitwise
+    equal there, outputs that differ of how many, the largest difference)
+    at the first call whose q or output differs."""
+    import torch
+
+    if len(mine) != len(theirs):
+        raise SystemExit(f"(b): {len(mine)} attention calls against {len(theirs)}")
+    for i, ((qa, oa), (qb, ob)) in enumerate(zip(mine, theirs)):
+        rows = min(qa.shape[0], qb.shape[0])
+        qa, oa, qb, ob = qa[:rows], oa[:rows], qb[:rows], ob[:rows]
+        same_q = bool(torch.equal(qa, qb))
+        if not same_q or not torch.equal(oa, ob):
+            d = (oa - ob).abs()
+            return (i // n_layers, i % n_layers, same_q, int((d > 0).sum()), oa.numel(),
+                    d.max().item())
+    return None
+
+
+def _correlations(rows, ref):
+    import torch
+
+    return [torch.corrcoef(torch.cat([a, b]))[0, 1].item() for a, b in zip(rows, ref)]
+
+
+def _contiguous(cfg, qparams, device):
+    """(b) One request through the contiguous entry points
+    (``model.init_cache`` f32, B 1, max_seq 64; ``prefill``; ``decode_step``
+    per token) on the kernel route, #7 with q_start 0 then at the offset,
+    teacher-forced with the paged engine's greedy stream for the same
+    prompt, the counted main path: every kernel call of all NEW_TOKENS
+    calls held to its plain version (the engine's too), launches exact.
+    Its logits against the engine's at every step, with three witnesses
+    that locate any difference: (1) both paths' attention calls walked in
+    order: every q bitwise equal up to the first attention output that
+    differs, which is then #7 against #6 on equal inputs (the cache,
+    positions and offsets feed both alike); (2) the gather route in both
+    (no #6, no #7) on the W4A4 model: logits bitwise at every step; (3) f32
+    weights (no 4-bit codes to amplify a rounding difference; the
+    projections are cuBLAS GEMMs, whose sums depend on M, so the engine's
+    16-row prefill chunk and the 12-row prompt are not bitwise): every step
+    within CONTIG_F32_REL.  Every W4A4 step's correlation at least
+    CONTIG_MIN_CORRELATION.  Then the path's own greedy stream, unheld,
+    timed at max_seq 64 and CONTIG_LONG_SEQ."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.context import KernelContext
+    from repro_torch.models import model
+    from repro_torch.quant.qlinear import retag_qlinear_impl
+
+    prompt = serve_prompts(cfg)[0]
+    params = retag_qlinear_impl(qparams, "auto")
+    sites, n = 7 * cfg.n_layers, cfg.n_layers
+    calls = NEW_TOKENS
+    stream, paged, paged_attn, paged_held = _engine_stream(cfg, qparams, device, prompt)
+    reset_launches()
+    with _held_calls() as held, _attention_log() as attn:
+        forced, _, _, offset = _contiguous_run(cfg, params, device, prompt, stream)
+    counts = launches()
+    _held_gate(paged_held, {"fused_prologue": sites * calls,
+                            "w4a4_lowrank_matmul": sites * calls, "flash_attention": n,
+                            "paged_flash_attention": n * (calls - 1)},
+               f"(b) the engine's {calls} calls")
+    _held_gate(held, {"fused_prologue": sites * calls, "w4a4_lowrank_matmul": sites * calls,
+                      "flash_attention": n * calls},
+               f"(b) the contiguous path's {calls} calls")
+    want = {k: 0 for k in counts}
+    want.update(fused_prologue=sites * calls, w4a4_lowrank_matmul=sites * calls,
+                flash_attention=n * calls)
+    print(f"  (b) contiguous cache, {calls} calls (1 prefill, {calls - 1} decode), offset "
+          f"{offset}: launches {counts}; want {want}", flush=True)
+    if counts != want or offset != len(prompt) + calls - 1:
+        raise SystemExit("(b): the contiguous path's launches are not 7 per layer of #3 "
+                         "and #2 and one #7 per layer per call, or the offset is wrong")
+    if not all(bool(torch.isfinite(r).all()) for r in forced + paged):
+        raise SystemExit("(b): non-finite logits")
+    corrs = _correlations(forced, paged)
+    diffs = [(a - b).abs().max().item() for a, b in zip(forced, paged)]
+    bitwise = [bool(torch.equal(a, b)) for a, b in zip(forced, paged)]
+    first = _first_difference(attn, paged_attn, n)
+    if first is None:
+        where = "no attention output differs"
+    else:
+        where = (f"the first attention output that differs is step {first[0]} layer "
+                 f"{first[1]} ({'#7' if first[0] == 0 else '#7 against #6'}); q bitwise "
+                 f"equal up to it: {first[2]}; {first[3]} of {first[4]} outputs differ, "
+                 f"by at most {first[5]:.3e}")
+    print(f"  (b) W4A4 logits against the engine's, teacher-forced: bitwise at steps "
+          f"{[i for i, x in enumerate(bitwise) if x]}; correlation every step "
+          + " ".join(f"{c:.4f}" for c in corrs)
+          + f" (floor {CONTIG_MIN_CORRELATION}); max |diff| {max(diffs):.4e}; {where}",
+          flush=True)
+
+    # (2) the gather route in both: the contiguous cache, offsets and masks
+    # without either attention kernel
+    gather = KernelContext(attention="gather")
+    g_stream, g_paged, _, _ = _engine_stream(cfg, qparams, device, prompt, gather)
+    g_forced = _contiguous_run(cfg, params, device, prompt, g_stream, gather)[0]
+    g_bitwise = [bool(torch.equal(a, b)) for a, b in zip(g_forced, g_paged)]
+    g_diff = max((a - b).abs().max().item() for a, b in zip(g_forced, g_paged))
+    print(f"  (b) witness, gather route in both (W4A4): logits bitwise at "
+          f"{sum(g_bitwise)}/{calls} steps, max |diff| {g_diff:.4e}", flush=True)
+
+    # (3) f32 weights: #7 against #6 with no 4-bit codes after them
+    fcfg = dataclasses.replace(cfg, dtype="float32")
+    fparams = model.init_params(fcfg, seed=0, device=device)
+    f_stream, f_paged, _, _ = _engine_stream(fcfg, fparams, device, prompt)
+    f_forced = _contiguous_run(fcfg, fparams, device, prompt, f_stream)[0]
+    f_rel = [(a - b).abs().max().item() / b.abs().max().item()
+             for a, b in zip(f_forced, f_paged)]
+    f_own = _contiguous_run(fcfg, fparams, device, prompt)[1]
+    print(f"  (b) witness, f32 weights: max |diff| / max |logit| every step "
+          + " ".join(f"{r:.2e}" for r in f_rel)
+          + f" (limit {CONTIG_F32_REL}); greedy streams agree on "
+          f"{sum(int(x == y) for x, y in zip(f_own, f_stream))}/{calls} tokens", flush=True)
+    del fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, own, times, _ = _contiguous_run(cfg, params, device, prompt)
+    long_times = _contiguous_run(cfg, params, device, prompt, max_seq=CONTIG_LONG_SEQ)[2]
+    agree = sum(int(x == y) for x, y in zip(own, stream))
+    first_diff = next((i for i, (x, y) in enumerate(zip(own, stream)) if x != y), None)
+    decode_ms = statistics.median(times[1:]) * 1e3
+    long_ms = statistics.median(long_times[1:]) * 1e3
+    print(f"  (b) the contiguous greedy stream agrees with the engine's on {agree}/{calls} "
+          f"tokens (first difference at {first_diff}); prefill {times[0] * 1e3:.2f} ms, "
+          f"decode call {decode_ms:.2f} ms (median) at max_seq {CONTIG_MAX_SEQ}, "
+          f"{long_ms:.2f} ms at {CONTIG_LONG_SEQ}", flush=True)
+    faults = []
+    if not bitwise[0]:
+        faults.append("the prefill's logits are not bitwise the engine's")
+    if min(corrs) < CONTIG_MIN_CORRELATION:
+        faults.append(f"a step's correlation is below {CONTIG_MIN_CORRELATION}")
+    if first is not None and not first[2]:
+        faults.append("an attention call's q differs before any attention output does")
+    if first is not None and not all(bitwise[:first[0]]):
+        faults.append("logits differ before any attention output does")
+    if not all(g_bitwise):
+        faults.append("the gather route's logits are not bitwise the engine's")
+    if max(f_rel) > CONTIG_F32_REL:
+        faults.append(f"an f32 step is off by more than {CONTIG_F32_REL} of the logits")
+    if faults:
+        raise SystemExit("(b): " + "; ".join(faults))
+    return {"launches": counts, "held": {k: dict(v) for k, v in held.items()},
+            "correlations": corrs, "max_abs_diff": max(diffs),
+            "bitwise_steps": sum(bitwise), "first_attention_difference": first,
+            "gather_bitwise_steps": sum(g_bitwise), "f32_rel": f_rel,
+            "greedy_agreement": agree, "first_difference": first_diff,
+            "prefill_ms": times[0] * 1e3, "decode_call_ms": decode_ms,
+            "decode_call_ms_long": long_ms}
+
+
+def _tensor_leaves(tree, path=()):
+    """(path, tensor or None) of every array of a param tree, a QLinear's
+    four arrays included."""
+    from repro_torch.quant.qlinear import QLinear
+
+    if isinstance(tree, QLinear):
+        return [(path + (f,), getattr(tree, f)) for f in ("qweight", "w_scale", "u", "v")]
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _tensor_leaves(v, path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _tensor_leaves(v, path + (str(i),))]
+    return [(path, tree)]
+
+
+def _launcher(device, workdir):
+    """(c) ``launch.quantize`` (GPTQ + LRC, rotation, its default 24 x 96
+    calibration tokens) on SmolLM-135M at full width from a checkpoint this
+    phase writes (random weights, seed 0); the walk's launches exact (#7
+    once per layer); its output loaded through
+    ``shell.quantized_param_shapes`` bitwise, leaf by leaf; both trees
+    retagged ``"auto"`` and served on phase 4's traffic, the loaded model's
+    streams bitwise the in-memory model's and every QLinear call through
+    #1."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import quantize as quantize_cli
+    from repro_torch.models import model
+    from repro_torch.quant.qlinear import retag_qlinear_impl
+    from repro_torch.quant.shell import quantized_param_shapes
+    from repro_torch.serve.engine import Request, RequestState
+
+    params = model.init_params(get_config("smollm-135m"), seed=0, device=device)
+    src = save_checkpoint(workdir / "model", 0, params)
+    del params
+    argv = ["--arch", "smollm-135m", "--full", "--ckpt", src, "--out",
+            str(workdir / "quantized"), "--device", str(device)]
+    print(f"  (c) python -m repro_torch.launch.quantize {' '.join(argv)}", flush=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    cfg, policy, qparams, path = quantize_cli.quantize(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    walk = launches()
+    want = {k: (cfg.n_layers if k == "flash_attention" else 0) for k in walk}
+    t1 = time.perf_counter()
+    back = load_checkpoint(path, quantized_param_shapes(cfg, policy, rotated=True),
+                           device=device)
+    load_s = time.perf_counter() - t1
+    mine, theirs = _tensor_leaves(qparams), _tensor_leaves(back)
+    same = [a[0] == b[0] and ((a[1] is None and b[1] is None) or (
+        a[1] is not None and b[1] is not None and a[1].dtype == b[1].dtype
+        and torch.equal(a[1], b[1]))) for a, b in zip(mine, theirs)]
+    n_q = sum(1 for p, _ in mine if p[-1] == "qweight")
+    print(f"  (c) {cfg.name} quantized in {secs:.1f} s (walk launches {walk}; want "
+          f"{cfg.n_layers} #7 and nothing else); loaded back through the shell in "
+          f"{load_s:.2f} s: {sum(same)}/{len(mine)} leaves bitwise ({n_q} QLinears)",
+          flush=True)
+    if walk != want or len(mine) != len(theirs) or not all(same):
+        raise SystemExit("(c): the launcher's walk launched other kernels, or its "
+                         "checkpoint does not load back bitwise")
+    streams, counts = {}, {}
+    for label, tree in (("in-memory", qparams), ("loaded", back)):
+        served = retag_qlinear_impl(tree, "auto")
+        eng = _phi4_engine(cfg, served, device)
+        for i, p in enumerate(serve_prompts(cfg)):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+        reset_launches()
+        done = eng.run()
+        torch.cuda.synchronize()
+        counts[label] = launches()
+        if any(r.status is not RequestState.FINISHED for r in done.values()):
+            raise SystemExit(f"(c): the {label} model's requests did not finish")
+        streams[label] = {rid: list(r.out_tokens) for rid, r in done.items()}
+        calls = eng.counters["decode_calls"] + eng.counters["prefill_calls"]
+        health = eng.health()
+        expected = served_launches(cfg, health, eng.counters["decode_calls"],
+                                   eng.counters["prefill_calls"], ["fused_w4a4_lrc"],
+                                   counts[label])
+        print(f"  (c) served the {label} model: {calls} model calls, launches "
+              f"{counts[label]}", flush=True)
+        if counts[label] != expected:
+            raise SystemExit(f"(c): the {label} model's QLinears did not all go "
+                             f"through #1, or its attention not through #6/#7")
+    bitwise = streams["loaded"] == streams["in-memory"]
+    print(f"  (c) the loaded model's {N_REQUESTS} streams bitwise the in-memory "
+          f"model's: {bitwise}", flush=True)
+    if not bitwise:
+        raise SystemExit("(c): the loaded checkpoint serves other streams")
+    return {"seconds": secs, "load_s": load_s, "leaves": len(mine), "qlinears": n_q,
+            "walk_launches": walk, "serve_launches": counts["loaded"],
+            "serve_launches_in_memory": counts["in-memory"]}
+
+
+def _moe_train(device):
+    """(d) The reduced DeepSeek-V3 (CE + MTP) and -V2: one train step on
+    the card against the CPU's (phase 16(a)'s standard), then
+    MOE_TRAIN_STEPS steps of ``train`` on the card: the loss finite and
+    falling, no kernel launched."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import reduced
+    from repro_torch.train.trainer import train
+
+    out = {}
+    for arch in ("deepseek-v3-671b", "deepseek-v2-236b"):
+        cfg = reduced(get_config(arch))
+        step = _step_card_vs_cpu(device, cfg, f"(d) {arch}")
+        reset_launches()
+        t0 = time.perf_counter()
+        _, hist, wd = train(cfg, steps=MOE_TRAIN_STEPS, global_batch=8, seq_len=64,
+                            lr=1e-2, device=device, log=lambda s: None)
+        secs = time.perf_counter() - t0
+        n = sum(launches().values())
+        falling = hist[-1] < hist[0]
+        print(f"  (d) {arch} (mtp_depth {cfg.mtp_depth}) trained {len(hist)} steps on the "
+              f"card: loss {hist[0]:.4f} -> {hist[-1]:.4f}, median step "
+              f"{wd.p50 * 1e3:.1f} ms, {n} kernel launches", flush=True)
+        if n or not falling or not all(math.isfinite(x) for x in hist):
+            raise SystemExit(f"(d): {arch}'s training launched a kernel, or its loss "
+                             f"is not finite and falling")
+        out[arch] = {"step": step, "losses": hist, "seconds": secs,
+                     "median_step_ms": wd.p50 * 1e3}
+    return out
+
+
+def phase_18(device):
+    """Phase 18 (see the module docstring).  Returns (summary, launches of
+    its main paths by wrapper)."""
+    import tempfile
+
+    import torch
+
+    times = {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, qparams = build_model(device, "phi4-mini-3.8b", PHI4_LAYERS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  (a) peak {peak:.2f} GB allocated while quantizing", flush=True)
+    counts, serve = phase_serve(cfg, qparams, device, ["fused_prologue",
+                                                       "w4a4_lowrank_matmul"])
+    out = {"serve": dict(serve, peak_gb=peak), "held": _phi4_held(cfg, qparams, device)}
+    times["a"] = time.perf_counter() - t0
+    out["contiguous"] = _contiguous(cfg, qparams, device)
+    times["b"] = time.perf_counter() - t0 - sum(times.values())
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["launcher"] = _launcher(device, Path(tmp))
+    times["c"] = time.perf_counter() - t0 - sum(times.values())
+    out["moe_train"] = _moe_train(device)
+    times["d"] = time.perf_counter() - t0 - sum(times.values())
+    out["seconds"] = times
+    print("  phase 18 seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in times.items()),
+          flush=True)
+    total = dict(counts)
+    for more in (out["contiguous"]["launches"], out["launcher"]["walk_launches"],
+                 out["launcher"]["serve_launches"],
+                 out["launcher"]["serve_launches_in_memory"]):
+        for k, v in more.items():
+            total[k] = total.get(k, 0) + v
+    return out, total
+
+
+def _ds_absorb(cfg, qparams, device, prompt):
+    """(g) ``mla_absorb`` on the served quantized DeepSeek-V2: one prefill
+    and DS_ABSORB_DECODES decode calls (B 1), teacher-forced with the naive
+    path's greedy tokens, on the naive and the absorbed path.  Every MLA
+    attention call of the absorbed run is held to the naive path's on the
+    same inputs with ``wkv_b`` as the absorbed path reads it (its effective
+    weight, dequantized plus U·Vᵀ, stored bf16 for the naive path's
+    expansion): outputs correlated at least ABSORB_MIN_CORRELATION and
+    within ABSORB_MAX_REL of the largest.  The model's logits are compared
+    too, not gated: the served naive path runs wkv_b as a W4A4 QLinear, and
+    any difference of the attention output moves the next layer's 4-bit
+    codes and the router's top-6 of 160 experts.  Per-call wall ms and,
+    from a profiled window of two decode calls, device-busy ms, beside the
+    naive path's."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import mla
+
+    absorbed = dataclasses.replace(cfg, mla_absorb=True)
+    toks = torch.from_numpy(prompt[None, :]).to(device)
+    held = []
+    orig = mla.mla_attention_pre_o
+
+    def held_pre_o(cfg_, p, x, positions, mask, cache=None, route="gather",
+                   rope_cs=None, q_start=None):
+        out, new_cache = orig(cfg_, p, x, positions, mask, cache, route, rope_cs, q_start)
+        eff = dict(p, wkv_b=mla._effective_weight(p["wkv_b"]).to(torch.bfloat16))
+        naive, _ = _uncounted(orig, cfg, eff, x, positions, mask, cache, route, rope_cs,
+                              q_start)
+        a, b = out.double().flatten(), naive.double().flatten()
+        held.append((torch.corrcoef(torch.stack([a, b]))[0, 1].item(),
+                     ((a - b).abs().max() / b.abs().max()).item()))
+        return out, new_cache
+
+    def calls(c, feed=None):
+        eng = _ds_engine(c, qparams, device)
+        cache = eng._fresh_cache()
+        logits, cache = eng._prefill(eng.params, {"tokens": toks}, cache)
+        out, walls, feed = [logits[:, -1].float()], [], list(feed or [])
+        for i in range(DS_ABSORB_DECODES):
+            if i == len(feed):
+                feed.append(out[-1].argmax(-1).reshape(1, 1).to(torch.int32))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = eng._decode(eng.params, feed[i], cache)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            out.append(logits[:, -1].float())
+        return out, feed, statistics.median(walls) * 1e3, (eng, cache)
+
+    def busy(c, eng, cache, tok):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                eng._decode(eng.params, tok, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        what = f"decode calls ({'absorbed' if c.mla_absorb else 'naive'})"
+        return _device_profile(prof, wall, 2, what, 3)["device_busy_ms_per_step"]
+
+    naive, feed, naive_ms, (eng, cache) = calls(cfg)
+    naive_busy = busy(cfg, eng, cache, feed[-1])
+    mla.mla_attention_pre_o = held_pre_o
+    try:
+        served, _, abs_ms, (eng, cache) = calls(absorbed, feed)
+    finally:
+        mla.mla_attention_pre_o = orig
+    abs_busy = busy(absorbed, eng, cache, feed[-1])
+    del eng, cache
+    finite = all(bool(torch.isfinite(x).all()) for x in served)
+    c_logits = min(torch.corrcoef(torch.cat([x, y]))[0, 1].item()
+                   for x, y in zip(naive, served))
+    want = cfg.n_layers * (1 + DS_ABSORB_DECODES)
+    c_min, rel_max = min(h[0] for h in held), max(h[1] for h in held)
+    print(f"  (g) mla_absorb, 1 prefill + {DS_ABSORB_DECODES} decode calls: {len(held)} "
+          f"MLA attention calls (want {want}) against the naive path on wkv_b's "
+          f"effective weight: correlation min {c_min:.6f} (limit "
+          f"{ABSORB_MIN_CORRELATION}), max |diff| {rel_max:.3e} of the largest (limit "
+          f"{ABSORB_MAX_REL:.3e}); the model's logits against the served naive path's "
+          f"(W4A4 wkv_b), correlation min {c_logits:.4f} (not gated); decode call "
+          f"wall {abs_ms:.2f} ms absorbed / {naive_ms:.2f} ms naive, device busy "
+          f"{abs_busy:.3f} / {naive_busy:.3f} ms", flush=True)
+    if not finite or len(held) != want or c_min < ABSORB_MIN_CORRELATION \
+            or rel_max > ABSORB_MAX_REL:
+        raise SystemExit("(g): the absorbed MLA attention disagrees with the naive one")
+    return {"attention_min_correlation": c_min, "attention_max_rel_diff": rel_max,
+            "logits_min_correlation": c_logits, "decode_call_ms": abs_ms,
+            "naive_decode_call_ms": naive_ms, "device_busy_ms": abs_busy,
+            "naive_device_busy_ms": naive_busy}
 
 
 def _without_streams(tree):
@@ -5612,6 +6307,10 @@ def main() -> int:
           f"160 routed experts, 2 shared) in the per-slot engine mode")
     deepseek, ds_worst, ds_sites, ds_flash, ds_counts = phase_deepseek(device)
 
+    phase(f"18. Phi-4-mini at full width ({PHI4_LAYERS} of 32 layers), the dense "
+          f"contiguous cache, the quantize launcher, MoE training")
+    phase18, phase18_counts = phase_18(device)
+
     # launches of the two dense kernels on the main paths: every prefill
     # chunk of phases 4, 6, 8, 9 (its served model) and 10, the walk of
     # phase 9, phase 11's pass
@@ -5744,12 +6443,16 @@ def main() -> int:
     })
     add_gemma_entries(kernels, gemma_worst, gemma_timed, gemma_counts)
     add_deepseek_entries(kernels, ds_worst, ds_sites, ds_flash, ds_counts)
+    for entry in kernels:  # phase 18's main paths: (a) to (c)
+        n = phase18_counts.get(entry["name"], 0)
+        entry["launches"] += n
+        entry["phase18_launches"] = n
     summary = {"serve": serve, "parity": parity, "phi3_serve": phi3_serve,
                "phi3_paths": paths, "phi3_kv_serve": kv_serve,
                "calibration": calib, "long_prefill": long_prefill,
                "kv_sweep": sweep, "latency": latency, "groups": groups,
                "gemma": gemma, "tc_probe": probe, "contracts": contracts,
-               "train": train, "deepseek": deepseek}
+               "train": train, "deepseek": deepseek, "phase18": phase18}
     print(json.dumps(_without_streams(summary), default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))

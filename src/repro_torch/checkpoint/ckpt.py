@@ -18,8 +18,13 @@
   checkpoint that loads cleanly.
 
 A tree is made of dicts, lists and dataclasses (the trainer's
-``TrainState`` and ``AdamWState``), a dataclass's leaves named by its field
-names as the reference's registered dataclasses are.  The trainer saves
+``TrainState`` and ``AdamWState``, ``QLinear``), a dataclass's leaves named
+by its field names as the reference's registered dataclasses are.  As in a
+JAX pytree, None is an empty subtree (a QLinear without a low-rank term
+stores no ``u``/``v``), and a dataclass field marked ``metadata={"static":
+True}`` (QLinear's bits, groups, impl, name and kernel context: the
+reference's aux data) is no leaf: it is not stored, and a load takes it
+from the ``like`` tree.  The trainer saves
 every N steps through ``CheckpointManager.maybe_save``; the serving
 engine's snapshots (``ServeEngine.snapshot`` / ``restore``) ride on the
 same path on a schedule of their own.  The reference's ``shardings``
@@ -50,8 +55,10 @@ class CheckpointError(RuntimeError):
 def _flatten_with_names(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
     """(name, leaf) pairs of a tree of dicts, lists and dataclasses, names
     joined by ``__`` as the reference's pytree paths are."""
+    if tree is None:
+        return []
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return [pair for f in dataclasses.fields(tree)
+        return [pair for f in _array_fields(tree)
                 for pair in _flatten_with_names(getattr(tree, f.name),
                                                 prefix + (f.name,))]
     if isinstance(tree, dict):
@@ -63,13 +70,20 @@ def _flatten_with_names(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, A
     return [("__".join(prefix) or "leaf", tree)]
 
 
+def _array_fields(obj):
+    """A dataclass's fields that hold its leaves (not its static ones)."""
+    return [f for f in dataclasses.fields(obj) if not f.metadata.get("static")]
+
+
 def _unflatten_like(like, leaves):
     """A tree shaped as ``like`` whose leaves are taken in order from the
-    iterator ``leaves``."""
+    iterator ``leaves`` (None subtrees and static fields as in ``like``)."""
+    if like is None:
+        return None
     if dataclasses.is_dataclass(like) and not isinstance(like, type):
         return dataclasses.replace(like, **{
             f.name: _unflatten_like(getattr(like, f.name), leaves)
-            for f in dataclasses.fields(like)})
+            for f in _array_fields(like)})
     if isinstance(like, dict):
         return {k: _unflatten_like(v, leaves) for k, v in like.items()}
     if isinstance(like, (list, tuple)):

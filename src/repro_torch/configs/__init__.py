@@ -4,8 +4,8 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["smollm-135m", "phi3-mini-3.8b", "gemma-7b", "deepseek-v2-236b",
-            "deepseek-v3-671b"]
+ARCH_IDS = ["smollm-135m", "phi4-mini-3.8b", "phi3-mini-3.8b", "gemma-7b",
+            "deepseek-v2-236b", "deepseek-v3-671b"]
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -2,8 +2,9 @@
 [arXiv:2412.19437; hf]
 
 A copy of ``repro/configs/deepseek_v3_671b.py``: the sigmoid router and
-the multi-token-prediction parameters (``params["mtp"]``, carried but not
-trained: the MTP loss waits for MoE training).
+the multi-token-prediction block (``params["mtp"]``), trained through
+``model.loss_fn``'s MTP term (``deepseek.mtp_logits``: 0.3 · CE of the
+t → t+2 predictions) and not run in serving, as in the reference.
 """
 
 from repro_torch.models.config import ModelConfig

@@ -1,7 +1,7 @@
 """Token batches and calibration sequences (counterpart of
-``repro/data/loader.py`` for the dense family): the paper's 128 ×
+``repro/data/loader.py`` for the dense and moe families): the paper's 128 ×
 2048-token calibration recipe, scaled, and the step-indexed batch stream
-the benchmarks evaluate on."""
+the trainer and the benchmarks read."""
 
 from __future__ import annotations
 
@@ -18,11 +18,13 @@ def batches(cfg, global_batch: int, seq_len: int, seed: int = 0,
     """Infinite iterator of ``(step, {"tokens": (global_batch, seq_len)
     int32})`` on ``device``, step-indexed for exact replay; ``seed`` picks
     a disjoint sequence stream of the same corpus.  The tokens are bitwise
-    the reference's for the same arguments (its encdec and vlm extras
-    belong to families the port does not have yet)."""
-    if cfg.family != "dense":
+    the reference's for the same arguments, for both families: a dense
+    and a moe batch are the same tokens.  The reference's encdec frames and
+    vlm patches belong to families the port does not have yet, which
+    raise."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"batches for family {cfg.family!r} are not "
-                                  f"ported; only 'dense'")
+                                  f"ported; only 'dense' and 'moe'")
     dev = resolve_device(device)
     corpus = SyntheticCorpus(cfg.vocab_size, seed=CORPUS_SEED)
     step = start_step

@@ -47,8 +47,13 @@ holds the kernels):
     and of the calibration walk (``quant/calibrate.py``), whose mask is the
     aligned causal one (query and key positions both from 0): ``"kernel"``
     — the flash-attention kernel; ``"gather"`` — the reference's
-    :func:`~repro_torch.models.common.attention` under ``causal_mask``.
-    Any other mask keeps ``attention``: the kernel does not compute it.
+    :func:`~repro_torch.models.common.attention` under ``causal_mask``;
+  * the contiguous-cache ``transformer.prefill`` and ``decode_step``
+    (causal from the cache's offset): the flash-attention kernel with that
+    ``q_start``, or the reference's masks.
+    A prefix-LM mask (``forward`` / ``prefill`` with ``prefix_len`` or
+    ``embeds``) keeps ``attention``: the kernel does not compute it, and
+    ``attention="kernel"`` raises for it.
 
 ``"auto"`` takes the kernel route when the tensors are on a CUDA device,
 and the reference's route on the CPU (where it keeps the reference's
@@ -78,6 +83,10 @@ from repro_torch.kernels.rowops import check_group
 KERNEL_PATHS = ("fused", "chained", "unfused")
 IMPLS = ("auto",) + KERNEL_PATHS
 ATTENTION_ROUTES = ("auto", "kernel", "gather")
+# why a prefix-LM mask (bidirectional over a prefix, causal after it) keeps
+# the gather route
+PREFIX_LM_REASON = ("a prefix-LM mask is not causal, and the flash attention "
+                    "kernel (#7) has no prefix argument")
 _TILE_KEYS = ("bm", "bn", "bk", "br", "variant")
 
 
@@ -204,15 +213,26 @@ class KernelContext:
             return Plan("chained", pinned, True)
         return Plan(path or "fused", pinned, False)
 
-    def attention_plan(self, device, head_dim: int,
-                       decode: bool = False) -> AttentionPlan:
+    def attention_plan(self, device, head_dim: int, decode: bool = False,
+                       prefix: bool = False) -> AttentionPlan:
         """The route attention takes on ``device`` (where the pool or the
         activations live) for heads of ``head_dim``: a paged decode step's
-        when ``decode``, else a dense one's (prefill, forward, walk).  An
-        explicit route is trusted as it is; under "auto" a CUDA device
-        takes the kernel route, unless a dense attention's ``head_dim``
-        exceeds the flash kernels' ``MAX_D``, and the CPU the gather
-        route."""
+        when ``decode``, else a dense one's (prefill, forward, walk).
+        ``prefix``: the dense attention is under a prefix-LM mask, which
+        the flash kernel (#7, like the reference's Pallas kernel) does not
+        compute, so it takes the gather route, and an explicit "kernel"
+        raises.  Any other explicit route is trusted as it is; under "auto"
+        a CUDA device takes the kernel route, unless a dense attention's
+        ``head_dim`` exceeds the flash kernels' ``MAX_D``, and the CPU the
+        gather route."""
+        if prefix:
+            if self.attention == "kernel":
+                raise ValueError(
+                    f"attention='kernel': {PREFIX_LM_REASON}; prefix-LM "
+                    f"attention takes the gather route")
+            demoted = (self.attention == "auto"
+                       and torch.device(device).type == "cuda")
+            return AttentionPlan("gather", PREFIX_LM_REASON if demoted else None)
         if self.attention != "auto":
             return AttentionPlan(self.attention, None)
         if torch.device(device).type != "cuda":
@@ -223,6 +243,7 @@ class KernelContext:
                                  f"attention kernels' MAX_D {flash_attn.MAX_D}")
         return AttentionPlan("kernel", None)
 
-    def attention_route(self, device, head_dim: int, decode: bool = False) -> str:
+    def attention_route(self, device, head_dim: int, decode: bool = False,
+                        prefix: bool = False) -> str:
         """:meth:`attention_plan`'s route: ``"kernel"`` or ``"gather"``."""
-        return self.attention_plan(device, head_dim, decode).route
+        return self.attention_plan(device, head_dim, decode, prefix).route

@@ -8,8 +8,11 @@ its single-host path).
 The model is the config's reduced form by default (``--full``: its
 published widths and depth), random weights from seed 0, trained on the
 synthetic corpus (``data/loader.batches``) by ``train/trainer.train``,
-resuming from the latest checkpoint under ``--ckpt-dir``.  Everything runs
-on ``--device`` (``cuda`` by default, which raises without a card).
+resuming from the latest checkpoint under ``--ckpt-dir``.  Both ported
+families train: a dense arch on the next-token CE, a moe arch
+(``deepseek-v2-236b``, ``deepseek-v3-671b``) on the same CE plus, for V3,
+the MTP term (``models/model.loss_fn``).  Everything runs on ``--device``
+(``cuda`` by default, which raises without a card).
 
 Not here yet: ``--devices`` / ``--mesh`` (the reference's sharded step on a
 data × model mesh waits for the port's ``torch.distributed`` layer, ROADMAP

@@ -15,7 +15,11 @@ a prefill chunk or a full sequence the dense flash kernels
 are stored (float rows, or codes and scale planes, no dequant), with the
 row's query offset; ``transformer.paged_step`` chooses.  The cache-free
 forward's causal attention likewise takes :func:`attention` or the dense
-flash-attention kernel (:func:`causal_attention`).
+flash-attention kernel (:func:`causal_attention`); so does the dense
+family's contiguous-cache prefill and decode
+(:func:`gqa_attention_block`'s ``cache``), causal from the cache's offset.
+A prefix-LM mask (:func:`prefix_lm_mask`) is not causal: it always takes
+:func:`attention`.
 
 Unlike the reference, :func:`paged_cache_update` and
 :func:`paged_cache_update_quantized` write the page pool (and its scale
@@ -65,18 +69,20 @@ def apply_rope(x: torch.Tensor, table) -> torch.Tensor:
 
 
 def cache_update(cache_arr: torch.Tensor, update: torch.Tensor, offset,
-                 axis: int = 1) -> torch.Tensor:
+                 axis: int = 1, inplace: bool = False) -> torch.Tensor:
     """The reference's ``dynamic_update_slice`` along ``axis`` at
     ``offset``: a new tensor with ``update`` (cast to the cache's dtype)
     written at ``offset``, where, as in ``jax.lax``, a negative offset
     counts from the end and the start is then clamped to ``[0, size - n]``.
+    ``inplace`` writes the rows into ``cache_arr`` itself and returns it.
     ``offset`` may be a device tensor: the start index stays on the device,
     so nothing is read back to the host."""
     n, size = update.shape[axis], cache_arr.shape[axis]
     start = torch.as_tensor(offset, device=cache_arr.device).to(torch.long)
     start = torch.clamp(torch.where(start < 0, start + size, start), 0, size - n)
     idx = start.reshape(()) + torch.arange(n, device=cache_arr.device)
-    return cache_arr.index_copy(axis, idx, update.to(cache_arr.dtype))
+    write = cache_arr.index_copy_ if inplace else cache_arr.index_copy
+    return write(axis, idx, update.to(cache_arr.dtype))
 
 
 def causal_mask(q_len: int, kv_len: int, q_offset, device=None) -> torch.Tensor:
@@ -84,6 +90,15 @@ def causal_mask(q_len: int, kv_len: int, q_offset, device=None) -> torch.Tensor:
     qi = torch.arange(q_len, device=device)[:, None] + q_offset
     kj = torch.arange(kv_len, device=device)[None, :]
     return kj <= qi
+
+
+def prefix_lm_mask(q_len: int, kv_len: int, prefix_len: int, q_offset,
+                   device=None) -> torch.Tensor:
+    """PaliGemma-style (q_len, kv_len) bool mask: bidirectional over the
+    first ``prefix_len`` keys, causal after them."""
+    m = causal_mask(q_len, kv_len, q_offset, device=device)
+    kj = torch.arange(kv_len, device=device)[None, :]
+    return m | (kj < prefix_len)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
@@ -132,19 +147,40 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def gqa_attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                        cfg, mask, route: str = "gather") -> torch.Tensor:
-    """Cache-free GQA attention (teacher-forced forward).  ``route="kernel"``
-    is for the aligned causal mask only (``mask`` is then not read) and
-    runs :func:`causal_attention`'s kernel; any other route attends under
-    ``mask``."""
+                        cfg, mask, route: str = "gather", cache=None,
+                        q_start=None, rope_cs=None):
+    """GQA attention, without a cache (teacher-forced forward) or against
+    the contiguous ``cache`` = dict(k (B, Smax, KH, hd), v, offset): this
+    step's k/v rows are written at ``offset`` into ``cache``'s k/v in place
+    (:func:`cache_update`; the reference returns new arrays, and a decode
+    step here moves only its own rows), the new cache holds those tensors
+    and ``offset + S``, and the step attends over the whole cache: on the
+    gather route in the activations' dtype, as the reference does; #7
+    reads an f32 or bf16 cache as it is stored (the same values, as the
+    cache holds the activations' rows).
+    ``route="kernel"`` is for a causal mask only (``mask`` is then not
+    read): kernel #7 (``ops.flash_attention``) with query row i at
+    position ``q_start[b] + i`` (``q_start`` (B,) int32 on the device; None:
+    0); any other route attends under ``mask``.  ``rope_cs``:
+    :func:`rope_table` of ``positions`` (computed here when None).
+    Returns (out (B, S, D), new cache or None)."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    q, k, v = _project_qkv(p, x, positions, cfg, None)
+    q, k, v = _project_qkv(p, x, positions, cfg, rope_cs)
+    new_cache = None
+    if cache is not None:
+        off = cache["offset"]
+        k = cache_update(cache["k"], k, off, inplace=True)
+        v = cache_update(cache["v"], v, off, inplace=True)
+        new_cache = dict(k=k, v=v, offset=off + s)
+        if route != "kernel":
+            k, v = k.to(x.dtype), v.to(x.dtype)
     if route == "kernel":
-        out = causal_attention(q, k, v, 1.0 / (hd**0.5), route)
+        out = ops.flash_attention(q, k, v, 1.0 / (hd**0.5), causal=True,
+                                  q_start=q_start)
     else:
         out = attention(q, k, v, mask, scale=1.0 / (hd**0.5))
-    return apply_linear(p["wo"], out.reshape(b, s, h * hd))
+    return apply_linear(p["wo"], out.reshape(b, s, h * hd)), new_cache
 
 
 def page_slots(block_table: torch.Tensor, positions: torch.Tensor,

@@ -6,8 +6,10 @@ The layer stack is ``n_dense_layers`` leading dense-FFN layers
 (``params["moe_layers"]``); the reference stacks each group on a leading
 axis and scans it, the port keeps a list of per-layer dicts and loops
 (``bridge.py`` unstacks a reference tree).  V3's multi-token-prediction
-parameters (``params["mtp"]``) are made and carried; the MTP head and its
-auxiliary loss come with MoE training (ROADMAP Queue 1).
+block (``params["mtp"]``) runs in training only: :func:`mtp_logits`
+predicts token t+2 from the backbone's final-normed hidden state at t
+(:func:`forward` with ``return_hidden``), the auxiliary term of
+``model.loss_fn``.
 
 The decode state is the reference's contiguous latent cache, per group
 ``dict(c_kv (n, B, Smax, R), k_rope (n, B, Smax, rope), offset)`` with one
@@ -32,7 +34,9 @@ from repro_torch.models.common import causal_mask, mlp_block, rms_norm
 from repro_torch.models.mla import (init_mla_params, mla_attention_block,
                                     mla_rope_table)
 from repro_torch.models.moe import init_moe_params, moe_block
+from repro_torch.models.remat import maybe_remat
 from repro_torch.models.transformer import _init_linear, embed_tokens, unembed
+from repro_torch.quant.qlinear import apply_linear
 
 # (param group, its cache's key, whether its layers are MoE), in stack order
 LAYER_GROUPS = (("dense_layers", "dense", False), ("moe_layers", "moe", True))
@@ -99,8 +103,12 @@ def _block_forward(cfg, lp, x, positions, mask, cache, moe: bool,
 
 def _backbone(cfg, params, x, positions, mask, caches, moe_impl, route,
               q_start):
-    """Every layer of both groups; returns (x, new caches or None)."""
+    """Every layer of both groups; returns (x, new caches or None).  Without
+    caches each layer runs under ``cfg.remat``
+    (:func:`~repro_torch.models.remat.maybe_remat`), as the reference's
+    cache-free stack does."""
     rope_cs = mla_rope_table(cfg, positions)  # the same for every layer
+    block = _block_forward if caches is not None else maybe_remat(cfg, _block_forward)
     new_caches = {}
     for group, key, moe in LAYER_GROUPS:
         if group not in params:
@@ -111,8 +119,8 @@ def _backbone(cfg, params, x, positions, mask, caches, moe_impl, route,
             lc = None if cache is None else dict(
                 c_kv=cache["c_kv"][li], k_rope=cache["k_rope"][li],
                 offset=cache["offset"])
-            x, nc = _block_forward(cfg, lp, x, positions, mask, lc, moe, moe_impl,
-                                   route, rope_cs, q_start)
+            x, nc = block(cfg, lp, x, positions, mask, lc, moe, moe_impl, route,
+                          rope_cs, q_start)
             if nc is not None:
                 ckv.append(nc["c_kv"])
                 krope.append(nc["k_rope"])
@@ -127,8 +135,11 @@ def _route(cfg, ctx, device) -> str:
         device, cfg.attn_head_dim)
 
 
-def forward(cfg, params, tokens, moe_impl: str = None, ctx=None):
-    """Teacher-forcing forward. tokens (B, S) → logits (B, S, V) f32."""
+def forward(cfg, params, tokens, moe_impl: str = None, ctx=None,
+            return_hidden: bool = False):
+    """Teacher-forcing forward. tokens (B, S) → logits (B, S, V) f32, and
+    with ``return_hidden`` also the final-normed hidden states (B, S, D)
+    that :func:`mtp_logits` reads."""
     moe_impl = moe_impl or cfg.moe_impl
     x = embed_tokens(cfg, params, tokens)
     b, s, _ = x.shape
@@ -137,7 +148,30 @@ def forward(cfg, params, tokens, moe_impl: str = None, ctx=None):
     mask = None if route == "kernel" else causal_mask(s, s, 0, device=x.device)
     x, _ = _backbone(cfg, params, x, positions, mask, None, moe_impl, route, None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(cfg, params, x)
+    logits = unembed(cfg, params, x)
+    if return_hidden:
+        return logits, x
+    return logits
+
+
+def mtp_logits(cfg, params, tokens, hidden, ctx=None):
+    """V3's MTP head: h'_t = block(proj([norm(h_t); emb(tok_{t+1})]))
+    predicts token t+2.  ``hidden``: the backbone's final-normed states (B,
+    S, D).  The block is the dense-FFN MLA block, run causally without a
+    cache on ``ctx``'s route.  Returns (B, S-1, V) logits for tokens[:,
+    2:]."""
+    mtp = params["mtp"]
+    emb_next = embed_tokens(cfg, params, tokens[:, 1:])  # (B, S-1, D)
+    z = torch.cat([rms_norm(hidden[:, :-1], mtp["norm"], cfg.norm_eps), emb_next],
+                  dim=-1)
+    z = apply_linear(mtp["proj"], z)
+    b, s, _ = z.shape
+    positions = torch.arange(s, device=z.device).expand(b, s)
+    route = _route(cfg, ctx, z.device)
+    mask = None if route == "kernel" else causal_mask(s, s, 0, device=z.device)
+    z, _ = _block_forward(cfg, mtp["block"], z, positions, mask, None, False,
+                          "dense", route, mla_rope_table(cfg, positions), None)
+    return unembed(cfg, params, z)
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device="cuda"):

@@ -12,7 +12,10 @@ The naive path's attention takes the route of the caller's
 rope, Dv = v_head_dim) with causal masking from ``q_start`` (the
 reference's masks: 0 for a cache-free forward and a prefill, the cache
 offset at decode); ``"gather"`` is :func:`~repro_torch.models.common.attention`
-under the caller's mask.
+under the caller's mask.  The absorbed path has no kernel: on the kernel
+route it runs its einsums under the causal mask from ``q_start`` that #7
+would have applied (:func:`_causal_rows`), on the gather route under the
+caller's mask.
 """
 
 from __future__ import annotations
@@ -113,12 +116,23 @@ def mla_attention_absorbed(cfg, p, q_nope, q_rope, c_kv, k_rope, mask):
     scores = scores + torch.einsum("bshp,btp->bhst", q_rope.to(F32), k_rope.to(F32))
     scale = 1.0 / ((cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5)
     scores = scores * scale
-    if mask is not None:
-        scores = torch.where(mask[None, None], scores, -1e30)
+    if mask is not None:  # (Sq, Skv) shared, or (B, Sq, Skv) per row
+        m = mask[None, None] if mask.dim() == 2 else mask[:, None]
+        scores = torch.where(m, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bhst,btr->bshr", probs, c_kv.to(F32))
     out = torch.einsum("bshr,rhv->bshv", ctx, w_v)
     return out.to(q_nope.dtype)
+
+
+def _causal_rows(b, sq, skv, q_start, device) -> torch.Tensor:
+    """The (B, Sq, Skv) mask of #7's causal attention from ``q_start``
+    ((B,) int32; None: 0): query row i of sequence b attends key j iff j <=
+    q_start[b] + i."""
+    start = (torch.zeros((b,), dtype=torch.long, device=device) if q_start is None
+             else q_start.to(torch.long))
+    qpos = start[:, None] + torch.arange(sq, device=device)[None, :]
+    return torch.arange(skv, device=device)[None, None, :] <= qpos[:, :, None]
 
 
 def mla_attention_block(cfg, p, x, positions, mask, cache=None,
@@ -159,6 +173,10 @@ def mla_attention_pre_o(cfg, p, x, positions, mask, cache=None,
         c_kv, k_rope = ckv_c.to(x.dtype), krope_c.to(x.dtype)
 
     if cfg.mla_absorb:
+        if route == "kernel":
+            # no kernel computes the absorbed products: they run in torch
+            # under the causal mask the kernel would have applied
+            mask = _causal_rows(b, s, c_kv.shape[1], q_start, x.device)
         out = mla_attention_absorbed(cfg, p, q_nope, q_rope, c_kv, k_rope, mask)
     else:
         k_nope, v = _expand_kv(cfg, p, c_kv)

@@ -1,5 +1,6 @@
 """Model facade: family dispatch (counterpart of ``repro/models/model.py``;
-the dense and moe families are ported), and the training loss."""
+the dense and moe families are ported, each with its training loss and
+its contiguous cache, and the dense family with its paged pool)."""
 
 from __future__ import annotations
 
@@ -49,24 +50,34 @@ def _ce(logits, labels):
 
 
 def loss_fn(cfg, params, batch, ctx=None):
-    """Next-token CE over the token stream.  The moe family's loss (its
-    MTP auxiliary term) comes with MoE training, and the vlm patch prefix
-    with that family; both raise.  ``ctx`` as in :func:`forward`; training
-    passes the gather route, since no kernel has a backward."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the training loss of family {cfg.family!r} is not ported; only "
-            f"'dense' (MoE and MTP training: ROADMAP Queue 1)")
+    """Next-token CE over the token stream, plus, for a moe config with
+    ``mtp_depth`` > 0 and an ``"mtp"`` block, V3's MTP auxiliary term
+    ``0.3 · CE`` of the t → t+2 predictions.  The vlm patch prefix comes
+    with that family.  ``ctx`` as in :func:`forward`; training passes the
+    gather route, since no kernel has a backward."""
+    _ported(cfg)
     tokens = batch["tokens"]
-    logits = forward(cfg, params, batch, ctx=ctx)
-    return _ce(logits[:, :-1], tokens[:, 1:])
+    hidden = None
+    if cfg.family == "moe" and cfg.mtp_depth > 0 and "mtp" in params:
+        logits, hidden = deepseek.forward(
+            cfg, params, tokens, moe_impl=batch.get("moe_impl", "dense"), ctx=ctx,
+            return_hidden=True)
+    else:
+        logits = forward(cfg, params, batch, ctx=ctx)
+    loss = _ce(logits[:, :-1], tokens[:, 1:])
+    if hidden is not None:
+        mtp = deepseek.mtp_logits(cfg, params, tokens, hidden, ctx=ctx)
+        loss = loss + 0.3 * _ce(mtp[:, :-1], tokens[:, 2:])  # t -> t+2 targets
+    return loss
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                device="cuda", kv_spec=None):
-    """The contiguous decode cache of a family served per slot.  A float
-    ``kv_spec`` sets its dtype; a quantized one needs the paged layout and
-    raises, as in the reference."""
+    """The contiguous decode cache (dense: k/v (L, B, Smax, KH, hd); moe:
+    the latent caches), with one int32 offset.  A float ``kv_spec`` sets
+    its dtype; a quantized one needs the paged layout and raises, as in
+    the reference."""
+    _ported(cfg)
     if kv_spec is not None:
         if kv_spec.is_quantized:
             raise ValueError(
@@ -75,32 +86,30 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
         dtype = kv_spec.cache_dtype
     if cfg.family == "moe":
         return deepseek.init_cache(cfg, batch, max_seq, dtype, device=device)
-    raise NotImplementedError(
-        f"the contiguous cache of family {cfg.family!r} is not ported (the "
-        f"dense family serves from the paged pool, init_paged_cache)")
+    return transformer.init_cache(cfg, batch, max_seq, dtype, device=device)
 
 
 def prefill(cfg, params, batch, cache, ctx=None):
-    """The prompt into a contiguous cache (moe); returns (last row's logits
-    (B, 1, V), cache)."""
-    if cfg.family != "moe":
-        raise NotImplementedError(
-            f"contiguous-cache prefill of family {cfg.family!r} is not ported")
-    return deepseek.prefill(cfg, params, batch["tokens"], cache,
-                            moe_impl=batch.get("moe_impl", "dense"), ctx=ctx)
+    """The prompt into a contiguous cache; returns (last row's logits (B,
+    1, V), cache)."""
+    _ported(cfg)
+    if cfg.family == "moe":
+        return deepseek.prefill(cfg, params, batch["tokens"], cache,
+                                moe_impl=batch.get("moe_impl", "dense"), ctx=ctx)
+    return transformer.prefill(cfg, params, batch["tokens"], cache, ctx=ctx)
 
 
 def decode_step(cfg, params, tokens, cache, moe_impl: str = "dense",
                 with_stats: bool = False, ctx=None):
-    """One token per row against a contiguous cache (moe); ``with_stats``
+    """One token per row against a contiguous cache; ``with_stats``
     appends the EP drop-stats dict (moe only, as in the reference)."""
     if with_stats and cfg.family != "moe":
         raise ValueError(f"with_stats is a moe-family knob, not {cfg.family!r}")
-    if cfg.family != "moe":
-        raise NotImplementedError(
-            f"contiguous-cache decode of family {cfg.family!r} is not ported")
-    return deepseek.decode_step(cfg, params, tokens, cache, moe_impl=moe_impl,
-                                with_stats=with_stats, ctx=ctx)
+    _ported(cfg)
+    if cfg.family == "moe":
+        return deepseek.decode_step(cfg, params, tokens, cache, moe_impl=moe_impl,
+                                    with_stats=with_stats, ctx=ctx)
+    return transformer.decode_step(cfg, params, tokens, cache, ctx=ctx)
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,

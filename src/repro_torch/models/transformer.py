@@ -4,6 +4,19 @@
 The reference stacks the layers on a leading axis and scans them; here
 ``params["layers"]`` is a list of per-layer dicts and the layers run in a
 Python loop (``bridge.py`` unstacks a reference param tree).
+
+Two caches serve decoding: the paged pool of the serving engine
+(:func:`init_paged_cache`, :func:`paged_step`) and the reference's
+contiguous cache (:func:`init_cache`, :func:`prefill`,
+:func:`decode_step`), ``k``/``v`` (L, B, Smax, KH, hd) stacked on the
+layer axis as the reference's are, with one int32 ``offset`` shared by the
+batch rows, kept on the device.  Unlike the reference's, a step writes its
+k/v rows into the cache it is given, in place (as the paged pool is
+written), and returns those tensors with the new offset: a step costs its
+own rows, not a copy of the cache.  ``forward`` and ``prefill`` take the
+reference's ``prefix_len`` and ``embeds`` (precomputed frontend embeddings
+prepended to the tokens': the vlm backbone's prefix), under its prefix-LM
+mask, which always takes the gather route (``KernelContext.attention_plan``).
 """
 
 from __future__ import annotations
@@ -16,7 +29,7 @@ from repro_torch.models.common import (causal_mask, gqa_attention_block,
                                        mlp_block, page_slots,
                                        paged_gqa_attention_block,
                                        paged_gqa_attention_block_quantized,
-                                       rms_norm, rope_table)
+                                       prefix_lm_mask, rms_norm, rope_table)
 from repro_torch.models.remat import maybe_remat
 
 
@@ -66,13 +79,32 @@ def init_params(cfg, seed: int = 0, max_seq: int = 0, device="cuda"):
     return params
 
 
-def decoder_layer(cfg, lp, x, positions, mask, route="gather"):
-    """One pre-norm block (no cache); ``route`` as in
-    ``common.gqa_attention_block``."""
+def decoder_layer(cfg, lp, x, positions, mask, route="gather", cache=None,
+                  q_start=None, rope_cs=None):
+    """One pre-norm block; ``route``, ``cache`` (one layer's k/v and the
+    offset), ``q_start`` and ``rope_cs`` as in
+    ``common.gqa_attention_block``.  Returns (x, the layer's new cache or
+    None)."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    x = x + gqa_attention_block(lp["attn"], h, positions, cfg, mask, route)
+    a, new_cache = gqa_attention_block(lp["attn"], h, positions, cfg, mask, route,
+                                       cache, q_start, rope_cs)
+    x = x + a
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + mlp_block(lp["mlp"], h, cfg.act)
+    return x + mlp_block(lp["mlp"], h, cfg.act), new_cache
+
+
+def run_layers(cfg, layers, x, positions, mask, cache, route, q_start):
+    """Every layer against the contiguous ``cache`` (k/v (L, B, Smax, KH,
+    hd), offset), each layer's rows written into its slice of k/v in
+    place; returns (x, the new cache: the same k/v, offset + S)."""
+    offset = cache["offset"]
+    rope_cs = (rope_table(positions, cfg.head_dim, cfg.rope_theta)
+               if cfg.rope_theta > 0 else None)  # the same for every layer
+    for li, lp in enumerate(layers):
+        x = decoder_layer(cfg, lp, x, positions, mask, route,
+                          dict(k=cache["k"][li], v=cache["v"][li], offset=offset),
+                          q_start, rope_cs)[0]
+    return x, dict(k=cache["k"], v=cache["v"], offset=offset + positions.shape[-1])
 
 
 def embed_tokens(cfg, params, tokens):
@@ -90,24 +122,107 @@ def unembed(cfg, params, x):
     return logits
 
 
-def forward(cfg, params, tokens, ctx=None):
-    """Teacher-forcing forward. tokens: (B, S) integer.  ``ctx.attention``
-    (a :class:`~repro_torch.kernels.context.KernelContext`; None = "auto")
+def _with_prefix(cfg, params, tokens, prefix_len, embeds):
+    """The embedded tokens, ``embeds`` (B, P, D) prepended in their dtype,
+    and the prefix length (at least P when ``embeds`` is given)."""
+    x = embed_tokens(cfg, params, tokens)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        prefix_len = max(prefix_len, embeds.shape[1])
+    return x, prefix_len
+
+
+def _dense_route(cfg, ctx, device, prefix_len) -> str:
+    return (DEFAULT_CONTEXT if ctx is None else ctx).attention_route(
+        device, cfg.head_dim, prefix=prefix_len > 0)
+
+
+def _prompt_mask(route, s, kv_len, prefix_len, device):
+    """A prompt's mask from position 0 over ``kv_len`` keys: none on the
+    kernel route (#7 is causal from ``q_start``), else the reference's
+    prefix-LM or causal mask."""
+    if route == "kernel":
+        return None
+    if prefix_len > 0:
+        return prefix_lm_mask(s, kv_len, prefix_len, 0, device=device)
+    return causal_mask(s, kv_len, 0, device=device)
+
+
+def forward(cfg, params, tokens, prefix_len: int = 0, embeds=None, ctx=None):
+    """Teacher-forcing forward. tokens: (B, S) integer; ``embeds`` (B, P, D)
+    optionally prepends precomputed frontend embeddings, and then, or with
+    ``prefix_len`` > 0, the mask is the reference's prefix-LM mask over
+    that prefix (the gather route), else the causal mask.
+    ``ctx.attention`` (a
+    :class:`~repro_torch.kernels.context.KernelContext`; None = "auto")
     picks the causal attention's route: the flash-attention kernel or the
     reference's :func:`~repro_torch.models.common.attention`.  Each layer
     runs under ``cfg.remat``'s activation checkpointing
     (:func:`~repro_torch.models.remat.maybe_remat`)."""
-    x = embed_tokens(cfg, params, tokens)
+    x, prefix_len = _with_prefix(cfg, params, tokens, prefix_len, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    route = (DEFAULT_CONTEXT if ctx is None else ctx).attention_route(
-        x.device, cfg.head_dim)
-    mask = None if route == "kernel" else causal_mask(s, s, 0, device=x.device)
+    route = _dense_route(cfg, ctx, x.device, prefix_len)
+    mask = _prompt_mask(route, s, s, prefix_len, x.device)
     layer = maybe_remat(cfg, decoder_layer)
     for lp in params["layers"]:
-        x = layer(cfg, lp, x, positions, mask, route)
+        x = layer(cfg, lp, x, positions, mask, route)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device="cuda"):
+    """The reference's contiguous cache: ``k``/``v`` zeros (L, B, max_seq,
+    KH, hd) of ``dtype`` and an int32 ``offset`` 0, on ``device``."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return dict(k=torch.zeros(shape, dtype=dtype, device=device),
+                v=torch.zeros(shape, dtype=dtype, device=device),
+                offset=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def prefill(cfg, params, tokens, cache, prefix_len: int = 0, embeds=None,
+            ctx=None):
+    """The prompt (B, S), ``embeds`` prepended as in :func:`forward`, from
+    position 0 into ``cache``; returns (last row's logits (B, 1, V), new
+    cache).  The kernel route attends with ``q_start`` 0, the reference's
+    ``causal_mask(S, Smax, 0)``; a prefix takes the gather route under
+    ``prefix_lm_mask(S, Smax, P, 0)``."""
+    x, prefix_len = _with_prefix(cfg, params, tokens, prefix_len, embeds)
+    b, s, _ = x.shape
+    kv_len = cache["k"].shape[2]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    route = _dense_route(cfg, ctx, x.device, prefix_len)
+    mask = _prompt_mask(route, s, kv_len, prefix_len, x.device)
+    q_start = (torch.zeros((b,), dtype=torch.int32, device=x.device)
+               if route == "kernel" else None)
+    x, cache = run_layers(cfg, params["layers"], x, positions, mask, cache, route,
+                          q_start)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x[:, -1:]), cache
+
+
+def decode_step(cfg, params, tokens, cache, ctx=None):
+    """tokens (B, 1) at the cache's offset, attending to cache[0:offset] and
+    itself; returns (logits (B, 1, V), new cache).  The kernel route runs
+    #7 with ``q_start`` = the offset (the reference's mask ``arange(Smax)
+    <= offset``); the offset is never read back to the host."""
+    x = embed_tokens(cfg, params, tokens)
+    b = x.shape[0]
+    offset = cache["offset"]
+    positions = offset.to(torch.long).expand(b, 1)
+    kv_len = cache["k"].shape[2]
+    route = _dense_route(cfg, ctx, x.device, 0)
+    mask = q_start = None
+    if route == "kernel":
+        q_start = offset.to(torch.int32).expand(b).contiguous()
+    else:
+        mask = (torch.arange(kv_len, device=x.device) <= offset)[None, :]
+    x, cache = run_layers(cfg, params["layers"], x, positions, mask, cache, route,
+                          q_start)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(cfg, params, x), cache
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,

@@ -1,6 +1,6 @@
 """Which weights get W4A4 + LRC treatment, and at what rank (counterpart
-of ``repro/quant/policy.py``; the fields the port uses, and the
-reference's site patterns, ``should_quantize`` and ``path_str``).
+of ``repro/quant/policy.py``: its fields, its site patterns,
+``should_quantize`` and ``path_str``).
 
 ``rank_frac`` — the paper's headline knob: low-rank size as a fraction of
 min(d_in, d_out).  ``act_group`` — the activation scale group (paper
@@ -46,6 +46,10 @@ class QuantPolicy:
     lrc_iters: int = 1
     quant_method: str = "gptq"  # gptq | rtn
     correction: str = "lrc"  # lrc | svd | none
+    # the reference's optional int8 KV-cache width: carried and compared,
+    # read by nothing, as in the reference (the serving pool's storage is
+    # the engine's ``kv_spec``)
+    kv_cache_bits: Optional[int] = None
 
     def __post_init__(self):
         ovr = self.act_group_overrides

@@ -33,6 +33,10 @@ KERNEL_IMPLS = ("pallas", "fused")
 RETAG_IMPLS = ("sim", "int8", "pallas", "fused", "auto")
 
 
+def _static(default):
+    return dataclasses.field(default=default, metadata={"static": True})
+
+
 @dataclasses.dataclass
 class QLinear:
     """One quantized weight matrix + its LRC correction."""
@@ -42,13 +46,16 @@ class QLinear:
     u: Optional[torch.Tensor]  # bf16 (d_out, k) or None
     v: Optional[torch.Tensor]  # bf16 (d_in, k) or None
 
-    bits: int = 4
-    act_bits: int = 4
-    act_group: Optional[int] = None
-    clip_ratio: float = 1.0
-    impl: str = "int8"  # sim | int8 | pallas | fused
-    name: Optional[str] = None
-    ctx: Optional[KernelContext] = None  # kernel paths; None → the default
+    # static fields: configuration, not arrays (the reference's pytree aux
+    # data); a checkpoint stores none of them and takes them from the tree
+    # it loads into (``checkpoint/ckpt.py``)
+    bits: int = _static(4)
+    act_bits: int = _static(4)
+    act_group: Optional[int] = _static(None)
+    clip_ratio: float = _static(1.0)
+    impl: str = _static("int8")  # sim | int8 | pallas | fused
+    name: Optional[str] = _static(None)
+    ctx: Optional[KernelContext] = _static(None)  # kernel paths; None → the default
 
     @property
     def d_in(self) -> int:

@@ -9,8 +9,10 @@ Weight decay follows the reference's rule, "decay a leaf of rank >= 2",
 applied to the reference's layout.  The reference stacks its decoder
 layers on a leading axis, so its per-layer norms are (L, d) leaves and are
 decayed, while ``final_norm`` (d,) is not.  The port keeps a list of
-per-layer dicts whose norms are (d,); a leaf under ``"layers"`` therefore
-counts one dimension more (:func:`decays`).
+per-layer dicts whose norms are (d,); a leaf under a stacked key
+(``bridge.STACKED_KEYS``: the dense family's ``"layers"``, the moe
+family's ``"dense_layers"`` and ``"moe_layers"``) therefore counts one
+dimension more (:func:`decays`), and V3's unstacked MTP block does not.
 
 ``global_norm`` sums leaf by leaf in the port's order (per layer), where
 the reference sums its sorted, stacked leaves: the two agree to f32
@@ -24,6 +26,8 @@ import math
 from typing import Any
 
 import torch
+
+from repro_torch.bridge import STACKED_KEYS
 
 
 @dataclasses.dataclass
@@ -55,8 +59,8 @@ def tree_leaves(tree) -> list:
 def decays(params) -> dict:
     """The tree of booleans saying which leaves weight decay applies to: a
     leaf of rank >= 2 in the reference's stacked layout, where a leaf under
-    ``"layers"`` has the extra leading layer axis."""
-    return {k: tree_map(lambda p, extra=int(k == "layers"): p.dim() + extra >= 2, v)
+    a stacked key has the extra leading layer axis."""
+    return {k: tree_map(lambda p, extra=int(k in STACKED_KEYS): p.dim() + extra >= 2, v)
             for k, v in params.items()}
 
 

@@ -197,8 +197,10 @@ def test_init_params_and_cache_layout(setup):
         from repro_torch.serve.kvquant import KVSpec
 
         model.init_cache(tcfg, 1, 8, device="cpu", kv_spec=KVSpec("int8"))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        model.loss_fn(tcfg, params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    # the moe training loss is ported (test_torch_moe_train holds it to the
+    # reference): a finite f32 scalar
+    loss = model.loss_fn(tcfg, params, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    assert loss.shape == () and loss.dtype == torch.float32 and torch.isfinite(loss)
 
 
 def _paths(tree, prefix=()):
